@@ -1,0 +1,370 @@
+"""GPT autoregressive generation: KV-cache forward, logits processors and
+the greedy/sampling decode loop.
+
+Counterpart of ``paddlefleetx_tpu/models/gpt/generation.py:47-560``.
+Differences of idiom, not of result:
+
+  - The KV cache is written IN PLACE (``cache.k[layer, :, :, pos:pos+t] =
+    ...``).  JAX donates the cache buffer to get the same effect; here a
+    cache passed to :func:`forward_cached` or :func:`generate` is
+    mutated, and a caller that keeps one for reuse (``core/serving.py``'s
+    pool) hands the same tensors back on the next same-shape request.
+    Slots past ``pos + t`` may hold stale keys from an earlier request:
+    attention never reads them.
+  - The decode loop is a Python loop with ``pos`` a Python int, so the
+    attention kernel's ``limit`` needs no device read.  Greedy/sampling
+    stops once no row is unfinished, like the JAX ``while_loop``
+    (``PFX_DECODE_SCAN=1`` runs all ``max_dec_len`` steps, like
+    ``lax.scan``).  The forward after the last emitted token is skipped:
+    its logits would feed nothing.
+  - Random draws come from an explicit ``torch.Generator``.
+
+Beam search and speculative decoding are later slices of the port; they
+raise where they are asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
+from paddlefleetx_tpu_torch.models.gpt.model import (
+    DTYPES,
+    GPTModel,
+    embed,
+    layer_norm,
+    logits_from_hidden,
+)
+from paddlefleetx_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attn_mode,
+    dense_cache_attention,
+    kv_cache_dtype,
+    quantize_kv,
+)
+from paddlefleetx_tpu_torch.ops.sampling import sample_logits
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous decode cache, written in place.  ``k``/``v`` are
+    [layers, b, heads, max_len, head_dim] in the model dtype, or int8
+    with ``k_scale``/``v_scale`` [layers, b, heads, max_len] float32
+    per-(slot, head) scales written beside every update."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def init_cache(
+    cfg: GPTConfig,
+    batch: int,
+    max_len: int,
+    device: torch.device,
+    kv_dtype: str = "",
+) -> KVCache:
+    """A zeroed cache.  ``kv_dtype``: "" resolves PFX_KV_DTYPE; "bf16"
+    keeps the model dtype; "int8" allocates the quantized pair plus its
+    scale planes."""
+    shape = (cfg.num_layers, batch, cfg.num_attention_heads, max_len, cfg.head_dim)
+    if kv_cache_dtype(kv_dtype) == "int8":
+        sshape = shape[:-1]
+        return KVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+        )
+    dtype = DTYPES[cfg.dtype]
+    return KVCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def _layer_with_cache(
+    layer,
+    x: torch.Tensor,
+    cache: KVCache,
+    li: int,
+    pos: int,
+    kv_valid_from: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One decoder layer over x [b, t, h]: writes this chunk's K/V into
+    layer ``li`` of the cache at ``[pos, pos + t)`` (quantized on write
+    for an int8 cache) and attends over keys ``[0, pos + t)``."""
+    b, t, h = x.shape
+    attn, mlp = layer.attn, layer.mlp
+    _, nh, hd = attn.qkv_bias.shape
+
+    y = layer_norm(x, layer.ln_1.scale, layer.ln_1.bias)
+    qkv = y @ attn.qkv_kernel.view(h, 3 * nh * hd) + attn.qkv_bias.view(-1)
+    q, k, v = qkv.view(b, t, 3, nh, hd).unbind(2)
+
+    kc = k.transpose(1, 2)  # [b, n, t, d]: transpose the chunk, never the cache
+    vc = v.transpose(1, 2)
+    k_scale = v_scale = None
+    if cache.k_scale is not None:
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        cache.k[li, :, :, pos:pos + t] = kq
+        cache.v[li, :, :, pos:pos + t] = vq
+        cache.k_scale[li, :, :, pos:pos + t] = ks
+        cache.v_scale[li, :, :, pos:pos + t] = vs
+        k_scale, v_scale = cache.k_scale[li], cache.v_scale[li]
+    else:
+        cache.k[li, :, :, pos:pos + t] = kc
+        cache.v[li, :, :, pos:pos + t] = vc
+
+    if decode_attn_mode() == "dense":
+        out = dense_cache_attention(
+            q, cache.k[li], cache.v[li], pos, kv_valid_from=kv_valid_from,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    else:
+        out = decode_attention(
+            q, cache.k[li], cache.v[li], pos, kv_valid_from=kv_valid_from,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    out = out.reshape(b, t, nh * hd) @ attn.out_kernel.view(nh * hd, h) + attn.out_bias
+    x = x + out
+
+    y = layer_norm(x, layer.ln_2.scale, layer.ln_2.bias)
+    y = y @ mlp.fc_in_kernel + mlp.fc_in_bias
+    y = F.gelu(y, approximate="tanh")
+    y = y @ mlp.fc_out_kernel + mlp.fc_out_bias
+    return x + y
+
+
+def forward_cached(
+    model: GPTModel,
+    tokens: torch.Tensor,
+    cache: KVCache,
+    pos: int,
+    position_ids: Optional[torch.Tensor] = None,
+    kv_valid_from: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """tokens [b, t] at cache positions [pos, pos + t) -> logits [b, t,
+    vocab] in the model dtype; the cache is updated in place.
+
+    ``position_ids`` [b, t] overrides the position-embedding indices
+    ``pos + arange(t)`` and ``kv_valid_from`` [b] int32 masks cache keys
+    before each row's first real token: together they serve left-padded
+    prompt buckets."""
+    t = tokens.shape[1]
+    if position_ids is None:
+        position_ids = pos + torch.arange(t, device=tokens.device)
+    x = embed(model, tokens, position_ids)
+    for li, layer in enumerate(model.layers):
+        x = _layer_with_cache(layer, x, cache, li, pos, kv_valid_from)
+    x = layer_norm(x, model.final_ln.scale, model.final_ln.bias)
+    return logits_from_hidden(model, x)
+
+
+# ---------------------------------------------------------------------------
+# Logits processors
+# ---------------------------------------------------------------------------
+
+
+def apply_repetition_penalty(logits, token_counts, penalty: float):
+    """Divide positive / multiply negative logits of tokens already seen."""
+    if penalty == 1.0:
+        return logits
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(token_counts > 0, penalized, logits)
+
+
+def apply_min_length(logits, cur_len: int, min_len: int, eos_token_id: int):
+    """Suppress EOS (-1e10) while ``cur_len < min_len``."""
+    if min_len <= 0 or cur_len >= min_len or not 0 <= eos_token_id < logits.shape[-1]:
+        return logits
+    logits = logits.clone()
+    logits[..., eos_token_id] = -1e10
+    return logits
+
+
+def apply_forced_token(logits, step: int, force_at_step: int, token_id: int):
+    """Force ``token_id`` at decode step ``force_at_step`` (-1 = off)."""
+    if token_id < 0 or step != force_at_step:
+        return logits
+    forced = torch.full_like(logits, -1e10)
+    forced[..., token_id] = 0.0
+    return forced
+
+
+# ---------------------------------------------------------------------------
+# Generation loop
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    """Decode settings (the JAX ``GenerationConfig`` minus beam search,
+    which is not ported yet)."""
+
+    max_dec_len: int = 64
+    min_dec_len: int = 1
+    decode_strategy: str = "sampling"  # sampling | greedy_search
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    repetition_penalty: float = 1.0
+    eos_token_id: int = 50256
+    pad_token_id: int = 0
+    # ForcedBOS/ForcedEOS processors (-1 = disabled)
+    forced_bos_token_id: int = -1
+    forced_eos_token_id: int = -1
+
+    def __post_init__(self):
+        if self.decode_strategy == "beam_search":
+            raise NotImplementedError(
+                "beam_search is not ported yet (a later slice of the PyTorch "
+                "port); use greedy_search or sampling"
+            )
+        if self.decode_strategy not in ("sampling", "greedy_search"):
+            raise ValueError(
+                f"bad decode_strategy {self.decode_strategy!r}; "
+                "valid: sampling, greedy_search"
+            )
+
+
+def decode_loop_mode() -> str:
+    """PFX_DECODE_SCAN: "1" runs all ``max_dec_len`` steps ("scan"), "0" or
+    unset stops early once every row finished ("while")."""
+    env = os.environ.get("PFX_DECODE_SCAN") or "0"
+    if env not in ("0", "1"):
+        raise ValueError(f"PFX_DECODE_SCAN={env!r}; valid: 0, 1")
+    return "scan" if env == "1" else "while"
+
+
+def _left_pad_prefill(
+    prompt_len: int, prompt_lens: Optional[torch.Tensor]
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(pad_len int32 [b], prefill position ids [b, P]) for left-padded
+    buckets; (None, None) on the unpadded path."""
+    if prompt_lens is None:
+        return None, None
+    pad_len = (prompt_len - prompt_lens).to(torch.int32)
+    ar = torch.arange(prompt_len, device=prompt_lens.device)
+    pos_ids = torch.clamp(ar[None, :] - pad_len[:, None], min=0)
+    return pad_len, pos_ids
+
+
+def bucket_len(longest: int, multiple: int) -> int:
+    """THE prompt-bucket formula (next multiple of ``multiple``), shared by
+    ``pad_prompts``, ``GenerationServer.warmup`` and the serve layer's
+    coalesce key so they cannot drift apart."""
+    return ((int(longest) + int(multiple) - 1) // int(multiple)) * int(multiple)
+
+
+def pad_prompts(
+    prompts: Sequence[Sequence[int]],
+    pad_token_id: int,
+    multiple: int = 64,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left-pad variable-length prompts to a shared bucketed width.
+    Returns (int64 [b, P] ids, int32 [b] prompt lengths)."""
+    P = bucket_len(max(len(p) for p in prompts), multiple)
+    rows: List[List[int]] = [
+        [pad_token_id] * (P - len(p)) + [int(x) for x in p] for p in prompts
+    ]
+    ids = torch.tensor(rows, dtype=torch.int64, device=device)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    return ids, lens
+
+
+@torch.inference_mode()
+def generate(
+    model: GPTModel,
+    input_ids: torch.Tensor,
+    gen: GenerationConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    prompt_lens: Optional[torch.Tensor] = None,
+    cache: Optional[KVCache] = None,
+    return_cache: bool = False,
+):
+    """input_ids [b, P] -> generated ids int64 [b, max_dec_len] (pad-filled
+    after a row emits EOS).
+
+    Without ``prompt_lens`` the prompts are unpadded; with ``prompt_lens``
+    [b] rows are LEFT-padded to P (:func:`pad_prompts`): pad keys are
+    masked and position ids start at each row's first real token.
+
+    ``cache``: a preallocated ``init_cache(cfg, b, P + max_dec_len)`` to
+    write into (it is mutated); ``return_cache`` returns ``(tokens,
+    cache)``."""
+    cfg = model.config
+    b, prompt_len = input_ids.shape
+    max_len = prompt_len + gen.max_dec_len
+    if max_len > cfg.max_position_embeddings:
+        # with prompt_lens the positions are bounded by the real lengths
+        real = None if prompt_lens is None else int(prompt_lens.max()) + gen.max_dec_len
+        if real is None or real > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt_len {prompt_len} + max_dec_len {gen.max_dec_len} exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}"
+            )
+    dev = input_ids.device
+    pad_len, prefill_pos_ids = _left_pad_prefill(prompt_len, prompt_lens)
+    want = (cfg.num_layers, b, cfg.num_attention_heads, max_len, cfg.head_dim)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, dev)
+    elif tuple(cache.k.shape) != want:
+        raise ValueError(
+            f"provided cache shape {tuple(cache.k.shape)} != required {want} "
+            f"(prompt {prompt_len} + max_dec_len {gen.max_dec_len})"
+        )
+
+    if pad_len is None:
+        valid = torch.ones((b, prompt_len), dtype=torch.int32, device=dev)
+    else:
+        valid = (
+            torch.arange(prompt_len, device=dev)[None, :] >= pad_len[:, None]
+        ).to(torch.int32)
+    counts = torch.zeros((b, cfg.vocab_size), dtype=torch.int32, device=dev)
+    counts.scatter_add_(1, input_ids, valid)
+
+    logits = forward_cached(
+        model, input_ids, cache, 0,
+        position_ids=prefill_pos_ids, kv_valid_from=pad_len,
+    )
+    last = logits[:, -1, :].float()
+
+    tokens = torch.full((b, gen.max_dec_len), gen.pad_token_id, dtype=torch.int64, device=dev)
+    unfinished = torch.ones((b,), dtype=torch.bool, device=dev)
+    rows = torch.arange(b, device=dev)
+    run_all = decode_loop_mode() == "scan"
+    for i in range(gen.max_dec_len):
+        lg = apply_min_length(last, i, gen.min_dec_len, gen.eos_token_id)
+        lg = apply_repetition_penalty(lg, counts, gen.repetition_penalty)
+        lg = apply_forced_token(lg, i, 0, gen.forced_bos_token_id)
+        lg = apply_forced_token(lg, i, gen.max_dec_len - 1, gen.forced_eos_token_id)
+        if gen.decode_strategy == "greedy_search":
+            nxt = torch.argmax(lg, dim=-1)
+        else:
+            nxt = sample_logits(
+                lg, temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
+                generator=generator,
+            )
+        nxt = torch.where(unfinished, nxt, torch.full_like(nxt, gen.pad_token_id))
+        unfinished = unfinished & (nxt != gen.eos_token_id)
+        counts[rows, nxt] += 1
+        tokens[:, i] = nxt
+        if i == gen.max_dec_len - 1 or not (run_all or bool(unfinished.any())):
+            break
+        step_pos_ids = None if prompt_lens is None else (prompt_lens + i)[:, None]
+        new_logits = forward_cached(
+            model, nxt[:, None], cache, prompt_len + i,
+            position_ids=step_pos_ids, kv_valid_from=pad_len,
+        )
+        last = new_logits[:, -1, :].float()
+    return (tokens, cache) if return_cache else tokens

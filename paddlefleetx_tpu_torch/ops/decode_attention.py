@@ -1,0 +1,361 @@
+"""Flash-decode attention over the contiguous KV cache.
+
+Counterpart of ``paddlefleetx_tpu/ops/decode_attention.py``.  At decode
+step ``pos`` the cache [b, n, max_len, d] holds real keys in
+``[0, pos + t)`` only; attention visits those (``limit = pos + t``),
+folds the causal mask and the per-row left-pad mask (``kv_valid_from``)
+into an online softmax with float32 state, and returns float32.
+
+Two spellings behind :func:`flash_decode`:
+
+  - the CUDA kernel (``csrc/decode_attention.cu``, built on first use by
+    ``ops/_build.py``) for tensors on the card — ``flash_decode`` for
+    bf16/f32 caches (the TPU's ``_decode_kernel``) and
+    ``flash_decode_q8`` for int8 caches with per-slot scales
+    (``_decode_kernel_q8``);
+  - :func:`decode_attention_plain`, the plain PyTorch version of
+    ``_decode_lax`` (same blocked loop, same order of operations), for
+    tensors on the CPU, and the reference the kernel is held against.
+
+The routing follows the tensors' device only: a CUDA tensor reaches the
+kernel or raises; nothing falls back.  :data:`COUNTS` counts kernel
+launches (and the plain version's calls) so a run can show which path
+it took.
+
+Env knobs, parsed loudly as in the JAX package:
+
+  PFX_DECODE_BLOCK  kv block of the plain version (default 256; positive
+                    multiple of 8).  The CUDA kernel tiles by 32 keys.
+  PFX_DECODE_ATTN   "blocked" (default) | "dense" — the generation layer's
+                    dispatch; "dense" is the attend-over-the-whole-cache
+                    path kept for A/B rows
+  PFX_KV_DTYPE      "bf16" (default: the cache stays in the model dtype)
+                    | "int8" — quantize on write, dequantize in the kernel
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+KV_QMAX = 127.0
+_DEFAULT_BLOCK = 256
+_MAX_HEAD_DIM = 128
+
+# Kernel launches per kernel, and calls of the plain version through
+# flash_decode (CPU tensors).  Process-wide; reset with reset_counts().
+COUNTS = {"flash_decode": 0, "flash_decode_q8": 0, "plain": 0}
+
+
+def reset_counts() -> None:
+    for key in COUNTS:
+        COUNTS[key] = 0
+
+
+def _parse_int_env(name: str) -> int:
+    env = os.environ.get(name) or "0"
+    try:
+        return int(env)
+    except ValueError:
+        raise ValueError(
+            f"{name}={env!r} is not an integer; pass a positive multiple "
+            f"of 8 (e.g. 256) or unset it"
+        ) from None
+
+
+def decode_block(max_len: int, block: int = 0) -> int:
+    """The plain version's kv block: explicit ``block``, else
+    PFX_DECODE_BLOCK, else 256; clamped to ``max_len`` and, when the clamp
+    breaks alignment, rounded down to a multiple of 8 (only a cache
+    shorter than 8 slots gets a smaller block)."""
+    force = int(block) or _parse_int_env("PFX_DECODE_BLOCK")
+    if force:
+        if force < 0 or force % 8:
+            raise ValueError(
+                f"decode block {force} must be a positive multiple of 8 "
+                "(block arg / PFX_DECODE_BLOCK)"
+            )
+    else:
+        force = _DEFAULT_BLOCK
+    clamped = min(force, max_len)
+    if clamped % 8 and clamped > 8:
+        clamped -= clamped % 8
+    return clamped
+
+
+def kv_cache_dtype(override: str = "") -> str:
+    """KV-cache storage dtype: ``override`` (``Generation.speculative.
+    kv_dtype``), else PFX_KV_DTYPE, else "bf16".  "bf16" means the model
+    dtype (an f32 model keeps f32); "int8" quantizes on write."""
+    raw = str(override or os.environ.get("PFX_KV_DTYPE") or "bf16").strip().lower()
+    if raw not in ("bf16", "int8"):
+        raise ValueError(f"PFX_KV_DTYPE={raw!r}; valid: bf16 (native), int8")
+    return raw
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-vector int8 quantization: ``x`` [..., d] ->
+    (int8 [..., d], float32 scales [...]) with scale = max(amax/127, 1e-8)
+    and round-half-to-even, as ``jnp.round``."""
+    xf = x.float()
+    scl = torch.clamp(xf.abs().amax(dim=-1) / KV_QMAX, min=1e-8)
+    q = torch.clamp(torch.round(xf / scl[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scl
+
+
+def decode_attn_mode() -> str:
+    """PFX_DECODE_ATTN: "blocked" (flash decode) or "dense"."""
+    mode = os.environ.get("PFX_DECODE_ATTN") or "blocked"
+    if mode not in ("blocked", "dense"):
+        raise ValueError(f"PFX_DECODE_ATTN={mode!r}; valid: blocked, dense")
+    return mode
+
+
+def blocks_visited(limit: int, block: int, max_len: int) -> int:
+    """Number of kv blocks the plain version visits for keys [0, limit)."""
+    return min(-(-int(limit) // block), -(-max_len // block))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (``_decode_lax``)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_plain(
+    q_t: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    limit: int,
+    valid_from: Optional[torch.Tensor],
+    block: int,
+    scale: float,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """q_t [b, n, t, d]; caches [b, n, L, d]; keys [0, limit) are real.
+    Returns float32 [b, n, t, d].
+
+    The blocked online softmax of ``_decode_lax``: the last block's start
+    is clamped to ``L - block`` and its overlap with the previous block
+    masked.  Dot products take the inputs as float32 (the JAX
+    ``preferred_element_type=float32``); with a bf16/f32 cache the
+    probabilities are rounded to the cache dtype before ``p @ v``; with
+    an int8 cache the scales multiply the scores (key) and the
+    probabilities (value)."""
+    b, n, t, d = q_t.shape
+    max_len = k_cache.shape[2]
+    quant = k_scale is not None
+    dev = q_t.device
+    q_pos = limit - t + torch.arange(t, device=dev)
+    qf = q_t.float()
+    m = torch.full((b, n, t), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, n, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, n, t, d), dtype=torch.float32, device=dev)
+    for j in range(blocks_visited(limit, block, max_len)):
+        start = max(min(j * block, max_len - block), 0)
+        k = k_cache[:, :, start:start + block].float()
+        v = v_cache[:, :, start:start + block].float()
+        s = scale * torch.einsum("bntd,bnkd->bntk", qf, k)
+        if quant:
+            s = s * k_scale[:, :, None, start:start + block]
+        col = start + torch.arange(block, device=dev)
+        mask = (col[None, :] <= q_pos[:, None]) & (col[None, :] >= j * block)
+        mask = mask[None, None]
+        if valid_from is not None:
+            mask = mask & (col[None, None, None, :] >= valid_from[:, None, None, None])
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        if quant:
+            pv = p * v_scale[:, :, None, start:start + block]
+        else:
+            pv = p.to(v_cache.dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum("bntk,bnkd->bntd", pv, v)
+        m = m_new
+    # fully masked rows (left-pad positions) come out 0, not NaN
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/decode_attention.cu)
+# ---------------------------------------------------------------------------
+
+_LIB: Optional[ctypes.CDLL] = None
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from paddlefleetx_tpu_torch.ops import _build
+
+        lib = _build.load("decode_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_decode.argtypes = [ptr] * 5 + [i32] * 6 + [f32, i32, ptr]
+        lib.flash_decode.restype = i32
+        lib.flash_decode_q8.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, ptr]
+        lib.flash_decode_q8.restype = i32
+        lib.flash_decode_error_string.argtypes = [i32]
+        lib.flash_decode_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_decode: {msg}")
+
+
+def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
+    """Check the inputs, allocate the float32 output and launch on the
+    current stream."""
+    dev = q_t.device
+    b, n, t, d = q_t.shape
+    L = k_cache.shape[2]
+    quant = k_scale is not None
+    _require(q_t.dtype in _DTYPE_CODES, f"q dtype {q_t.dtype}; valid: float32, bfloat16")
+    _require(tuple(k_cache.shape) == (b, n, L, d) and v_cache.shape == k_cache.shape,
+             f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} vs q {tuple(q_t.shape)}")
+    _require(1 <= d <= _MAX_HEAD_DIM, f"head dim {d} outside [1, {_MAX_HEAD_DIM}]")
+    _require(1 <= t <= limit <= L, f"need 1 <= t ({t}) <= limit ({limit}) <= L ({L})")
+    _require(b * n <= 65535, f"batch*heads {b * n} > 65535")
+    tensors = [q_t, k_cache, v_cache]
+    if quant:
+        _require(k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8,
+                 f"int8 path needs int8 caches, got {k_cache.dtype}/{v_cache.dtype}")
+        for s in (k_scale, v_scale):
+            _require(s.dtype == torch.float32 and tuple(s.shape) == (b, n, L),
+                     f"scales must be float32 [b, n, L], got {s.dtype} {tuple(s.shape)}")
+        tensors += [k_scale, v_scale]
+    else:
+        _require(k_cache.dtype == q_t.dtype and v_cache.dtype == q_t.dtype,
+                 f"cache dtype {k_cache.dtype}/{v_cache.dtype} != q dtype {q_t.dtype}")
+    if valid_from is not None:
+        _require(valid_from.dtype == torch.int32 and tuple(valid_from.shape) == (b,),
+                 f"kv_valid_from must be int32 [b], got {valid_from.dtype} "
+                 f"{tuple(valid_from.shape)}")
+        tensors.append(valid_from)
+    for x in tensors:
+        _require(x.device == dev, f"tensor on {x.device}, q on {dev}")
+        _require(x.is_contiguous(), "inputs must be contiguous")
+    out = torch.empty((b, n, t, d), dtype=torch.float32, device=dev)
+    vf_ptr = valid_from.data_ptr() if valid_from is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    if quant:
+        rc = lib.flash_decode_q8(
+            q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), vf_ptr, out.data_ptr(),
+            b, n, t, L, d, int(limit), float(scale), _DTYPE_CODES[q_t.dtype], stream,
+        )
+        COUNTS["flash_decode_q8"] += 1
+    else:
+        rc = lib.flash_decode(
+            q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), vf_ptr,
+            out.data_ptr(), b, n, t, L, d, int(limit), float(scale),
+            _DTYPE_CODES[q_t.dtype], stream,
+        )
+        COUNTS["flash_decode"] += 1
+    if rc != 0:
+        msg = lib.flash_decode_error_string(rc).decode()
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} ({msg})")
+    return out
+
+
+def flash_decode(
+    q_t: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    limit: int,
+    valid_from: Optional[torch.Tensor],
+    scale: float,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block: int = 0,
+) -> torch.Tensor:
+    """The kernel wrapper (``_decode_pallas``'s contract): q_t [b, n, t, d],
+    caches [b, n, L, d] (int8 with float32 ``k_scale``/``v_scale`` [b, n, L]
+    for the q8 kernel), ``limit`` a Python int (keys [0, limit) are real),
+    ``valid_from`` int32 [b] or None.  Returns float32 [b, n, t, d].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run
+    :func:`decode_attention_plain` with ``decode_block(L, block)``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if q_t.device.type == "cuda":
+        return _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale)
+    if q_t.device.type != "cpu":
+        raise ValueError(f"flash_decode: unsupported device {q_t.device}")
+    COUNTS["plain"] += 1
+    bs = decode_block(k_cache.shape[2], block)
+    return decode_attention_plain(
+        q_t, k_cache, v_cache, limit, valid_from, bs, scale, k_scale, v_scale
+    )
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    kv_valid_from: Optional[torch.Tensor] = None,
+    block: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention over keys [0, pos + t): q [b, t, n, d] at positions
+    [pos, pos + t) (its K/V already written), caches [b, n, L, d].
+    Returns [b, t, n, d] in q's dtype."""
+    b, t, n, d = q.shape
+    scale = float(1.0 / (d**0.5))
+    q_t = q.transpose(1, 2).contiguous()
+    out = flash_decode(
+        q_t, k_cache, v_cache, int(pos) + t, kv_valid_from, scale,
+        k_scale, v_scale, block,
+    )
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def dense_cache_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    kv_valid_from: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The attend-over-the-whole-cache path (PFX_DECODE_ATTN=dense): a
+    materialized [., 1, t, L] additive bias and a full softmax, as the
+    JAX ``dense_cache_attention``.  An int8 cache is dequantized up front
+    (in float32, cast once).  Returns [b, t, n, d] in q's dtype."""
+    b, t, n, d = q.shape
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if k_scale is not None:
+        k_cache = (k_cache.float() * k_scale[..., None]).to(q.dtype)
+        v_cache = (v_cache.float() * v_scale[..., None]).to(q.dtype)
+    max_len = k_cache.shape[2]
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    q_pos = int(pos) + torch.arange(t, device=dev)[:, None]
+    k_pos = torch.arange(max_len, device=dev)[None, :]
+    zero = torch.zeros((), device=dev)
+    big = torch.full((), -1e9, device=dev)
+    bias = torch.where(k_pos <= q_pos, zero, big)[None, None]  # [1, 1, t, L]
+    if kv_valid_from is not None:
+        bias = bias + torch.where(k_pos >= kv_valid_from[:, None], zero, big)[:, None, None, :]
+    scores = torch.einsum("btnd,bnkd->bntk", q.float(), k_cache.float()) * scale
+    scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bntk,bnkd->bntd", probs, v_cache)
+    return out.transpose(1, 2)

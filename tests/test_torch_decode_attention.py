@@ -1,0 +1,147 @@
+"""PyTorch port: the plain flash-decode (the CPU spelling of the CUDA
+kernels in paddlefleetx_tpu_torch/csrc/decode_attention.cu) against the
+JAX package's Pallas kernels in interpret mode and its lax spelling.
+
+Same numpy inputs on both sides; float32; tolerance 2e-5, the bar of
+tests/test_decode_attention.py.  Covers decode (t = 1) and prefill /
+chunks (t > 1), blocks 8 and 16, an unaligned cache length, left-padded
+rows (fully masked rows must be 0, not NaN) and the int8 cache.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddlefleetx_tpu.ops import decode_attention as jax_da
+from paddlefleetx_tpu_torch.ops import decode_attention as pt_da
+
+TOL = 2e-5
+
+# (b, t, n, d, L, pos, block, kv_valid_from)
+CASES = {
+    "decode_odd_pos": (2, 1, 4, 16, 40, 13, 16, None),
+    "decode_last_slot_block8": (2, 1, 4, 16, 40, 39, 8, None),
+    "prefill_left_pad": (3, 16, 4, 16, 40, 0, 8, [0, 5, 11]),
+    "chunk_unaligned_len": (2, 5, 4, 16, 20, 7, 0, [2, 0]),
+    "decode_left_pad_unaligned": (2, 1, 2, 8, 27, 20, 16, [9, 3]),
+}
+
+
+def _inputs(case, seed=0):
+    b, t, n, d, L, pos, block, vf = CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, t, n, d)).astype(np.float32)
+    kc = rng.normal(size=(b, n, L, d)).astype(np.float32)
+    vc = rng.normal(size=(b, n, L, d)).astype(np.float32)
+    vf = None if vf is None else np.asarray(vf, np.int32)
+    return q, kc, vc, pos, block, vf
+
+
+def _jax(q, kc, vc, pos, block, vf, impl, ks=None, vs=None):
+    return np.asarray(jax_da.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(pos),
+        kv_valid_from=None if vf is None else jnp.asarray(vf),
+        block=block, impl=impl,
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
+    ))
+
+
+def _port(q, kc, vc, pos, block, vf, ks=None, vs=None):
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    return pt_da.decode_attention(
+        t(q), t(kc), t(vc), pos, kv_valid_from=t(vf), block=block,
+        k_scale=t(ks), v_scale=t(vs),
+    ).numpy()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "lax"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_decode_matches_jax(case, impl):
+    q, kc, vc, pos, block, vf = _inputs(case)
+    ref = _jax(q, kc, vc, pos, block, vf, impl)
+    got = _port(q, kc, vc, pos, block, vf)
+    assert got.shape == ref.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "lax"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_decode_q8_matches_jax(case, impl):
+    q, kc, vc, pos, block, vf = _inputs(case, seed=1)
+    kq, ks = (np.asarray(a) for a in jax_da.quantize_kv(jnp.asarray(kc)))
+    vq, vs = (np.asarray(a) for a in jax_da.quantize_kv(jnp.asarray(vc)))
+    ref = _jax(q, kq, vq, pos, block, vf, impl, ks, vs)
+    got = _port(q, kq, vq, pos, block, vf, ks, vs)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 40, 16), (1, 3, 5, 64)])
+def test_quantize_kv_exact(shape):
+    x = np.random.default_rng(2).normal(size=shape).astype(np.float32) * 3.0
+    x[0, 0, 0] = 0.0  # an all-zero vector takes the scale floor
+    jq, js = jax_da.quantize_kv(jnp.asarray(x))
+    pq, ps = pt_da.quantize_kv(torch.from_numpy(x))
+    assert pq.dtype == torch.int8 and ps.dtype == torch.float32
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+
+
+def test_left_pad_rows_are_zero_not_nan():
+    q, kc, vc, pos, block, vf = _inputs("prefill_left_pad")
+    got = _port(q, kc, vc, pos, block, vf)
+    assert np.isfinite(got).all()
+    for row, pad in enumerate(vf):
+        # query rows before the first real token see no key at all
+        assert (got[row, :pad] == 0).all()
+        assert (np.abs(got[row, pad:]).sum(axis=-1) > 0).all()
+
+
+def test_dense_path_matches_jax():
+    q, kc, vc, pos, block, vf = _inputs("chunk_unaligned_len")
+    ref = np.asarray(jax_da.dense_cache_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(pos),
+        kv_valid_from=jnp.asarray(vf),
+    ))
+    got = pt_da.dense_cache_attention(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc), pos,
+        kv_valid_from=torch.from_numpy(vf),
+    ).numpy()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, kc, vc, pos, block, vf = _inputs("decode_odd_pos")
+    before = dict(pt_da.COUNTS)
+    _port(q, kc, vc, pos, block, vf)
+    assert pt_da.COUNTS["plain"] == before["plain"] + 1
+    assert pt_da.COUNTS["flash_decode"] == before["flash_decode"]
+    assert pt_da.COUNTS["flash_decode_q8"] == before["flash_decode_q8"]
+
+
+@pytest.mark.parametrize("max_len,block", [(1024, 0), (20, 0), (40, 16), (5, 0)])
+def test_block_resolution_matches_jax(max_len, block):
+    assert pt_da.decode_block(max_len, block) == jax_da.decode_block(max_len, block)
+    bs = pt_da.decode_block(max_len, block)
+    for limit in (1, bs, max_len):
+        assert pt_da.blocks_visited(limit, bs, max_len) == int(
+            jax_da.blocks_visited(limit, bs, max_len)
+        )
+
+
+def test_knobs_fail_loudly(monkeypatch):
+    monkeypatch.setenv("PFX_DECODE_BLOCK", "12")
+    with pytest.raises(ValueError):
+        pt_da.decode_block(64)
+    monkeypatch.setenv("PFX_KV_DTYPE", "fp8")
+    with pytest.raises(ValueError):
+        pt_da.kv_cache_dtype()
+    monkeypatch.setenv("PFX_DECODE_ATTN", "sparse")
+    with pytest.raises(ValueError):
+        pt_da.decode_attn_mode()
+    with pytest.raises(ValueError):
+        pt_da.flash_decode(
+            torch.zeros(1, 1, 1, 8), torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
+            1, None, 1.0, k_scale=torch.ones(1, 1, 4),
+        )

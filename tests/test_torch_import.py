@@ -1,0 +1,42 @@
+"""PyTorch port: every module imports without JAX and without the JAX
+package, and the serve entry point refuses to start without a card
+unless the CPU is asked for."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import paddlefleetx_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "paddlefleetx_tpu.")))
+bad += [m for m in sys.modules if m == "paddlefleetx_tpu"]
+print(len(names), bad)
+"""
+
+
+def _run(args, **kw):
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, *args], env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=120, **kw)
+
+
+def test_port_imports_no_jax():
+    out = _run(["-c", _IMPORT_ALL])
+    assert out.returncode == 0, out.stderr[-2000:]
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 18, out.stdout
+    assert bad == "[]", out.stdout
+
+
+def test_serve_without_card_raises():
+    cfg = os.path.join(REPO, "configs", "gpt", "pretrain_gpt_345M_single.yaml")
+    out = _run(["-m", "paddlefleetx_tpu_torch.tools.serve", "-c", cfg, "--port", "0"])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
