@@ -61,6 +61,9 @@ class RequestFuture:
         self._exc = exc
         self._event.set()
 
+    def done(self) -> bool:
+        return self._event.is_set()
+
     def result(self, timeout: Optional[float] = None) -> Any:
         """Wait for resolution; raises ``TimeoutError`` while still pending
         after ``timeout`` (pair with ``RequestQueue.try_remove``)."""
@@ -88,7 +91,10 @@ class RequestQueue:
 
     Coalescing pulls later same-key entries forward into the oldest
     entry's batch; other entries keep their order.  ``coalesce_key=None``
-    opts an entry out."""
+    opts an entry out.  ``serving_stats`` (optional) supplies what
+    :meth:`serving_stats` reports: the runner's own counters."""
+
+    kind = "coalesce"
 
     def __init__(
         self,
@@ -97,12 +103,14 @@ class RequestQueue:
         max_depth: int = 64,
         max_coalesce: int = 8,
         name: str = "serve",
+        serving_stats: Optional[Callable[[], Dict[str, Any]]] = None,
     ) -> None:
         if max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
         if max_coalesce < 1:
             raise ValueError(f"max_coalesce must be >= 1, got {max_coalesce}")
         self._runner = runner
+        self._serving_stats = serving_stats
         self.max_depth = int(max_depth)
         self.max_coalesce = int(max_coalesce)
         self.name = name
@@ -167,6 +175,9 @@ class RequestQueue:
     def stats_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.stats)
+
+    def serving_stats(self) -> Dict[str, Any]:
+        return dict(self._serving_stats()) if self._serving_stats else {}
 
     def try_remove(self, future: RequestFuture) -> bool:
         """Shed a still-queued entry: resolve it with ``DeadlineExceeded``

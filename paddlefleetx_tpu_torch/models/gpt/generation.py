@@ -19,8 +19,16 @@ Differences of idiom, not of result:
     its logits would feed nothing.
   - Random draws come from an explicit ``torch.Generator``.
 
-Beam search and speculative decoding are later slices of the port; they
-raise where they are asked for.
+The paged half (``generation.py:767-1233`` of the JAX package) exposes
+ONE decode step over a batch of independent rows with their own
+positions, budgets and block tables into a shared arena
+(:class:`PagedPools`), so the continuous-batching engine
+(``core/continuous_batching.py``) can admit and retire rows at every
+step boundary.  Its arena writes are in place too.
+
+Beam search, speculative decoding (``decode_step_spec``), chunked paged
+prefill and the KV block gather/scatter of the handoff path are later
+slices of the port; they raise where they are asked for.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from paddlefleetx_tpu_torch.ops.decode_attention import (
     decode_attn_mode,
     dense_cache_attention,
     kv_cache_dtype,
+    paged_decode_attention,
     quantize_kv,
 )
 from paddlefleetx_tpu_torch.ops.sampling import sample_logits
@@ -89,6 +98,32 @@ def init_cache(
     )
 
 
+def _qkv(layer, x: torch.Tensor):
+    """LayerNorm 1 and the fused qkv projection: x [b, t, h] -> q, k, v
+    [b, t, heads, head_dim] in the model dtype."""
+    b, t, h = x.shape
+    attn = layer.attn
+    _, nh, hd = attn.qkv_bias.shape
+    y = layer_norm(x, layer.ln_1.scale, layer.ln_1.bias)
+    qkv = y @ attn.qkv_kernel.view(h, 3 * nh * hd) + attn.qkv_bias.view(-1)
+    return qkv.view(b, t, 3, nh, hd).unbind(2)
+
+
+def _finish_layer(layer, x: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+    """Output projection of the attention result [b, t, heads, head_dim],
+    residual, LayerNorm 2, tanh-GELU MLP, residual."""
+    b, t, h = x.shape
+    attn, mlp = layer.attn, layer.mlp
+    nh, hd = attn_out.shape[2], attn_out.shape[3]
+    out = attn_out.reshape(b, t, nh * hd) @ attn.out_kernel.view(nh * hd, h) + attn.out_bias
+    x = x + out
+    y = layer_norm(x, layer.ln_2.scale, layer.ln_2.bias)
+    y = y @ mlp.fc_in_kernel + mlp.fc_in_bias
+    y = F.gelu(y, approximate="tanh")
+    y = y @ mlp.fc_out_kernel + mlp.fc_out_bias
+    return x + y
+
+
 def _layer_with_cache(
     layer,
     x: torch.Tensor,
@@ -100,13 +135,8 @@ def _layer_with_cache(
     """One decoder layer over x [b, t, h]: writes this chunk's K/V into
     layer ``li`` of the cache at ``[pos, pos + t)`` (quantized on write
     for an int8 cache) and attends over keys ``[0, pos + t)``."""
-    b, t, h = x.shape
-    attn, mlp = layer.attn, layer.mlp
-    _, nh, hd = attn.qkv_bias.shape
-
-    y = layer_norm(x, layer.ln_1.scale, layer.ln_1.bias)
-    qkv = y @ attn.qkv_kernel.view(h, 3 * nh * hd) + attn.qkv_bias.view(-1)
-    q, k, v = qkv.view(b, t, 3, nh, hd).unbind(2)
+    t = x.shape[1]
+    q, k, v = _qkv(layer, x)
 
     kc = k.transpose(1, 2)  # [b, n, t, d]: transpose the chunk, never the cache
     vc = v.transpose(1, 2)
@@ -133,14 +163,7 @@ def _layer_with_cache(
             q, cache.k[li], cache.v[li], pos, kv_valid_from=kv_valid_from,
             k_scale=k_scale, v_scale=v_scale,
         )
-    out = out.reshape(b, t, nh * hd) @ attn.out_kernel.view(nh * hd, h) + attn.out_bias
-    x = x + out
-
-    y = layer_norm(x, layer.ln_2.scale, layer.ln_2.bias)
-    y = y @ mlp.fc_in_kernel + mlp.fc_in_bias
-    y = F.gelu(y, approximate="tanh")
-    y = y @ mlp.fc_out_kernel + mlp.fc_out_bias
-    return x + y
+    return _finish_layer(layer, x, out)
 
 
 def forward_cached(
@@ -368,3 +391,256 @@ def generate(
         )
         last = new_logits[:, -1, :].float()
     return (tokens, cache) if return_cache else tokens
+
+
+# ---------------------------------------------------------------------------
+# Paged KV arena: one decode step over independent rows
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedPools:
+    """The paged KV arena, written in place: ``k``/``v`` [layers,
+    num_blocks, heads, block, head_dim] in the model dtype, or int8 with
+    ``k_scale``/``v_scale`` [layers, num_blocks, heads, block] float32
+    scale tiles beside each block.  Block 0 is the NULL block: never
+    allocated to a sequence; inactive rows route their writes there."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def init_paged_pools(
+    cfg: GPTConfig,
+    num_blocks: int,
+    block: int,
+    device: torch.device,
+    kv_dtype: str = "",
+) -> PagedPools:
+    """A zeroed arena.  ``kv_dtype`` as in :func:`init_cache`."""
+    shape = (cfg.num_layers, num_blocks, cfg.num_attention_heads, block, cfg.head_dim)
+    if kv_cache_dtype(kv_dtype) == "int8":
+        sshape = shape[:-1]
+        return PagedPools(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+        )
+    dtype = DTYPES[cfg.dtype]
+    return PagedPools(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+@dataclasses.dataclass
+class PagedRows:
+    """Per-row decode state threaded through :func:`decode_step` (device
+    tensors, [B] unless noted).  ``positions`` is each row's NEXT write
+    slot (real prompt length + tokens generated); ``gen_steps`` counts
+    generated tokens; ``max_news`` is the per-row decode budget;
+    ``forced_steps`` the step where ``forced_eos_token_id`` fires (the
+    contiguous path's bucketed run end); ``logits`` [B, vocab] float32
+    are the pending next-token logits and ``counts`` [B, vocab] int32
+    back the repetition penalty."""
+
+    logits: torch.Tensor
+    counts: torch.Tensor
+    positions: torch.Tensor
+    gen_steps: torch.Tensor
+    max_news: torch.Tensor
+    active: torch.Tensor
+    forced_steps: torch.Tensor
+
+
+def _paged_layer_step(
+    layer,
+    x: torch.Tensor,
+    pools: PagedPools,
+    li: int,
+    blk: torch.Tensor,
+    off: torch.Tensor,
+    tables: torch.Tensor,
+    positions: torch.Tensor,
+) -> torch.Tensor:
+    """One decoder layer over x [b, t, h]: write each chunk token's K/V
+    at pool slot (blk[i, j], off[i, j]) of layer ``li`` (in place;
+    quantized on write for int8 pools), then block-table attention with
+    per-query causal bounds.  Rows own disjoint blocks, so the only
+    index collisions are inactive rows' null-block writes."""
+    q, k, v = _qkv(layer, x)
+    n = q.shape[2]
+    idx_b = blk[:, :, None]  # [b, t, 1]
+    idx_n = torch.arange(n, device=x.device)[None, None, :]  # [1, 1, n]
+    idx_o = off[:, :, None]
+    k_scale = v_scale = None
+    if pools.k_scale is not None:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        pools.k[li, idx_b, idx_n, idx_o] = kq
+        pools.v[li, idx_b, idx_n, idx_o] = vq
+        pools.k_scale[li, idx_b, idx_n, idx_o] = ks
+        pools.v_scale[li, idx_b, idx_n, idx_o] = vs
+        k_scale, v_scale = pools.k_scale[li], pools.v_scale[li]
+    else:
+        pools.k[li, idx_b, idx_n, idx_o] = k.to(pools.k.dtype)
+        pools.v[li, idx_b, idx_n, idx_o] = v.to(pools.v.dtype)
+    out = paged_decode_attention(
+        q, pools.k[li], pools.v[li], tables, positions, k_scale=k_scale, v_scale=v_scale,
+    )
+    return _finish_layer(layer, x, out)
+
+
+def paged_forward_step(
+    model: GPTModel,
+    tokens: torch.Tensor,
+    pools: PagedPools,
+    tables: torch.Tensor,
+    positions: torch.Tensor,
+    active: torch.Tensor,
+) -> torch.Tensor:
+    """tokens [B] or [B, t] at per-row slots positions .. positions+t-1 ->
+    logits [B, t, vocab] float32; the pools are written in place.
+
+    ``tables`` [B, M] and ``positions`` [B] are int32 (on the card they
+    feed the kernel as they are).  Inactive rows still run (fixed shape)
+    but write to the null block, and their logits are garbage the caller
+    ignores; a slot past a row's table gathers the last entry's clamp,
+    as in the JAX function."""
+    if tokens.dim() == 1:
+        tokens = tokens[:, None]
+    t = tokens.shape[1]
+    cfg = model.config
+    dev = tokens.device
+    pos_t = positions.long()[:, None] + torch.arange(t, device=dev)[None, :]  # [B, t]
+    pos_emb = torch.clamp(
+        torch.where(active[:, None], pos_t, torch.zeros_like(pos_t)),
+        0, cfg.max_position_embeddings - 1,
+    )
+    x = embed(model, tokens, pos_emb)
+    bs = pools.k.shape[3]
+    blk_log = torch.clamp(pos_t // bs, 0, tables.shape[1] - 1)
+    blk = torch.gather(tables.long(), 1, blk_log)
+    blk = torch.where(active[:, None], blk, torch.zeros_like(blk))  # inactive -> null block
+    off = pos_t % bs
+    for li, layer in enumerate(model.layers):
+        x = _paged_layer_step(layer, x, pools, li, blk, off, tables, positions)
+    x = layer_norm(x, model.final_ln.scale, model.final_ln.bias)
+    return logits_from_hidden(model, x).float()
+
+
+def paged_prefill(
+    model: GPTModel,
+    prompt: torch.Tensor,
+    prompt_len: int,
+    pools: PagedPools,
+    table_row: Sequence[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill ONE row's prompt into its pool blocks (prefill-on-admit).
+
+    ``prompt`` [1, P] is RIGHT-padded to the bucket (real tokens at
+    [0, prompt_len)): paged rows are unpadded in their logical cache.
+    The prompt runs through the contiguous :func:`forward_cached` into a
+    temporary cache in the model dtype (its K/V quantize once, on the
+    repack, for an int8 arena), which is then repacked block-wise into
+    the arena at ``table_row`` (PB block ids, PB * block >= P).  Pad
+    slots' K/V land in the row's own blocks past ``prompt_len`` and are
+    overwritten by decode steps before any attention bound reaches them.
+
+    Returns (the last real token's logits [vocab] float32, the prompt's
+    token counts [vocab] int32 for the repetition penalty)."""
+    cfg = model.config
+    P = int(prompt.shape[1])
+    PB = len(table_row)
+    bs = int(pools.k.shape[3])
+    L = PB * bs
+    if L < P:
+        raise ValueError(f"table_row covers {PB}x{bs}={L} slots < prompt bucket {P}")
+    dev = prompt.device
+    layers, n, d = cfg.num_layers, cfg.num_attention_heads, cfg.head_dim
+    cache = init_cache(cfg, 1, L, dev, kv_dtype="bf16")
+    pos_ids = torch.arange(P, device=dev)[None, :]
+    logits = forward_cached(model, prompt, cache, 0, position_ids=pos_ids)
+    last = logits[0, prompt_len - 1].float()
+
+    def pack(c):  # [layers, 1, n, L, d] -> [layers, PB, n, bs, d]
+        return c[:, 0].reshape(layers, n, PB, bs, d).transpose(1, 2)
+
+    idx = torch.tensor(list(table_row), dtype=torch.long, device=dev)
+    if pools.k_scale is not None:
+        kq, ksl = quantize_kv(pack(cache.k))
+        vq, vsl = quantize_kv(pack(cache.v))
+        pools.k[:, idx] = kq
+        pools.v[:, idx] = vq
+        pools.k_scale[:, idx] = ksl
+        pools.v_scale[:, idx] = vsl
+    else:
+        pools.k[:, idx] = pack(cache.k).to(pools.k.dtype)
+        pools.v[:, idx] = pack(cache.v).to(pools.v.dtype)
+    counts = torch.zeros((cfg.vocab_size,), dtype=torch.int32, device=dev)
+    counts.index_add_(0, prompt[0], (torch.arange(P, device=dev) < prompt_len).to(torch.int32))
+    return last, counts
+
+
+def process_step_logits(logits, steps, counts, forced_steps, gen: GenerationConfig):
+    """THE per-row logits-processor chain (min-length -> repetition
+    penalty -> forced BOS/EOS) of the paged step: ``logits`` [B, vocab]
+    with ``steps``/``forced_steps`` [B] (rows sit at different steps).
+    The same processors as :func:`generate`, per row."""
+    vocab = logits.shape[-1]
+    cols = torch.arange(vocab, device=logits.device)[None, :]
+    if gen.min_dec_len > 0:
+        eos = (steps < gen.min_dec_len)[:, None] & (cols == gen.eos_token_id)
+        logits = torch.where(eos, torch.full_like(logits, -1e10), logits)
+    logits = apply_repetition_penalty(logits, counts, gen.repetition_penalty)
+    for token_id, at in ((gen.forced_bos_token_id, torch.zeros_like(steps)),
+                         (gen.forced_eos_token_id, forced_steps)):
+        if token_id >= 0:
+            forced = torch.where(cols == token_id, 0.0, -1e10).to(logits.dtype)
+            logits = torch.where((steps == at)[:, None], forced, logits)
+    return logits
+
+
+def decode_step(
+    model: GPTModel,
+    pools: PagedPools,
+    tables: torch.Tensor,
+    rows: PagedRows,
+    gen: GenerationConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, PagedRows]:
+    """ONE iteration-level decode step over the running batch.
+
+    Samples each active row's next token from its pending logits through
+    :func:`process_step_logits`, writes the token's K/V at the row's
+    current slot and returns (sampled tokens [B], the rows' next state,
+    whose ``logits`` are the refreshed pending logits).  Greedy rows are
+    token-identical to the contiguous path.  ``rows.counts`` is updated
+    in place."""
+    B = rows.logits.shape[0]
+    i = rows.gen_steps
+    logits = process_step_logits(rows.logits, i, rows.counts, rows.forced_steps, gen)
+    if gen.decode_strategy == "greedy_search":
+        nxt = torch.argmax(logits, dim=-1)
+    else:
+        nxt = sample_logits(
+            logits, temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
+            generator=generator,
+        )
+    nxt = torch.where(rows.active, nxt, torch.full_like(nxt, gen.pad_token_id))
+    act = rows.active.to(torch.int32)
+    rows.counts[torch.arange(B, device=nxt.device), nxt] += act
+    finished = rows.active & ((nxt == gen.eos_token_id) | (i + 1 >= rows.max_news))
+    new_logits = paged_forward_step(model, nxt, pools, tables, rows.positions, rows.active)
+    return nxt, PagedRows(
+        logits=new_logits[:, 0],
+        counts=rows.counts,
+        positions=rows.positions + act,
+        gen_steps=i + act,
+        max_news=rows.max_news,
+        active=rows.active & ~finished,
+        forced_steps=rows.forced_steps,
+    )

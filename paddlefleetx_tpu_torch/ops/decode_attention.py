@@ -17,9 +17,15 @@ Two spellings behind :func:`flash_decode`:
     ``_decode_lax`` (same blocked loop, same order of operations), for
     tensors on the CPU, and the reference the kernel is held against.
 
+The paged counterpart (``_paged_lax`` / ``_paged_kernel``, the
+continuous-batching engine's attention over block tables) has the same
+two spellings behind :func:`paged_decode_attention`: the CUDA kernels
+``paged_decode`` / ``paged_decode_q8`` (``csrc/paged_attention.cu``) and
+:func:`paged_decode_attention_plain`.
+
 The routing follows the tensors' device only: a CUDA tensor reaches the
 kernel or raises; nothing falls back.  :data:`COUNTS` counts kernel
-launches (and the plain version's calls) so a run can show which path
+launches (and the plain versions' calls) so a run can show which path
 it took.
 
 Env knobs, parsed loudly as in the JAX package:
@@ -47,9 +53,13 @@ KV_QMAX = 127.0
 _DEFAULT_BLOCK = 256
 _MAX_HEAD_DIM = 128
 
-# Kernel launches per kernel, and calls of the plain version through
-# flash_decode (CPU tensors).  Process-wide; reset with reset_counts().
-COUNTS = {"flash_decode": 0, "flash_decode_q8": 0, "plain": 0}
+# Kernel launches per kernel, and calls of the plain versions through
+# flash_decode ("plain") and paged_decode_attention ("paged_plain") on CPU
+# tensors.  Process-wide; reset with reset_counts().
+COUNTS = {
+    "flash_decode": 0, "flash_decode_q8": 0, "plain": 0,
+    "paged_decode": 0, "paged_decode_q8": 0, "paged_plain": 0,
+}
 
 
 def reset_counts() -> None:
@@ -359,3 +369,199 @@ def dense_cache_attention(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bntk,bnkd->bntd", probs, v_cache)
     return out.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-table-indexed) decode attention: the continuous-batching
+# engine's kernel (core/paged_cache.py owns the pool layout)
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention_plain(
+    q_t: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    positions: torch.Tensor,
+    scale: float,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of ``_paged_lax``: q_t [b, n, t, d];
+    pools [nb, n, bs, d]; tables [b, M] pool block ids; positions [b] the
+    slot of each row's FIRST query (query qi sits at slot positions + qi,
+    causal within the chunk).  Returns float32 [b, n, t, d].
+
+    Blocked online softmax over each row's own block list, with the
+    JAX loop's bound (the batch max of the blocks needed, capped at M)
+    and its per-row clamp: a row past its last needed block
+    ``(pos + t - 1) // bs`` re-reads that block, fully masked, so a
+    table entry beyond it (null padding) is never gathered.  float32
+    state, ``acc / max(l, 1e-30)``; int8 pools take ``k_scale`` /
+    ``v_scale`` [nb, n, bs] on the scores and the probabilities."""
+    b, n, t, d = q_t.shape
+    bs = k_pool.shape[2]
+    M = tables.shape[1]
+    quant = k_scale is not None
+    dev = q_t.device
+    tables = tables.long()
+    positions = positions.long()
+    qf = q_t.float()
+    m = torch.full((b, n, t), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, n, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, n, t, d), dtype=torch.float32, device=dev)
+    last_blk = torch.clamp(positions + t - 1, min=0) // bs
+    qpos = positions[:, None] + torch.arange(t, device=dev)[None, :]  # [b, t]
+    rows = torch.arange(b, device=dev)
+    nvisit = min((int(positions.max()) + t + bs - 1) // bs, M)
+    for j in range(nvisit):
+        blk = tables[rows, torch.clamp(last_blk, max=j)]  # [b]
+        k = k_pool[blk].float()  # [b, n, bs, d] gather
+        v = v_pool[blk].float()
+        s = scale * torch.einsum("bntd,bnkd->bntk", qf, k)
+        if quant:
+            s = s * k_scale[blk][:, :, None, :]
+        col = j * bs + torch.arange(bs, device=dev)
+        mask = col[None, None, None, :] <= qpos[:, None, :, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        if quant:
+            pv = p * v_scale[blk][:, :, None, :]
+        else:
+            pv = p.to(v_pool.dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum("bntk,bnkd->bntd", pv, v)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+_PAGED_LIB: Optional[ctypes.CDLL] = None
+_MAX_PAGED_BLOCK = 128
+
+
+def _paged_lib() -> ctypes.CDLL:
+    global _PAGED_LIB
+    if _PAGED_LIB is None:
+        from paddlefleetx_tpu_torch.ops import _build
+
+        lib = _build.load("paged_attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_decode.argtypes = [ptr] * 6 + [i32] * 7 + [f32, i32, ptr]
+        lib.paged_decode.restype = i32
+        lib.paged_decode_q8.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
+        lib.paged_decode_q8.restype = i32
+        lib.paged_decode_error_string.argtypes = [i32]
+        lib.paged_decode_error_string.restype = ctypes.c_char_p
+        _PAGED_LIB = lib
+    return _PAGED_LIB
+
+
+def _paged_require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_decode: {msg}")
+
+
+def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale):
+    """Check the inputs, allocate the float32 output and launch on the
+    current stream.  ``tables`` and ``positions`` must already be int32
+    CUDA tensors (the engine uploads them once per step)."""
+    dev = q_t.device
+    b, n, t, d = q_t.shape
+    nb, _, bs, _ = k_pool.shape
+    M = tables.shape[1] if tables.dim() == 2 else -1
+    quant = k_scale is not None
+    _paged_require(q_t.dtype in _DTYPE_CODES,
+                   f"q dtype {q_t.dtype}; valid: float32, bfloat16")
+    _paged_require(tuple(k_pool.shape) == (nb, n, bs, d) and v_pool.shape == k_pool.shape,
+                   f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} vs q "
+                   f"{tuple(q_t.shape)}")
+    _paged_require(1 <= d <= _MAX_HEAD_DIM, f"head dim {d} outside [1, {_MAX_HEAD_DIM}]")
+    _paged_require(bs % 8 == 0 and 8 <= bs <= _MAX_PAGED_BLOCK,
+                   f"block size {bs} must be a multiple of 8 in [8, {_MAX_PAGED_BLOCK}]")
+    _paged_require(b * n <= 65535, f"batch*heads {b * n} > 65535")
+    _paged_require(tables.dtype == torch.int32 and tuple(tables.shape) == (b, M) and M >= 1,
+                   f"tables must be int32 [b, M], got {tables.dtype} {tuple(tables.shape)}")
+    _paged_require(positions.dtype == torch.int32 and tuple(positions.shape) == (b,),
+                   f"positions must be int32 [b], got {positions.dtype} "
+                   f"{tuple(positions.shape)}")
+    tensors = [q_t, k_pool, v_pool, tables, positions]
+    if quant:
+        _paged_require(k_pool.dtype == torch.int8 and v_pool.dtype == torch.int8,
+                       f"int8 path needs int8 pools, got {k_pool.dtype}/{v_pool.dtype}")
+        for s in (k_scale, v_scale):
+            _paged_require(s.dtype == torch.float32 and tuple(s.shape) == (nb, n, bs),
+                           f"scales must be float32 [nb, n, bs], got {s.dtype} "
+                           f"{tuple(s.shape)}")
+        tensors += [k_scale, v_scale]
+    else:
+        _paged_require(k_pool.dtype == q_t.dtype and v_pool.dtype == q_t.dtype,
+                       f"pool dtype {k_pool.dtype}/{v_pool.dtype} != q dtype {q_t.dtype}")
+    for x in tensors:
+        _paged_require(x.device == dev, f"tensor on {x.device}, q on {dev}")
+        _paged_require(x.is_contiguous(), "inputs must be contiguous")
+    out = torch.empty((b, n, t, d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _paged_lib()
+    if quant:
+        rc = lib.paged_decode_q8(
+            q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            b, n, t, M, bs, d, nb, float(scale), _DTYPE_CODES[q_t.dtype], stream,
+        )
+        COUNTS["paged_decode_q8"] += 1
+    else:
+        rc = lib.paged_decode(
+            q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), b, n, t, M, bs, d, nb, float(scale),
+            _DTYPE_CODES[q_t.dtype], stream,
+        )
+        COUNTS["paged_decode"] += 1
+    if rc != 0:
+        msg = lib.paged_decode_error_string(rc).decode()
+        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc} ({msg})")
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Block-table-indexed attention for the paged KV cache (the
+    ``paged_decode_attention`` of the JAX package).
+
+    q [b, t, n, d]; pools [num_blocks, n, block, d] (one layer's arena);
+    ``tables`` [b, M] int32 maps row i's logical block j to a pool block;
+    ``positions`` [b] int32 is the slot of each row's first query (its
+    chunk already written): query qi of row i attends over slots
+    [0, positions[i] + qi + 1).  t = 1 is the decode step, t > 1 the
+    speculative verify chunk.  int8 pools take float32 ``k_scale`` /
+    ``v_scale`` [num_blocks, n, block] (both or neither).  Returns
+    [b, t, n, d] in q's dtype.
+
+    CUDA tensors launch ``paged_decode`` / ``paged_decode_q8`` (or
+    raise); CPU tensors run :func:`paged_decode_attention_plain`."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    b, t, n, d = q.shape
+    if t < 1:
+        raise ValueError(f"paged_decode_attention needs t >= 1; got t={t}")
+    scale = float(1.0 / (d**0.5))
+    q_t = q.transpose(1, 2).contiguous()
+    if q.device.type == "cuda":
+        out = _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale)
+    elif q.device.type == "cpu":
+        COUNTS["paged_plain"] += 1
+        out = paged_decode_attention_plain(
+            q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale
+        )
+    else:
+        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    return out.transpose(1, 2).to(q.dtype)

@@ -3,8 +3,8 @@
 Only the config parse of ``paddlefleetx_tpu/ops/speculative.py`` is
 ported so far: the section is read and validated, and a request for
 speculation (``draft_k > 0``) fails loudly instead of being served by
-the plain loop.  The drafter and the verify loop come with the paged
-serving slice of the port.
+the plain loop.  The drafter and the verify loop (``decode_step_spec``
+over the paged engine) are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -26,6 +26,6 @@ def spec_config_from(section) -> Optional[dict]:
         return None
     raise NotImplementedError(
         f"speculative decoding (Generation.speculative.draft_k={draft_k}) is "
-        "not ported yet: it comes with the paged continuous-batching slice "
-        "(slice 2) of the PyTorch port"
+        "not ported to the PyTorch port yet (the paged engine's verify loop "
+        "is a later slice)"
     )

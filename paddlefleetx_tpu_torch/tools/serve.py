@@ -3,26 +3,33 @@
     python -m paddlefleetx_tpu_torch.tools.serve \\
         -c configs/gpt/pretrain_gpt_345M_single.yaml --port 8000
 
-Counterpart of ``tools/serve.py`` with its coalescing scheduler:
+Counterpart of ``tools/serve.py`` with its two schedulers:
 
     POST /generate  {"prompt_ids": [...], "max_tokens": 32, "deadline_s": 30}
                     -> {"completion_ids": [...]}
                     ("prompts_ids": [[...], ...] -> {"completions_ids": [...]})
-    GET  /healthz   state, queue and serving stats, and the flash-decode
-                    kernel launch counts since traffic began
+    GET  /healthz   state, queue and serving stats, and the attention
+                    kernels' launch counts since traffic began (flash
+                    decode, paged decode, and their plain versions)
 
-Requests go through a bounded ``RequestQueue``: a full queue answers 429
-with Retry-After, an expired deadline 503, and one scheduler thread
-merges same-bucket waiting requests into one batched decode.  SIGTERM or
-SIGINT drains: admission closes, every admitted request is answered, and
-the process exits 0 (a second signal force-quits).
+Requests go through a bounded admission queue: a full queue answers 429
+with Retry-After, an expired deadline 503.  ``--scheduler coalesce``
+(default): one scheduler thread merges same-bucket waiting requests into
+one batched decode over a contiguous KV cache.  ``--scheduler
+continuous``: iteration-level scheduling over the paged KV arena
+(``core/continuous_batching.py``; ``--cb-batch`` rows, ``--kv-blocks``
+arena blocks, block size PFX_KV_BLOCK): rows join and leave the running
+decode batch at every step.  SIGTERM or SIGINT drains: admission closes,
+every admitted request is answered, and the process exits 0 (a second
+signal force-quits).
 
 The model runs on the card (``--device cuda``, the default) and the
 command fails without one; ``--device cpu`` runs the plain PyTorch path.
 Weights are random, drawn from ``Global.seed``.  Not ported yet, and
-refused where asked for: ``--scheduler continuous`` (slice 2), beam
-search, speculative decoding, checkpoint and tokenizer loading, token
-streaming, tenancy headers, ``/metrics``, ``/debug/*`` and ``/admin/*``.
+refused where asked for: beam search, speculative decoding, checkpoint
+and tokenizer loading, token streaming, tenancy headers, ``/metrics``,
+``/debug/*`` and ``/admin/*``; the JAX CLI's prefix-cache and
+chunked-prefill flags do not exist here yet.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
+from paddlefleetx_tpu_torch.core.continuous_batching import (
+    ContinuousScheduler,
+    PagedDecodeEngine,
+)
 from paddlefleetx_tpu_torch.core.module import GPTModule
 from paddlefleetx_tpu_torch.core.request_queue import (
     DeadlineExceeded,
@@ -88,15 +99,33 @@ def plan_request(prompts_ids, max_toks: int, *, bucket: int, context: int):
     return trim, (pbucket, run)
 
 
-def serve_http(server: GenerationServer, port: int, host: str = "127.0.0.1", *,
+def build_scheduler(server: GenerationServer, scheduler: str, *, queue_depth: int,
+                    max_coalesce: int, cb_batch: int = 8, kv_blocks: int = 0):
+    """The serving scheduler behind ``--scheduler``: ``coalesce`` (a
+    ``RequestQueue`` whose runner is ``server.generate_ids``) or
+    ``continuous`` (a ``ContinuousScheduler`` over a ``PagedDecodeEngine``
+    with ``cb_batch`` rows and ``kv_blocks`` arena blocks, 0 = one full
+    context per row plus the null block).  Both expose kind / submit /
+    try_remove / depth / busy_seconds / stats_snapshot / serving_stats /
+    start / close / join, so the HTTP layer is scheduler-agnostic."""
+    if scheduler == "coalesce":
+        return RequestQueue(
+            lambda prompts, max_new: server.generate_ids(prompts, max_dec_len=max_new),
+            max_depth=queue_depth, max_coalesce=max_coalesce, name="serve",
+            serving_stats=lambda: server.stats,
+        )
+    if scheduler == "continuous":
+        engine = PagedDecodeEngine(server, max_batch=cb_batch, num_blocks=kv_blocks)
+        return ContinuousScheduler(engine, max_depth=queue_depth, name="serve")
+    raise ValueError(f"unknown scheduler {scheduler!r}; valid: coalesce, continuous")
+
+
+def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.1", *,
                queue_depth: int = 64, max_coalesce: int = 8,
                default_deadline_s: float = 120.0, max_deadline_s: float = 600.0,
                shed_slack_s: float = 2.0, max_tokens_cap: int = 0) -> int:
-    """Serve until a SIGTERM/SIGINT drain completes; returns 0."""
-    queue = RequestQueue(
-        lambda prompts, max_new: server.generate_ids(prompts, max_dec_len=max_new),
-        max_depth=queue_depth, max_coalesce=max_coalesce, name="serve",
-    )
+    """Serve ``queue`` (a scheduler from :func:`build_scheduler`) until a
+    SIGTERM/SIGINT drain completes; returns 0."""
     cap = max_tokens_cap or int(
         server.cfg.get("Generation", {}).get("max_tokens_cap", 0) or 0
     )
@@ -148,7 +177,7 @@ def serve_http(server: GenerationServer, port: int, host: str = "127.0.0.1", *,
                     "busy_s": round(queue.busy_seconds(), 3),
                     "queue": queue.stats_snapshot(),
                     "counters": http,
-                    "serving": dict(server.stats),
+                    "serving": queue.serving_stats(),
                     "kernels": dict(decode_attention.COUNTS),
                 })
             if path == "/metrics" or path.startswith("/debug/"):
@@ -187,7 +216,7 @@ def serve_http(server: GenerationServer, port: int, host: str = "127.0.0.1", *,
             stream = parse_qs(parts.query).get("stream", ["0"])[0] not in ("0", "")
             if stream or "text/event-stream" in (self.headers.get("Accept") or ""):
                 return self._json(400, {"error": "token streaming is not ported "
-                                                 "yet (slice 2)"})
+                                                 "yet"})
             if self.headers.get("X-Tenant") or self.headers.get("X-Priority"):
                 return self._json(400, {"error": "tenancy headers are not "
                                                  "supported by the PyTorch port yet"})
@@ -205,6 +234,8 @@ def serve_http(server: GenerationServer, port: int, host: str = "127.0.0.1", *,
                 return self._json(400, {"error": str(e)})
             try:
                 fut = queue.submit(prompts, trim, coalesce_key=key, deadline_s=deadline_s)
+            except ValueError as e:  # a prompt the paged arena can never hold
+                return self._json(400, {"error": str(e)})
             except QueueFull as e:
                 return self._json(429, {"error": f"{e}; retry later"},
                                   headers={"Retry-After": "1"})
@@ -252,8 +283,8 @@ def serve_http(server: GenerationServer, port: int, host: str = "127.0.0.1", *,
         signal.signal(sig, _on_signal)
     queue.start()
     print(f"serving on {host}:{port} (POST /generate, GET /healthz; device "
-          f"{server.device}, queue depth {queue_depth}, coalesce {max_coalesce})",
-          flush=True)
+          f"{server.device}, scheduler {queue.kind}, queue depth {queue_depth}, "
+          f"max prompts {max_coalesce})", flush=True)
     try:
         httpd.serve_forever()
     finally:
@@ -300,18 +331,26 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup-batches", default="",
                     help="comma-separated batch sizes per prompt bucket "
                     "(default: powers of two up to --max-coalesce)")
-    ap.add_argument("--scheduler", choices=("coalesce", "continuous"), default="coalesce")
+    ap.add_argument("--scheduler", choices=("coalesce", "continuous"), default="coalesce",
+                    help="coalesce: batch same-bucket waiting requests; "
+                    "continuous: iteration-level batching over the paged KV arena")
+    ap.add_argument("--cb-batch", type=int, default=8,
+                    help="continuous scheduler: running-batch row capacity")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="continuous scheduler: KV arena blocks (0 = cb-batch "
+                    "full-context rows + the null block); block size PFX_KV_BLOCK")
     args = ap.parse_args(argv)
-    if args.scheduler == "continuous":
-        raise NotImplementedError(
-            "--scheduler continuous (paged KV + continuous batching) comes with "
-            "slice 2 of the PyTorch port"
-        )
     if args.kv_dtype:
         args.override.append(f"Generation.speculative.kv_dtype={args.kv_dtype}")
 
     server = build_server(args.config, args.override, args.device)
-    if not args.no_warmup:
+    queue = build_scheduler(
+        server, args.scheduler, queue_depth=args.queue_depth,
+        max_coalesce=args.max_coalesce, cb_batch=args.cb_batch, kv_blocks=args.kv_blocks,
+    )
+    if not args.no_warmup and queue.kind == "continuous":
+        queue.warmup(_csv_ints(args.warmup_buckets) or [8])
+    elif not args.no_warmup:
         batches = _csv_ints(args.warmup_batches)
         if not batches:
             b, batches = 1, []
@@ -324,7 +363,7 @@ def main(argv=None) -> int:
     decode_attention.reset_counts()
     logger.info(f"model {server.module.config} on {server.device}")
     return serve_http(
-        server, args.port, args.host,
+        server, queue, args.port, args.host,
         queue_depth=args.queue_depth, max_coalesce=args.max_coalesce,
         default_deadline_s=args.deadline, max_deadline_s=args.max_deadline,
         shed_slack_s=args.shed_slack, max_tokens_cap=args.max_tokens_cap,
