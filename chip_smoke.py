@@ -47,7 +47,31 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
   8. two prompts through PagedDecodeEngine in float32 on the card (K9)
      and on the CPU (plain version), same weights: first-step logits
      within 1e-3 and identical greedy tokens; then again with int8 pools
-     (paged_decode_q8 against the plain int8 version).
+     (paged_decode_q8 against the plain int8 version);
+  9. the flash attention kernels (K3 forward, K4 + K5 split backward, K6
+     fused backward) against their plain versions on the card: at the
+     training step's shape (micro-batch 8 x 16 heads, seq 1024, head dim
+     64, bf16), at batch 16, in f32 at batch 2, and at seqs 40 and 200
+     (partial tiles); the plain version at the kernels' 64 x 64 tile (a
+     partial last tile too); bf16 held per row and by the share of elements
+     that differ (``BF16_ROW_TOL``, ``BF16_DIFFER_TOL``); with CUDA-event
+     times of the kernel, the plain version and
+     scaled_dot_product_attention (forward for K3, its autograd backward
+     for K4 + K5 and for K6), and the bound;
+  10. GPT-345M pretraining at full width through ``Engine(cfg,
+     GPTModule(cfg)).train_step``: seq 1024, global batch 16 in two
+     micro-batches of 8, bf16 over float32 masters, flash attention,
+     selective recompute, AdamW with clip 1.0 at a constant 1e-4, random
+     weights from Global.seed and one fixed random batch; 10 steps with
+     flash_bwd split and 10 with fused.  Every step must launch K3 and
+     K4 + K5 (split) or K6 (fused) and no plain version; the loss must be
+     finite and fall; prints step ms, tokens/s and peak memory;
+  11. the training step on the card against the CPU at float32: the
+     345M width cut to 2 layers, batch 1, seq 512, dropout 0, both
+     schedules: loss within 1e-5 relative, every grad within 1e-3 of its
+     leaf's largest value, params after one AdamW step from the same
+     grads within 1e-5, and params after each device's own train step
+     within Adam's first-step sensitivity to the grads' difference.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,13 +96,38 @@ SOURCES = {
     "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
+    "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_fused": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
 }
 REPLACES = {
     "flash_decode": "paddlefleetx_tpu/ops/decode_attention.py:256",
     "flash_decode_q8": "paddlefleetx_tpu/ops/decode_attention.py:295",
     "paged_decode": "paddlefleetx_tpu/ops/decode_attention.py:524",
     "paged_decode_q8": "paddlefleetx_tpu/ops/decode_attention.py:524",
+    "flash_fwd": "paddlefleetx_tpu/ops/flash_attention.py:121",
+    "flash_bwd_dq": "paddlefleetx_tpu/ops/flash_attention.py:215",
+    "flash_bwd_dkv": "paddlefleetx_tpu/ops/flash_attention.py:249",
+    "flash_bwd_fused": "paddlefleetx_tpu/ops/flash_attention.py:305",
 }
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+# kernel vs plain, the plain version at the kernels' 64 x 64 tile, a partial
+# last tile included (fa.KERNEL_TILE).  float32: forward max |err|, grads
+# max |err| over the leaf's max (summation order only).  bfloat16, per
+# kernel: the largest error of a row over that row's largest value (one
+# bf16 ulp is up to 2**-7 of it), and the share of elements that differ
+# at all (p, ds and the outputs round where float32 sums of another order
+# straddle a rounding boundary).  The bf16 limits are a few times the
+# readings PERF.md records.
+FLASH_TOL = {"float32": (1e-4, 2e-4)}
+BF16_ROW_TOL = dict.fromkeys(FLASH_KERNELS, 2.0**-6)
+BF16_DIFFER_TOL = {"flash_fwd": 5e-4, "flash_bwd_dq": 1.5e-3, "flash_bwd_dkv": 1.5e-3,
+                   "flash_bwd_fused": 1.5e-3}
+# SDPA against the plain forward (another kernel's rounding order)
+SDPA_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
+# phase 10: micro-batch 8 of the global 16 at seq 1024; 16 heads of 64
+TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 10
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
@@ -153,13 +202,13 @@ def make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed):
     return q, k, v, vft, ks, vs
 
 
-def event_ms(torch, fn, iters):
+def event_ms(torch, fn, iters, flush_mib=512):
     """Mean device time of ``fn`` with the L2 cache flushed before each
     call (a decode step finds the layer's cache cold: the whole model's
-    weights stream between two visits).  The 512 MiB flush also keeps the
-    card busy while the host enqueues ``fn``, so launch latency stays
-    out of the timed interval."""
-    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device="cuda")
+    weights stream between two visits).  The flush (512 MiB by default)
+    also keeps the card busy while the host enqueues ``fn``, so launch
+    latency stays out of the timed interval."""
+    flush = torch.empty(flush_mib * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(2):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -739,6 +788,355 @@ def phase_paged_card_vs_cpu(torch, bc, kv_dtype):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: flash attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_bound(name, kind, bh, s, d):
+    """Least time for the work: every input read once and every output
+    written once (K6's dq as the float32 slab it writes), against the
+    causal (query, key) pairs' operations: 4d per pair forward (q.k and
+    p.v), 6d for K4 (q.k, do.v, ds.k), 8d for K5 (q.k, do.v, p.do,
+    ds.q), 10d for K6 (all five)."""
+    elt = 4 if kind == "float32" else 2
+    one = bh * s * d * elt
+    stats = bh * s * 4
+    nbytes, per_pair = {
+        "flash_fwd": (4 * one + stats, 4 * d),
+        "flash_bwd_dq": (5 * one + 2 * stats, 6 * d),
+        "flash_bwd_dkv": (6 * one + 2 * stats, 8 * d),
+        "flash_bwd_fused": (6 * one + bh * s * d * 4 + 2 * stats, 10 * d),
+    }[name]
+    ops = bh * s * (s + 1) // 2 * per_pair
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_event_ms(torch, fn, iters):
+    """:func:`event_ms` with a 2 GiB flush, which covers the host work in
+    front of an autograd backward (the SDPA yardstick)."""
+    return event_ms(torch, fn, iters, flush_mib=2048)
+
+
+def flash_errors(got, ref):
+    """(max |err|, max |err| over the largest |ref| (at least 1), the
+    largest error of a row over that row's largest |ref|, the share of
+    elements that differ) over the outputs of one kernel."""
+    out = []
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        diff = (a - r).abs()
+        row = (diff.amax(-1) / r.abs().amax(-1).clamp_min(1e-30)).max()
+        out.append((diff.max().item(), (diff.max() / max(1.0, r.abs().max().item())).item(),
+                    row.item(), (diff > 0).float().mean().item()))
+    return tuple(max(x[i] for x in out) for i in range(4))
+
+
+def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
+    """Each of K3-K6 on [b*n, s, d] inputs against its plain version at
+    the kernels' own tile, so both round alike (the backward kernels on the
+    plain forward's lse and delta), with times and bounds.  The plain
+    versions are timed at the block the ladder gives ``s``, as the CPU
+    path runs them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    q, k, v, do = (torch.randn(b * n, s, d, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    scale, ladder = 1.0 / d**0.5, fa._block_sizes(s)
+    block = (fa.KERNEL_TILE, fa.KERNEL_TILE)
+    out, lse = fa.launch_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, block)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    args = (q, k, v, do, ref_lse, delta, scale)
+
+    def held(name, got, ref):
+        errs = flash_errors(got, ref)
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        if kind == "float32":
+            tol = FLASH_TOL[kind][0 if name == "flash_fwd" else 1]
+            ok = errs[0 if name == "flash_fwd" else 1] <= tol
+        else:
+            ok = errs[2] <= BF16_ROW_TOL[name] and errs[3] <= BF16_DIFFER_TOL[name]
+        check(finite and ok, f"{name} {kind} s={s}: errors (abs, of max, row, differ) {errs}")
+        return errs
+
+    errs = {"flash_fwd": held("flash_fwd", (out,), (ref_out,))}
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-4, f"K3 {kind} s={s}: lse err {lse_err}")
+    launches = {"flash_bwd_dq": fa.launch_bwd_dq, "flash_bwd_dkv": fa.launch_bwd_dkv,
+                "flash_bwd_fused": fa.launch_bwd_fused}
+    plains = {"flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+              "flash_bwd_fused": fa.flash_bwd_fused}
+    for name, launch in launches.items():
+        got = launch(*args)
+        torch.cuda.synchronize()
+        ref = plains[name](*args, block)
+        errs[name] = held(name, got if isinstance(got, tuple) else (got,),
+                          ref if isinstance(ref, tuple) else (ref,))
+    ms = {"flash_fwd": flash_event_ms(torch, lambda: fa.launch_fwd(q, k, v, scale), iters)}
+    plain_ms = {"flash_fwd": event_ms(
+        torch, lambda: fa.flash_forward(q, k, v, scale, ladder), max(3, iters // 3))}
+    for name, launch in launches.items():
+        ms[name] = flash_event_ms(torch, lambda: launch(*args), iters)
+        plain_ms[name] = flash_event_ms(torch, lambda: plains[name](*args, ladder),
+                                        max(3, iters // 3))
+    # the library yardstick: SDPA on the same [b, n, s, d] tensors
+    qs, ks, vs, dos = (x.view(b, n, s, d) for x in (q, k, v, do))
+    lib_fwd = flash_event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), iters)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qs, ks, vs))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = flash_event_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dos, retain_graph=True), iters)
+    lib_err = (lib_out.detach().reshape(b * n, s, d).float() - ref_out.float()).abs().max().item()
+    check(lib_err <= SDPA_TOL[kind], f"SDPA disagrees with the plain forward: {lib_err}")
+    rows = {}
+    for name in FLASH_KERNELS:
+        bound_ms, bound_by = flash_bound(name, kind, b * n, s, d)
+        e = errs[name]
+        rows[name] = {"kind": kind, "b": b, "n": n, "s": s, "d": d, "block": list(block),
+                      "max_abs_err": e[0], "err_of_max": e[1], "row_err": e[2],
+                      "differ": e[3], "ms": ms[name], "plain_ms": plain_ms[name],
+                      "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    rows["flash_fwd"]["lse_err"] = lse_err
+    return rows
+
+
+def phase_flash(torch, F, fa):
+    """The training step's shape first (its rows go to the kernels line),
+    then the others."""
+    cases = [("bfloat16", TRAIN_MICRO, TRAIN_SEQ), ("bfloat16", 16, TRAIN_SEQ),
+             ("float32", 2, TRAIN_SEQ), ("bfloat16", 16, 200), ("float32", 16, 200),
+             ("bfloat16", 16, 40), ("float32", 16, 40)]
+    main, table = None, []
+    for kind, b, s in cases:
+        rows = flash_case(torch, F, fa, kind, b, 16, s, 64)
+        main = main or rows
+        for name, row in rows.items():
+            table.append(dict(row, name=name))
+            log(f"  {name:16s} {kind:8s} b={b:2d} s={s:4d}: err {row['max_abs_err']:.2e} "
+                f"(row {row['row_err']:.2e}, differ {row['differ']:.2e}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} library "
+                f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    log("flash_cases " + json.dumps({"cases": table}))
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 10: GPT-345M pretraining steps at full width
+# ---------------------------------------------------------------------------
+
+
+def train_config(get_config, extra):
+    return get_config(str(REPO / CONFIG), [
+        f"Global.global_batch_size={TRAIN_GLOBAL}", f"Global.local_batch_size={TRAIN_GLOBAL}",
+        f"Global.micro_batch_size={TRAIN_MICRO}", "Model.attn_impl=flash",
+        "Model.use_recompute=True", "Model.recompute_granularity=selective",
+        'Optimizer.lr={"name": "Constant", "learning_rate": 1.0e-4}',
+        "Optimizer.grad_clip.clip_norm=1.0", *extra])
+
+
+def host_batch(np, b, s, vocab=50304, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int64),
+            "labels": rng.integers(0, vocab, (b, s)).astype(np.int64),
+            "loss_mask": np.ones((b, s), np.float32),
+            "position_ids": np.tile(np.arange(s), (b, 1))}
+
+
+def phase_train(torch, fa):
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    batch = host_batch(np, TRAIN_GLOBAL, TRAIN_SEQ)
+    out = {}
+    for mode in ("split", "fused"):
+        cfg = train_config(get_config, [f"Model.flash_bwd={mode}"])
+        module = GPTModule(cfg)
+        mc = module.config
+        check((mc.num_layers, mc.hidden_size, mc.num_attention_heads, mc.vocab_size, mc.dtype)
+              == (N_LAYERS, 1024, 16, 50304, "bfloat16"), f"train config {mc}")
+        check(cfg.Engine.accumulate_steps == TRAIN_GLOBAL // TRAIN_MICRO, "accumulate_steps")
+        t0 = time.time()
+        engine = Engine(cfg, module)
+        init_s = time.time() - t0
+        check(engine.device.type == "cuda", f"engine on {engine.device}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wanted = ("flash_fwd",) + (("flash_bwd_fused",) if mode == "fused"
+                                   else ("flash_bwd_dq", "flash_bwd_dkv"))
+        fa.reset_counts()
+        losses, step_s, totals = [], [], dict.fromkeys(fa.COUNTS, 0)
+        for _ in range(TRAIN_STEPS):
+            before = dict(fa.COUNTS)
+            t1 = time.perf_counter()
+            m = engine.train_step(batch)  # ends in a host read of the metrics
+            step_s.append(time.perf_counter() - t1)
+            used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
+            check(all(used[k] > 0 for k in wanted) and used["flash_plain"] == 0,
+                  f"{mode} step {len(losses)}: flash launches {used}")
+            check(m["found_inf"] == 0.0, f"{mode}: non-finite step {m}")
+            losses.append(m["loss"])
+            for k in totals:
+                totals[k] += used[k]
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{mode}: loss did not fall on the fixed batch: {losses}")
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        out[mode] = {"losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                     "median_step_ms": steady * 1e3,
+                     "tokens_per_s": TRAIN_GLOBAL * TRAIN_SEQ / steady,
+                     "peak_bytes": peak, "init_s": init_s, "launches": totals,
+                     "per_step": {k: totals[k] // TRAIN_STEPS for k in wanted}}
+        log(f"  train flash_bwd={mode}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
+            f"{steady * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+            f"{step_s[0] * 1e3:.1f}), {TRAIN_GLOBAL * TRAIN_SEQ / steady:.0f} tokens/s, peak "
+            f"{peak / 2**30:.2f} GiB, launches {totals}")
+        del engine
+        torch.cuda.empty_cache()
+    log("train_steps " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the training step on the card against the CPU, float32
+# ---------------------------------------------------------------------------
+
+
+def phase_train_card_vs_cpu(torch, fa):
+    """Per schedule: the loss and every grad on the card against the CPU
+    from the same seeded weights; then the optimizer step held two ways.
+    From the same (CPU) grads, the params after one AdamW step must agree
+    within 1e-5.  After each device's own train step (accumulation, clip,
+    AdamW on the grads the step computed, caught on their way into the
+    optimizer) every param must agree within its first-step sensitivity:
+    Adam's first step moves a param by lr * g / (|g| + eps) for the
+    clipped grad g, which changes by at most |dg| / (min |g| + eps) when
+    g does, so the bound is lr * |dg| / (min(|g_card|, |g_cpu|) + eps),
+    with float32 rounding room of 2**-16 of it plus 2**-20 * (|p| + lr).
+    (Equal and opposite grads far below eps, the rounding noise of a grad
+    that is zero in exact arithmetic such as the key bias's, meet the
+    bound with equality.)  Where a grad is near
+    eps a rounding-level difference in it moves its param by a sizeable
+    part of the learning rate, which this bound allows and 1e-5 did not;
+    where a grad is well above eps it is far tighter than 1e-5."""
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt.bridge import grads_to_jax, params_to_jax
+    from paddlefleetx_tpu_torch.optims.optimizer import apply_updates
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    seq = 512
+    batch = host_batch(np, 1, seq, seed=1)
+    for mode in ("split", "fused"):
+        cfg = get_config(str(REPO / CONFIG), [
+            "Global.global_batch_size=1", "Global.local_batch_size=1",
+            "Global.micro_batch_size=1", "Model.num_layers=2", "Model.dtype=float32",
+            "Engine.mix_precision.enable=False", "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.0", "Model.attn_impl=flash",
+            f"Model.flash_bwd={mode}", "Model.use_recompute=True",
+            "Model.recompute_granularity=selective",
+            'Optimizer.lr={"name": "Constant", "learning_rate": 1.0e-4}'])
+        module = GPTModule(cfg)
+        res, named = {}, {}
+        for dev in ("cpu", "cuda"):
+            engine = Engine(cfg, module, device=dev)
+            before = dict(fa.COUNTS)
+            tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            loss = module.loss_fn(engine.model, tb, train=True)
+            loss.backward()
+            grads = grads_to_jax(engine.model)
+            named[dev] = {n: p.grad.detach().cpu() for n, p in engine.params.items()}
+            step_grads = {}
+            update = engine.tx.update
+
+            def caught(grads, state, params, update=update, step_grads=step_grads):
+                step_grads.update({n: g.detach().cpu().double() for n, g in grads.items()})
+                return update(grads, state, params)
+
+            engine.tx = engine.tx._replace(update=caught)
+            m = engine.train_step(batch)
+            used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
+            # the optimizer alone: one step of a fresh engine from the CPU's grads
+            fresh = Engine(cfg, module, device=dev)
+            updates, _ = fresh.tx.update({n: g.to(dev) for n, g in named["cpu"].items()},
+                                         fresh.opt_state, fresh.params)
+            apply_updates(fresh.params, updates)
+            res[dev] = (loss.item(), grads, params_to_jax(engine.model), m, used,
+                        params_to_jax(fresh.model), step_grads,
+                        {n: p.detach().cpu().double() for n, p in engine.params.items()})
+            del engine, fresh
+        cu, cp = res["cuda"], res["cpu"]
+        key = "flash_bwd_fused" if mode == "fused" else "flash_bwd_dq"
+        check(cu[4]["flash_fwd"] > 0 and cu[4][key] > 0 and cu[4]["flash_plain"] == 0,
+              f"card run did not take the kernels: {cu[4]}")
+        check(cp[4]["flash_plain"] > 0, "cpu run did not take the plain versions")
+        loss_err = abs(cu[0] - cp[0]) / abs(cp[0])
+        check(loss_err <= 1e-5, f"{mode} loss card vs cpu: {loss_err}")
+        grad_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                       for a, b in zip(leaves(cu[1]), leaves(cp[1])))
+        check(grad_err <= 1e-3, f"{mode} grads card vs cpu: {grad_err} of the leaf max")
+        opt_err = max(float(np.abs(a - b).max()) for a, b in zip(leaves(cu[5]), leaves(cp[5])))
+        check(opt_err <= 1e-5, f"{mode} params after one optimizer step from the same grads, "
+                               f"card vs cpu: {opt_err}")
+        check(cu[3]["found_inf"] == cp[3]["found_inf"] == 0.0
+              and abs(cu[3]["grad_norm"] - cp[3]["grad_norm"]) <= 1e-5 * cp[3]["grad_norm"],
+              f"{mode} train step metrics card vs cpu: {cu[3]} vs {cp[3]}")
+        step_err, ratio, where = first_step_sensitivity(cfg, cu, cp)
+        check(ratio <= 1.0, f"{mode} params after each device's own train step: "
+                            f"{ratio} of the first-step bound at {where}")
+        log(f"  train card vs cpu f32, flash_bwd={mode}: loss {cu[0]:.6f} vs {cp[0]:.6f} "
+            f"(rel {loss_err:.2e}), grads {grad_err:.2e} of the leaf max, params after one "
+            f"AdamW step from the same grads {opt_err:.2e}, after each device's own train "
+            f"step {step_err:.2e} max, {ratio:.6f} of the first-step bound at most (at "
+            f"{where}), grad_norm {cu[3]['grad_norm']:.6f} vs {cp[3]['grad_norm']:.6f}")
+
+
+def first_step_sensitivity(cfg, cu, cp):
+    """(max |dp|, max |dp| / bound, where) over every param after one train
+    step from the same params on the card (``cu``) and the CPU (``cp``);
+    the bound is the docstring's of :func:`phase_train_card_vs_cpu`."""
+    import torch
+
+    opt = cfg.Optimizer
+    eps, lr = float(opt.get("epsilon", 1e-8)), float(cp[3]["lr"])
+    clip = (opt.get("grad_clip") or {}).get("clip_norm")
+    scaled = []
+    for res in (cu, cp):
+        g = res[6]
+        norm = float(torch.sqrt(sum(x.square().sum() for x in g.values())))
+        c = min(1.0, clip / max(norm, 1e-16)) if clip else 1.0
+        scaled.append({n: x * c for n, x in g.items()})
+    step_err, ratio, where = 0.0, 0.0, ""
+    for n, p_cp in cp[7].items():
+        g_cu, g_cp = scaled[0][n], scaled[1][n]
+        dp = (cu[7][n] - p_cp).abs()
+        lin = lr * (g_cu - g_cp).abs() / (torch.minimum(g_cu.abs(), g_cp.abs()) + eps)
+        bound = lin * (1 + 2.0**-16) + 2.0**-20 * (torch.maximum(cu[7][n].abs(), p_cp.abs()) + lr)
+        r = dp / bound
+        i = int(r.argmax())
+        step_err = max(step_err, float(dp.max()))
+        if float(r.flatten()[i]) > ratio:
+            ratio = float(r.flatten()[i])
+            where = (f"{n}[{i}]: dp {float(dp.flatten()[i]):.3e}, grads "
+                     f"{float(g_cu.flatten()[i]):.3e} / {float(g_cp.flatten()[i]):.3e}")
+    return step_err, ratio, where
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in leaves(tree[key])]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -752,6 +1150,7 @@ def main():
 
     from paddlefleetx_tpu_torch.ops import _build
     from paddlefleetx_tpu_torch.ops import decode_attention as da
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -777,13 +1176,26 @@ def main():
     log("== phase 8: paged engine, card against cpu, float32, full width")
     phase_paged_card_vs_cpu(torch, bc, "")
     phase_paged_card_vs_cpu(torch, bc, "int8")
+    log("== phase 9: flash attention kernels against their plain versions")
+    flash_rows = phase_flash(torch, F, fa)
+    log("== phase 10: GPT-345M pretraining steps at full width")
+    train = phase_train(torch, fa)
+    log("== phase 11: training step, card against cpu, float32")
+    phase_train_card_vs_cpu(torch, fa)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
-                "paged_decode_q8": cb_q8["paged_decode_q8"]}
+                "paged_decode_q8": cb_q8["paged_decode_q8"],
+                "flash_fwd": train["split"]["launches"]["flash_fwd"],
+                "flash_bwd_dq": train["split"]["launches"]["flash_bwd_dq"],
+                "flash_bwd_dkv": train["split"]["launches"]["flash_bwd_dkv"],
+                "flash_bwd_fused": train["fused"]["launches"]["flash_bwd_fused"]}
     kernels = []
-    for name, row in {**main_rows, **paged_rows}.items():
-        if name.startswith("paged"):
+    for name, row in {**main_rows, **paged_rows, **flash_rows}.items():
+        if name.startswith("flash_") and "s" in row:
+            shape = {"b": row["b"], "n": row["n"], "s": row["s"], "d": row["d"],
+                     "dtype": row["kind"]}
+        elif name.startswith("paged"):
             shape = {"b": row["b"], "n": 16, "t": row["t"], "d": 64, "bs": row["bs"],
                      "positions": row["positions"], "dtype": row["kind"]}
         else:

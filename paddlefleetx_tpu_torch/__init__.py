@@ -7,7 +7,10 @@ This package imports ``torch`` and never ``jax``, nor anything of
 asks for ``cpu``; without a card and without that request they raise.
 
 Layout mirrors the JAX package: ``utils/`` (config, logging, device),
-``models/gpt/`` (config, parameters, cached forward, generation),
-``ops/`` (flash-decode attention and its CUDA kernel, sampling),
-``core/`` (module, serving, request queue) and ``tools/serve.py``.
+``models/`` (dropout and recompute tags; GPT config, parameters, cached
+and training forward, loss, generation), ``ops/`` (decode, paged and
+flash attention with their CUDA kernels, sampling), ``optims/`` (LR
+schedules, optimizers), ``core/`` (module, serving, request queue,
+continuous batching, the train step) and ``tools/`` (serve CLI,
+profilers).
 """

@@ -1,8 +1,8 @@
 """Model module: binds a config to a model family (GPT only so far).
 
-Counterpart of ``paddlefleetx_tpu/core/module.py:19-100``, config and
-initialization only: loss, metrics and export come with the training
-slice of the port.
+Counterpart of ``paddlefleetx_tpu/core/module.py:19-100``: the config,
+initialization (serving and trainable models) and the training loss.
+Metrics and export come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from paddlefleetx_tpu_torch.models.gpt import model as gpt
 from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
 from paddlefleetx_tpu_torch.models.gpt.model import GPTModel, init_params
 from paddlefleetx_tpu_torch.utils.device import resolve_device
@@ -27,7 +28,8 @@ def resolve_model_dtype(cfg, model_cfg: Dict[str, Any]) -> None:
 
 
 class GPTModule:
-    """GPT: the config from the ``Model`` section and a seeded model."""
+    """GPT: the config from the ``Model`` section, seeded serving and
+    trainable models, and the training loss."""
 
     def __init__(self, cfg):
         model_cfg = dict(cfg.Model)
@@ -39,15 +41,31 @@ class GPTModule:
             )
         model_cfg.pop("name", None)
         resolve_model_dtype(cfg, model_cfg)
+        if cfg.get("Distributed", {}).get("sequence_parallel", False):
+            model_cfg["sequence_parallel"] = True
         self.config = GPTConfig.from_config(model_cfg)
 
     def init_model(
-        self, seed: int, device: Optional[Union[str, torch.device]] = None
+        self, seed: int, device: Optional[Union[str, torch.device]] = None,
+        trainable: bool = False,
     ) -> GPTModel:
         """A ``GPTModel`` with ``normal(initializer_range)`` weights drawn on
         the CPU from ``torch.Generator().manual_seed(seed)``, then moved to
         ``device`` (the card unless "cpu" is asked for): the same seed gives
-        the same weights on every device."""
+        the same weights on every device.  ``trainable`` as in
+        :class:`GPTModel`."""
         dev = resolve_device(device)
         gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        return init_params(GPTModel(self.config), gen).to(dev)
+        return init_params(GPTModel(self.config, trainable), gen).to(dev)
+
+    def init_params(
+        self, seed: int, device: Optional[Union[str, torch.device]] = None
+    ) -> GPTModel:
+        """The trainable model: float32 masters that require grad."""
+        return self.init_model(seed, device, trainable=True)
+
+    def loss_fn(self, model: GPTModel, batch: Dict[str, torch.Tensor], *,
+                dropout_seed: Optional[int] = None, train: bool = True) -> torch.Tensor:
+        """The masked-mean token cross-entropy (``models/gpt/model.loss_fn``)."""
+        return gpt.loss_fn(model, batch, self.config, dropout_seed=dropout_seed,
+                           train=train)

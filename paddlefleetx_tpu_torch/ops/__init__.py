@@ -1,2 +1,4 @@
-"""Ops of the PyTorch port: flash-decode attention (CUDA kernel + plain
-version), sampling, and the speculative-decoding config parse."""
+"""Ops of the PyTorch port: flash-decode and paged attention, causal
+flash attention for training (CUDA kernels + plain versions), the
+attention dispatch, sampling, and the speculative-decoding config
+parse."""

@@ -3,10 +3,12 @@
 Copy of the user-facing part of ``paddlefleetx_tpu/utils/config.py``
 (``AttrDict``, ``parse_config`` with ``_base_`` includes and
 ``_inherited_: False``, the ``-o key.sub=value`` override grammar), so the
-repo's YAML configs load unchanged.  ``process_configs`` keeps only what
-the serving path reads: the seed, the mixed-precision section that picks
-the model dtype, and a check that the config asks for one device — the
-port has no multi-device layout yet.
+repo's YAML configs load unchanged.  ``process_configs`` keeps what the
+port reads: the seed, the mixed-precision section that picks the model
+dtype, the one-device batch arithmetic of the JAX
+``process_global_configs`` (``accumulate_steps = local_batch_size //
+micro_batch_size``), and a check that the config asks for one device —
+the port has no multi-device layout yet.
 """
 
 from __future__ import annotations
@@ -120,11 +122,39 @@ def override_config(cfg: AttrDict, overrides: Optional[List[str]]) -> AttrDict:
     return cfg
 
 
+def process_global_batches(cfg: AttrDict) -> None:
+    """The batch arithmetic of ``paddlefleetx_tpu/utils/config.py:193-231``
+    on one device (data-parallel world 1): local = global, micro defaults
+    to local, ``Engine.accumulate_steps = local // micro``.  A config with
+    neither a global nor a local batch size (a serving config) is left as
+    it is; the train step refuses it."""
+    g = cfg.Global
+    gbs, lbs, mbs = (g.get(k) for k in
+                     ("global_batch_size", "local_batch_size", "micro_batch_size"))
+    if gbs is None and lbs is None:
+        return
+    if lbs is None:
+        lbs = gbs
+    if gbs is None:
+        gbs = lbs
+    if gbs != lbs:
+        raise ValueError(f"global {gbs} != local {lbs} * dp_world 1")
+    if mbs is None:
+        mbs = lbs
+    if lbs % mbs != 0:
+        raise ValueError(f"local_batch_size {lbs} not divisible by micro {mbs}")
+    g.global_batch_size, g.local_batch_size, g.micro_batch_size = int(gbs), int(lbs), int(mbs)
+    ebs = g.get("eval_batch_size")
+    if ebs is not None and int(ebs) <= 0:
+        raise ValueError(f"eval_batch_size {ebs} must be a positive multiple of dp world 1")
+    cfg.Engine.accumulate_steps = g.local_batch_size // g.micro_batch_size
+
+
 def process_configs(cfg: AttrDict) -> AttrDict:
-    """Fill the defaults serving reads and reject multi-device layouts.
+    """Fill the defaults the port reads and reject multi-device layouts.
 
     Any parallel degree above 1 (model, pipeline, sharding, sequence, or
-    an explicit data-parallel degree) raises: the port serves on one card
+    an explicit data-parallel degree) raises: the port runs on one card
     and its parallel layouts come in a later slice."""
     dist = cfg.setdefault("Distributed", AttrDict())
     degrees = {
@@ -146,6 +176,7 @@ def process_configs(cfg: AttrDict) -> AttrDict:
     mix = eng.setdefault("mix_precision", AttrDict())
     mix.setdefault("enable", True)
     mix.setdefault("dtype", "bfloat16")
+    process_global_batches(cfg)
     return cfg
 
 

@@ -18,7 +18,13 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "paddlefleetx_tpu.")))
 bad += [m for m in sys.modules if m == "paddlefleetx_tpu"]
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# the training slice's modules, each imported above without JAX
+TRAINING = ("paddlefleetx_tpu_torch.core.engine", "paddlefleetx_tpu_torch.models.common",
+            "paddlefleetx_tpu_torch.ops.attention", "paddlefleetx_tpu_torch.ops.flash_attention",
+            "paddlefleetx_tpu_torch.optims.lr_scheduler", "paddlefleetx_tpu_torch.optims.optimizer")
 
 
 def _run(args, **kw):
@@ -30,9 +36,11 @@ def _run(args, **kw):
 def test_port_imports_no_jax():
     out = _run(["-c", _IMPORT_ALL])
     assert out.returncode == 0, out.stderr[-2000:]
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 18, out.stdout
+    first, listed = out.stdout.strip().split("\n")
+    count, bad = first.split(" ", 1)
+    assert int(count) >= 25, out.stdout
     assert bad == "[]", out.stdout
+    assert set(TRAINING) <= set(listed.split()), listed
 
 
 def test_serve_without_card_raises():

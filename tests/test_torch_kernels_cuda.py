@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the flash-decode and paged-decode CUDA
-kernels against their plain PyTorch versions on the same CUDA inputs,
-and the serving paths on the card against the CPU.
+"""PyTorch port on the card: the flash-decode, paged-decode and flash
+attention (K3-K6) CUDA kernels against their plain PyTorch versions on
+the same CUDA inputs, and the serving and training paths on the card
+against the CPU.
 
 Marked ``cuda``; each test skips itself when there is no card.  Imports
 no JAX, so it runs on a GPU machine without it:
@@ -9,6 +10,8 @@ Tolerances: float32 1e-4 (summation order and the four-warp merge differ
 from the plain loop), bfloat16 2e-2 absolute in float32 (probabilities
 are rounded to bf16 before p @ v on both sides, at different points of
 the sum), int8 1e-4 (the same dequantization math as the plain version).
+The flash kernels have their own limits (``FLASH_TOL``, ``BF16_ROW_TOL``,
+``BF16_DIFFER_TOL``, the values of ``chip_smoke.py`` phase 9).
 """
 
 import numpy as np
@@ -265,3 +268,206 @@ def test_paged_engine_on_card_matches_cpu(kv_dtype):
             key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
             assert used[key] > 0 and used["paged_plain"] == 0, used
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K3 (forward), K4 + K5 (split backward), K6 (fused)
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain, the plain version at the kernels' own 64 x 64 tile, a
+# partial last tile included (fa.KERNEL_TILE).  float32 (fwd, grads): max
+# |err|, and max |err| over the leaf's max.  bfloat16, per kernel: the
+# largest error of a row over that row's largest value, and the share of
+# elements that differ at all; a few times the readings PERF.md records.
+FLASH_TOL = {torch.float32: (1e-4, 2e-4)}
+BF16_ROW_TOL = {"fwd": 2.0**-6, "split": 2.0**-6, "fused": 2.0**-6}
+BF16_DIFFER_TOL = {"fwd": 5e-4, "split": 1.5e-3, "fused": 1.5e-3}
+
+
+def _flash_case(dtype, d, s, dev, bh=6, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, s, d, generator=g).to(dev, dtype) for _ in range(4))
+    return q, k, v, do
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() / max(1.0, ref.float().abs().max())).item()
+
+
+def _row_err(got, ref):
+    diff = (got.float() - ref.float()).abs()
+    return (diff.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _differ(got, ref):
+    return (got.float() != ref.float()).float().mean().item()
+
+
+def _hold(kernel, got, ref, record):
+    """The flash limits above for one output; records the readings."""
+    dtype = got.dtype
+    readings = {"abs": (got.float() - ref.float()).abs().max().item(),
+                "of_max": _rel_err(got, ref), "row": _row_err(got, ref),
+                "differ": _differ(got, ref)}
+    record(readings)
+    if dtype == torch.float32:
+        key = "abs" if kernel == "fwd" else "of_max"
+        assert readings[key] <= FLASH_TOL[dtype][kernel != "fwd"], (kernel, readings)
+    else:
+        assert readings["row"] <= BF16_ROW_TOL[kernel], (kernel, readings)
+        assert readings["differ"] <= BF16_DIFFER_TOL[kernel], (kernel, readings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [40, 200, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(dtype, d, s, record_property):
+    """K3's out and lse, then K4+K5 and K6's dq/dk/dv from the same lse,
+    against the plain versions at the kernels' own tile, so both round
+    alike.  K6 adds dq with atomics in a varying order: a tolerance, not
+    bitwise.  The readings go to the junit XML (``record_property``)."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(dtype, d, s, dev)
+    scale, block = 1.0 / d**0.5, (fa.KERNEL_TILE, fa.KERNEL_TILE)
+    before = dict(fa.COUNTS)
+    out, lse = fa.launch_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, block)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _hold("fwd", out, ref_out, lambda r: record_property("fwd_out", r))
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    delta = (do.float() * ref_out.float()).sum(-1)
+    for mode, launch, plain in (("split", fa.launch_bwd_split, fa.flash_bwd_split),
+                                ("fused", fa.launch_bwd_fused, fa.flash_bwd_fused)):
+        got = launch(q, k, v, do, ref_lse, delta, scale)
+        torch.cuda.synchronize()
+        ref = plain(q, k, v, do, ref_lse, delta, scale, block)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            assert a.dtype == dtype and torch.isfinite(a).all(), (mode, name)
+            _hold(mode, a, b, lambda r: record_property(f"{mode}_{name}", r))
+    used = {key: fa.COUNTS[key] - before[key] for key in fa.COUNTS}
+    assert used == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                    "flash_bwd_fused": 1, "flash_plain": 0}, used
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flash_bwd", ["split", "fused"])
+def test_flash_dispatch_takes_the_kernels_at_any_seq(flash_bwd, monkeypatch):
+    """seq 300 is off the block ladder: on the CPU ``attention(impl=
+    "flash")`` warns and takes the plain path, on the card it launches
+    K3 and K4 + K5 or K6 and never the plain path; out and grads agree
+    at float32."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.ops import attention as attn
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.standard_normal((2, 300, 2, 64)).astype(np.float32) for _ in range(4))
+    assert not fa.flash_supported(300)
+    res = {}
+    for device in ("cpu", "cuda"):
+        xs = [torch.tensor(x, device=device, requires_grad=True) for x in (q, k, v)]
+        before = dict(fa.COUNTS)
+        if device == "cpu":
+            with pytest.warns(UserWarning, match="flash attention unsupported"):
+                out = attn.attention(*xs, impl="flash", flash_bwd=flash_bwd)
+        else:
+            def refuse(*args, **kwargs):
+                raise AssertionError("the plain attention path ran on the card")
+
+            monkeypatch.setattr(attn, "xla_attention", refuse)
+            out = attn.attention(*xs, impl="flash", flash_bwd=flash_bwd)
+        out.backward(torch.tensor(do, device=device))
+        torch.cuda.synchronize()
+        used = {key: fa.COUNTS[key] - before[key] for key in fa.COUNTS}
+        res[device] = [t.detach().cpu() for t in (out, *(x.grad for x in xs))]
+        if device == "cuda":
+            bwd = ({"flash_bwd_fused": 1} if flash_bwd == "fused"
+                   else {"flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+            assert used == dict(dict.fromkeys(fa.COUNTS, 0), flash_fwd=1, **bwd), used
+        else:
+            assert all(n == 0 for n in used.values()), used
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _rel_err(a, b) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_causal():
+    """Changing the last key and value leaves every earlier row's output."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(torch.float32, 64, 200, dev)
+    out1, _ = fa.launch_fwd(q, k, v, 0.125)
+    k[:, -1], v[:, -1] = 99.0, 99.0
+    out2, _ = fa.launch_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out1[:, :-1], out2[:, :-1])
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(torch.bfloat16, 64, 128, dev)
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                      v[..., :32].contiguous(), 0.1)  # head dim 32
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q.half(), k.half(), v.half(), 0.1)  # float16
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q, k.float(), v, 0.1)  # mixed types
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 0.1)  # strides
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q, k.cpu(), v, 0.1)  # device mismatch
+    with pytest.raises(ValueError):
+        fa.launch_fwd(q[None], k[None], v[None], 0.1)  # not [bh, s, d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flash_bwd", ["split", "fused"])
+def test_train_step_on_card_matches_cpu(flash_bwd):
+    """A small GPT (head dim 64, selective recompute) at float32: the loss
+    and every grad on the card (K3-K6) against the CPU (plain versions)."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.models.gpt import model as gpt
+    from paddlefleetx_tpu_torch.models.gpt.bridge import grads_to_jax, params_to_jax
+    from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPTConfig(vocab_size=96, hidden_size=128, num_layers=2, num_attention_heads=2,
+                    max_position_embeddings=128, dtype="float32", attn_impl="flash",
+                    flash_bwd=flash_bwd, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0, use_recompute=True,
+                    recompute_granularity="selective")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 96, (2, 96)), "labels": rng.integers(0, 96, (2, 96)),
+             "loss_mask": np.ones((2, 96), np.float32)}
+    res = {}
+    for device in ("cpu", "cuda"):
+        model = gpt.init_params(gpt.GPTModel(cfg, trainable=True),
+                                torch.Generator().manual_seed(3)).to(device)
+        before = dict(fa.COUNTS)
+        loss = gpt.loss_fn(model, {k_: torch.as_tensor(x).to(device) for k_, x in batch.items()},
+                           cfg)
+        loss.backward()
+        res[device] = (loss.item(), grads_to_jax(model), params_to_jax(model))
+        used = {key: fa.COUNTS[key] - before[key] for key in fa.COUNTS}
+        if device == "cuda":
+            kernel = "flash_bwd_fused" if flash_bwd == "fused" else "flash_bwd_dq"
+            assert used["flash_fwd"] == 2 and used[kernel] == 2 and used["flash_plain"] == 0
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for (a, b) in zip(_leaves(res["cuda"][1]), _leaves(res["cpu"][1])):
+        assert np.abs(a - b).max() <= 1e-3 * max(np.abs(b).max(), 1e-12)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    return [tree]
