@@ -71,7 +71,29 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      schedules: loss within 1e-5 relative, every grad within 1e-3 of its
      leaf's largest value, params after one AdamW step from the same
      grads within 1e-5, and params after each device's own train step
-     within Adam's first-step sensitivity to the grads' difference.
+     within Adam's first-step sensitivity to the grads' difference;
+  12. the fused LayerNorm kernels (K1 forward, K2 backward) against their
+     plain versions on the card: the training path's 8192 x 1024 rows in
+     bf16 and f32, with and without a residual, and 8191 x 1000 (no
+     multiple of anything); with CUDA-event times of the kernel, the plain
+     version and torch.nn.functional.layer_norm (forward for K1, its
+     autograd backward for K2), and the bound;
+  13. the train CLI at full width: ``python -m
+     paddlefleetx_tpu_torch.tools.train -c
+     configs/gpt/pretrain_gpt_345M_single.yaml`` on a synthetic corpus
+     (vocab 50304) written under a temporary directory: seq 1024, global
+     batch 16 in micro-batches of 8, bf16, flash attention with the fused
+     backward, selective recompute, use_fused_ln, AdamW at a constant
+     1e-4; 12 steps with a record per step, eval every 6 and a checkpoint
+     every 6.  Every step launches K1, K2, K3 and K6 (the counts the
+     records carry) and no plain version; the loss is finite and falls;
+     the records carry tokens/s, mfu and peak memory.  Then a second
+     launch resumes from step_6 through auto_resume: steps 7-12 read the
+     same batches (consumed_samples and token digests) and their losses
+     agree within ``RESUME_LOSS_TOL`` (K6's atomics make the card's sums
+     vary from run to run); the checkpoints are deleted;
+  14. phase 11 once more with use_fused_ln (K1/K2 on the card against
+     their plain versions on the CPU).
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -100,6 +122,8 @@ SOURCES = {
     "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_fused": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "fused_ln_fwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
+    "fused_ln_bwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
 }
 REPLACES = {
     "flash_decode": "paddlefleetx_tpu/ops/decode_attention.py:256",
@@ -110,6 +134,8 @@ REPLACES = {
     "flash_bwd_dq": "paddlefleetx_tpu/ops/flash_attention.py:215",
     "flash_bwd_dkv": "paddlefleetx_tpu/ops/flash_attention.py:249",
     "flash_bwd_fused": "paddlefleetx_tpu/ops/flash_attention.py:305",
+    "fused_ln_fwd": "paddlefleetx_tpu/ops/fused_layernorm.py:45",
+    "fused_ln_bwd": "paddlefleetx_tpu/ops/fused_layernorm.py:61",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 # kernel vs plain, the plain version at the kernels' 64 x 64 tile, a partial
@@ -138,6 +164,18 @@ D_LENS = [12, 20, 28, 36, 44, 52, 60, 64]
 KV_BLOCK = 16
 PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
 N_LAYERS = 24
+# phase 12: K1/K2 against their plain versions.  float32: summation order
+# only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
+# plain version's; dscale/dbias (float32 sums over the rows) 1e-4 of the
+# largest.  (abs, rel) for y and dx.
+LN_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2.0**-7)}
+LN_SUM_TOL = 1e-4
+# phase 13: the train CLI
+CLI_STEPS, CLI_EVAL_FREQ, CLI_EVAL_ITERS, CLI_SAVE = 12, 6, 2, 6
+# losses of steps 7-12, resumed run against the first, relative: K6 adds
+# dq with atomics, so the card's sums differ from run to run.  15-20x
+# the largest differences read (4.6e-6 and 6.7e-6, PERF.md)
+RESUME_LOSS_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1008,8 +1046,9 @@ def phase_train(torch, fa):
 # ---------------------------------------------------------------------------
 
 
-def phase_train_card_vs_cpu(torch, fa):
-    """Per schedule: the loss and every grad on the card against the CPU
+def phase_train_card_vs_cpu(torch, fa, fused_ln=False):
+    """Per schedule (and with ``fused_ln``, through K1/K2 on the card and
+    their plain versions on the CPU): the loss and every grad on the card against the CPU
     from the same seeded weights; then the optimizer step held two ways.
     From the same (CPU) grads, the params after one AdamW step must agree
     within 1e-5.  After each device's own train step (accumulation, clip,
@@ -1030,6 +1069,7 @@ def phase_train_card_vs_cpu(torch, fa):
     from paddlefleetx_tpu_torch.core.engine import Engine
     from paddlefleetx_tpu_torch.core.module import GPTModule
     from paddlefleetx_tpu_torch.models.gpt.bridge import grads_to_jax, params_to_jax
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
     from paddlefleetx_tpu_torch.optims.optimizer import apply_updates
     from paddlefleetx_tpu_torch.utils.config import get_config
 
@@ -1042,13 +1082,13 @@ def phase_train_card_vs_cpu(torch, fa):
             "Engine.mix_precision.enable=False", "Model.hidden_dropout_prob=0.0",
             "Model.attention_probs_dropout_prob=0.0", "Model.attn_impl=flash",
             f"Model.flash_bwd={mode}", "Model.use_recompute=True",
-            "Model.recompute_granularity=selective",
+            "Model.recompute_granularity=selective", f"Model.use_fused_ln={fused_ln}",
             'Optimizer.lr={"name": "Constant", "learning_rate": 1.0e-4}'])
         module = GPTModule(cfg)
         res, named = {}, {}
         for dev in ("cpu", "cuda"):
             engine = Engine(cfg, module, device=dev)
-            before = dict(fa.COUNTS)
+            before = {**fa.COUNTS, **fl.COUNTS}
             tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
             loss = module.loss_fn(engine.model, tb, train=True)
             loss.backward()
@@ -1063,7 +1103,7 @@ def phase_train_card_vs_cpu(torch, fa):
 
             engine.tx = engine.tx._replace(update=caught)
             m = engine.train_step(batch)
-            used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
+            used = {k: v - before[k] for k, v in {**fa.COUNTS, **fl.COUNTS}.items()}
             # the optimizer alone: one step of a fresh engine from the CPU's grads
             fresh = Engine(cfg, module, device=dev)
             updates, _ = fresh.tx.update({n: g.to(dev) for n, g in named["cpu"].items()},
@@ -1078,6 +1118,14 @@ def phase_train_card_vs_cpu(torch, fa):
         check(cu[4]["flash_fwd"] > 0 and cu[4][key] > 0 and cu[4]["flash_plain"] == 0,
               f"card run did not take the kernels: {cu[4]}")
         check(cp[4]["flash_plain"] > 0, "cpu run did not take the plain versions")
+        ln = ("fused_ln_fwd", "fused_ln_bwd")
+        if fused_ln:
+            check(all(cu[4][k] > 0 and cu[4][k + "_plain"] == 0 and cp[4][k + "_plain"] > 0
+                      and cp[4][k] == 0 for k in ln),
+                  f"fused LayerNorm: card {cu[4]}, cpu {cp[4]}")
+        else:
+            check(all(cu[4][k] == 0 and cp[4][k + "_plain"] == 0 for k in ln),
+                  f"fused LayerNorm ran with use_fused_ln off: {cu[4]}, {cp[4]}")
         loss_err = abs(cu[0] - cp[0]) / abs(cp[0])
         check(loss_err <= 1e-5, f"{mode} loss card vs cpu: {loss_err}")
         grad_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
@@ -1092,7 +1140,7 @@ def phase_train_card_vs_cpu(torch, fa):
         step_err, ratio, where = first_step_sensitivity(cfg, cu, cp)
         check(ratio <= 1.0, f"{mode} params after each device's own train step: "
                             f"{ratio} of the first-step bound at {where}")
-        log(f"  train card vs cpu f32, flash_bwd={mode}: loss {cu[0]:.6f} vs {cp[0]:.6f} "
+        log(f"  train card vs cpu f32, flash_bwd={mode}, use_fused_ln={fused_ln}: loss {cu[0]:.6f} vs {cp[0]:.6f} "
             f"(rel {loss_err:.2e}), grads {grad_err:.2e} of the leaf max, params after one "
             f"AdamW step from the same grads {opt_err:.2e}, after each device's own train "
             f"step {step_err:.2e} max, {ratio:.6f} of the first-step bound at most (at "
@@ -1137,6 +1185,245 @@ def leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: fused LayerNorm kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def ln_bound(name, kind, rows, n, residual):
+    """Least time for the work: every input read once and every output
+    written once (K1: x, the residual, scale, bias in; y, mean, rstd out;
+    K2: x, the residual, g, scale, mean, rstd in; dx, dscale, dbias out;
+    the band partials are scratch), against ~8 (K1) or ~12 (K2) float32
+    operations per element on the CUDA cores."""
+    elt = 4 if kind == "float32" else 2
+    one = rows * n * elt
+    vec, stats = n * 4, rows * 4
+    if name == "fused_ln_fwd":
+        nbytes = (3 if residual else 2) * one + 2 * vec + 2 * stats
+        ops = 8 * rows * n
+    else:
+        nbytes = (4 if residual else 3) * one + 3 * vec + 2 * stats
+        ops = 12 * rows * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ln_case(torch, F, fl, kind, rows, n, residual, iters=20, seed=0):
+    """K1 and K2 on [rows, n] inputs against their plain versions (K2 on
+    the plain forward's mean and rstd), with times and bounds.  Library:
+    F.layer_norm with the affine in x's type (over x + res when there is a
+    residual), forward for K1 and its autograd backward for K2."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    x = torch.randn(rows, n, generator=g, device="cuda").to(dt)
+    res = torch.randn(rows, n, generator=g, device="cuda").to(dt) if residual else None
+    scale = torch.randn(n, generator=g, device="cuda")
+    bias = torch.randn(n, generator=g, device="cuda")
+    gy = torch.randn(rows, n, generator=g, device="cuda").to(dt)
+    y, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    ref_y, ref_mean, ref_rstd = fl.layer_norm_fwd_plain(x, res, scale, bias, 1e-5)
+    dx, dscale, dbias = fl.launch_bwd(x, res, scale, ref_mean, ref_rstd, gy)
+    torch.cuda.synchronize()
+    ref_dx, ref_ds, ref_db = fl.layer_norm_bwd_plain(x, res, scale, ref_mean, ref_rstd, gy)
+    atol, rtol = LN_TOL[kind]
+    errs = {}
+    for what, got, ref in (("y", y, ref_y), ("dx", dx, ref_dx)):
+        diff = (got.float() - ref.float()).abs()
+        errs[what] = diff.max().item()
+        excess = (diff - (atol + rtol * ref.float().abs())).max().item()
+        check(bool(torch.isfinite(got).all()) and excess <= 0,
+              f"fused LayerNorm {kind} {rows}x{n} res={residual}: {what} max |err| "
+              f"{errs[what]} over the tolerance ({atol} + {rtol} |ref|)")
+    stat_err = max((mean - ref_mean).abs().max().item(),
+                   ((rstd - ref_rstd).abs() / ref_rstd).max().item())
+    check(stat_err <= 1e-5, f"fused LayerNorm {kind} {rows}x{n}: mean/rstd err {stat_err}")
+    for what, got, ref in (("dscale", dscale, ref_ds), ("dbias", dbias, ref_db)):
+        errs[what] = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1.0)
+        check(errs[what] <= LN_SUM_TOL, f"fused LayerNorm {kind} {rows}x{n}: {what} err "
+                                        f"{errs[what]} of the largest > {LN_SUM_TOL}")
+    ms = {"fused_ln_fwd": event_ms(torch, lambda: fl.launch_fwd(x, res, scale, bias, 1e-5),
+                                   iters),
+          "fused_ln_bwd": event_ms(torch, lambda: fl.launch_bwd(x, res, scale, ref_mean,
+                                                                ref_rstd, gy), iters)}
+    plain_ms = {"fused_ln_fwd": event_ms(torch, lambda: fl.layer_norm_fwd_plain(
+                    x, res, scale, bias, 1e-5), iters),
+                "fused_ln_bwd": event_ms(torch, lambda: fl.layer_norm_bwd_plain(
+                    x, res, scale, ref_mean, ref_rstd, gy), iters)}
+    w, b = scale.to(dt), bias.to(dt)
+    lib_fwd = event_ms(torch, lambda: F.layer_norm(x if res is None else x + res, (n,), w, b,
+                                                   1e-5), iters)
+    xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+    lib_out = F.layer_norm(xg if res is None else xg + res, (n,), wg, bg, 1e-5)
+    lib_err = (lib_out.detach().float() - ref_y.float()).abs().max().item()
+    check(lib_err <= 0.1, f"F.layer_norm disagrees with the plain forward: {lib_err}")
+    lib_bwd = flash_event_ms(torch, lambda: torch.autograd.grad(lib_out, (xg, wg, bg), gy,
+                                                                retain_graph=True), iters)
+    rows_out = {}
+    for name in ("fused_ln_fwd", "fused_ln_bwd"):
+        bound_ms, bound_by = ln_bound(name, kind, rows, n, residual)
+        rows_out[name] = {
+            "kind": kind, "rows": rows, "n": n, "residual": residual,
+            "max_abs_err": errs["y" if name == "fused_ln_fwd" else "dx"],
+            "sum_err": max(errs["dscale"], errs["dbias"]) if name == "fused_ln_bwd" else None,
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "library_ms": lib_fwd if name == "fused_ln_fwd" else lib_bwd,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows_out
+
+
+def phase_layernorm(torch, F, fl):
+    """The training path's shape first (its rows go to the kernels line),
+    then the others."""
+    cases = [("bfloat16", 8192, 1024, False), ("bfloat16", 8192, 1024, True),
+             ("float32", 8192, 1024, False), ("float32", 8192, 1024, True),
+             ("bfloat16", 8191, 1000, False), ("float32", 8191, 1000, True)]
+    main, table = None, []
+    for kind, rows, n, residual in cases:
+        out = ln_case(torch, F, fl, kind, rows, n, residual)
+        main = main or out
+        for name, row in out.items():
+            table.append(dict(row, name=name))
+            log(f"  {name:12s} {kind:8s} {rows}x{n} res={residual!s:5s}: err "
+                f"{row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms plain "
+                f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    log("layernorm_cases " + json.dumps({"cases": table}))
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the train CLI at full width, and its resume
+# ---------------------------------------------------------------------------
+
+
+def train_cli(env, data_dir, out_dir, extra=()):
+    """One run of the train CLI; returns its metrics records.  Its output
+    is drained by a thread and kept for the failure message."""
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.train", "-c", CONFIG]
+    for o in (f"Global.global_batch_size={TRAIN_GLOBAL}",
+              f"Global.local_batch_size={TRAIN_GLOBAL}", f"Global.micro_batch_size={TRAIN_MICRO}",
+              "Model.attn_impl=flash", "Model.flash_bwd=fused", "Model.use_recompute=True",
+              "Model.recompute_granularity=selective", "Model.use_fused_ln=True",
+              'Optimizer.lr={"name": "Constant", "learning_rate": 1.0e-4}',
+              f"Data.Train.dataset.input_dir={data_dir}", f"Data.Eval.dataset.input_dir={data_dir}",
+              f"Engine.max_steps={CLI_STEPS}", "Engine.logging_freq=1",
+              f"Engine.eval_freq={CLI_EVAL_FREQ}", f"Engine.eval_iters={CLI_EVAL_ITERS}",
+              f"Engine.save_load.save_steps={CLI_SAVE}", f"Engine.save_load.output_dir={out_dir}",
+              f"Engine.metrics_file={out_dir}/metrics.jsonl", *extra):
+        cmd += ["-o", o]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    reader.join(timeout=30)
+    out = "".join(lines)
+    check(rc == 0, f"train CLI exit {rc}: {out[-4000:]}")
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return records, time.time() - t0, out
+
+
+def cli_launches_ok(rec, evals_before):
+    """Each step's window: K1 194, K2 98, K3 48 and K6 48 (24 layers, two
+    micro-batches, selective recompute re-running each layer's two K1),
+    plus the forwards of an eval that ran just before it (49 K1 and 24 K3
+    per eval batch); no plain version."""
+    k = rec["kernels"]
+    want = {"fused_ln_fwd": 2 * (4 * N_LAYERS + 1) + evals_before * (2 * N_LAYERS + 1),
+            "fused_ln_bwd": 2 * (2 * N_LAYERS + 1),
+            "flash_fwd": 2 * N_LAYERS + evals_before * N_LAYERS,
+            "flash_bwd_fused": 2 * N_LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_plain": 0, "fused_ln_fwd_plain": 0, "fused_ln_bwd_plain": 0}
+    return k == want, want
+
+
+def phase_train_cli(env):
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.data.gpt_dataset import write_synthetic_corpus
+
+    tmp = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        t0 = time.time()
+        write_synthetic_corpus(os.path.join(data_dir, "corpus"), vocab_size=50304,
+                               num_docs=2000, mean_len=600, seed=0)
+        log(f"  corpus written in {time.time() - t0:.1f}s")
+        first, wall, out = train_cli(env, data_dir, out_dir)
+        check([r["step"] for r in first] == list(range(1, CLI_STEPS + 1)),
+              f"train CLI records: {[r.get('step') for r in first]}")
+        for r in first:
+            evals = CLI_EVAL_ITERS if r["step"] > 1 and (r["step"] - 1) % CLI_EVAL_FREQ == 0 else 0
+            ok, want = cli_launches_ok(r, evals)
+            check(ok, f"step {r['step']} launches {r['kernels']}, expected {want}")
+            check(r["consumed_samples"] == TRAIN_GLOBAL * r["step"], f"record {r}")
+            check(all(k in r for k in ("tokens_per_sec", "mfu", "mem")), f"record keys {r}")
+        losses = [r["loss"] for r in first]
+        check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+              f"train CLI loss did not fall: {losses}")
+        check("eval loss" in out, "no eval in the train CLI run")
+        for step in (CLI_SAVE, CLI_STEPS):
+            meta_path = os.path.join(out_dir, f"step_{step}", "meta.json")
+            with open(meta_path) as f:
+                meta = json.load(f)
+            check(meta["step"] == step and meta["consumed_samples"] == TRAIN_GLOBAL * step,
+                  f"{meta_path}: {meta}")
+        steady = first[1:]
+        tps = sorted(r["tokens_per_sec"] for r in steady)[len(steady) // 2]
+        step_s = sorted(r["step_s"] for r in steady)[len(steady) // 2]
+        mfu = sorted(r["mfu"] for r in steady)[len(steady) // 2]
+        peak = max(r["mem"]["device_peak_bytes"] for r in first)
+        launches = {k: sum(r["kernels"][k] for r in first)
+                    for k in ("fused_ln_fwd", "fused_ln_bwd", "flash_fwd", "flash_bwd_fused")}
+        log(f"  train CLI: {CLI_STEPS} steps in {wall:.1f}s wall (first step "
+            f"{first[0]['compile_s']:.1f}s), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"median step {step_s * 1e3:.1f} ms, {tps:.0f} tokens/s, mfu {mfu:.4f}, peak "
+            f"{peak / 2**30:.2f} GiB, launches {launches}")
+        # resume: step_12 out of the way, auto_resume picks step_6
+        shutil.rmtree(os.path.join(out_dir, f"step_{CLI_STEPS}"))
+        os.rename(os.path.join(out_dir, "metrics.jsonl"), os.path.join(tmp, "first.jsonl"))
+        second, wall2, out2 = train_cli(env, data_dir, out_dir,
+                                        ["Engine.save_load.auto_resume=True"])
+        check(f"loaded checkpoint: {os.path.join(out_dir, f'step_{CLI_SAVE}')}" in out2,
+              f"resume did not load step_{CLI_SAVE}: {out2[-3000:]}")
+        check([r["step"] for r in second] == list(range(CLI_SAVE + 1, CLI_STEPS + 1)),
+              f"resumed records: {[r.get('step') for r in second]}")
+        diffs = []
+        for a, b in zip(first[CLI_SAVE:], second):
+            check(a["consumed_samples"] == b["consumed_samples"]
+                  and a["tokens_digest"] == b["tokens_digest"],
+                  f"step {b['step']}: resumed batch differs: {a} vs {b}")
+            ok, want = cli_launches_ok(b, 0)
+            check(ok, f"resumed step {b['step']} launches {b['kernels']}, expected {want}")
+            diffs.append(abs(a["loss"] - b["loss"]) / abs(a["loss"]))
+        check(max(diffs) <= RESUME_LOSS_TOL,
+              f"resumed losses differ by {diffs} (relative) > {RESUME_LOSS_TOL}")
+        log(f"  train CLI resume from step_{CLI_SAVE}: {len(second)} steps in {wall2:.1f}s "
+            f"wall, same batches, losses within {max(diffs):.2e} relative "
+            f"({[f'{d:.1e}' for d in diffs]})")
+        log("train_cli " + json.dumps({
+            "first": first, "resumed": second, "wall_s": wall, "resume_wall_s": wall2,
+            "median_tokens_per_sec": tps, "median_step_s": step_s, "median_mfu": mfu,
+            "peak_bytes": peak, "resume_loss_rel_diff": diffs}))
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1151,6 +1438,7 @@ def main():
     from paddlefleetx_tpu_torch.ops import _build
     from paddlefleetx_tpu_torch.ops import decode_attention as da
     from paddlefleetx_tpu_torch.ops import flash_attention as fa
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1182,6 +1470,12 @@ def main():
     train = phase_train(torch, fa)
     log("== phase 11: training step, card against cpu, float32")
     phase_train_card_vs_cpu(torch, fa)
+    log("== phase 12: fused LayerNorm kernels against their plain versions")
+    ln_rows = phase_layernorm(torch, F, fl)
+    log("== phase 13: the train CLI, GPT-345M at full width, and its resume")
+    cli = phase_train_cli(env)
+    log("== phase 14: training step, card against cpu, float32, use_fused_ln")
+    phase_train_card_vs_cpu(torch, fa, fused_ln=True)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
@@ -1189,10 +1483,14 @@ def main():
                 "flash_fwd": train["split"]["launches"]["flash_fwd"],
                 "flash_bwd_dq": train["split"]["launches"]["flash_bwd_dq"],
                 "flash_bwd_dkv": train["split"]["launches"]["flash_bwd_dkv"],
-                "flash_bwd_fused": train["fused"]["launches"]["flash_bwd_fused"]}
+                "flash_bwd_fused": train["fused"]["launches"]["flash_bwd_fused"],
+                "fused_ln_fwd": cli["fused_ln_fwd"], "fused_ln_bwd": cli["fused_ln_bwd"]}
     kernels = []
-    for name, row in {**main_rows, **paged_rows, **flash_rows}.items():
-        if name.startswith("flash_") and "s" in row:
+    for name, row in {**main_rows, **paged_rows, **flash_rows, **ln_rows}.items():
+        if name.startswith("fused_ln"):
+            shape = {"rows": row["rows"], "n": row["n"], "dtype": row["kind"],
+                     "residual": row["residual"]}
+        elif name.startswith("flash_") and "s" in row:
             shape = {"b": row["b"], "n": row["n"], "s": row["s"], "d": row["d"],
                      "dtype": row["kind"]}
         elif name.startswith("paged"):

@@ -6,11 +6,13 @@ This package imports ``torch`` and never ``jax``, nor anything of
 ``paddlefleetx_tpu``.  Its entry points run on ``cuda`` unless the caller
 asks for ``cpu``; without a card and without that request they raise.
 
-Layout mirrors the JAX package: ``utils/`` (config, logging, device),
+Layout mirrors the JAX package: ``utils/`` (config, logging, device,
+registry, checkpoints, resilience, telemetry), ``data/`` (GPT token
+datasets, index maps and their C++ helpers, sampler and loaders),
 ``models/`` (dropout and recompute tags; GPT config, parameters, cached
 and training forward, loss, generation), ``ops/`` (decode, paged and
-flash attention with their CUDA kernels, sampling), ``optims/`` (LR
-schedules, optimizers), ``core/`` (module, serving, request queue,
-continuous batching, the train step) and ``tools/`` (serve CLI,
-profilers).
+flash attention and the fused LayerNorm with their CUDA kernels,
+sampling), ``optims/`` (LR schedules, optimizers), ``core/`` (module,
+serving, request queue, continuous batching, the training engine) and
+``tools/`` (serve and train CLIs, profilers).
 """

@@ -44,6 +44,12 @@ class GPTModule:
         if cfg.get("Distributed", {}).get("sequence_parallel", False):
             model_cfg["sequence_parallel"] = True
         self.config = GPTConfig.from_config(model_cfg)
+        # tokens per sample, for the throughput metrics (Data.Train's
+        # max_seq_len when set)
+        self.tokens_per_sample = self.config.max_position_embeddings
+        seq_len = (cfg.get("Data") or {}).get("Train", {}).get("dataset", {}).get("max_seq_len")
+        if seq_len:
+            self.tokens_per_sample = int(seq_len)
 
     def init_model(
         self, seed: int, device: Optional[Union[str, torch.device]] = None,

@@ -36,7 +36,8 @@ class GPTConfig:
     # comma-separated names kept live under "selective" (qkv | attn_out |
     # attn_lse | mlp_hidden); empty = the default qkv, attn_out, attn_lse
     recompute_names: str = ""
-    # fused LayerNorm kernel (K1/K2): not ported yet, refused in training
+    # training LayerNorms through the fused kernels K1/K2 (ops/fused_layernorm);
+    # serving keeps the plain LayerNorm
     use_fused_ln: bool = False
     # chunked softmax-CE: not ported yet, refused in training
     use_chunked_ce: bool = False

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (
 from paddlefleetx_tpu_torch.models.common import checkpoint_name, dropout, fold_in, split
 from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
 from paddlefleetx_tpu_torch.ops.attention import attention
+from paddlefleetx_tpu_torch.ops.fused_layernorm import fused_layer_norm
 
 # (shape, initializer) with initializer in {"normal", "ones", "zeros"}
 Spec = Tuple[Tuple[int, ...], str]
@@ -159,11 +160,16 @@ def init_params(model: GPTModel, generator: torch.Generator) -> GPTModel:
 
 
 def layer_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+    fused: bool = False,
 ) -> torch.Tensor:
     """LayerNorm with float32 statistics and a float32 affine (``scale``
     and ``bias`` are float32), cast back to ``x.dtype`` at the end —
-    ``paddlefleetx_tpu/models/gpt/model.py:145-150``."""
+    ``paddlefleetx_tpu/models/gpt/model.py:138-150``.  ``fused``
+    (``Model.use_fused_ln``) takes the fused kernels K1/K2
+    (``ops/fused_layernorm``), the same math."""
+    if fused:
+        return fused_layer_norm(x, scale, bias, eps=eps)
     dtype = x.dtype
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
@@ -299,13 +305,13 @@ def _decoder_layer(layer: DecoderLayer, x: torch.Tensor, cfg: GPTConfig,
     k_attn, k_mlp = split(seed)
 
     def attn_part(x):
-        y = layer_norm(x, layer.ln_1.scale, layer.ln_1.bias)
+        y = layer_norm(x, layer.ln_1.scale, layer.ln_1.bias, fused=cfg.use_fused_ln)
         return _attention_block(layer.attn, y, cfg, k_attn, train, save)
 
     if _recompute(cfg, "full_attn"):
         attn_part = _checkpointed(attn_part)
     x = x + attn_part(x)
-    y = layer_norm(x, layer.ln_2.scale, layer.ln_2.bias)
+    y = layer_norm(x, layer.ln_2.scale, layer.ln_2.bias, fused=cfg.use_fused_ln)
     return x + _mlp_block(layer.mlp, y, cfg, k_mlp, train, save)
 
 
@@ -330,7 +336,7 @@ def forward_hidden(model: GPTModel, tokens: torch.Tensor, cfg: GPTConfig, *,
     x = embed(model, tokens, position_ids, dtype=DTYPES[cfg.dtype], seed=k_embed,
               rate=cfg.hidden_dropout_prob, train=train)
     x = transformer_stack(model, x, cfg, k_layers, train)
-    return layer_norm(x, model.final_ln.scale, model.final_ln.bias)
+    return layer_norm(x, model.final_ln.scale, model.final_ln.bias, fused=cfg.use_fused_ln)
 
 
 def forward(model: GPTModel, tokens: torch.Tensor, cfg: GPTConfig, *,
@@ -356,11 +362,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def check_trainable(cfg: GPTConfig) -> None:
     """Refuse, loudly, the training features the port does not have yet."""
-    if cfg.use_fused_ln:
-        raise NotImplementedError(
-            "use_fused_ln: the fused LayerNorm kernels (K1/K2) come in slice 4 of "
-            "the PyTorch port; set Model.use_fused_ln=False"
-        )
     if cfg.use_chunked_ce:
         raise NotImplementedError(
             "use_chunked_ce: chunked cross-entropy is not ported yet (a later "

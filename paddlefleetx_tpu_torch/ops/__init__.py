@@ -1,4 +1,4 @@
 """Ops of the PyTorch port: flash-decode and paged attention, causal
-flash attention for training (CUDA kernels + plain versions), the
-attention dispatch, sampling, and the speculative-decoding config
-parse."""
+flash attention and the fused LayerNorm for training (CUDA kernels +
+plain versions), the attention dispatch, sampling, and the
+speculative-decoding config parse."""

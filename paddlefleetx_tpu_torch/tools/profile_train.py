@@ -10,7 +10,7 @@ accumulation).  After two warm steps it prints the host wall time of
 each step (each ends in a host read of the metrics), then profiles
 ``--steps`` steps and prints the device time per step (the sum of the
 card's kernel times), that time split into groups (the flash attention
-kernels, matrix products, the rest), and the kernels and host operators
+kernels, the fused LayerNorm kernels, matrix products, the rest), and the kernels and host operators
 that take the most time.  ``--device cpu`` runs the same on the CPU (host
 times only).
 """
@@ -30,6 +30,7 @@ from paddlefleetx_tpu_torch.utils.config import get_config
 
 # kernel-name substrings per group, checked in order
 GROUPS = (("flash attention (K3-K6)", ("flash_fwd", "flash_bwd")),
+          ("fused LayerNorm (K1/K2)", ("fused_ln",)),
           ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")))
 
 

@@ -21,10 +21,16 @@ print(len(names), bad)
 print(" ".join(names))
 """
 
-# the training slice's modules, each imported above without JAX
+# the training slices' modules, each imported above without JAX
 TRAINING = ("paddlefleetx_tpu_torch.core.engine", "paddlefleetx_tpu_torch.models.common",
             "paddlefleetx_tpu_torch.ops.attention", "paddlefleetx_tpu_torch.ops.flash_attention",
-            "paddlefleetx_tpu_torch.optims.lr_scheduler", "paddlefleetx_tpu_torch.optims.optimizer")
+            "paddlefleetx_tpu_torch.optims.lr_scheduler", "paddlefleetx_tpu_torch.optims.optimizer",
+            "paddlefleetx_tpu_torch.ops.fused_layernorm", "paddlefleetx_tpu_torch.data._build",
+            "paddlefleetx_tpu_torch.data.batch_sampler", "paddlefleetx_tpu_torch.data.builders",
+            "paddlefleetx_tpu_torch.data.gpt_dataset", "paddlefleetx_tpu_torch.data.index_cache",
+            "paddlefleetx_tpu_torch.data.indexed", "paddlefleetx_tpu_torch.utils.checkpoint",
+            "paddlefleetx_tpu_torch.utils.registry", "paddlefleetx_tpu_torch.utils.resilience",
+            "paddlefleetx_tpu_torch.utils.telemetry", "paddlefleetx_tpu_torch.tools.train")
 
 
 def _run(args, **kw):

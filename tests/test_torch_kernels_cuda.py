@@ -1,7 +1,7 @@
-"""PyTorch port on the card: the flash-decode, paged-decode and flash
-attention (K3-K6) CUDA kernels against their plain PyTorch versions on
-the same CUDA inputs, and the serving and training paths on the card
-against the CPU.
+"""PyTorch port on the card: the flash-decode, paged-decode, flash
+attention (K3-K6) and fused LayerNorm (K1/K2) CUDA kernels against their
+plain PyTorch versions on the same CUDA inputs, and the serving and
+training paths on the card against the CPU.
 
 Marked ``cuda``; each test skips itself when there is no card.  Imports
 no JAX, so it runs on a GPU machine without it:
@@ -471,3 +471,115 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for key in sorted(tree) for x in _leaves(tree[key])]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# fused LayerNorm (K1 forward, K2 backward)
+# ---------------------------------------------------------------------------
+
+# (rows, n): the training path's micro-batch, rows and n that are not
+# multiples of anything (the kernels take any), one row, a wide row
+LN_SHAPES = {"gpt345m": (8192, 1024), "odd": (8191, 1000), "tiny": (5, 7), "one_row": (1, 64),
+             "wide": (300, 4097)}
+# float32: summation order only; bfloat16: outputs within one bf16 ulp
+# (2**-7 of the value) of the plain version's, the float32 sums of the
+# two differing in order; dscale/dbias (float32 sums over the rows) 1e-4
+# of the largest
+LN_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0**-7)}
+
+
+def _ln_case(rows, n, dtype, with_res, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, n, generator=g).to(dev, dtype)
+    res = torch.randn(rows, n, generator=g).to(dev, dtype) if with_res else None
+    scale = torch.randn(n, generator=g).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    gy = torch.randn(rows, n, generator=g).to(dev, dtype)
+    return x, res, scale, bias, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_res", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("name", sorted(LN_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_ln_kernels_match_plain(dtype, name, with_res, record_property):
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    dev = _card()
+    x, res, scale, bias, gy = _ln_case(*LN_SHAPES[name], dtype, with_res, dev)
+    atol, rtol = LN_TOL[dtype]
+    before = dict(fl.COUNTS)
+    y, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    dx, dscale, dbias = fl.launch_bwd(x, res, scale, mean, rstd, gy)
+    torch.cuda.synchronize()
+    assert fl.COUNTS["fused_ln_fwd"] == before["fused_ln_fwd"] + 1
+    assert fl.COUNTS["fused_ln_bwd"] == before["fused_ln_bwd"] + 1
+    ref_y, ref_mean, ref_rstd = fl.layer_norm_fwd_plain(x, res, scale, bias, 1e-5)
+    ref_dx, ref_ds, ref_db = fl.layer_norm_bwd_plain(x, res, scale, ref_mean, ref_rstd, gy)
+    assert y.dtype == dx.dtype == dtype and dscale.dtype == torch.float32
+    torch.testing.assert_close(mean, ref_mean, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), rtol=rtol, atol=atol)
+    for what, got, ref in (("dscale", dscale, ref_ds), ("dbias", dbias, ref_db)):
+        err = (got - ref).abs().max().item()
+        record_property(f"{what}_err", err)
+        assert err <= 1e-4 * max(ref.abs().max().item(), 1.0), (what, err)
+
+
+@pytest.mark.cuda
+def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    dev = _card()
+    x, res, scale, bias, gy = _ln_case(16, 64, torch.bfloat16, True, dev)
+    with pytest.raises(ValueError):
+        fl.launch_fwd(x.half(), None, scale, bias, 1e-5)  # float16
+    with pytest.raises(ValueError):
+        fl.launch_fwd(x, None, scale.bfloat16(), bias, 1e-5)  # bf16 scale
+    with pytest.raises(ValueError):
+        fl.launch_fwd(x, res.float(), scale, bias, 1e-5)  # mixed types
+    with pytest.raises(ValueError):
+        fl.launch_fwd(x.t(), None, scale, bias, 1e-5)  # strides
+    with pytest.raises(ValueError):
+        fl.launch_fwd(x, None, scale.cpu(), bias, 1e-5)  # device mismatch
+    with pytest.raises(ValueError):
+        fl.fused_ln_fwd(x.half(), None, scale, bias, 1e-5)  # the op: no fallback either
+
+
+@pytest.mark.cuda
+def test_fused_ln_train_on_card_matches_cpu():
+    """The GPT loss and every grad with use_fused_ln (selective recompute,
+    flash fused) at float32: on the card K1/K2 (9 and 5 launches for two
+    layers), against the CPU's plain versions."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.models.gpt import model as gpt
+    from paddlefleetx_tpu_torch.models.gpt.bridge import grads_to_jax
+    from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    cfg = GPTConfig(vocab_size=96, hidden_size=128, num_layers=2, num_attention_heads=2,
+                    max_position_embeddings=128, dtype="float32", attn_impl="flash",
+                    flash_bwd="fused", hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0, use_recompute=True,
+                    recompute_granularity="selective", use_fused_ln=True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 96, (2, 96)), "labels": rng.integers(0, 96, (2, 96)),
+             "loss_mask": np.ones((2, 96), np.float32)}
+    res = {}
+    for device in ("cpu", dev):
+        model = gpt.init_params(gpt.GPTModel(cfg, trainable=True),
+                                torch.Generator().manual_seed(3)).to(device)
+        before = dict(fl.COUNTS)
+        loss = gpt.loss_fn(model, {k_: torch.as_tensor(x).to(device) for k_, x in batch.items()},
+                           cfg)
+        loss.backward()
+        res[str(device)] = (loss.item(), grads_to_jax(model))
+        used = {key: fl.COUNTS[key] - before[key] for key in fl.COUNTS}
+        if device != "cpu":
+            assert used == {"fused_ln_fwd": 9, "fused_ln_bwd": 5, "fused_ln_fwd_plain": 0,
+                            "fused_ln_bwd_plain": 0}, used
+    cu, cp = res[str(dev)], res["cpu"]
+    assert abs(cu[0] - cp[0]) <= 1e-5 * abs(cp[0])
+    for (a, b) in zip(_leaves(cu[1]), _leaves(cp[1])):
+        assert np.abs(a - b).max() <= 1e-3 * max(np.abs(b).max(), 1e-12)

@@ -13,6 +13,7 @@ relative to each leaf's largest value; engine metrics and params 1e-5.
 """
 
 import copy
+import dataclasses
 import json
 import os
 
@@ -295,7 +296,6 @@ def test_engine_train_step_matches_jax(jax_engine):
 
 
 REFUSED = {
-    "fused_ln": {"Model": {"use_fused_ln": True}},
     "chunked_ce": {"Model": {"use_chunked_ce": True}},
     "ring_attention": {"Model": {"attn_impl": "ring"}},
     "sequence_parallel": {"Distributed": {"sequence_parallel": True}},
@@ -312,16 +312,32 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
+# refused until its port landed; its case now holds the step against the
+# unfused one (the same math: equal on the CPU to float32 rounding)
+PORTED = {"fused_ln": {"Model": {"use_fused_ln": True}}}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(PORTED))
 def test_training_refuses_what_is_not_ported(name):
+    if name in PORTED:
+        metrics = []
+        for overrides in ({}, PORTED[name]):
+            cfg = _port_cfg(**overrides)
+            engine = Engine(cfg, GPTModule(cfg), device="cpu")
+            metrics.append(engine.train_step(_batch(4)))
+        for key in ("loss", "grad_norm"):
+            assert metrics[1][key] == pytest.approx(metrics[0][key], rel=1e-6), key
+        return
     with pytest.raises(NotImplementedError):
         cfg = _port_cfg(**REFUSED[name])
         Engine(cfg, GPTModule(cfg), device="cpu").train_step(_batch(4))
 
 
 def test_serving_still_takes_a_training_only_config():
-    """use_fused_ln is refused in training, not in the config: the serving
-    path still runs a config that sets it."""
+    """use_fused_ln is a training setting: the serving path runs a config
+    that sets it with the plain LayerNorm (as JAX's generation does), and
+    the training loss through K1/K2's plain versions equals the unfused
+    loss."""
     cfg = _port_cfg(Model={"use_fused_ln": True},
                     Generation={"max_dec_len": 4, "decode_strategy": "greedy_search",
                                 "eos_token_id": 95, "pad_token_id": 0})
@@ -330,9 +346,11 @@ def test_serving_still_takes_a_training_only_config():
     server = GenerationServer(cfg, module, module.init_model(7, "cpu"), torch.device("cpu"))
     out = server.generate_ids([[5, 6, 7]], max_dec_len=4)
     assert len(out) == 1 and 0 < len(out[0]) <= 4
-    with pytest.raises(NotImplementedError, match="K1/K2"):
-        gpt.loss_fn(module.init_params(7, "cpu"),
-                    {k: torch.as_tensor(v) for k, v in _batch(1).items()}, module.config)
+    model, batch = module.init_params(7, "cpu"), {k: torch.as_tensor(v)
+                                                   for k, v in _batch(1).items()}
+    fused = gpt.loss_fn(model, batch, module.config)
+    unfused = gpt.loss_fn(model, batch, dataclasses.replace(module.config, use_fused_ln=False))
+    assert fused.item() == pytest.approx(unfused.item(), rel=1e-6)
 
 
 def test_profile_train_runs_on_cpu(tmp_path):
