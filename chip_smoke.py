@@ -52,8 +52,11 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      fused backward) against their plain versions on the card: at the
      training step's shape (micro-batch 8 x 16 heads, seq 1024, head dim
      64, bf16), at batch 16, in f32 at batch 2, and at seqs 40 and 200
-     (partial tiles); the plain version at the kernels' 64 x 64 tile (a
-     partial last tile too); bf16 held per row and by the share of elements
+     (partial tiles); bf16 K3/K6 take the tensor-core route
+     (csrc/flash_attention_sm90.cu), f32 and K4/K5 the CUDA-core one; each
+     plain version at its kernel's own tile (a partial last tile too:
+     bf16 K3 128 x 128, K6 64 x 128, the rest 64 x 64); bf16 held per row
+     and by the share of elements
      that differ (``BF16_ROW_TOL``, ``BF16_DIFFER_TOL``); with CUDA-event
      times of the kernel, the plain version and
      scaled_dot_product_attention (forward for K3, its autograd backward
@@ -64,7 +67,8 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      selective recompute, AdamW with clip 1.0 at a constant 1e-4, random
      weights from Global.seed and one fixed random batch; 10 steps with
      flash_bwd split and 10 with fused.  Every step must launch K3 and
-     K4 + K5 (split) or K6 (fused) and no plain version; the loss must be
+     K4 + K5 (split) or K6 (fused), K3/K6 on the tensor-core route only,
+     and no plain version; the loss must be
      finite and fall; prints step ms, tokens/s and peak memory;
   11. the training step on the card against the CPU at float32: the
      345M width cut to 2 layers, batch 1, seq 512, dropout 0, both
@@ -86,11 +90,12 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      backward, selective recompute, use_fused_ln, AdamW at a constant
      1e-4; 12 steps with a record per step, eval every 6 and a checkpoint
      every 6.  Every step launches K1, K2, K3 and K6 (the counts the
-     records carry) and no plain version; the loss is finite and falls;
+     records carry), K3/K6 on the tensor-core route only, and no plain
+     version; the loss is finite and falls;
      the records carry tokens/s, mfu and peak memory.  Then a second
      launch resumes from step_6 through auto_resume: steps 7-12 read the
      same batches (consumed_samples and token digests) and their losses
-     agree within ``RESUME_LOSS_TOL`` (K6's atomics make the card's sums
+     agree within ``RESUME_LOSS_TOL`` (K6's reduce-adds make the card's sums
      vary from run to run); the checkpoints are deleted;
   14. phase 11 once more with use_fused_ln (K1/K2 on the card against
      their plain versions on the CPU).
@@ -118,10 +123,10 @@ SOURCES = {
     "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
-    "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
-    "flash_bwd_fused": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_fused": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "fused_ln_fwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
     "fused_ln_bwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
 }
@@ -138,8 +143,9 @@ REPLACES = {
     "fused_ln_bwd": "paddlefleetx_tpu/ops/fused_layernorm.py:61",
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
-# kernel vs plain, the plain version at the kernels' 64 x 64 tile, a partial
-# last tile included (fa.KERNEL_TILE).  float32: forward max |err|, grads
+# kernel vs plain, the plain version at each kernel's own tile, a partial
+# last tile included (fa.kernel_tile: bf16 K3 128 x 128 and K6 64 x 128 on
+# the tensor-core route, 64 x 64 otherwise).  float32: forward max |err|, grads
 # max |err| over the leaf's max (summation order only).  bfloat16, per
 # kernel: the largest error of a row over that row's largest value (one
 # bf16 ulp is up to 2**-7 of it), and the share of elements that differ
@@ -173,7 +179,7 @@ LN_SUM_TOL = 1e-4
 # phase 13: the train CLI
 CLI_STEPS, CLI_EVAL_FREQ, CLI_EVAL_ITERS, CLI_SAVE = 12, 6, 2, 6
 # losses of steps 7-12, resumed run against the first, relative: K6 adds
-# dq with atomics, so the card's sums differ from run to run.  15-20x
+# dq with reductions in L2, so the card's sums differ from run to run.  15-20x
 # the largest differences read (4.6e-6 and 6.7e-6, PERF.md)
 RESUME_LOSS_TOL = 1e-4
 
@@ -871,10 +877,16 @@ def flash_errors(got, ref):
     return tuple(max(x[i] for x in out) for i in range(4))
 
 
+def flash_blocks(fa, dt):
+    """The block each kernel's plain version runs at to round as the
+    kernel does: the kernel's own tile on its route for ``dt``."""
+    return {name: fa.kernel_tile(name, dt) for name in FLASH_KERNELS}
+
+
 def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
     """Each of K3-K6 on [b*n, s, d] inputs against its plain version at
-    the kernels' own tile, so both round alike (the backward kernels on the
-    plain forward's lse and delta), with times and bounds.  The plain
+    that kernel's own tile, so both round alike (the backward kernels on
+    the plain forward's lse and delta), with times and bounds.  The plain
     versions are timed at the block the ladder gives ``s``, as the CPU
     path runs them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -882,10 +894,10 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
     q, k, v, do = (torch.randn(b * n, s, d, generator=g, device="cuda").to(dt)
                    for _ in range(4))
     scale, ladder = 1.0 / d**0.5, fa._block_sizes(s)
-    block = (fa.KERNEL_TILE, fa.KERNEL_TILE)
+    blocks = flash_blocks(fa, dt)
     out, lse = fa.launch_fwd(q, k, v, scale)
     torch.cuda.synchronize()
-    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, block)
+    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, blocks["flash_fwd"])
     delta = (do.float() * ref_out.float()).sum(-1)
     args = (q, k, v, do, ref_lse, delta, scale)
 
@@ -910,7 +922,7 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
     for name, launch in launches.items():
         got = launch(*args)
         torch.cuda.synchronize()
-        ref = plains[name](*args, block)
+        ref = plains[name](*args, blocks[name])
         errs[name] = held(name, got if isinstance(got, tuple) else (got,),
                           ref if isinstance(ref, tuple) else (ref,))
     ms = {"flash_fwd": flash_event_ms(torch, lambda: fa.launch_fwd(q, k, v, scale), iters)}
@@ -934,7 +946,8 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
     for name in FLASH_KERNELS:
         bound_ms, bound_by = flash_bound(name, kind, b * n, s, d)
         e = errs[name]
-        rows[name] = {"kind": kind, "b": b, "n": n, "s": s, "d": d, "block": list(block),
+        rows[name] = {"kind": kind, "b": b, "n": n, "s": s, "d": d,
+                      "route": fa.kernel_route(name, dt), "block": list(blocks[name]),
                       "max_abs_err": e[0], "err_of_max": e[1], "row_err": e[2],
                       "differ": e[3], "ms": ms[name], "plain_ms": plain_ms[name],
                       "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
@@ -955,7 +968,7 @@ def phase_flash(torch, F, fa):
         main = main or rows
         for name, row in rows.items():
             table.append(dict(row, name=name))
-            log(f"  {name:16s} {kind:8s} b={b:2d} s={s:4d}: err {row['max_abs_err']:.2e} "
+            log(f"  {name:16s} {kind:8s} {row['route']:9s} b={b:2d} s={s:4d}: err {row['max_abs_err']:.2e} "
                 f"(row {row['row_err']:.2e}, differ {row['differ']:.2e}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} library "
                 f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
     log("flash_cases " + json.dumps({"cases": table}))
@@ -1018,6 +1031,10 @@ def phase_train(torch, fa):
             used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
             check(all(used[k] > 0 for k in wanted) and used["flash_plain"] == 0,
                   f"{mode} step {len(losses)}: flash launches {used}")
+            # bf16: every K3/K6 launch on the tensor-core route
+            check(used["flash_fwd_sm90"] == used["flash_fwd"]
+                  and used["flash_bwd_fused_sm90"] == used["flash_bwd_fused"],
+                  f"{mode} step {len(losses)}: K3/K6 off the sm90 route: {used}")
             check(m["found_inf"] == 0.0, f"{mode}: non-finite step {m}")
             losses.append(m["loss"])
             for k in totals:
@@ -1115,7 +1132,8 @@ def phase_train_card_vs_cpu(torch, fa, fused_ln=False):
             del engine, fresh
         cu, cp = res["cuda"], res["cpu"]
         key = "flash_bwd_fused" if mode == "fused" else "flash_bwd_dq"
-        check(cu[4]["flash_fwd"] > 0 and cu[4][key] > 0 and cu[4]["flash_plain"] == 0,
+        check(cu[4]["flash_fwd"] > 0 and cu[4][key] > 0 and cu[4]["flash_plain"] == 0
+              and cu[4]["flash_fwd_sm90"] == 0 and cu[4]["flash_bwd_fused_sm90"] == 0,
               f"card run did not take the kernels: {cu[4]}")
         check(cp[4]["flash_plain"] > 0, "cpu run did not take the plain versions")
         ln = ("fused_ln_fwd", "fused_ln_bwd")
@@ -1337,12 +1355,15 @@ def cli_launches_ok(rec, evals_before):
     """Each step's window: K1 194, K2 98, K3 48 and K6 48 (24 layers, two
     micro-batches, selective recompute re-running each layer's two K1),
     plus the forwards of an eval that ran just before it (49 K1 and 24 K3
-    per eval batch); no plain version."""
+    per eval batch), every K3/K6 on the tensor-core route (bf16); no plain
+    version."""
     k = rec["kernels"]
     want = {"fused_ln_fwd": 2 * (4 * N_LAYERS + 1) + evals_before * (2 * N_LAYERS + 1),
             "fused_ln_bwd": 2 * (2 * N_LAYERS + 1),
             "flash_fwd": 2 * N_LAYERS + evals_before * N_LAYERS,
             "flash_bwd_fused": 2 * N_LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_sm90": 2 * N_LAYERS + evals_before * N_LAYERS,
+            "flash_bwd_fused_sm90": 2 * N_LAYERS,
             "flash_plain": 0, "fused_ln_fwd_plain": 0, "fused_ln_bwd_plain": 0}
     return k == want, want
 
@@ -1387,7 +1408,8 @@ def phase_train_cli(env):
         mfu = sorted(r["mfu"] for r in steady)[len(steady) // 2]
         peak = max(r["mem"]["device_peak_bytes"] for r in first)
         launches = {k: sum(r["kernels"][k] for r in first)
-                    for k in ("fused_ln_fwd", "fused_ln_bwd", "flash_fwd", "flash_bwd_fused")}
+                    for k in ("fused_ln_fwd", "fused_ln_bwd", "flash_fwd", "flash_bwd_fused",
+                              "flash_fwd_sm90", "flash_bwd_fused_sm90")}
         log(f"  train CLI: {CLI_STEPS} steps in {wall:.1f}s wall (first step "
             f"{first[0]['compile_s']:.1f}s), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
             f"median step {step_s * 1e3:.1f} ms, {tps:.0f} tokens/s, mfu {mfu:.4f}, peak "

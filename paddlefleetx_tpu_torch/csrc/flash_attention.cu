@@ -1,11 +1,14 @@
-// Causal flash attention for Hopper (sm_90a): forward and both backward
-// schedules, bf16 and f32, head dim 64 or 128.
+// Causal flash attention on CUDA cores (sm_90a): the split backward
+// (K4 + K5) in bf16 and f32, and the forward (K3) and fused backward (K6)
+// in f32, head dim 64 or 128.  The bf16 K3/K6 run on the tensor cores, in
+// csrc/flash_attention_sm90.cu; the f32 ones stay here in full FP32
+// (tensor cores would make them TF32).
 //
 // Replaces the TPU kernels of paddlefleetx_tpu/ops/flash_attention.py:
-//   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd       (K3)
+//   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd       (K3, f32)
 //   _dq_kernel        (:215, launched by _flash_bwd :400)        -> flash_bwd_dq    (K4)
 //   _dkv_kernel       (:249, launched by _flash_bwd :416)        -> flash_bwd_dkv   (K5)
-//   _bwd_fused_kernel (:305, launched by _flash_bwd_fused :359)  -> flash_bwd_fused (K6)
+//   _bwd_fused_kernel (:305, launched by _flash_bwd_fused :359)  -> flash_bwd_fused (K6, f32)
 //
 // Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous in the
 // input type T; lse and delta are float32 [bh, s].  Causal: query row r
@@ -33,10 +36,9 @@
 //
 // What bounds it on the card: operations.  At GPT-345M (b*h = 128 per
 // micro-batch of 8, s = 1024, d = 64) the causal forward does about
-// 4 * bh * d * s^2 / 2 = 34 GFLOP on 67 MB of bf16 q/k/v/out; the
-// backward 2.5x (fused) to 3.5x (split) that.  The TPU kernels' bf16
-// MXU dots map to tensor cores (mma/wgmma) on Hopper; this first kernel
-// does not use them yet.
+// 4 * d * bh * s^2 / 2 = 17.2 GFLOP on 67 MB of bf16 q/k/v/out; the
+// backward 2.5x (fused) to 3.5x (split) that.  These kernels run the
+// products as f32 FMAs on CUDA cores (f32 inputs in plain FP32, no TF32).
 //
 // Design, a simple kernel that is right first:
 //  * 64 x 64 tiles, 128 threads.  Each tile is staged in shared memory
@@ -45,8 +47,6 @@
 //    Thread (ty = tid / 8, tx = tid % 8) owns rows ty*4 .. ty*4+3 and
 //    columns tx, tx+8, ..: a row's 8 threads are adjacent lanes, so row
 //    maxima and sums are three xor-shuffles.
-//  * All products are f32 FMAs on CUDA cores (f32 inputs in plain FP32,
-//    no TF32).  Tensor-core tiles, TMA and pipelining are later work.
 //  * Partial tiles (s not a multiple of 64, e.g. 40 or 200) load zeros
 //    past s and mask those keys; rows past s are not written.
 //  * Work per tile grows along the causal triangle, so the grid starts
@@ -497,16 +497,24 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     return static_cast<int>(cudaErrorInvalidValue);               \
   } while (0)
 
+// K3 and K6 here take float32 only (bf16: csrc/flash_attention_sm90.cu)
+#define PFX_DISPATCH_F32(dtype, d, CALL)                          \
+  do {                                                            \
+    if (dtype == 0 && d == 64) { using T = float; constexpr int D = 64; return static_cast<int>(CALL); } \
+    if (dtype == 0 && d == 128) { using T = float; constexpr int D = 128; return static_cast<int>(CALL); } \
+    return static_cast<int>(cudaErrorInvalidValue);               \
+  } while (0)
+
 }  // namespace
 
 extern "C" {
 
-// out [bh, s, d] in the input type, lse float32 [bh, s]
+// float32 only: out [bh, s, d], lse float32 [bh, s]
 int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
               int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH(dtype, d, (fwd<T, D>(q, k, v, out, lse, bh, s, scale, st)));
+  PFX_DISPATCH_F32(dtype, d, (fwd<T, D>(q, k, v, out, lse, bh, s, scale, st)));
 }
 
 // dq [bh, s, d] in the input type
@@ -528,15 +536,15 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                                 bh, s, scale, st)));
 }
 
-// dq32 float32 [bh, s, d], zeroed by the caller and accumulated with
-// atomics; dk, dv [bh, s, d] in the input type
+// float32 only: dq32 float32 [bh, s, d], zeroed by the caller and
+// accumulated with atomics; dk, dv [bh, s, d]
 int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq32, void* dk, void* dv,
                     int bh, int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH(dtype, d, (bwd_dkv<T, D, true>(q, k, v, dout, lse, delta, dq32, dk, dv, bh,
-                                               s, scale, st)));
+  PFX_DISPATCH_F32(dtype, d, (bwd_dkv<T, D, true>(q, k, v, dout, lse, delta, dq32, dk, dv,
+                                                   bh, s, scale, st)));
 }
 
 const char* flash_attn_error_string(int code) {

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("decode_attention", "paged_attention", "flash_attention", "fused_layernorm")
+SOURCES = ("decode_attention", "paged_attention", "flash_attention", "flash_attention_sm90",
+           "fused_layernorm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -9,10 +9,10 @@ blocks).
 
 Two spellings of every kernel, chosen by the tensors' device only:
 
-  - the CUDA kernels of ``csrc/flash_attention.cu`` (built on first use by
-    ``ops/_build.py``) for tensors on the card: ``flash_fwd`` (the TPU's
-    ``_fwd_kernel``), ``flash_bwd_dq`` + ``flash_bwd_dkv`` (the split
-    backward, ``_dq_kernel`` + ``_dkv_kernel``) and ``flash_bwd_fused``
+  - the CUDA kernels (built on first use by ``ops/_build.py``) for
+    tensors on the card: ``flash_fwd`` (the TPU's ``_fwd_kernel``),
+    ``flash_bwd_dq`` + ``flash_bwd_dkv`` (the split backward,
+    ``_dq_kernel`` + ``_dkv_kernel``) and ``flash_bwd_fused``
     (``_bwd_fused_kernel``);
   - :func:`flash_forward`, :func:`flash_bwd_split` and
     :func:`flash_bwd_fused`, plain PyTorch versions of the TPU kernels
@@ -20,8 +20,18 @@ Two spellings of every kernel, chosen by the tensors' device only:
     input type), for tensors on the CPU and as the reference the kernels
     are held against.
 
-A CUDA tensor reaches the kernel or raises; nothing falls back.
-:data:`COUNTS` counts kernel launches and plain-version calls.
+On the card the route is chosen by the input type and nothing else
+(:func:`kernel_route`): bfloat16 K3 and K6 take the tensor-core kernels of
+``csrc/flash_attention_sm90.cu`` (``wgmma`` on TMA-fed shared-memory
+rings; route ``sm90``); float32 K3 and K6, and K4/K5 in both types, take
+the CUDA-core kernels of ``csrc/flash_attention.cu`` (route
+``cuda_core``; float32 stays in full FP32 there, where tensor cores would
+make it TF32).  Anything neither route takes raises in
+:func:`_check_inputs`.  A CUDA tensor reaches a kernel or raises; nothing
+falls back.  :data:`COUNTS` counts kernel launches (``flash_fwd`` and
+``flash_bwd_fused`` count every launch of K3/K6 on either route,
+``flash_fwd_sm90`` and ``flash_bwd_fused_sm90`` the tensor-core ones) and
+plain-version calls.
 
 Block sizes: the knob handling is the JAX package's, copied
 (``_block_sizes``, ``_parse_block_env``, ``_check_block``,
@@ -30,10 +40,11 @@ so on the CPU the same seq takes flash or the plain attention path in
 both packages, and the same bad ``Model.flash_block`` /
 ``PFX_FLASH_BLOCK`` / ``PFX_FLASH_BLOCK_K`` / ``PFX_FLASH_BWD`` values
 raise everywhere.  ``(block_q, block_k)`` drives the plain versions'
-loops.  The CUDA kernels tile by :data:`KERNEL_TILE` queries x
-:data:`KERNEL_TILE` keys whatever the block and mask a partial last tile,
-so on the card every seq takes them: the block then changes only the
-order in which the float32 sums round, not the values computed.
+loops.  The CUDA kernels tile by their own (query, key) tile
+(:data:`KERNEL_TILES`, :func:`kernel_tile`) whatever the block and mask a
+partial last tile, so on the card every seq takes them: the block then
+changes only the order in which the float32 sums round, not the values
+computed.
 
 The forward is the custom op ``pfx::flash_attn_fwd`` (one op returning
 out and lse), so a selective-recompute policy can name it
@@ -50,15 +61,39 @@ from torch import Tensor
 
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
-# the query and key tile of every kernel in csrc/flash_attention.cu (kB)
-KERNEL_TILE = 64
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+# the kernels with a tensor-core route for bfloat16 (csrc/flash_attention_sm90.cu)
+SM90_KERNELS = ("flash_fwd", "flash_bwd_fused")
+# (query, key) tile of each kernel per route: the block at which the plain
+# versions round as the kernel does.  Head dim 64 and 128 tile alike.
+KERNEL_TILES = {
+    ("flash_fwd", "sm90"): (128, 128),
+    ("flash_bwd_fused", "sm90"): (64, 128),
+    ("flash_fwd", "cuda_core"): (64, 64),
+    ("flash_bwd_dq", "cuda_core"): (64, 64),
+    ("flash_bwd_dkv", "cuda_core"): (64, 64),
+    ("flash_bwd_fused", "cuda_core"): (64, 64),
+}
 
-# Kernel launches per kernel, and calls of the plain versions on CPU
-# tensors ("flash_plain").  Process-wide; reset with reset_counts().
+# Kernel launches per kernel (the *_sm90 keys: the tensor-core route's
+# share), and calls of the plain versions on CPU tensors ("flash_plain").
+# Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
-    "flash_plain": 0,
+    "flash_fwd_sm90": 0, "flash_bwd_fused_sm90": 0, "flash_plain": 0,
 }
+
+
+def kernel_route(name: str, dtype: torch.dtype) -> str:
+    """The route a CUDA launch of kernel ``name`` takes for inputs of
+    ``dtype``: "sm90" (tensor cores) for bfloat16 K3/K6, else
+    "cuda_core"."""
+    return "sm90" if dtype == torch.bfloat16 and name in SM90_KERNELS else "cuda_core"
+
+
+def kernel_tile(name: str, dtype: torch.dtype) -> Tuple[int, int]:
+    """The (query, key) tile of kernel ``name`` for inputs of ``dtype``."""
+    return KERNEL_TILES[(name, kernel_route(name, dtype))]
 
 
 def reset_counts() -> None:
@@ -145,8 +180,8 @@ def flash_supported(seq: int, block: int = 0) -> bool:
 # Plain PyTorch versions ([bh, s, d] inputs; lse, delta float32 [bh, s])
 #
 # A block need not divide s: the last query or key block is then partial,
-# as the kernels' last tile is, so at (KERNEL_TILE, KERNEL_TILE) the plain
-# versions round as the kernels do at every seq.  The dispatch passes them
+# as the kernels' last tile is, so at a kernel's own tile (kernel_tile) the
+# plain versions round as that kernel does at every seq.  The dispatch passes them
 # only dividing blocks, as the JAX package does.
 # ---------------------------------------------------------------------------
 
@@ -283,10 +318,11 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale, block):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/flash_attention.cu)
+# CUDA kernels (csrc/flash_attention.cu, csrc/flash_attention_sm90.cu)
 # ---------------------------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_SM90: Optional[ctypes.CDLL] = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -308,6 +344,24 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attn_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    global _LIB_SM90
+    if _LIB_SM90 is None:
+        from paddlefleetx_tpu_torch.ops import _build
+
+        lib = _build.load("flash_attention_sm90")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i32, i32, i32, f32, ptr]  # bh, s, d, scale, stream
+        lib.flash_fwd_sm90.argtypes = [ptr] * 5 + tail
+        lib.flash_bwd_fused_sm90.argtypes = [ptr] * 9 + tail
+        for fn in (lib.flash_fwd_sm90, lib.flash_bwd_fused_sm90):
+            fn.restype = i32
+        lib.flash_sm90_error_string.argtypes = [i32]
+        lib.flash_sm90_error_string.restype = ctypes.c_char_p
+        _LIB_SM90 = lib
+    return _LIB_SM90
 
 
 def _check_inputs(name: str, tensors, stats=()) -> None:
@@ -336,19 +390,24 @@ def _check_inputs(name: str, tensors, stats=()) -> None:
                              f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _call(name: str, *args) -> None:
-    lib = _lib()
-    rc = getattr(lib, name)(*args)
-    if rc != 0:
-        msg = lib.flash_attn_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
-    COUNTS[name] += 1
-
-
-def _tail(q: Tensor, scale: float):
+def _call(name: str, q: Tensor, scale: float, *ptrs: int) -> None:
+    """Launch kernel ``name`` on q's route (:func:`kernel_route`) with the
+    given pointers, on the current stream; raises if the launch fails."""
     bh, s, d = q.shape
-    return (bh, s, d, float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kernel_route(name, q.dtype) == "sm90":
+        lib, fn = _lib_sm90(), f"{name}_sm90"
+        rc = getattr(lib, fn)(*ptrs, bh, s, d, float(scale), stream)
+        err = lib.flash_sm90_error_string
+    else:
+        lib, fn = _lib(), name
+        rc = getattr(lib, fn)(*ptrs, bh, s, d, float(scale), _DTYPE_CODES[q.dtype], stream)
+        err = lib.flash_attn_error_string
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc} ({err(rc).decode()})")
+    COUNTS[name] += 1
+    if fn != name:
+        COUNTS[fn] += 1
 
 
 def launch_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tuple[Tensor, Tensor]:
@@ -356,8 +415,7 @@ def launch_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tuple[Tensor, T
     _check_inputs("flash_fwd", (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          lse.data_ptr(), *_tail(q, scale))
+    _call("flash_fwd", q, scale, *(x.data_ptr() for x in (q, k, v, out, lse)))
     return out, lse
 
 
@@ -365,8 +423,7 @@ def launch_bwd_dq(q, k, v, do, lse, delta, scale):
     """K4 on the card: dq in q's type."""
     _check_inputs("flash_bwd_dq", (q, k, v, do), (lse, delta))
     dq = torch.empty_like(q)
-    _call("flash_bwd_dq", *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq)),
-          *_tail(q, scale))
+    _call("flash_bwd_dq", q, scale, *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq)))
     return dq
 
 
@@ -374,8 +431,8 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, scale):
     """K5 on the card: (dk, dv) in the input type."""
     _check_inputs("flash_bwd_dkv", (q, k, v, do), (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_dkv", *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)),
-          *_tail(q, scale))
+    _call("flash_bwd_dkv", q, scale,
+          *(x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)))
     return dk, dv
 
 
@@ -386,14 +443,15 @@ def launch_bwd_split(q, k, v, do, lse, delta, scale):
 
 
 def launch_bwd_fused(q, k, v, do, lse, delta, scale):
-    """K6 on the card: dq accumulated in a zeroed float32 slab with
-    atomics (the order of the adds varies from run to run), then cast to
-    q's type; (dq, dk, dv)."""
+    """K6 on the card: dq accumulated in a zeroed float32 slab (bf16: TMA
+    reduce-adds of whole tiles; float32: atomics; either way the order of
+    the adds varies from run to run), then cast to q's type; (dq, dk,
+    dv)."""
     _check_inputs("flash_bwd_fused", (q, k, v, do), (lse, delta))
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call("flash_bwd_fused",
-          *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq32, dk, dv)), *_tail(q, scale))
+    _call("flash_bwd_fused", q, scale,
+          *(x.data_ptr() for x in (q, k, v, do, lse, delta, dq32, dk, dv)))
     return dq32.to(q.dtype), dk, dv
 
 
@@ -463,7 +521,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     ladder) and ``bwd_schedule`` ("" = PFX_FLASH_BWD, else "split") are
     ``Model.flash_block`` / ``Model.flash_bwd``.  A seq the ladder misses
     raises on the CPU (the plain versions' loops need a dividing block)
-    and runs on the card, whose kernels ignore the block."""
+    and runs on the card, whose kernels tile by their own tile."""
     if not causal:
         raise NotImplementedError("only causal flash attention")
     b, s, n, d = q.shape

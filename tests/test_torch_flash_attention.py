@@ -98,25 +98,32 @@ def test_plain_kernels_match_pallas(name, jax_kernels, monkeypatch):
             _close(got, want, 2e-5)
 
 
-# (b, s, n, d, plain block): blocks that leave a partial last tile, as the
-# CUDA kernels' 64 x 64 tile does on these seqs
+# (b, s, n, d, plain block): the CUDA kernels' own tiles off the ladder's
+# block, most leaving a partial last tile: 64 x 64 (the CUDA-core kernels),
+# 128 x 128 (bf16 K3 on the tensor cores) and 64 x 128 (bf16 K6), at s = 200
+# (a partial 128-tile) and s = 256 (whole tiles, two to a ladder block)
 PARTIAL = {
     "s40_block16": (2, 40, 2, 8, (16, 16)),
     "s200_block64": (1, 200, 2, 16, (64, 64)),
     "s104_block64x32": (1, 104, 2, 16, (64, 32)),
+    "s200_block128": (1, 200, 2, 16, (128, 128)),
+    "s200_block64x128": (1, 200, 2, 16, (64, 128)),
+    "s256_block128": (1, 256, 2, 16, (128, 128)),
+    "s256_block64x128": (1, 256, 2, 16, (64, 128)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(PARTIAL))
 def test_plain_kernels_take_a_partial_last_tile(name):
-    """At a block that does not divide the seq (the kernels' own tiling,
-    which the card tests hold the kernels against) the plain versions
-    agree with the Pallas kernels at the ladder's dividing block."""
+    """At a block other than the ladder's, one that need not divide the seq
+    (the kernels' own tiling, which the card tests hold the kernels
+    against), the plain versions agree with the Pallas kernels at the
+    ladder's dividing block."""
     b, s, n, d, block = PARTIAL[name]
     q, k, v, do = (_bh(x) for x in _inputs(b, s, n, d, seed=4))
     scale = float(1.0 / d**0.5)
     ladder = jfa._block_sizes(s)
-    assert s % ladder[0] == 0 and s % block[1]
+    assert s % ladder[0] == 0 and block != ladder
     j_out, j_lse = jfa._flash_fwd(*(jnp.asarray(x) for x in (q, k, v)), scale, ladder)
     res = tuple(jnp.asarray(x) for x in (q, k, v)) + (j_out, j_lse)
     tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
@@ -128,6 +135,41 @@ def test_plain_kernels_take_a_partial_last_tile(name):
         want = jfa._flash_bwd(scale, ladder, mode, res, jnp.asarray(do))
         for got, w in zip(plain(tq, tk, tv, tdo, lse, delta, scale, block), want):
             _close(got, w, 2e-5)
+
+
+def _load(path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_kernel_tiles_name_every_kernel_and_route():
+    """The tile table names a tile for each kernel on each route it has
+    (bf16 K3/K6 on the tensor cores, everything else on CUDA cores), the
+    route follows the dtype alone, and chip_smoke's phase 9 and the card
+    test hold each kernel against its plain version at that tile."""
+    from pathlib import Path
+
+    want = {("flash_fwd", "sm90"): (128, 128), ("flash_bwd_fused", "sm90"): (64, 128),
+            **{(name, "cuda_core"): (64, 64) for name in fa.KERNELS}}
+    assert fa.KERNEL_TILES == want
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in fa.KERNELS:
+            route = fa.kernel_route(name, dtype)
+            sm90 = dtype == torch.bfloat16 and name in ("flash_fwd", "flash_bwd_fused")
+            assert route == ("sm90" if sm90 else "cuda_core"), (name, dtype)
+            assert fa.kernel_tile(name, dtype) == want[(name, route)]
+    assert {"flash_fwd_sm90", "flash_bwd_fused_sm90"} <= set(fa.COUNTS)
+    root = Path(__file__).resolve().parents[1]
+    smoke = _load(root / "chip_smoke.py")
+    card = _load(root / "tests" / "test_torch_kernels_cuda.py")
+    for dtype in (torch.float32, torch.bfloat16):
+        tiles = {name: fa.kernel_tile(name, dtype) for name in fa.KERNELS}
+        assert smoke.flash_blocks(fa, dtype) == tiles
+        assert card.flash_blocks(fa, dtype) == tiles
 
 
 @pytest.mark.parametrize("mode", ["split", "fused"])

@@ -274,14 +274,21 @@ def test_paged_engine_on_card_matches_cpu(kv_dtype):
 # flash attention: K3 (forward), K4 + K5 (split backward), K6 (fused)
 # ---------------------------------------------------------------------------
 
-# Kernel vs plain, the plain version at the kernels' own 64 x 64 tile, a
-# partial last tile included (fa.KERNEL_TILE).  float32 (fwd, grads): max
+# Kernel vs plain, the plain version at each kernel's own tile (fa.kernel_tile:
+# bf16 K3 128 x 128 and K6 64 x 128 on the tensor cores, 64 x 64 otherwise),
+# a partial last tile included.  float32 (fwd, grads): max
 # |err|, and max |err| over the leaf's max.  bfloat16, per kernel: the
 # largest error of a row over that row's largest value, and the share of
 # elements that differ at all; a few times the readings PERF.md records.
 FLASH_TOL = {torch.float32: (1e-4, 2e-4)}
 BF16_ROW_TOL = {"fwd": 2.0**-6, "split": 2.0**-6, "fused": 2.0**-6}
 BF16_DIFFER_TOL = {"fwd": 5e-4, "split": 1.5e-3, "fused": 1.5e-3}
+
+
+def flash_blocks(fa, dtype):
+    """The block each kernel's plain version runs at to round as the
+    kernel does: the kernel's own tile on its route for ``dtype``."""
+    return {name: fa.kernel_tile(name, dtype) for name in fa.KERNELS}
 
 
 def _flash_case(dtype, d, s, dev, bh=6, seed=0):
@@ -318,31 +325,31 @@ def _hold(kernel, got, ref, record):
         assert readings["differ"] <= BF16_DIFFER_TOL[kernel], (kernel, readings)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s", [40, 200, 1024])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_flash_kernels_match_plain(dtype, d, s, record_property):
+def _match_plain(dtype, d, s, bh, record_property):
     """K3's out and lse, then K4+K5 and K6's dq/dk/dv from the same lse,
-    against the plain versions at the kernels' own tile, so both round
-    alike.  K6 adds dq with atomics in a varying order: a tolerance, not
-    bitwise.  The readings go to the junit XML (``record_property``)."""
+    against the plain versions at each kernel's own tile, so both round
+    alike; bf16 K3/K6 by the tensor-core route, the rest by the CUDA-core
+    one (the *_sm90 counts rise for bf16 only).  K6 adds dq with
+    reductions in a varying order: a tolerance, not bitwise.  The readings
+    go to the junit XML (``record_property``)."""
     dev = _card()
     from paddlefleetx_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _flash_case(dtype, d, s, dev)
-    scale, block = 1.0 / d**0.5, (fa.KERNEL_TILE, fa.KERNEL_TILE)
+    q, k, v, do = _flash_case(dtype, d, s, dev, bh=bh)
+    scale, blocks = 1.0 / d**0.5, flash_blocks(fa, dtype)
+    assert blocks["flash_bwd_dq"] == blocks["flash_bwd_dkv"]  # one block for the split plain
     before = dict(fa.COUNTS)
     out, lse = fa.launch_fwd(q, k, v, scale)
     torch.cuda.synchronize()
-    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, block)
+    ref_out, ref_lse = fa.flash_forward(q, k, v, scale, blocks["flash_fwd"])
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     _hold("fwd", out, ref_out, lambda r: record_property("fwd_out", r))
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     delta = (do.float() * ref_out.float()).sum(-1)
-    for mode, launch, plain in (("split", fa.launch_bwd_split, fa.flash_bwd_split),
-                                ("fused", fa.launch_bwd_fused, fa.flash_bwd_fused)):
+    for mode, launch, plain, block in (
+            ("split", fa.launch_bwd_split, fa.flash_bwd_split, blocks["flash_bwd_dq"]),
+            ("fused", fa.launch_bwd_fused, fa.flash_bwd_fused, blocks["flash_bwd_fused"])):
         got = launch(q, k, v, do, ref_lse, delta, scale)
         torch.cuda.synchronize()
         ref = plain(q, k, v, do, ref_lse, delta, scale, block)
@@ -350,8 +357,26 @@ def test_flash_kernels_match_plain(dtype, d, s, record_property):
             assert a.dtype == dtype and torch.isfinite(a).all(), (mode, name)
             _hold(mode, a, b, lambda r: record_property(f"{mode}_{name}", r))
     used = {key: fa.COUNTS[key] - before[key] for key in fa.COUNTS}
+    sm90 = int(dtype == torch.bfloat16)
     assert used == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                    "flash_bwd_fused": 1, "flash_plain": 0}, used
+                    "flash_bwd_fused": 1, "flash_fwd_sm90": sm90,
+                    "flash_bwd_fused_sm90": sm90, "flash_plain": 0}, used
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [40, 200, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(dtype, d, s, record_property):
+    _match_plain(dtype, d, s, 6, record_property)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernels_match_plain_with_more_ctas_than_sms(d, record_property):
+    """b*h = 256 at seq 1024: 2048 K3 CTAs and 2048 K6 CTAs, many waves of
+    the 132 SMs (bf16, the tensor-core route)."""
+    _match_plain(torch.bfloat16, d, 1024, 256, record_property)
 
 
 @pytest.mark.cuda
@@ -428,6 +453,17 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         fa.launch_fwd(q, k.cpu(), v, 0.1)  # device mismatch
     with pytest.raises(ValueError):
         fa.launch_fwd(q[None], k[None], v[None], 0.1)  # not [bh, s, d]
+    # the tensor-core route (bf16 K3/K6): a misaligned tensor, and float16
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    lse = torch.zeros(q.shape[:2], dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        fa.launch_fwd(odd, k, v, 0.1)
+    with pytest.raises(ValueError):
+        fa.launch_bwd_fused(q, k, odd, q, lse, lse, 0.1)
+    with pytest.raises(ValueError):
+        fa.launch_bwd_fused(q.half(), k.half(), v.half(), q.half(), lse, lse, 0.1)
 
 
 @pytest.mark.cuda
