@@ -52,24 +52,25 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      fused backward) against their plain versions on the card: at the
      training step's shape (micro-batch 8 x 16 heads, seq 1024, head dim
      64, bf16), at batch 16, in f32 at batch 2, and at seqs 40 and 200
-     (partial tiles); bf16 K3/K6 take the tensor-core route
-     (csrc/flash_attention_sm90.cu), f32 and K4/K5 the CUDA-core one; each
-     plain version at its kernel's own tile (a partial last tile too:
-     bf16 K3 128 x 128, K6 64 x 128, the rest 64 x 64); bf16 held per row
-     and by the share of elements
-     that differ (``BF16_ROW_TOL``, ``BF16_DIFFER_TOL``); with CUDA-event
-     times of the kernel, the plain version and
-     scaled_dot_product_attention (forward for K3, its autograd backward
-     for K4 + K5 and for K6), and the bound;
+     (partial tiles); bf16 K3-K6 take the tensor-core route
+     (csrc/flash_attention_sm90.cu), f32 the CUDA-core one; each plain
+     version at its kernel's own tile (a partial last tile too: bf16 K3
+     128 x 128, K4 128 x 64, K5 and K6 64 x 128, f32 64 x 64); bf16 held
+     per row and by the share of elements that differ (``BF16_ROW_TOL``,
+     ``BF16_DIFFER_TOL``); with CUDA-event times of the kernel, the plain
+     version and scaled_dot_product_attention (forward for K3, its
+     autograd backward for K4 + K5 and for K6), and the bound; at the
+     training shape also the K4 + K5 pair as one split backward against
+     SDPA's backward and the pair's bound;
   10. GPT-345M pretraining at full width through ``Engine(cfg,
      GPTModule(cfg)).train_step``: seq 1024, global batch 16 in two
      micro-batches of 8, bf16 over float32 masters, flash attention,
      selective recompute, AdamW with clip 1.0 at a constant 1e-4, random
      weights from Global.seed and one fixed random batch; 10 steps with
      flash_bwd split and 10 with fused.  Every step must launch K3 and
-     K4 + K5 (split) or K6 (fused), K3/K6 on the tensor-core route only,
-     and no plain version; the loss must be
-     finite and fall; prints step ms, tokens/s and peak memory;
+     K4 + K5 (split: 48 each) or K6 (fused: 48), every launch on the
+     tensor-core route, and no plain version; the loss must be finite and
+     fall; prints step ms, tokens/s and peak memory;
   11. the training step on the card against the CPU at float32: the
      345M width cut to 2 layers, batch 1, seq 512, dropout 0, both
      schedules: loss within 1e-5 relative, every grad within 1e-3 of its
@@ -107,6 +108,7 @@ Exits non-zero without a card, or outside a checkout of the repo.
 
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -124,8 +126,8 @@ SOURCES = {
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
-    "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
-    "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
+    "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_fused": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "fused_ln_fwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
     "fused_ln_bwd": "paddlefleetx_tpu_torch/csrc/fused_layernorm.cu",
@@ -144,14 +146,15 @@ REPLACES = {
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 # kernel vs plain, the plain version at each kernel's own tile, a partial
-# last tile included (fa.kernel_tile: bf16 K3 128 x 128 and K6 64 x 128 on
-# the tensor-core route, 64 x 64 otherwise).  float32: forward max |err|, grads
-# max |err| over the leaf's max (summation order only).  bfloat16, per
-# kernel: the largest error of a row over that row's largest value (one
-# bf16 ulp is up to 2**-7 of it), and the share of elements that differ
-# at all (p, ds and the outputs round where float32 sums of another order
-# straddle a rounding boundary).  The bf16 limits are a few times the
-# readings PERF.md records.
+# last tile included (fa.kernel_tile: bf16 on the tensor-core route K3 128
+# x 128, K4 128 x 64, K5 and K6 64 x 128; f32 64 x 64).  float32: forward
+# max |err|, grads max |err| over the leaf's max (summation order only).
+# bfloat16, per kernel: the largest error of a row over that row's largest
+# value (one bf16 ulp is up to 2**-7 of it), and the share of elements that
+# differ at all (p, ds and the outputs round where float32 sums of another
+# order straddle a rounding boundary).  The bf16 limits were set at 2-4x the
+# CUDA-core kernels' readings; the tensor-core K4-K6 read up to 0.93 of the
+# share's limit at head dim 128 (PERF.md).
 FLASH_TOL = {"float32": (1e-4, 2e-4)}
 BF16_ROW_TOL = dict.fromkeys(FLASH_KERNELS, 2.0**-6)
 BF16_DIFFER_TOL = {"flash_fwd": 5e-4, "flash_bwd_dq": 1.5e-3, "flash_bwd_dkv": 1.5e-3,
@@ -220,9 +223,25 @@ def phase_toolchain(torch, build):
     build.build()
     log(f"build: {time.time() - t0:.1f}s ({', '.join(build.SOURCES)})")
     for name in build.SOURCES:
+        kernel = "?"
         for line in build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = ptxas_kernel(line.split("'")[1])
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
+
+
+def ptxas_kernel(mangled):
+    """``name<template args>`` of a kernel's mangled entry name: the
+    length-prefixed identifier that ends in ``_kernel``, and the integer
+    and bool arguments of its template (``flash_bwd_kv_sm90_kernel<64,0>``)."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        at = m.start() + len(m.group(1))
+        name = mangled[at:at + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.findall(r"L[a-z](\d+)E", mangled[at + len(name):].split("Ev", 1)[0])
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
 
 
 # ---------------------------------------------------------------------------
@@ -841,7 +860,8 @@ def flash_bound(name, kind, bh, s, d):
     written once (K6's dq as the float32 slab it writes), against the
     causal (query, key) pairs' operations: 4d per pair forward (q.k and
     p.v), 6d for K4 (q.k, do.v, ds.k), 8d for K5 (q.k, do.v, p.do,
-    ds.q), 10d for K6 (all five)."""
+    ds.q), 10d for K6 (all five); the split pair K4 + K5 ("flash_bwd_split")
+    reads q, k, v, do once and does both kernels' 14d."""
     elt = 4 if kind == "float32" else 2
     one = bh * s * d * elt
     stats = bh * s * 4
@@ -850,6 +870,7 @@ def flash_bound(name, kind, bh, s, d):
         "flash_bwd_dq": (5 * one + 2 * stats, 6 * d),
         "flash_bwd_dkv": (6 * one + 2 * stats, 8 * d),
         "flash_bwd_fused": (6 * one + bh * s * d * 4 + 2 * stats, 10 * d),
+        "flash_bwd_split": (7 * one + 2 * stats, 14 * d),
     }[name]
     ops = bh * s * (s + 1) // 2 * per_pair
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -883,12 +904,13 @@ def flash_blocks(fa, dt):
     return {name: fa.kernel_tile(name, dt) for name in FLASH_KERNELS}
 
 
-def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
+def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0, pair=False):
     """Each of K3-K6 on [b*n, s, d] inputs against its plain version at
     that kernel's own tile, so both round alike (the backward kernels on
     the plain forward's lse and delta), with times and bounds.  The plain
     versions are timed at the block the ladder gives ``s``, as the CPU
-    path runs them."""
+    path runs them.  Returns (rows, the K4 + K5 pair's row if ``pair``
+    else None)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = torch.float32 if kind == "float32" else torch.bfloat16
     q, k, v, do = (torch.randn(b * n, s, d, generator=g, device="cuda").to(dt)
@@ -953,7 +975,16 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0):
                       "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
                       "bound_ms": bound_ms, "bound_by": bound_by}
     rows["flash_fwd"]["lse_err"] = lse_err
-    return rows
+    split = None
+    if pair:  # the split backward as the training step calls it, K4 then K5
+        bound_ms, bound_by = flash_bound("flash_bwd_split", kind, b * n, s, d)
+        split = {"kind": kind, "b": b, "n": n, "s": s, "d": d,
+                 "ms": flash_event_ms(torch, lambda: fa.launch_bwd_split(*args), iters),
+                 "k4_plus_k5_ms": ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+                 "library_ms": lib_bwd, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "fused_ms": ms["flash_bwd_fused"],
+                 "fused_bound_ms": rows["flash_bwd_fused"]["bound_ms"]}
+    return rows, split
 
 
 def phase_flash(torch, F, fa):
@@ -964,8 +995,15 @@ def phase_flash(torch, F, fa):
              ("bfloat16", 16, 40), ("float32", 16, 40)]
     main, table = None, []
     for kind, b, s in cases:
-        rows = flash_case(torch, F, fa, kind, b, 16, s, 64)
+        rows, split = flash_case(torch, F, fa, kind, b, 16, s, 64, pair=main is None)
         main = main or rows
+        if split:
+            log(f"  K4 + K5 (split backward) {kind} b={b} s={s}: {split['ms']:.4f} ms "
+                f"(K4 {rows['flash_bwd_dq']['ms']:.4f} + K5 {rows['flash_bwd_dkv']['ms']:.4f}), "
+                f"SDPA backward {split['library_ms']:.4f} ms "
+                f"({split['ms'] / split['library_ms']:.2f}x), bound {split['bound_ms']:.4f} "
+                f"({split['bound_by']}); K6 {split['fused_ms']:.4f}")
+            log("flash_split_pair " + json.dumps(split))
         for name, row in rows.items():
             table.append(dict(row, name=name))
             log(f"  {name:16s} {kind:8s} {row['route']:9s} b={b:2d} s={s:4d}: err {row['max_abs_err']:.2e} "
@@ -1029,12 +1067,14 @@ def phase_train(torch, fa):
             m = engine.train_step(batch)  # ends in a host read of the metrics
             step_s.append(time.perf_counter() - t1)
             used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
-            check(all(used[k] > 0 for k in wanted) and used["flash_plain"] == 0,
+            # one backward launch per layer and micro-batch, none of the other schedule
+            check(all(used[k] == N_LAYERS * TRAIN_GLOBAL // TRAIN_MICRO for k in wanted[1:])
+                  and used["flash_fwd"] > 0 and used["flash_plain"] == 0
+                  and sum(used[k] for k in fa.KERNELS[1:] if k not in wanted) == 0,
                   f"{mode} step {len(losses)}: flash launches {used}")
-            # bf16: every K3/K6 launch on the tensor-core route
-            check(used["flash_fwd_sm90"] == used["flash_fwd"]
-                  and used["flash_bwd_fused_sm90"] == used["flash_bwd_fused"],
-                  f"{mode} step {len(losses)}: K3/K6 off the sm90 route: {used}")
+            # bf16: every launch on the tensor-core route
+            check(all(used[f"{k}_sm90"] == used[k] for k in fa.KERNELS),
+                  f"{mode} step {len(losses)}: launches off the sm90 route: {used}")
             check(m["found_inf"] == 0.0, f"{mode}: non-finite step {m}")
             losses.append(m["loss"])
             for k in totals:
@@ -1133,7 +1173,7 @@ def phase_train_card_vs_cpu(torch, fa, fused_ln=False):
         cu, cp = res["cuda"], res["cpu"]
         key = "flash_bwd_fused" if mode == "fused" else "flash_bwd_dq"
         check(cu[4]["flash_fwd"] > 0 and cu[4][key] > 0 and cu[4]["flash_plain"] == 0
-              and cu[4]["flash_fwd_sm90"] == 0 and cu[4]["flash_bwd_fused_sm90"] == 0,
+              and all(cu[4][f"{k}_sm90"] == 0 for k in fa.KERNELS),
               f"card run did not take the kernels: {cu[4]}")
         check(cp[4]["flash_plain"] > 0, "cpu run did not take the plain versions")
         ln = ("fused_ln_fwd", "fused_ln_bwd")
@@ -1363,6 +1403,7 @@ def cli_launches_ok(rec, evals_before):
             "flash_fwd": 2 * N_LAYERS + evals_before * N_LAYERS,
             "flash_bwd_fused": 2 * N_LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_sm90": 2 * N_LAYERS + evals_before * N_LAYERS,
+            "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0,
             "flash_bwd_fused_sm90": 2 * N_LAYERS,
             "flash_plain": 0, "fused_ln_fwd_plain": 0, "fused_ln_bwd_plain": 0}
     return k == want, want

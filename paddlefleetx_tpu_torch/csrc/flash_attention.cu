@@ -1,33 +1,33 @@
-// Causal flash attention on CUDA cores (sm_90a): the split backward
-// (K4 + K5) in bf16 and f32, and the forward (K3) and fused backward (K6)
-// in f32, head dim 64 or 128.  The bf16 K3/K6 run on the tensor cores, in
+// Causal flash attention on CUDA cores (sm_90a), float32 only: the forward
+// (K3), the split backward (K4 + K5) and the fused backward (K6), head dim
+// 64 or 128.  The bf16 kernels run on the tensor cores, in
 // csrc/flash_attention_sm90.cu; the f32 ones stay here in full FP32
 // (tensor cores would make them TF32).
 //
-// Replaces the TPU kernels of paddlefleetx_tpu/ops/flash_attention.py:
-//   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd       (K3, f32)
+// Replaces, for float32 inputs, the TPU kernels of
+// paddlefleetx_tpu/ops/flash_attention.py:
+//   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd       (K3)
 //   _dq_kernel        (:215, launched by _flash_bwd :400)        -> flash_bwd_dq    (K4)
 //   _dkv_kernel       (:249, launched by _flash_bwd :416)        -> flash_bwd_dkv   (K5)
-//   _bwd_fused_kernel (:305, launched by _flash_bwd_fused :359)  -> flash_bwd_fused (K6, f32)
+//   _bwd_fused_kernel (:305, launched by _flash_bwd_fused :359)  -> flash_bwd_fused (K6)
 //
-// Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous in the
-// input type T; lse and delta are float32 [bh, s].  Causal: query row r
-// sees keys col <= r.
+// Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous float32;
+// lse and delta are float32 [bh, s].  Causal: query row r sees keys col
+// <= r.
 //
-// What each computes (the math of the TPU kernels, not their blocking):
-//  K3: s = scale * q.k (f32 sums of the input-type products), masked to
-//      -1e30, online softmax with f32 (m, l, acc); p is rounded to T
-//      before p @ v; out = acc / max(l, 1e-30) in T, lse = m + log(max(l,
+// What each computes (the math of the TPU kernels, not their blocking;
+// the TPU kernels round p and ds to the input type before a dot, which
+// in float32 changes nothing):
+//  K3: s = scale * q.k (f32 sums), masked to -1e30, online softmax with
+//      f32 (m, l, acc); out = acc / max(l, 1e-30), lse = m + log(max(l,
 //      1e-30)) (natural log: K4-K6 read it back).
 //  K4: per query tile, over the key tiles up to the diagonal:
 //      p = exp(scale * q.k - lse) (0 where masked), dp = do.v,
-//      ds = p * (dp - delta) * scale rounded to T, dq += ds @ k (f32),
-//      dq written in T.
+//      ds = p * (dp - delta) * scale, dq += ds @ k.
 //  K5: per key tile, over the query tiles from the diagonal on, the same
-//      p and ds (the TPU's shared _bwd_tile :288): dv += p_T^T @ do and
-//      dk += ds_T^T @ q, with p and ds rounded to T first; f32 sums,
-//      written in T.
-//  K6: K5 plus dq: each (key tile, query tile) pair adds ds_T @ k to a
+//      p and ds (the TPU's shared _bwd_tile :288): dv += p^T @ do and
+//      dk += ds^T @ q.
+//  K6: K5 plus dq: each (key tile, query tile) pair adds ds @ k to a
 //      zeroed f32 [bh, s, d] slab with atomicAdd.  The TPU kernel could
 //      read-modify-write its dq block because its grid runs in order
 //      (:319-321, :345); here the key tiles of one row run at the same
@@ -36,9 +36,9 @@
 //
 // What bounds it on the card: operations.  At GPT-345M (b*h = 128 per
 // micro-batch of 8, s = 1024, d = 64) the causal forward does about
-// 4 * d * bh * s^2 / 2 = 17.2 GFLOP on 67 MB of bf16 q/k/v/out; the
+// 4 * d * bh * s^2 / 2 = 17.2 GFLOP on 134 MB of float32 q/k/v/out; the
 // backward 2.5x (fused) to 3.5x (split) that.  These kernels run the
-// products as f32 FMAs on CUDA cores (f32 inputs in plain FP32, no TF32).
+// products as f32 FMAs on CUDA cores (plain FP32, no TF32).
 //
 // Design, a simple kernel that is right first:
 //  * 64 x 64 tiles, 128 threads.  Each tile is staged in shared memory
@@ -56,7 +56,6 @@
 // Plain C interface (loaded with ctypes); every entry point launches on
 // the given stream and returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,22 +66,6 @@ constexpr int kThreads = 128;
 constexpr int kLP = kB + 1;   // padded row of a [64, 64] score tile
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back (the TPU kernels' .astype(v.dtype) before a dot)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
 __device__ __forceinline__ float row_max8(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
@@ -98,10 +81,10 @@ __device__ __forceinline__ float row_sum8(float x) {
 
 // Rows [r0, r0 + 64) of one head's [s, D] matrix into a padded f32 tile;
 // rows at or past s are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ g, int r0, int s,
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ g, int r0, int s,
                                           float* __restrict__ t) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 4;
   constexpr int kPerRow = D / kVec;
   for (int i = threadIdx.x; i < kB * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
@@ -109,9 +92,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ g, int r0, int s
     float* dst = t + r * (D + 1) + c;
     if (r0 + r < s) {
       const uint4 raw = *reinterpret_cast<const uint4*>(g + static_cast<size_t>(r0 + r) * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      const float* e = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) dst[u] = to_f(e[u]);
+      for (int u = 0; u < kVec; ++u) dst[u] = e[u];
     } else {
 #pragma unroll
       for (int u = 0; u < kVec; ++u) dst[u] = 0.f;
@@ -171,10 +154,11 @@ __host__ __device__ constexpr size_t tile_floats() { return static_cast<size_t>(
 // K3: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int bh, int s, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int bh, int s, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + tile_floats<D>();
@@ -187,7 +171,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t base = static_cast<size_t>(b) * s * D;
   const int q0 = qi * kB;
 
-  load_tile<T, D>(q + base, q0, s, sQ);
+  load_tile<D>(q + base, q0, s, sQ);
   float m[4], l[4], acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -201,8 +185,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int j = 0; j < nkv; ++j) {
     const int k0 = j * kB;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k + base, k0, s, sK);
-    load_tile<T, D>(v + base, k0, s, sV);
+    load_tile<D>(k + base, k0, s, sK);
+    load_tile<D>(v + base, k0, s, sV);
     __syncthreads();
     float sc[4][8];
     tile_dot<D>(sQ, sK, ty, tx, sc);
@@ -223,7 +207,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int jj = 0; jj < 8; ++jj) {
         const float p = expf(sc[i][jj] - m_new);
         sum += p;
-        sP[(ty * 4 + i) * kLP + tx + 8 * jj] = round_to<T>(p);
+        sP[(ty * 4 + i) * kLP + tx + 8 * jj] = p;
       }
       l[i] = l[i] * alpha + row_sum8(sum);
       m[i] = m_new;
@@ -238,9 +222,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + ty * 4 + i;
     if (row >= s) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* o = out + base + static_cast<size_t>(row) * D;
+    float* o = out + base + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) o[tx + 8 * c] = from_f<T>(acc[i][c] / l_safe);
+    for (int c = 0; c < D / 8; ++c) o[tx + 8 * c] = acc[i][c] / l_safe;
     if (tx == 0) lse[static_cast<size_t>(b) * s + row] = m[i] + logf(l_safe);
   }
 }
@@ -249,12 +233,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // K4: dq (split schedule)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int bh, int s,
-                    float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int bh, int s, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sDO = sQ + tile_floats<D>();
@@ -268,8 +252,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t base = static_cast<size_t>(b) * s * D;
   const int q0 = qi * kB;
 
-  load_tile<T, D>(q + base, q0, s, sQ);
-  load_tile<T, D>(dout + base, q0, s, sDO);
+  load_tile<D>(q + base, q0, s, sQ);
+  load_tile<D>(dout + base, q0, s, sDO);
   float lse_r[4], delta_r[4], acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -284,8 +268,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int j = 0; j < nkv; ++j) {
     const int k0 = j * kB;
     __syncthreads();
-    load_tile<T, D>(k + base, k0, s, sK);
-    load_tile<T, D>(v + base, k0, s, sV);
+    load_tile<D>(k + base, k0, s, sK);
+    load_tile<D>(v + base, k0, s, sV);
     __syncthreads();
     float sc[4][8], dp[4][8];
     tile_dot<D>(sQ, sK, ty, tx, sc);
@@ -299,7 +283,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float p = (col <= row && col < s && row < s)
                             ? expf(scale * sc[i][jj] - lse_r[i]) : 0.f;
         sDS[(ty * 4 + i) * kLP + tx + 8 * jj] =
-            round_to<T>(p * (dp[i][jj] - delta_r[i]) * scale);
+            p * (dp[i][jj] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
@@ -309,9 +293,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= s) continue;
-    T* o = dq + base + static_cast<size_t>(row) * D;
+    float* o = dq + base + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) o[tx + 8 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < D / 8; ++c) o[tx + 8 * c] = acc[i][c];
   }
 }
 
@@ -320,19 +304,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // tiles from the diagonal on
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq32,
-                     T* __restrict__ dk, T* __restrict__ dv, int bh, int s, float scale) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq32, float* __restrict__ dk, float* __restrict__ dv,
+                     int bh, int s, float scale) {
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + tile_floats<D>();
   float* sQ = sV + tile_floats<D>();
   float* sDO = sQ + tile_floats<D>();
-  float* sPT = sDO + tile_floats<D>();  // [key][query], rounded p
-  float* sDST = sPT + kB * kLP;         // [key][query], rounded ds
+  float* sPT = sDO + tile_floats<D>();  // [key][query], p
+  float* sDST = sPT + kB * kLP;         // [key][query], ds
   float* sLSE = sDST + kB * kLP;
   float* sDelta = sLSE + kB;
   const int ntiles = (s + kB - 1) / kB;
@@ -342,8 +327,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const size_t base = static_cast<size_t>(b) * s * D;
   const int k0 = kj * kB;
 
-  load_tile<T, D>(k + base, k0, s, sK);
-  load_tile<T, D>(v + base, k0, s, sV);
+  load_tile<D>(k + base, k0, s, sK);
+  load_tile<D>(v + base, k0, s, sV);
   float dk_acc[4][D / 8], dv_acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -353,8 +338,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int qt = kj; qt < ntiles; ++qt) {  // causal: query tiles from the diagonal on
     const int q0 = qt * kB;
     __syncthreads();
-    load_tile<T, D>(q + base, q0, s, sQ);
-    load_tile<T, D>(dout + base, q0, s, sDO);
+    load_tile<D>(q + base, q0, s, sQ);
+    load_tile<D>(dout + base, q0, s, sDO);
     if (threadIdx.x < kB) {
       const int row = q0 + threadIdx.x;
       sLSE[threadIdx.x] = row < s ? lse[static_cast<size_t>(b) * s + row] : 0.f;
@@ -375,8 +360,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           const float p = (col <= row && row < s && col < s)
                               ? expf(scale * st[i][jj] - sLSE[qc]) : 0.f;
           const float ds = p * (dpt[i][jj] - sDelta[qc]) * scale;
-          sPT[(ty * 4 + i) * kLP + qc] = round_to<T>(p);
-          sDST[(ty * 4 + i) * kLP + qc] = round_to<T>(ds);
+          sPT[(ty * 4 + i) * kLP + qc] = p;
+          sDST[(ty * 4 + i) * kLP + qc] = ds;
         }
       }
     }
@@ -405,12 +390,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= s) continue;
-    T* ok = dk + base + static_cast<size_t>(row) * D;
-    T* ov = dv + base + static_cast<size_t>(row) * D;
+    float* ok = dk + base + static_cast<size_t>(row) * D;
+    float* ov = dv + base + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
-      ok[tx + 8 * c] = from_f<T>(dk_acc[i][c]);
-      ov[tx + 8 * c] = from_f<T>(dv_acc[i][c]);
+      ok[tx + 8 * c] = dk_acc[i][c];
+      ov[tx + 8 * c] = dv_acc[i][c];
     }
   }
 }
@@ -440,68 +425,61 @@ bool bad_shape(int bh, int s, int d) {
          static_cast<long long>(bh) * ((s + kB - 1) / kB) > 0x7fffffffLL;
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                 int s, float scale, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<D>;
   const size_t smem = fwd_smem<D>();
   const int grid = bh * ((s + kB - 1) / kB);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<T*>(out),
+  kern<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q),
+                                     static_cast<const float*>(k),
+                                     static_cast<const float*>(v), static_cast<float*>(out),
                                      static_cast<float*>(lse), bh, s, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int bh, int s, float scale,
                    cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = flash_bwd_dq_kernel<D>;
   const size_t smem = dq_smem<D>();
   const int grid = bh * ((s + kB - 1) / kB);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), bh, s, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), bh, s, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq32, void* dk, void* dv,
                     int bh, int s, float scale, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel<T, D, FUSED>;
+  auto kern = flash_bwd_dkv_kernel<D, FUSED>;
   const size_t smem = dkv_smem<D>();
   const int grid = bh * ((s + kB - 1) / kB);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq32), static_cast<T*>(dk),
-      static_cast<T*>(dv), bh, s, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq32), static_cast<float*>(dk), static_cast<float*>(dv), bh, s,
+      scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
-#define PFX_DISPATCH(dtype, d, CALL)                              \
-  do {                                                            \
-    if (dtype == 0 && d == 64) { using T = float; constexpr int D = 64; return static_cast<int>(CALL); } \
-    if (dtype == 0 && d == 128) { using T = float; constexpr int D = 128; return static_cast<int>(CALL); } \
-    if (dtype == 1 && d == 64) { using T = __nv_bfloat16; constexpr int D = 64; return static_cast<int>(CALL); } \
-    if (dtype == 1 && d == 128) { using T = __nv_bfloat16; constexpr int D = 128; return static_cast<int>(CALL); } \
-    return static_cast<int>(cudaErrorInvalidValue);               \
-  } while (0)
-
-// K3 and K6 here take float32 only (bf16: csrc/flash_attention_sm90.cu)
+// dtype: 0 = float32 (bf16 runs on the tensor cores: csrc/flash_attention_sm90.cu)
 #define PFX_DISPATCH_F32(dtype, d, CALL)                          \
   do {                                                            \
-    if (dtype == 0 && d == 64) { using T = float; constexpr int D = 64; return static_cast<int>(CALL); } \
-    if (dtype == 0 && d == 128) { using T = float; constexpr int D = 128; return static_cast<int>(CALL); } \
+    if (dtype == 0 && d == 64) { constexpr int D = 64; return static_cast<int>(CALL); } \
+    if (dtype == 0 && d == 128) { constexpr int D = 128; return static_cast<int>(CALL); } \
     return static_cast<int>(cudaErrorInvalidValue);               \
   } while (0)
 
@@ -514,26 +492,26 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
               int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH_F32(dtype, d, (fwd<T, D>(q, k, v, out, lse, bh, s, scale, st)));
+  PFX_DISPATCH_F32(dtype, d, (fwd<D>(q, k, v, out, lse, bh, s, scale, st)));
 }
 
-// dq [bh, s, d] in the input type
+// float32 only: dq [bh, s, d]
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, int bh, int s, int d,
                  float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH(dtype, d, (bwd_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, s, scale, st)));
+  PFX_DISPATCH_F32(dtype, d, (bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, s, scale, st)));
 }
 
-// dk, dv [bh, s, d] in the input type
+// float32 only: dk, dv [bh, s, d]
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                   int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH(dtype, d, (bwd_dkv<T, D, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                                bh, s, scale, st)));
+  PFX_DISPATCH_F32(dtype, d, (bwd_dkv<D, false>(q, k, v, dout, lse, delta, nullptr, dk,
+                                                    dv, bh, s, scale, st)));
 }
 
 // float32 only: dq32 float32 [bh, s, d], zeroed by the caller and
@@ -543,7 +521,7 @@ int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dou
                     int bh, int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PFX_DISPATCH_F32(dtype, d, (bwd_dkv<T, D, true>(q, k, v, dout, lse, delta, dq32, dk, dv,
+  PFX_DISPATCH_F32(dtype, d, (bwd_dkv<D, true>(q, k, v, dout, lse, delta, dq32, dk, dv,
                                                    bh, s, scale, st)));
 }
 

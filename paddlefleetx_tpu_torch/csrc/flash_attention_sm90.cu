@@ -1,14 +1,17 @@
-// Causal flash attention on Hopper's tensor cores (sm_90a): the bfloat16
-// forward (K3) and fused backward (K6), head dim 64 or 128.
+// Causal flash attention on Hopper's tensor cores (sm_90a): every bfloat16
+// kernel of the family, the forward (K3), the split backward (K4 dq, K5
+// dk/dv) and the fused backward (K6), head dim 64 or 128.
 //
 // Replaces, for bfloat16 inputs, the TPU kernels of
 // paddlefleetx_tpu/ops/flash_attention.py:
 //   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd_sm90       (K3)
+//   _dq_kernel        (:215, launched by _flash_bwd :400)        -> flash_bwd_dq_sm90    (K4)
+//   _dkv_kernel       (:249, launched by _flash_bwd :416)        -> flash_bwd_dkv_sm90   (K5)
 //   _bwd_fused_kernel (:305, launched by _flash_bwd_fused :359)  -> flash_bwd_fused_sm90 (K6)
-// csrc/flash_attention.cu keeps the float32 K3/K6 (full FP32 on CUDA
-// cores: tensor cores would make them TF32) and the split backward K4/K5.
+// csrc/flash_attention.cu keeps the float32 K3-K6 (full FP32 on CUDA
+// cores: tensor cores would make them TF32).
 //
-// Layout: q, k, v, out, do, dk, dv are [bh, s, d] contiguous bfloat16;
+// Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous bfloat16;
 // lse and delta float32 [bh, s]; dq32 a zeroed float32 [bh, s, d] slab.
 // Causal: query row r sees keys col <= r.
 //
@@ -20,21 +23,26 @@
 //      m_new), l = l * alpha + sum p, acc = acc * alpha + p_bf16 @ v;
 //      out = acc / max(l, 1e-30) in bf16, lse = m + log(max(l, 1e-30))
 //      in float32 (natural log: the backward kernels read it back).
-//  K6: per 128-key tile, over the 64-row query tiles from the diagonal
-//      on: p = exp(scale * q.k - lse) (0 where masked), ds = p * (do.v -
-//      delta) * scale, both rounded to bf16; dv += p^T @ do, dk += ds^T @
-//      q in float32 registers for the whole sweep; dq += ds @ k added to
-//      the float32 slab by TMA reduce-adds.  The TPU kernel could
-//      read-modify-write its dq block because its grid runs in order; here
-//      the key tiles of one head run at the same time, so the adds are
-//      reductions in L2 whose order varies from run to run.
+//  K4: per 128-row query tile, over the 64-key tiles up to the diagonal:
+//      p = exp(scale * q.k - lse) left in float32 (0 where masked), ds =
+//      p * (do.v - delta) * scale rounded to bf16, dq += ds @ k in float32
+//      registers for the whole sweep, written once in bf16.
+//  K5: per 128-key tile, over the 64-row query tiles from the diagonal
+//      on: the same p and ds, both rounded to bf16; dv += p^T @ do, dk +=
+//      ds^T @ q in float32 registers for the whole sweep.
+//  K6: K5, and dq += ds @ k added to the float32 slab by TMA
+//      reduce-adds.  The TPU kernel could read-modify-write its dq block
+//      because its grid runs in order; here the key tiles of one head run
+//      at the same time, so the adds are reductions in L2 whose order
+//      varies from run to run.
 //
 // What bounds them: operations.  At the GPT-345M training shape (b*h =
 // 128 per micro-batch of 8, s = 1024, d = 64) the causal forward does 4d
 // operations per (query, key) pair, 17.2 GFLOP (17 us at 989 TFLOP/s bf16
 // against 20 us to move its 67 MB: bytes by a hair), the fused backward
-// 10d, 43 GFLOP (44 us against 31 us of bytes).  The CUDA-core kernels
-// they replace ran at ~25 TFLOP/s; only the tensor cores can move them.
+// 10d, 43 GFLOP (44 us against 31 us of bytes); the split backward's K4
+// 6d (26 us) and K5 8d (35 us).  The CUDA-core kernels they replace ran
+// at ~25 TFLOP/s; only the tensor cores can move them.
 //
 // Design:
 //  * wgmma: every product runs on the tensor cores as warpgroup
@@ -53,7 +61,7 @@
 //    __grid_constant__ parameters.
 //  * Roles: 288 threads.  Warpgroups 0 and 1 compute, each on 64 rows
 //    (wgmma's M); one thread of warp 8 keeps the TMA loads of a 2-stage
-//    ring in flight, with a full and an empty mbarrier per stage.  (A
+//    ring (3 for K4) in flight, with a full and an empty mbarrier per stage.  (A
 //    third warpgroup would not buy registers: ptxas holds every thread of
 //    a CTA of more than 8 warps to 168 registers, setmaxnreg or not.)
 //  * K3: a CTA takes 128 query rows of one head.  Q [128, d] is loaded
@@ -89,9 +97,25 @@
 //    sees key 0 alone, so its dp - delta is an exact cancellation that the
 //    plain version, summing dp and delta in one order, leaves at 0; that
 //    one dot product is summed in index order too.
+//  * K5 is K6's kernel with the dq half compiled out (kDq = false): no
+//    dS^T staging, no barrier between the warpgroups, no dQ product and no
+//    reduce-adds, so each warpgroup's sweep runs on its own.  The row-0
+//    dot product stays, since ds[0, 0] feeds dk[0].
+//  * K4: a CTA takes 128 query rows of one head (64 per warpgroup).  Q
+//    and dO [128, d] are loaded once; K and V tiles of 64 keys stream
+//    through a 3-stage ring, up to the diagonal (warpgroup 0 skips the
+//    last tile, all of it above its rows).  Per tile S = Q.K^T and dP =
+//    dO.V^T (m64n64k16, K-major operands), then dQ += dS.K with dS from
+//    registers and K as an MN-major B.  64-key tiles keep S, dP and dQ
+//    (32 + 32 + d / 2 floats) within the 168 registers a thread has.  dQ
+//    leaves once, in bf16, through the Q tile's shared memory and a TMA
+//    store: no slab, no atomics, the same result every run.  Query row 0
+//    gets K6's index-order dot product; p is not rounded (the TPU's
+//    _dq_kernel leaves it in float32), and it is computed as the plain
+//    version rounds it, scale * s then - lse, unfused.
 //  * Work per CTA grows along the causal triangle, so the grid starts
-//    the longest ones first: the last query tiles for K3, the first key
-//    tiles for K6.
+//    the longest ones first: the last query tiles for K3 and K4, the first
+//    key tiles for K5 and K6.
 //
 // Plain C interface (loaded with ctypes); every entry point launches on
 // the given stream and returns a CUDA error code (or kMapFailed) after its
@@ -693,7 +717,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 // K6: fused backward
 // ---------------------------------------------------------------------------
 
-template <int D>
+// kDq: K6 (dq by TMA reduce-adds) or K5 (dk and dv only)
+template <int D, bool kDq>
 struct BwdSmem {
   static constexpr int kBoxes = D / 64;
   static constexpr int kKV = kBoxes * kBox;      // [128 keys, D] bf16
@@ -706,22 +731,22 @@ struct BwdSmem {
   static constexpr int kV = kK + kKV;
   static constexpr int kQ = kV + kKV;             // kStages tiles
   static constexpr int kDO = kQ + kStages * kQT;  // kStages tiles
-  static constexpr int kDS = kDO + kStages * kQT; // 2 buffers
-  static constexpr int kDQs = kDS + 2 * kDSBuf;   // 2 warpgroups
-  static constexpr int kStat = kDQs + 2 * kDQ;    // kStages x (lse[64], delta[64])
+  static constexpr int kDS = kDO + kStages * kQT; // 2 buffers (K6)
+  static constexpr int kDQs = kDS + (kDq ? 2 * kDSBuf : 0);  // 2 warpgroups (K6)
+  static constexpr int kStat = kDQs + (kDq ? 2 * kDQ : 0);   // kStages x (lse[64], delta[64])
   static constexpr int kBar = kStat + kStages * 128 * 4;
   static constexpr int kBytes = kBar + 64 + 1024;
 };
 
-template <int D>
+template <int D, bool kDq>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
            const __grid_constant__ CUtensorMap tm_dq, const __nv_bfloat16* __restrict__ v,
            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
            __nv_bfloat16* __restrict__ dv, int bh, int s, float scale) {
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, kDq>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -788,9 +813,6 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gr
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     const uint32_t k_half = smem_u32(smem + L::kK) + 64 * 128 * half;
     const uint32_t v_half = smem_u32(smem + L::kV) + 64 * 128 * half;
-    // dQ's B: all 128 keys of K, this half's D / 2 columns
-    const uint32_t k_cols = smem_u32(smem + L::kK) + (D == 64 ? 64 * half : kBox * half);
-    uint8_t* dq_s = smem + L::kDQs + half * L::kDQ;
     mbar_wait(bar_kv, 0);
     for (int it = 0; it < nq; ++it) {
       const int st = it % kStages;
@@ -866,62 +888,73 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gr
           wgmma_rs_n128<1>(dk_acc, df[kk], bq, 1);
       }
       wgmma_commit();
-      // dS^T (bf16) to shared memory, [128 keys, 64 queries] with queries
-      // contiguous: the MN-major A of dQ = dS.K
-      uint8_t* ds_s = smem + L::kDS + (it & 1) * L::kDSBuf;
+      if constexpr (kDq) {
+        // dS^T (bf16) to shared memory, [128 keys, 64 queries] with queries
+        // contiguous: the MN-major A of dQ = dS.K
+        uint8_t* ds_s = smem + L::kDS + (it & 1) * L::kDSBuf;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int qb = (16 * kk + 2 * (lane & 3)) * 2;
-        *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in, qb)) = df[kk][0];
-        *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in + 8, qb)) = df[kk][1];
-        *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in, qb + 16)) = df[kk][2];
-        *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in + 8, qb + 16)) = df[kk][3];
-      }
-      fence_proxy_async();
-      named_bar_sync(1, kConsumers);  // both halves' dS^T are in
-      // dQ[:, half's columns] = dS [64 queries, 128 keys] . K [128 keys, D / 2]
-      float dq[D / 4];
+        for (int kk = 0; kk < 4; ++kk) {
+          const int qb = (16 * kk + 2 * (lane & 3)) * 2;
+          *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in, qb)) = df[kk][0];
+          *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in + 8, qb)) = df[kk][1];
+          *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in, qb + 16)) = df[kk][2];
+          *reinterpret_cast<uint32_t*>(ds_s + sw128(64 * half + r_in + 8, qb + 16)) = df[kk][3];
+        }
+        fence_proxy_async();
+        named_bar_sync(1, kConsumers);  // both halves' dS^T are in
+        // dQ[:, half's columns] = dS [64 queries, 128 keys] . K [128 keys, D / 2]
+        const uint32_t k_cols = smem_u32(smem + L::kK) + (D == 64 ? 64 * half : kBox * half);
+        float dq[D / 4];
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
-      const uint32_t ds_a = smem_u32(ds_s);
-      wgmma_fence();
+        for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+        const uint32_t ds_a = smem_u32(ds_s);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t da = sw128_desc(ds_a + kk * 16 * 128, kBox, 1024);
-        const uint64_t db = sw128_desc(k_cols + kk * 16 * 128, kBox, 1024);
-        if constexpr (D == 64)
-          wgmma_ss_n32<1, 1>(dq, da, db, kk > 0);
-        else
-          wgmma_ss_n64<1, 1>(dq, da, db, kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
-      fence_regs(dq);
-      fence_regs(pf);
-      fence_regs(df);
-      mbar_arrive(empty + st);  // Q, dO, lse and delta of this stage are read
-      // dQ to this half's staging boxes (after the previous reduce-add has
-      // read them), then one TMA reduce-add per 32-column box
-      if (t == 0) bulk_wait_read();
-      named_bar_sync(2 + half, 128);
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t da = sw128_desc(ds_a + kk * 16 * 128, kBox, 1024);
+          const uint64_t db = sw128_desc(k_cols + kk * 16 * 128, kBox, 1024);
+          if constexpr (D == 64)
+            wgmma_ss_n32<1, 1>(dq, da, db, kk > 0);
+          else
+            wgmma_ss_n64<1, 1>(dq, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(dq);
+        fence_regs(pf);
+        fence_regs(df);
+        mbar_arrive(empty + st);  // Q, dO, lse and delta of this stage are read
+        // dQ to this half's staging boxes (after the previous reduce-add has
+        // read them), then one TMA reduce-add per 32-column box
+        uint8_t* dq_s = smem + L::kDQs + half * L::kDQ;
+        if (t == 0) bulk_wait_read();
+        named_bar_sync(2 + half, 128);
 #pragma unroll
-      for (int i = 0; i < D / 4; i += 2) {
-        const int col = 8 * (i >> 2) + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(dq_s + (col / 32) * L::kDQBox +
-                                   sw128(r_in + 8 * ((i >> 1) & 1), (col % 32) * 4)) =
-            make_float2(dq[i], dq[i + 1]);
-      }
-      fence_proxy_async();
-      named_bar_sync(2 + half, 128);
-      if (t == 0) {
-        for (int c = 0; c < D / 64; ++c)
-          tma_reduce_add(&tm_dq, dq_s + c * L::kDQBox, (D / 2) * half + 32 * c, q0, b);
-        bulk_commit();
+        for (int i = 0; i < D / 4; i += 2) {
+          const int col = 8 * (i >> 2) + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(dq_s + (col / 32) * L::kDQBox +
+                                     sw128(r_in + 8 * ((i >> 1) & 1), (col % 32) * 4)) =
+              make_float2(dq[i], dq[i + 1]);
+        }
+        fence_proxy_async();
+        named_bar_sync(2 + half, 128);
+        if (t == 0) {
+          for (int c = 0; c < D / 64; ++c)
+            tma_reduce_add(&tm_dq, dq_s + c * L::kDQBox, (D / 2) * half + 32 * c, q0, b);
+          bulk_commit();
+        }
+      } else {
+        wgmma_wait();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(pf);
+        fence_regs(df);
+        mbar_arrive(empty + st);  // Q, dO, lse and delta of this stage are read
       }
     }
-    if (t == 0) bulk_wait();
+    if (kDq && t == 0) bulk_wait();
     // dk, dv: this half's 64 key rows, rows past s not written
 #pragma unroll
     for (int i = 0; i < D / 2; i += 2) {
@@ -930,6 +963,184 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gr
       const size_t at = (static_cast<size_t>(b) * s + key) * D + 8 * (i >> 2) + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dk_acc[i], dk_acc[i + 1]);
       *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: dq of the split backward
+// ---------------------------------------------------------------------------
+
+constexpr int kDqStages = 3;  // 64-key tiles are small: one more in flight
+
+template <int D>
+struct DqSmem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kTile = kBoxes * kBox;   // [128 rows, D] bf16
+  static constexpr int kKBox = 64 * 128;        // [64 keys, 64 bf16]
+  static constexpr int kKT = kBoxes * kKBox;    // [64 keys, D] bf16
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kTile;
+  static constexpr int kK = kDO + kTile;        // kDqStages tiles
+  static constexpr int kV = kK + kDqStages * kKT;
+  static constexpr int kBar = kV + kDqStages * kKT;
+  static constexpr int kBytes = kBar + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+           const __grid_constant__ CUtensorMap tm_dq, const __nv_bfloat16* __restrict__ v,
+           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, int bh, int s, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kDqStages;
+  const int ntq = (s + 127) / 128;
+  const int qi = ntq - 1 - static_cast<int>(blockIdx.x) / bh;  // longest rows first
+  const int b = static_cast<int>(blockIdx.x) % bh;
+  const int q0 = qi * 128;
+  const int nkv = min(2 * qi + 2, (s + 63) / 64);  // 64-key tiles up to the diagonal
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < kDqStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer warp: Q and dO once, K and V tiles through the ring
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_q, 2 * L::kTile);
+      for (int c = 0; c < L::kBoxes; ++c) {
+        tma_load(smem + L::kQ + c * kBox, &tm_q, bar_q, 64 * c, q0, b);
+        tma_load(smem + L::kDO + c * kBox, &tm_do, bar_q, 64 * c, q0, b);
+      }
+      for (int j = 0; j < nkv; ++j) {
+        const int st = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(empty + st, ((j / kDqStages) - 1) & 1);
+        mbar_expect_tx(full + st, 2 * L::kKT);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load(smem + L::kK + st * L::kKT + c * L::kKBox, &tm_k, full + st, 64 * c, 64 * j, b);
+          tma_load(smem + L::kV + st * L::kKT + c * L::kKBox, &tm_v, full + st, 64 * c, 64 * j, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup 0 takes rows q0 .. q0 + 63, warpgroup 1 the next 64
+    const int half = wg;
+    const int t = threadIdx.x - 128 * wg;
+    const int lane = t % 32;
+    const int r_in = 16 * (t / 32) + lane / 4;  // row in the half (+ 8 for h = 1)
+    const int row0 = q0 + 64 * half + r_in;
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const bool in = row < s;
+      lse_r[h] = in ? lse[static_cast<size_t>(b) * s + row] : 0.f;
+      delta_r[h] = in ? delta[static_cast<size_t>(b) * s + row] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint32_t q_half = smem_u32(smem + L::kQ) + 64 * 128 * half;
+    const uint32_t do_half = smem_u32(smem + L::kDO) + 64 * 128 * half;
+    const int diag = 2 * qi + half;  // the key tile that holds this half's diagonal
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < nkv; ++j) {
+      const int st = j % kDqStages;
+      mbar_wait(full + st, (j / kDqStages) & 1);
+      if (j <= diag) {  // past it every key is masked for this half's rows
+        const uint32_t k_s = smem_u32(smem + L::kK + st * L::kKT);
+        const uint32_t v_s = smem_u32(smem + L::kV + st * L::kKT);
+        // S = Q.K^T and dP = dO.V^T: [64 rows, 64 keys], K-major operands
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t offq = (kk / 4) * kBox + (kk % 4) * 32;
+          const uint32_t offk = (kk / 4) * L::kKBox + (kk % 4) * 32;
+          wgmma_ss_n64<0, 0>(sc, sw128_desc(q_half + offq, 16, 1024),
+                             sw128_desc(k_s + offk, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t offq = (kk / 4) * kBox + (kk % 4) * 32;
+          const uint32_t offk = (kk / 4) * L::kKBox + (kk % 4) * 32;
+          wgmma_ss_n64<0, 0>(dp, sw128_desc(do_half + offq, 16, 1024),
+                             sw128_desc(v_s + offk, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(sc);
+        fence_regs(dp);
+        // query row 0 sees key 0 alone: its dp - delta is the exact
+        // cancellation of K6's row 0, summed in index order the same way
+        if (q0 == 0 && half == 0 && j == 0 && t == 0) {  // holds (row 0, key 0): register 0
+          const size_t at = static_cast<size_t>(b) * s * D;
+          float acc = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < D; ++c)
+            acc = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(v[at + c]), acc);
+          dp[0] = acc;
+        }
+        // P = exp(scale * S - lse), left in float32 (0 where masked; only the
+        // diagonal tile and one crossing s are), dS = P (dP - delta) scale
+        const int k0 = 64 * j;
+        const bool edge = j == diag || k0 + 64 > s;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int row = row0 + 8 * h;
+          const int key = k0 + key_of(i, lane);
+          float p = expf(__fsub_rn(__fmul_rn(scale, sc[i]), lse_r[h]));
+          if (edge && !(key <= row && row < s)) p = 0.f;
+          sc[i] = p * (dp[i] - delta_r[h]) * scale;
+        }
+        uint32_t df[4][4];
+        to_a_frags<4>(sc, df);
+        // dQ += dS.K: A from registers, B = K [keys, d] MN-major
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bk = sw128_desc(k_s + kk * 16 * 128, L::kKBox, 1024);
+          if constexpr (D == 64)
+            wgmma_rs_n64<1>(dq, df[kk], bk, 1);
+          else
+            wgmma_rs_n128<1>(dq, df[kk], bk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dq);
+        fence_regs(df);
+      }
+      mbar_arrive(empty + st);
+    }
+    // epilogue: dq in bf16 through this half's rows of the Q tile, then a
+    // TMA store (rows past s are clipped)
+    uint8_t* ob = smem + L::kQ + 64 * 128 * half;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int h = (i >> 1) & 1;
+      const int col = 8 * (i >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(ob + (col / 64) * kBox + sw128(r_in + 8 * h, (col % 64) * 2)) =
+          pack_bf16(dq[i], dq[i + 1]);
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + half, 128);
+    if (t == 0) {
+      for (int c = 0; c < L::kBoxes; ++c) tma_store(&tm_dq, ob + c * kBox, 64 * c, q0 + 64 * half, b);
+      bulk_commit();
+      bulk_wait();
     }
   }
 }
@@ -1002,18 +1213,22 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b
   return cudaGetLastError();
 }
 
-template <int D>
-int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-        const void* delta, void* dq32, void* dk, void* dv, int bh, int s, float scale,
-        cudaStream_t st) {
+// K6 (kDq: dq32 a zeroed float32 slab) or K5 (dq32 unused)
+template <int D, bool kDq>
+int bwd_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq32, void* dk, void* dv, int bh, int s, float scale,
+           cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!make_map(&tq, q, false, bh, s, D, 64, 64) || !make_map(&tk, k, false, bh, s, D, 128, 64) ||
       !make_map(&tv, v, false, bh, s, D, 128, 64) ||
-      !make_map(&tdo, dout, false, bh, s, D, 64, 64) ||
-      !make_map(&tdq, dq32, true, bh, s, D, 64, 32))
+      !make_map(&tdo, dout, false, bh, s, D, 64, 64))
     return kMapFailed;
-  auto kern = flash_bwd_fused_sm90_kernel<D>;
-  const int smem = BwdSmem<D>::kBytes;
+  if (!kDq)
+    tdq = tq;  // not read
+  else if (!make_map(&tdq, dq32, true, bh, s, D, 64, 32))
+    return kMapFailed;
+  auto kern = flash_bwd_kv_sm90_kernel<D, kDq>;
+  const int smem = BwdSmem<D, kDq>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<bh * ((s + 127) / 128), kThreads, smem, st>>>(
@@ -1021,6 +1236,26 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh, s, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int bh, int s, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!make_map(&tq, q, false, bh, s, D, 128, 64) || !make_map(&tk, k, false, bh, s, D, 64, 64) ||
+      !make_map(&tv, v, false, bh, s, D, 64, 64) ||
+      !make_map(&tdo, dout, false, bh, s, D, 128, 64) ||
+      !make_map(&tdq, dq, false, bh, s, D, 64, 64))
+    return kMapFailed;
+  auto kern = flash_bwd_dq_sm90_kernel<D>;
+  const int smem = DqSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<bh * ((s + 127) / 128), kThreads, smem, st>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, s, scale);
   return cudaGetLastError();
 }
 
@@ -1044,8 +1279,28 @@ int flash_bwd_fused_sm90(const void* q, const void* k, const void* v, const void
                          int bh, int s, int d, float scale, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? bwd<64>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st)
-                 : bwd<128>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st);
+  return d == 64 ? bwd_kv<64, true>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st)
+                 : bwd_kv<128, true>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st);
+}
+
+// dq [bh, s, d] in bfloat16
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int bh, int s, int d,
+                      float scale, void* stream) {
+  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? bwd_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, scale, st)
+                 : bwd_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, scale, st);
+}
+
+// dk, dv [bh, s, d] in bfloat16
+int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                       int d, float scale, void* stream) {
+  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? bwd_kv<64, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st)
+                 : bwd_kv<128, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st);
 }
 
 const char* flash_sm90_error_string(int code) {

@@ -21,17 +21,15 @@ Two spellings of every kernel, chosen by the tensors' device only:
     are held against.
 
 On the card the route is chosen by the input type and nothing else
-(:func:`kernel_route`): bfloat16 K3 and K6 take the tensor-core kernels of
+(:func:`kernel_route`): bfloat16 K3-K6 take the tensor-core kernels of
 ``csrc/flash_attention_sm90.cu`` (``wgmma`` on TMA-fed shared-memory
-rings; route ``sm90``); float32 K3 and K6, and K4/K5 in both types, take
-the CUDA-core kernels of ``csrc/flash_attention.cu`` (route
-``cuda_core``; float32 stays in full FP32 there, where tensor cores would
-make it TF32).  Anything neither route takes raises in
-:func:`_check_inputs`.  A CUDA tensor reaches a kernel or raises; nothing
-falls back.  :data:`COUNTS` counts kernel launches (``flash_fwd`` and
-``flash_bwd_fused`` count every launch of K3/K6 on either route,
-``flash_fwd_sm90`` and ``flash_bwd_fused_sm90`` the tensor-core ones) and
-plain-version calls.
+rings; route ``sm90``); float32 K3-K6 take the CUDA-core kernels of
+``csrc/flash_attention.cu`` (route ``cuda_core``; float32 stays in full
+FP32 there, where tensor cores would make it TF32).  Anything neither
+route takes raises in :func:`_check_inputs`.  A CUDA tensor reaches a
+kernel or raises; nothing falls back.  :data:`COUNTS` counts kernel
+launches (each kernel's name counts every launch on either route, the
+``*_sm90`` keys the tensor-core ones) and plain-version calls.
 
 Block sizes: the knob handling is the JAX package's, copied
 (``_block_sizes``, ``_parse_block_env``, ``_check_block``,
@@ -62,12 +60,12 @@ from torch import Tensor
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
-# the kernels with a tensor-core route for bfloat16 (csrc/flash_attention_sm90.cu)
-SM90_KERNELS = ("flash_fwd", "flash_bwd_fused")
 # (query, key) tile of each kernel per route: the block at which the plain
 # versions round as the kernel does.  Head dim 64 and 128 tile alike.
 KERNEL_TILES = {
     ("flash_fwd", "sm90"): (128, 128),
+    ("flash_bwd_dq", "sm90"): (128, 64),
+    ("flash_bwd_dkv", "sm90"): (64, 128),
     ("flash_bwd_fused", "sm90"): (64, 128),
     ("flash_fwd", "cuda_core"): (64, 64),
     ("flash_bwd_dq", "cuda_core"): (64, 64),
@@ -80,15 +78,17 @@ KERNEL_TILES = {
 # Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
-    "flash_fwd_sm90": 0, "flash_bwd_fused_sm90": 0, "flash_plain": 0,
+    "flash_fwd_sm90": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0,
+    "flash_bwd_fused_sm90": 0, "flash_plain": 0,
 }
 
 
 def kernel_route(name: str, dtype: torch.dtype) -> str:
     """The route a CUDA launch of kernel ``name`` takes for inputs of
-    ``dtype``: "sm90" (tensor cores) for bfloat16 K3/K6, else
-    "cuda_core"."""
-    return "sm90" if dtype == torch.bfloat16 and name in SM90_KERNELS else "cuda_core"
+    ``dtype``: "sm90" (``csrc/flash_attention_sm90.cu``, tensor cores) for
+    bfloat16, else "cuda_core" (``csrc/flash_attention.cu``).  Every
+    kernel has both."""
+    return "sm90" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def kernel_tile(name: str, dtype: torch.dtype) -> Tuple[int, int]:
@@ -355,8 +355,11 @@ def _lib_sm90() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i32, i32, i32, f32, ptr]  # bh, s, d, scale, stream
         lib.flash_fwd_sm90.argtypes = [ptr] * 5 + tail
+        lib.flash_bwd_dq_sm90.argtypes = [ptr] * 7 + tail
+        lib.flash_bwd_dkv_sm90.argtypes = [ptr] * 8 + tail
         lib.flash_bwd_fused_sm90.argtypes = [ptr] * 9 + tail
-        for fn in (lib.flash_fwd_sm90, lib.flash_bwd_fused_sm90):
+        for fn in (lib.flash_fwd_sm90, lib.flash_bwd_dq_sm90, lib.flash_bwd_dkv_sm90,
+                   lib.flash_bwd_fused_sm90):
             fn.restype = i32
         lib.flash_sm90_error_string.argtypes = [i32]
         lib.flash_sm90_error_string.restype = ctypes.c_char_p

@@ -100,15 +100,18 @@ def test_plain_kernels_match_pallas(name, jax_kernels, monkeypatch):
 
 # (b, s, n, d, plain block): the CUDA kernels' own tiles off the ladder's
 # block, most leaving a partial last tile: 64 x 64 (the CUDA-core kernels),
-# 128 x 128 (bf16 K3 on the tensor cores) and 64 x 128 (bf16 K6), at s = 200
-# (a partial 128-tile) and s = 256 (whole tiles, two to a ladder block)
+# 128 x 128 (bf16 K3 on the tensor cores), 128 x 64 (bf16 K4) and 64 x 128
+# (bf16 K5 and K6), at s = 200 (a partial 128-tile) and s = 256 (whole
+# tiles, two to a ladder block)
 PARTIAL = {
     "s40_block16": (2, 40, 2, 8, (16, 16)),
     "s200_block64": (1, 200, 2, 16, (64, 64)),
     "s104_block64x32": (1, 104, 2, 16, (64, 32)),
     "s200_block128": (1, 200, 2, 16, (128, 128)),
+    "s200_block128x64": (1, 200, 2, 16, (128, 64)),
     "s200_block64x128": (1, 200, 2, 16, (64, 128)),
     "s256_block128": (1, 256, 2, 16, (128, 128)),
+    "s256_block128x64": (1, 256, 2, 16, (128, 64)),
     "s256_block64x128": (1, 256, 2, 16, (64, 128)),
 }
 
@@ -148,21 +151,23 @@ def _load(path):
 
 def test_kernel_tiles_name_every_kernel_and_route():
     """The tile table names a tile for each kernel on each route it has
-    (bf16 K3/K6 on the tensor cores, everything else on CUDA cores), the
-    route follows the dtype alone, and chip_smoke's phase 9 and the card
-    test hold each kernel against its plain version at that tile."""
+    (bf16 K3-K6 on the tensor cores, f32 on CUDA cores), the route follows
+    the dtype alone, every kernel counts its tensor-core launches, and
+    chip_smoke's phase 9 and the card test hold each kernel against its
+    plain version at that tile."""
     from pathlib import Path
 
-    want = {("flash_fwd", "sm90"): (128, 128), ("flash_bwd_fused", "sm90"): (64, 128),
+    want = {("flash_fwd", "sm90"): (128, 128), ("flash_bwd_dq", "sm90"): (128, 64),
+            ("flash_bwd_dkv", "sm90"): (64, 128), ("flash_bwd_fused", "sm90"): (64, 128),
             **{(name, "cuda_core"): (64, 64) for name in fa.KERNELS}}
     assert fa.KERNEL_TILES == want
     for dtype in (torch.float32, torch.bfloat16):
         for name in fa.KERNELS:
             route = fa.kernel_route(name, dtype)
-            sm90 = dtype == torch.bfloat16 and name in ("flash_fwd", "flash_bwd_fused")
-            assert route == ("sm90" if sm90 else "cuda_core"), (name, dtype)
+            assert route == ("sm90" if dtype == torch.bfloat16 else "cuda_core"), (name, dtype)
             assert fa.kernel_tile(name, dtype) == want[(name, route)]
-    assert {"flash_fwd_sm90", "flash_bwd_fused_sm90"} <= set(fa.COUNTS)
+    assert set(fa.COUNTS) == {*fa.KERNELS, *(f"{name}_sm90" for name in fa.KERNELS),
+                              "flash_plain"}
     root = Path(__file__).resolve().parents[1]
     smoke = _load(root / "chip_smoke.py")
     card = _load(root / "tests" / "test_torch_kernels_cuda.py")
