@@ -18,14 +18,20 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      one PyTorch library call (scaled_dot_product_attention over the
      visible cache; int8 has none), and the least time the card could
      take (bytes / 3.35 TB/s against operations / peak of the input
-     type);
+     type); bf16 K7 takes the sm90 route (csrc/decode_attention_sm90.cu:
+     split-K for t <= 16, tensor cores above) and is held also at request
+     D's prefill (t=64), t=16 and t=17, head dim 128, batch 1 at limit
+     1024, left pads that cut a tile and that skip whole tiles; a NaN
+     poison past ``limit`` (t=1 and t=64) leaves its output unchanged, and
+     a repeat call gives the same bits;
   4. the slice at full width: ``python -m paddlefleetx_tpu_torch.tools.serve
      -c configs/gpt/pretrain_gpt_345M_single.yaml`` (24 layers, hidden
      1024, 16 heads, vocab 50304, bf16, random weights from Global.seed,
      greedy, 32 new tokens) answers four /generate requests, two of them
-     coalesced; /healthz must show decode-kernel launches > 0 and no
-     plain-version call; then again with --kv-dtype int8 for the q8
-     kernel; SIGTERM must drain with exit 0;
+     coalesced; /healthz must show decode-kernel launches > 0, every bf16
+     K7 launch on the sm90 route and no plain-version call; then again
+     with --kv-dtype int8 for the q8 kernel; SIGTERM must drain with exit
+     0;
   5. the same two prompts through the port in float32 on the card
      (kernels) and on the CPU (plain version), same weights: first-step
      logits within 1e-3 and identical greedy tokens;
@@ -41,9 +47,10 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
   7. the continuous path at full width: ``tools.serve --scheduler
      continuous`` answers eight /generate requests of 32 new tokens sent
      at staggered times, so rows join the running batch while others
-     decode; /healthz must show paged-kernel launches (24 per engine step)
-     and no plain-version call; then again with --kv-dtype int8; SIGTERM
-     must drain with exit 0;
+     decode; /healthz must show paged-kernel launches (24 per engine step),
+     the paged prefills' K7 launches all on the sm90 route, and no
+     plain-version call; then again with --kv-dtype int8; SIGTERM must
+     drain with exit 0;
   8. two prompts through PagedDecodeEngine in float32 on the card (K9)
      and on the CPU (plain version), same weights: first-step logits
      within 1e-3 and identical greedy tokens; then again with int8 pools
@@ -82,7 +89,8 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      bf16 and f32, with and without a residual, and 8191 x 1000 (no
      multiple of anything); with CUDA-event times of the kernel, the plain
      version and torch.nn.functional.layer_norm (forward for K1, its
-     autograd backward for K2), and the bound;
+     autograd backward for K2), and the bound; a repeat K2 call gives the
+     same bits;
   13. the train CLI at full width: ``python -m
      paddlefleetx_tpu_torch.tools.train -c
      configs/gpt/pretrain_gpt_345M_single.yaml`` on a synthetic corpus
@@ -121,7 +129,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CONFIG = "configs/gpt/pretrain_gpt_345M_single.yaml"
 SOURCES = {
-    "flash_decode": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
+    "flash_decode": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
     "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
@@ -308,8 +316,15 @@ def bound(kind, b, n, t, d, limit, vf):
 def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20):
     q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed)
     scale = 1.0 / d**0.5
+    route = "q8" if kind == "int8" else da.kernel_route(getattr(torch, kind), d)
+    before = dict(da.COUNTS)
     got = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
     torch.cuda.synchronize()
+    sm90 = int(route == "sm90")
+    check(da.COUNTS["flash_decode_sm90"] - before["flash_decode_sm90"] == sm90
+          and da.COUNTS["flash_decode_sm90_prefill"] - before["flash_decode_sm90_prefill"]
+          == sm90 * int(t > da.SPLIT_MAX_ROWS),
+          f"{kind} b={b} t={t} d={d}: launch off its route {route}")
     ref = da.decode_attention_plain(q, k, v, limit, vft, da.decode_block(L), scale, ks, vs)
     check(bool(torch.isfinite(got).all()), f"{kind} kernel output not finite")
     err = (got - ref).abs().max().item()
@@ -328,9 +343,10 @@ def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20):
         library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kk, vv, attn_mask=mask), iters)
     bound_ms, bound_by = bound(kind, b, n, t, d, limit, vf)
-    return {"kind": kind, "b": b, "t": t, "L": L, "limit": limit,
-            "max_abs_err": err, "tol": TOL[kind], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"kind": kind, "b": b, "n": n, "t": t, "d": d, "L": L, "limit": limit,
+            "valid_from": vf, "route": route, "max_abs_err": err, "tol": TOL[kind],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def sweep_cases():
@@ -344,25 +360,83 @@ def sweep_cases():
     return cases
 
 
+def sm90_cases():
+    """bf16 K7 on the sm90 route at the shapes around its two regimes:
+    request D's prefill, each side of t = 16 (split-K / tensor cores), head
+    dim 128 on both, and left pads that cut a key stage / tile or skip
+    whole ones (batch 1 at limit 1024, where split-K matters, is in
+    :func:`sweep_cases`)."""
+    n, L = 16, 1024
+    d_pads = [64 - x for x in D_LENS]
+    return [
+        (8, n, 64, 64, 64 + MAX_NEW, 64, d_pads),
+        (8, n, 16, 64, L, 300, [0, 5, 40, 70, 100, 130, 200, 280]),
+        (8, n, 17, 64, L, 300, [0, 5, 40, 70, 100, 130, 200, 280]),
+        (8, n, 1, 128, L, 1024, [0, 17, 100, 255, 0, 3, 400, 700]),
+        (8, n, 256, 128, L, 512, [0, 17, 100, 255, 0, 3, 400, 511]),
+        (2, n, 1, 64, L, 1000, [70, 3]),
+        (2, n, 1, 64, L, 1000, [300, 600]),
+        (2, n, 200, 64, L, 700, [70, 3]),
+        (2, n, 300, 64, L, 700, [260, 530]),
+    ]
+
+
 def main_path_shape():
     """The decode step of request D in phase 4: batch 8 in the 64-token
     bucket, 32 new tokens (cache 96), halfway through the decode."""
     return (8, 16, 1, 64, 64 + MAX_NEW, 64 + MAX_NEW // 2, [64 - n for n in D_LENS])
 
 
+def main_prefill_shape():
+    """Request D's prefill in phase 4: its eight prompts left-padded into
+    the 64-token bucket, the cache 96 (the bucket and 32 new tokens)."""
+    return (8, 16, 64, 64, 64 + MAX_NEW, 64, [64 - n for n in D_LENS])
+
+
+def decode_poison(torch, da):
+    """bf16 on the sm90 route: NaN in every cache slot at or past
+    ``limit`` leaves the output unchanged, at t = 1 (split-K, several
+    splits) and at t = 64 (the tensor-core prefill, whose tensor maps end
+    at ``limit``); and a repeat call gives the same bits."""
+    for b, n, t, d, L, limit, vf in ((2, 16, 1, 64, 1024, 700, [0, 37]),
+                                     main_prefill_shape()):
+        q, k, v, vft, _, _ = make_inputs(torch, da, "bfloat16", b, n, t, d, L, limit, vf, 3)
+        scale = 1.0 / d**0.5
+        clean = da.flash_decode(q, k, v, limit, vft, scale)
+        again = da.flash_decode(q, k, v, limit, vft, scale)
+        k[:, :, limit:] = float("nan")
+        v[:, :, limit:] = float("nan")
+        got = da.flash_decode(q, k, v, limit, vft, scale)
+        torch.cuda.synchronize()
+        check(torch.equal(again, clean), f"K7 sm90 t={t}: a repeat call differs")
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+              f"K7 sm90 t={t}: a NaN past limit={limit} changed the output")
+        log(f"  K7 sm90 t={t} limit={limit} L={L}: NaN past limit leaves the output "
+            f"unchanged; a repeat call is bitwise equal")
+
+
+def log_case(row):
+    lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    log(f"  {row['kind']:8s} {row['route']:9s} b={row['b']} t={row['t']:3d} d={row['d']} "
+        f"limit={row['limit']:4d}: err {row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms "
+        f"plain {row['plain_ms']:.4f} library {lib} bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']})")
+
+
 def phase_kernels(torch, F, da):
     rows = []
     for kind in ("bfloat16", "float32", "int8"):
-        for b, n, t, d, L, limit, vf in sweep_cases():
-            row = kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf)
-            rows.append(row)
-            lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-            log(f"  {kind:8s} b={b} t={t:3d} limit={limit:4d}: err {row['max_abs_err']:.2e} "
-                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} library {lib} "
-                f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        for case in sweep_cases() + (sm90_cases() if kind == "bfloat16" else []):
+            rows.append(kernel_case(torch, F, da, kind, *case))
+            log_case(rows[-1])
+    decode_poison(torch, da)
     main = {}
     for name, kind in (("flash_decode", "bfloat16"), ("flash_decode_q8", "int8")):
         main[name] = kernel_case(torch, F, da, kind, *main_path_shape(), iters=50)
+        log_case(main[name])
+    main["flash_decode"]["prefill"] = kernel_case(torch, F, da, "bfloat16",
+                                                  *main_prefill_shape(), iters=50)
+    log_case(main["flash_decode"]["prefill"])
     log("kernel_cases " + json.dumps({"cases": rows}))
     return main
 
@@ -474,6 +548,9 @@ def serve_once(kv_dtype, env):
     check(health["kernels"]["plain"] == 0, f"plain version ran on the card: {health}")
     key = "flash_decode_q8" if kv_dtype == "int8" else "flash_decode"
     check(health["kernels"][key] > 0, f"{key} never launched: {health['kernels']}")
+    # the bf16 model: every bf16 K7 launch on the sm90 route
+    check(health["kernels"]["flash_decode_sm90"] == health["kernels"]["flash_decode"],
+          f"bf16 K7 launches off the sm90 route: {health['kernels']}")
     log(f"  serve kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, 4 requests in "
         f"{traffic_s:.2f}s, kernels {health['kernels']}, queue {health['queue']}")
     return health["kernels"], {"B": results["B"]["completion_ids"],
@@ -787,6 +864,8 @@ def serve_continuous(kv_dtype, env):
     check(kernels[key] > 0 and kernels[key] == N_LAYERS * steps,
           f"{key}: {kernels[key]} launches for {steps} engine steps")
     check(kernels["flash_decode"] > 0, f"the prefill did not run flash_decode: {kernels}")
+    check(kernels["flash_decode_sm90"] == kernels["flash_decode"],
+          f"the prefill's bf16 K7 launches off the sm90 route: {kernels}")
     check(serving["mid_decode_admits"] >= 1, f"no row joined mid-decode: {serving}")
     check(health["queue"]["completed"] == len(D_LENS), f"queue {health['queue']}")
     lat = [done[i] - sent[i] for i in range(len(D_LENS))]
@@ -1283,7 +1362,10 @@ def ln_case(torch, F, fl, kind, rows, n, residual, iters=20, seed=0):
     torch.cuda.synchronize()
     ref_y, ref_mean, ref_rstd = fl.layer_norm_fwd_plain(x, res, scale, bias, 1e-5)
     dx, dscale, dbias = fl.launch_bwd(x, res, scale, ref_mean, ref_rstd, gy)
+    again = fl.launch_bwd(x, res, scale, ref_mean, ref_rstd, gy)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(again, (dx, dscale, dbias))),
+          f"fused LayerNorm {kind} {rows}x{n} res={residual}: a repeat K2 call differs")
     ref_dx, ref_ds, ref_db = fl.layer_norm_bwd_plain(x, res, scale, ref_mean, ref_rstd, gy)
     atol, rtol = LN_TOL[kind]
     errs = {}
@@ -1539,6 +1621,7 @@ def main():
     cli = phase_train_cli(env)
     log("== phase 14: training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
+    prefill_launches = counts_bf16["flash_decode_sm90_prefill"]
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
@@ -1560,15 +1643,25 @@ def main():
             shape = {"b": row["b"], "n": 16, "t": row["t"], "d": 64, "bs": row["bs"],
                      "positions": row["positions"], "dtype": row["kind"]}
         else:
-            shape = {"b": row["b"], "n": 16, "t": row["t"], "d": 64, "L": row["L"],
-                     "limit": row["limit"], "dtype": row["kind"]}
-        kernels.append({
+            shape = {"b": row["b"], "n": row["n"], "t": row["t"], "d": row["d"],
+                     "L": row["L"], "limit": row["limit"], "dtype": row["kind"]}
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
-        })
+        }
+        if name == "flash_decode":  # the same entry's prefill regime, request D's shape
+            pre = row["prefill"]
+            entry["kernel_route"] = row["route"]
+            entry["prefill"] = {
+                "launches": prefill_launches, "max_abs_err": pre["max_abs_err"],
+                "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+                "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+                "shape": {"b": pre["b"], "n": pre["n"], "t": pre["t"], "d": pre["d"],
+                          "L": pre["L"], "limit": pre["limit"], "dtype": pre["kind"]}}
+        kernels.append(entry)
     log(f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

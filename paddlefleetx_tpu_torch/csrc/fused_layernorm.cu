@@ -29,19 +29,30 @@
 // per micro-batch, bf16) K1 reads x and writes y (33.6 MB) and K2 reads
 // x and g and writes dx (50.3 MB) against a few operations per element.
 //
-// Design, a simple kernel that is right first:
+// Design:
 //  * K1: one warp per row, 8 rows per CTA.  Three passes over the row
 //    (sum, squared deviations, output), lane i taking columns i, i+32, ..:
 //    coalesced scalar loads that take any n and any alignment; the second
 //    and third passes find the row in L1/L2.  128-bit loads and rows held
 //    in registers are later work.
-//  * K2: one CTA per band of kBand rows.  Phase A: each warp takes rows of
-//    the band and reduces m1, m2 with shuffles into shared memory.
-//    Phase B: thread t takes columns t, t+256, .. and walks the band's
-//    rows, writing dx and keeping its columns' dscale/dbias sums in
-//    registers, then writes them to the band's partial row.
+//  * K2: one CTA of 8 warps per band of kBand rows (256 CTAs, about two
+//    per SM, at 8192 rows).  Register path, where n is a multiple of the
+//    16-byte vector, every row start is 16-byte aligned and n is at most
+//    32 * kMaxVecs vectors (2048 bf16, 1024 float32): one warp per row
+//    holds x (+ res) and g in registers from 16-byte loads (n = 1024 bf16:
+//    four per lane and tensor), so each is read from device memory once;
+//    m1 and m2 come from shuffles, dx leaves in 16-byte stores, and each
+//    lane keeps its own columns' dscale/dbias sums over its warp's rows in
+//    its warp's slice of shared memory (float4 slots, lane-contiguous: no
+//    bank conflicts); held in registers instead, they left room for one
+//    CTA per SM, two waves at 8192 rows.  The warps' sums are added in
+//    warp order into the band's partial row.  Strided path, for any other
+//    n or alignment: phase A, a warp per row, reduces m1, m2 with
+//    shuffles; phase B, a thread per column walks the band's rows for dx
+//    and the column sums (x and g read twice).
 //  * K2 reduce: a 32 x 16 block per 32 columns; each of the 16 row lanes
 //    adds every 16th band, then the 16 partial sums are added in order.
+//    Every sum has a fixed order: the same inputs give the same bits.
 //
 // Plain C interface (loaded with ctypes); every entry point launches on
 // the given stream and returns cudaGetLastError() after its launches.
@@ -55,6 +66,8 @@ namespace {
 constexpr int kFwdWarps = 8;       // rows per K1 CTA
 constexpr int kBand = 32;          // rows per K2 CTA
 constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kMaxVecs = 8;        // K2's register path: 16-byte vectors per lane and tensor
 constexpr int kRedCols = 32;       // reduce block: 32 columns x 16 band lanes
 constexpr int kRedLanes = 16;
 constexpr unsigned kFull = 0xffffffffu;
@@ -119,56 +132,231 @@ fused_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+// 16-byte vectors: 8 bf16 or 4 float32
 template <typename T>
+struct Vec {
+  static constexpr int kN = 16 / static_cast<int>(sizeof(T));
+};
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 pairs: the low half is the lower index
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// scale[c .. c + E) as float32
+template <int E>
+__device__ __forceinline__ void load_scale(const float* __restrict__ scale, int c, float (&f)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + c + i));
+    f[i] = s4.x;
+    f[i + 1] = s4.y;
+    f[i + 2] = s4.z;
+    f[i + 3] = s4.w;
+  }
+}
+
+// K2 over a band of kBand rows, one CTA each.  VPL > 0: the register path
+// (16-byte vectors, VPL per lane and tensor; the host takes it when n is a
+// multiple of the vector and every row start is 16-byte aligned).  One warp
+// per row: x (+ res) and g stay in registers, so each is read once; m1 and m2
+// come from shuffles; dx leaves in 16-byte stores; each lane keeps its own
+// columns' dscale/dbias sums over the warp's rows in the warp's shared
+// memory, and the warps' sums are added in warp order into the band's
+// partial row.  VPL == 0: the strided
+// path for any n and alignment (phase A: the row sums, a warp per row;
+// phase B: a thread per column walks the band's rows for dx and the column
+// sums).
+template <typename T, int VPL>
 __global__ void __launch_bounds__(kBwdThreads)
 fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                     const float* __restrict__ scale, const float* __restrict__ mean,
                     const float* __restrict__ rstd, const T* __restrict__ g,
                     T* __restrict__ dx, float* __restrict__ part_scale,
                     float* __restrict__ part_bias, int64_t rows, int n) {
-  __shared__ float s_mu[kBand], s_rs[kBand], s_m1[kBand], s_m2[kBand];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kBand;
   const int band = static_cast<int>(rows - r0 < kBand ? rows - r0 : kBand);
   const float inv_n = 1.0f / static_cast<float>(n);
 
-  // phase A: the row sums m1 = mean(g * scale), m2 = mean(g * scale * xhat)
-  for (int i = warp; i < band; i += kBwdThreads / 32) {
-    const int64_t off = (r0 + i) * n;
-    const float mu = mean[r0 + i], rs = rstd[r0 + i];
-    float a = 0.f, b = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float xhat = (load_v(x, res, off + c) - mu) * rs;
-      const float gs = to_f(g[off + c]) * scale[c];
-      a += gs;
-      b += gs * xhat;
+  if constexpr (VPL > 0) {
+    constexpr int E = Vec<T>::kN;
+    constexpr int Q = VPL * E / 4;  // float4 slots of a lane's columns
+    // per warp, its lanes' dscale and dbias sums: slot q of lane l at
+    // [q * 32 + l], columns (l + 32 * (q / (E / 4))) * E + 4 * (q % (E / 4))
+    // + 0..3, so a warp's float4 accesses are contiguous
+    extern __shared__ float4 s_acc[];  // [kBwdWarps][2][Q * 32]
+    float4* my_ds = s_acc + warp * 2 * Q * 32;
+    float4* my_db = my_ds + Q * 32;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      my_ds[q * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+      my_db[q * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    a = warp_sum(a);
-    b = warp_sum(b);
-    if (lane == 0) {
-      s_mu[i] = mu;
-      s_rs[i] = rs;
-      s_m1[i] = a * inv_n;
-      s_m2[i] = b * inv_n;
+    const int nvec = n / E;
+    for (int i = warp; i < band; i += kBwdWarps) {
+      const int64_t row = r0 + i;
+      const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+      const uint4* rr = reinterpret_cast<const uint4*>(res + row * n);
+      const uint4* gr = reinterpret_cast<const uint4*>(g + row * n);
+      uint4 gv[VPL];
+      float v[VPL][E];  // x (+ res), in float32
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int vi = lane + 32 * u;
+        if (vi < nvec) {
+          const uint4 xu = xr[vi];
+          gv[u] = gr[vi];
+          unpack(xu, v[u]);
+          if (res != nullptr) {
+            float rf[E];
+            unpack(rr[vi], rf);
+#pragma unroll
+            for (int e = 0; e < E; ++e) v[u][e] += rf[e];
+          }
+        }
+      }
+      const float mu = mean[row], rs = rstd[row];
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int vi = lane + 32 * u;
+        if (vi < nvec) {
+          float gf[E], sc[E];
+          unpack(gv[u], gf);
+          load_scale<E>(scale, vi * E, sc);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float xhat = (v[u][e] - mu) * rs;
+            const float gs = gf[e] * sc[e];
+            a += gs;
+            b += gs * xhat;
+          }
+        }
+      }
+      const float m1 = warp_sum(a) * inv_n;
+      const float m2 = warp_sum(b) * inv_n;
+      uint4* dr = reinterpret_cast<uint4*>(dx + row * n);
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int vi = lane + 32 * u;
+        if (vi < nvec) {
+          float gf[E], sc[E], d[E], xg[E];
+          unpack(gv[u], gf);
+          load_scale<E>(scale, vi * E, sc);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float xhat = (v[u][e] - mu) * rs;
+            d[e] = rs * (gf[e] * sc[e] - m1 - xhat * m2);
+            xg[e] = gf[e] * xhat;
+          }
+          dr[vi] = pack(d);
+#pragma unroll
+          for (int e4 = 0; e4 < E / 4; ++e4) {
+            const int at = (u * (E / 4) + e4) * 32 + lane;
+            float4 sd = my_ds[at], sb = my_db[at];
+            sd.x += xg[4 * e4];
+            sd.y += xg[4 * e4 + 1];
+            sd.z += xg[4 * e4 + 2];
+            sd.w += xg[4 * e4 + 3];
+            sb.x += gf[4 * e4];
+            sb.y += gf[4 * e4 + 1];
+            sb.z += gf[4 * e4 + 2];
+            sb.w += gf[4 * e4 + 3];
+            my_ds[at] = sd;
+            my_db[at] = sb;
+          }
+        }
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    // the warps' sums, added in warp order, are the band's partial row
+    for (int at = threadIdx.x; at < Q * 32; at += kBwdThreads) {
+      const int q = at / 32, l = at % 32;
+      const int c = (l + 32 * (q / (E / 4))) * E + 4 * (q % (E / 4));
+      if (c < n) {
+        float4 sd = s_acc[at], sb = s_acc[Q * 32 + at];
+        for (int w = 1; w < kBwdWarps; ++w) {
+          const float4 od = s_acc[w * 2 * Q * 32 + at], ob = s_acc[(w * 2 + 1) * Q * 32 + at];
+          sd.x += od.x;
+          sd.y += od.y;
+          sd.z += od.z;
+          sd.w += od.w;
+          sb.x += ob.x;
+          sb.y += ob.y;
+          sb.z += ob.z;
+          sb.w += ob.w;
+        }
+        *reinterpret_cast<float4*>(part_scale + static_cast<int64_t>(blockIdx.x) * n + c) = sd;
+        *reinterpret_cast<float4*>(part_bias + static_cast<int64_t>(blockIdx.x) * n + c) = sb;
+      }
+    }
+  } else {
+    __shared__ float s_mu[kBand], s_rs[kBand], s_m1[kBand], s_m2[kBand];
+    // phase A: the row sums m1 = mean(g * scale), m2 = mean(g * scale * xhat)
+    for (int i = warp; i < band; i += kBwdWarps) {
+      const int64_t off = (r0 + i) * n;
+      const float mu = mean[r0 + i], rs = rstd[r0 + i];
+      float a = 0.f, b = 0.f;
+      for (int c = lane; c < n; c += 32) {
+        const float xhat = (load_v(x, res, off + c) - mu) * rs;
+        const float gs = to_f(g[off + c]) * scale[c];
+        a += gs;
+        b += gs * xhat;
+      }
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (lane == 0) {
+        s_mu[i] = mu;
+        s_rs[i] = rs;
+        s_m1[i] = a * inv_n;
+        s_m2[i] = b * inv_n;
+      }
+    }
+    __syncthreads();
 
-  // phase B: dx, and this band's column sums of g * xhat and g
-  for (int c = threadIdx.x; c < n; c += kBwdThreads) {
-    const float sc = scale[c];
-    float ds = 0.f, db = 0.f;
-    for (int i = 0; i < band; ++i) {
-      const int64_t at = (r0 + i) * n + c;
-      const float xhat = (load_v(x, res, at) - s_mu[i]) * s_rs[i];
-      const float gv = to_f(g[at]);
-      dx[at] = from_f<T>(s_rs[i] * (gv * sc - s_m1[i] - xhat * s_m2[i]));
-      ds += gv * xhat;
-      db += gv;
+    // phase B: dx, and this band's column sums of g * xhat and g
+    for (int c = threadIdx.x; c < n; c += kBwdThreads) {
+      const float sc = scale[c];
+      float ds = 0.f, db = 0.f;
+      for (int i = 0; i < band; ++i) {
+        const int64_t at = (r0 + i) * n + c;
+        const float xhat = (load_v(x, res, at) - s_mu[i]) * s_rs[i];
+        const float gv = to_f(g[at]);
+        dx[at] = from_f<T>(s_rs[i] * (gv * sc - s_m1[i] - xhat * s_m2[i]));
+        ds += gv * xhat;
+        db += gv;
+      }
+      part_scale[static_cast<int64_t>(blockIdx.x) * n + c] = ds;
+      part_bias[static_cast<int64_t>(blockIdx.x) * n + c] = db;
     }
-    part_scale[static_cast<int64_t>(blockIdx.x) * n + c] = ds;
-    part_bias[static_cast<int64_t>(blockIdx.x) * n + c] = db;
   }
 }
 
@@ -211,17 +399,68 @@ cudaError_t fwd(const void* x, const void* res, const void* scale, const void* b
   return cudaGetLastError();
 }
 
+// 16-byte vectors per lane and tensor for the register path of K2 at n
+// (0: the strided path): n a multiple of the vector, every row start and
+// scale 16-byte aligned, and n within 32 * kMaxVecs vectors
+template <typename T>
+int bwd_vecs(const void* x, const void* res, const void* scale, const void* g, const void* dx,
+             int n) {
+  constexpr int E = Vec<T>::kN;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(res) |
+                         reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dx);
+  if (n % E != 0 || (addr & 15) != 0 || n > 32 * kMaxVecs * E) return 0;
+  int vpl = 1;
+  while (32 * vpl * E < n) vpl *= 2;
+  return vpl;
+}
+
+template <typename T, int VPL>
+cudaError_t bwd_band(const void* x, const void* res, const void* scale, const void* mean,
+                     const void* rstd, const void* g, void* dx, void* part_scale,
+                     void* part_bias, int64_t rows, int n, int bands, cudaStream_t st) {
+  // the register path's per-warp dscale/dbias sums
+  const int smem = VPL > 0 ? kBwdWarps * 2 * 32 * VPL * Vec<T>::kN * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_ln_bwd_kernel<T, VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  fused_ln_bwd_kernel<T, VPL><<<bands, kBwdThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const float*>(scale),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(part_scale),
+      static_cast<float*>(part_bias), rows, n);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t bwd(const void* x, const void* res, const void* scale, const void* mean,
                 const void* rstd, const void* g, void* dx, void* part_scale, void* part_bias,
                 void* dscale, void* dbias, int64_t rows, int n, cudaStream_t st) {
   const int bands = static_cast<int>((rows + kBand - 1) / kBand);
-  fused_ln_bwd_kernel<T><<<bands, kBwdThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const float*>(scale),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const T*>(g), static_cast<T*>(dx), static_cast<float*>(part_scale),
-      static_cast<float*>(part_bias), rows, n);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  switch (bwd_vecs<T>(x, res, scale, g, dx, n)) {
+    case 1:
+      err = bwd_band<T, 1>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
+                           bands, st);
+      break;
+    case 2:
+      err = bwd_band<T, 2>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
+                           bands, st);
+      break;
+    case 4:
+      err = bwd_band<T, 4>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
+                           bands, st);
+      break;
+    case 8:
+      err = bwd_band<T, 8>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
+                           bands, st);
+      break;
+    default:
+      err = bwd_band<T, 0>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
+                           bands, st);
+  }
   if (err != cudaSuccess) return err;
   const dim3 block(kRedCols, kRedLanes);
   fused_ln_bwd_reduce_kernel<<<(n + kRedCols - 1) / kRedCols, block, 0, st>>>(

@@ -4,11 +4,12 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``), at first use, into ``build/torch_kernels/``
 under the checkout.  The library's file name carries a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once; a build writes to a private temporary name and renames it
-into place, so processes building the same library at the same time do
-not corrupt it.  ``-Xptxas -v`` register/spill lines are kept beside the
-library (:func:`build_log`).
+source, of every ``csrc/*.cuh`` header and of the flags, so an edited
+source or header rebuilds and an unchanged one loads at once; a build
+writes to a private temporary name and renames it into place, so
+processes building the same library at the same time do not corrupt it.
+``-Xptxas -v`` register/spill lines are kept beside the library
+(:func:`build_log`).
 
 Nothing here runs at import: the CPU test suite imports every module.
 """
@@ -26,8 +27,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("decode_attention", "paged_attention", "flash_attention", "flash_attention_sm90",
-           "fused_layernorm")
+SOURCES = ("decode_attention", "decode_attention_sm90", "paged_attention", "flash_attention",
+           "flash_attention_sm90", "fused_layernorm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -57,6 +58,9 @@ def nvcc_path() -> str:
 def _target(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join([nvcc] + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -8,14 +8,18 @@ into an online softmax with float32 state, and returns float32.
 
 Two spellings behind :func:`flash_decode`:
 
-  - the CUDA kernel (``csrc/decode_attention.cu``, built on first use by
-    ``ops/_build.py``) for tensors on the card — ``flash_decode`` for
-    bf16/f32 caches (the TPU's ``_decode_kernel``) and
-    ``flash_decode_q8`` for int8 caches with per-slot scales
-    (``_decode_kernel_q8``);
+  - the CUDA kernels (built on first use by ``ops/_build.py``) for
+    tensors on the card.  ``flash_decode`` (the TPU's ``_decode_kernel``)
+    takes one of two routes by dtype and head dim only
+    (:func:`kernel_route`): bf16 at d = 64 or 128 the Hopper kernels of
+    ``csrc/decode_attention_sm90.cu`` ("sm90": split-K flash-decoding
+    over bulk copies for t <= 16, the tensor cores for a longer prefill),
+    anything else the CUDA-core kernel of ``csrc/decode_attention.cu``
+    ("cuda_core").  ``flash_decode_q8`` (``_decode_kernel_q8``, int8
+    caches with per-slot scales) is in ``csrc/decode_attention.cu``;
   - :func:`decode_attention_plain`, the plain PyTorch version of
     ``_decode_lax`` (same blocked loop, same order of operations), for
-    tensors on the CPU, and the reference the kernel is held against.
+    tensors on the CPU, and the reference the kernels are held against.
 
 The paged counterpart (``_paged_lax`` / ``_paged_kernel``, the
 continuous-batching engine's attention over block tables) has the same
@@ -31,7 +35,7 @@ it took.
 Env knobs, parsed loudly as in the JAX package:
 
   PFX_DECODE_BLOCK  kv block of the plain version (default 256; positive
-                    multiple of 8).  The CUDA kernel tiles by 32 keys.
+                    multiple of 8).  The CUDA kernels tile on their own.
   PFX_DECODE_ATTN   "blocked" (default) | "dense" — the generation layer's
                     dispatch; "dense" is the attend-over-the-whole-cache
                     path kept for A/B rows
@@ -55,16 +59,53 @@ _MAX_HEAD_DIM = 128
 
 # Kernel launches per kernel, and calls of the plain versions through
 # flash_decode ("plain") and paged_decode_attention ("paged_plain") on CPU
-# tensors.  Process-wide; reset with reset_counts().
+# tensors.  "flash_decode" counts every launch of the bf16/f32 kernel on
+# either route; "flash_decode_sm90" those on the sm90 route, and
+# "flash_decode_sm90_prefill" those of them that took its prefill kernel
+# (t > SPLIT_MAX_ROWS).  Process-wide; reset with reset_counts().
 COUNTS = {
-    "flash_decode": 0, "flash_decode_q8": 0, "plain": 0,
+    "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
+    "flash_decode_q8": 0, "plain": 0,
     "paged_decode": 0, "paged_decode_q8": 0, "paged_plain": 0,
 }
+
+# The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
+# takes the split-K kernel, whose CTAs hold 1 query row at t = 1 and
+# SPLIT_ROWS otherwise; a split takes at least SPLIT_MIN_KEYS keys (one
+# stage of the d = 64 kernel).
+SM90_HEAD_DIMS = (64, 128)
+SPLIT_MAX_ROWS = 16
+SPLIT_ROWS = 4
+SPLIT_MIN_KEYS = 64
 
 
 def reset_counts() -> None:
     for key in COUNTS:
         COUNTS[key] = 0
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route a CUDA launch of ``flash_decode`` takes for q and caches
+    of ``dtype`` at ``head_dim``: "sm90" (``csrc/decode_attention_sm90.cu``)
+    for bfloat16 at d = 64 or 128, else "cuda_core"
+    (``csrc/decode_attention.cu``).  int8 caches take ``flash_decode_q8``
+    whatever this says."""
+    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "cuda_core"
+
+
+def split_rows(t: int) -> int:
+    """Query rows per CTA of the sm90 split-K kernel (t <= SPLIT_MAX_ROWS)."""
+    return 1 if t == 1 else SPLIT_ROWS
+
+
+def decode_splits(ctas: int, keys: int, sms: int) -> int:
+    """How many splits the sm90 split-K kernel cuts each of its ``ctas``
+    (batch, head, row group) CTAs into: as many as keep one CTA per SM
+    (``sms // ctas``), but no split under SPLIT_MIN_KEYS of the ``keys``
+    (the limit).  Once every SM holds a CTA, more splits only add partials
+    and the combining step: each CTA's 4-stage ring keeps its own copies
+    in flight.  One split means no partials."""
+    return max(1, min(sms // max(ctas, 1), keys // SPLIT_MIN_KEYS))
 
 
 def _parse_int_env(name: str) -> int:
@@ -194,11 +235,16 @@ def decode_attention_plain(
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/decode_attention.cu)
+# CUDA kernels (csrc/decode_attention.cu, csrc/decode_attention_sm90.cu)
 # ---------------------------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
+_SM90_LIB: Optional[ctypes.CDLL] = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# split-K scratch of the sm90 route per (device, stream): float32 partials
+# and int32 arrival counters, which every launch leaves zeroed
+_SCRATCH: dict = {}
+_SMS: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -216,6 +262,68 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    global _SM90_LIB
+    if _SM90_LIB is None:
+        from paddlefleetx_tpu_torch.ops import _build
+
+        lib = _build.load("decode_attention_sm90")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_decode_sm90.argtypes = [ptr] * 7 + [i32] * 7 + [f32, ptr]
+        lib.flash_decode_sm90.restype = i32
+        lib.flash_decode_sm90_error_string.argtypes = [i32]
+        lib.flash_decode_sm90_error_string.restype = ctypes.c_char_p
+        _SM90_LIB = lib
+    return _SM90_LIB
+
+
+def _split_scratch(dev: torch.device, stream: int, part_floats: int, groups: int):
+    """(partials, counters) of at least the sizes asked, kept per device and
+    stream; the counters are zeroed once, when allocated."""
+    key = (dev.index, stream)
+    part, counters = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < part_floats:
+        part = torch.empty(part_floats, dtype=torch.float32, device=dev)
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(groups, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part, counters)
+    return part, counters
+
+
+def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream):
+    """The sm90 route: the split-K kernel for t <= SPLIT_MAX_ROWS (its
+    split count from :func:`decode_splits`), the tensor-core prefill
+    above.  TMA and the bulk copies need 16-byte aligned tensors."""
+    dev = q_t.device
+    b, n, t, d = q_t.shape
+    L = k_cache.shape[2]
+    for x in (q_t, k_cache, v_cache):
+        _require(x.data_ptr() % 16 == 0, "the sm90 route needs 16-byte aligned tensors")
+    splits, part, counters = 1, None, None
+    if t <= SPLIT_MAX_ROWS:
+        rows = split_rows(t)
+        groups = b * n * -(-t // rows)
+        if dev.index not in _SMS:
+            _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = decode_splits(groups, int(limit), _SMS[dev.index])
+        if splits > 1:
+            part, counters = _split_scratch(dev, stream, groups * splits * rows * (d + 2), groups)
+    lib = _sm90_lib()
+    rc = lib.flash_decode_sm90(
+        q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), vf_ptr, out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        b, n, t, L, d, int(limit), splits, float(scale), stream,
+    )
+    if rc != 0:
+        msg = lib.flash_decode_sm90_error_string(rc).decode()
+        raise RuntimeError(f"flash_decode (sm90) kernel launch failed: CUDA error {rc} ({msg})")
+    COUNTS["flash_decode"] += 1
+    COUNTS["flash_decode_sm90"] += 1
+    if t > SPLIT_MAX_ROWS:
+        COUNTS["flash_decode_sm90_prefill"] += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -258,6 +366,9 @@ def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
     out = torch.empty((b, n, t, d), dtype=torch.float32, device=dev)
     vf_ptr = valid_from.data_ptr() if valid_from is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if not quant and kernel_route(q_t.dtype, d) == "sm90":
+        _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream)
+        return out
     lib = _lib()
     if quant:
         rc = lib.flash_decode_q8(
@@ -295,8 +406,9 @@ def flash_decode(
     for the q8 kernel), ``limit`` a Python int (keys [0, limit) are real),
     ``valid_from`` int32 [b] or None.  Returns float32 [b, n, t, d].
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`decode_attention_plain` with ``decode_block(L, block)``."""
+    CUDA tensors launch the kernel of their route (:func:`kernel_route`)
+    or raise; CPU tensors run :func:`decode_attention_plain` with
+    ``decode_block(L, block)``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
     if q_t.device.type == "cuda":

@@ -14,7 +14,8 @@ Two spellings of each direction, chosen by the tensors' device only:
   - the CUDA kernels of ``csrc/fused_layernorm.cu`` (built on first use by
     ``ops/_build.py``) for tensors on the card: ``fused_ln_fwd`` (K1, the
     TPU's ``_fwd_kernel``) and ``fused_ln_bwd`` (K2, ``_bwd_kernel``: dx
-    per row, then the per-band column sums added in a fixed order);
+    per row from rows held in registers, then the per-band column sums
+    added in a fixed order);
   - :func:`layer_norm_fwd_plain` and :func:`layer_norm_bwd_plain`, plain
     PyTorch versions with the same math (the variance as the mean of
     squared deviations, the residual added in float32 inside the norm),
@@ -42,6 +43,12 @@ from torch import Tensor
 # Process-wide; reset with reset_counts().
 COUNTS = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_ln_fwd_plain": 0,
           "fused_ln_bwd_plain": 0}
+
+# K2's register path (csrc/fused_layernorm.cu, kMaxVecs 16-byte vectors per
+# lane) takes rows up to this n, where n is a multiple of the vector (8 bf16,
+# 4 float32) and the rows are 16-byte aligned; other rows take its strided
+# path.  Both are held against the plain version.
+BWD_REGISTER_MAX_N = {torch.float32: 1024, torch.bfloat16: 2048}
 
 
 def reset_counts() -> None:

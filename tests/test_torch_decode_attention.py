@@ -5,7 +5,10 @@ JAX package's Pallas kernels in interpret mode and its lax spelling.
 Same numpy inputs on both sides; float32; tolerance 2e-5, the bar of
 tests/test_decode_attention.py.  Covers decode (t = 1) and prefill /
 chunks (t > 1), blocks 8 and 16, an unaligned cache length, left-padded
-rows (fully masked rows must be 0, not NaN) and the int8 cache.
+rows (fully masked rows must be 0, not NaN), the int8 cache, and the
+shapes around the card's sm90 route (head dims 64 and 128, t = 16, 17 and
+64).  The route and split-count rules of the card's wrapper are plain
+Python and are pinned here too.
 """
 
 import jax.numpy as jnp
@@ -25,6 +28,17 @@ CASES = {
     "prefill_left_pad": (3, 16, 4, 16, 40, 0, 8, [0, 5, 11]),
     "chunk_unaligned_len": (2, 5, 4, 16, 20, 7, 0, [2, 0]),
     "decode_left_pad_unaligned": (2, 1, 2, 8, 27, 20, 16, [9, 3]),
+    # the head dims of the card's sm90 route, on both sides of its regime
+    # boundary (split-K up to t = 16: 64-key stages at d = 64, 32-key at
+    # d = 128; tensor cores above: 128-key tiles at d = 64, 64-key at
+    # d = 128): left pads that cut a stage or tile and pads that cover
+    # whole ones, limits (pos + t) that end mid-tile
+    "verify_t16_d64": (2, 16, 2, 64, 160, 100, 0, [70, 0]),
+    "prefill_t17_d64": (2, 17, 2, 64, 160, 100, 0, [70, 0]),
+    "prefill_t64_d64_pads": (2, 64, 2, 64, 320, 236, 0, [130, 7]),
+    "verify_t16_d128": (2, 16, 2, 128, 160, 100, 0, [40, 33]),
+    "prefill_t17_d128": (2, 17, 2, 128, 300, 180, 0, [130, 0]),
+    "prefill_t64_d128_pads": (2, 64, 2, 128, 320, 236, 0, [260, 3]),
 }
 
 
@@ -145,3 +159,30 @@ def test_knobs_fail_loudly(monkeypatch):
             torch.zeros(1, 1, 1, 8), torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
             1, None, 1.0, k_scale=torch.ones(1, 1, 4),
         )
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 8, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_kernel_route_follows_dtype_and_head_dim(dtype, head_dim, route):
+    assert pt_da.kernel_route(dtype, head_dim) == route
+
+
+def test_split_count_rule():
+    sms = 132  # an H100 SXM
+    # the main-path decode step (batch 8, 16 heads, limit 80): one split
+    assert pt_da.decode_splits(8 * 16, 80, sms) == 1
+    # batch 1 at limit 1024: 8 splits of 128 keys, 128 CTAs
+    assert pt_da.decode_splits(16, 1024, sms) == 8
+    # batch 8 at limit 1024: every SM already holds a CTA
+    assert pt_da.decode_splits(8 * 16, 1024, sms) == 1
+    assert pt_da.split_rows(1) == 1
+    assert all(pt_da.split_rows(t) == pt_da.SPLIT_ROWS for t in range(2, pt_da.SPLIT_MAX_ROWS + 1))
+    for ctas in (1, 7, 16, 64, 128, 512):
+        for keys in (1, 63, 64, 200, 1024, 100000):
+            s = pt_da.decode_splits(ctas, keys, sms)
+            assert s >= 1
+            if s > 1:  # never a split under SPLIT_MIN_KEYS, never past one CTA per SM
+                assert keys // s >= pt_da.SPLIT_MIN_KEYS and ctas * s <= sms

@@ -30,9 +30,12 @@ from paddlefleetx_tpu_torch.utils.config import AttrDict, process_configs
 
 torch.set_num_threads(2)
 
-# tests/test_fused_layernorm.py's shapes, and rows that are not a power
-# of two (21 and 15 rows)
-SHAPES = [(4, 16, 64), (2, 128), (3, 7, 40), (15, 24)]
+# tests/test_fused_layernorm.py's shapes, rows that are not a power of two
+# (21 and 15 rows), and the widths at the edges of K2's two paths on the
+# card: n = 1024 and 1000 (its register path, 16-byte vectors) and an
+# aligned n past the register path's bf16 cap (its strided path)
+SHAPES = [(4, 16, 64), (2, 128), (3, 7, 40), (15, 24), (5, 1024), (3, 1000),
+          (3, fl.BWD_REGISTER_MAX_N[torch.bfloat16] + 8)]
 
 
 def _inputs(shape, seed, with_res):

@@ -22,13 +22,33 @@ from paddlefleetx_tpu_torch.ops import decode_attention as da
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 1e-4}
 
-# (b, n, t, d, L, limit, kv_valid_from)
+# request D's eight prompts in the 64-token bucket, left-padded
+D_PADS = [64 - n for n in (12, 20, 28, 36, 44, 52, 60, 64)]
+
+# (b, n, t, d, L, limit, kv_valid_from).  bf16 at d = 64 or 128 takes the
+# sm90 route: its split-K kernel up to t = 16 (64-key stages at d = 64, 32
+# at d = 128), its tensor-core prefill (128-key tiles at d = 64, 64 at
+# d = 128) above
 SHAPES = {
     "decode_gpt345m_b8": (8, 16, 1, 64, 1024, 517, None),
     "prefill_left_pad": (3, 16, 70, 64, 256, 70, [0, 13, 69]),
     "chunk_unaligned": (2, 4, 5, 64, 99, 60, [7, 0]),
     "decode_head_dim_128": (2, 8, 1, 128, 300, 300, [40, 0]),
     "decode_small_head_dim": (2, 4, 3, 8, 40, 40, None),
+    "decode_main_path_step": (8, 16, 1, 64, 96, 80, D_PADS),
+    "prefill_request_d": (8, 16, 64, 64, 96, 64, D_PADS),
+    "verify_t16": (2, 4, 16, 64, 300, 200, [0, 70]),
+    "prefill_t17": (2, 4, 17, 64, 300, 200, [0, 70]),
+    "decode_b1_split_k": (1, 16, 1, 64, 1024, 1024, None),
+    "decode_b8_long_split_k": (8, 16, 1, 64, 1024, 1024, [0, 3, 100, 700, 0, 64, 1000, 1023]),
+    "decode_d128_split_k": (1, 8, 1, 128, 1024, 1000, [300]),
+    "prefill_d128": (2, 4, 100, 128, 512, 400, [0, 130]),
+    "decode_pad_cuts_tile": (2, 4, 1, 64, 512, 500, [70, 3]),
+    "decode_pad_skips_tiles": (2, 4, 1, 64, 512, 500, [300, 257]),
+    "prefill_pad_cuts_tile": (2, 4, 200, 64, 512, 450, [70, 3]),
+    "prefill_pad_skips_tiles": (2, 4, 300, 64, 512, 500, [260, 400]),
+    "prefill_limit_mid_tile": (2, 4, 500, 64, 512, 500, [0, 1]),
+    "decode_b1_split_k_short": (1, 16, 1, 64, 1024, 700, [5]),
 }
 
 
@@ -64,10 +84,16 @@ def test_kernel_matches_plain(name, kv_dtype):
     dev = _card()
     q, k, v, limit, vf, scale, ks, vs = _case(name, kv_dtype, dev)
     key = "flash_decode_q8" if kv_dtype == torch.int8 else "flash_decode"
-    before = da.COUNTS[key]
+    before = dict(da.COUNTS)
     got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
     torch.cuda.synchronize()
-    assert da.COUNTS[key] == before + 1
+    assert da.COUNTS[key] == before[key] + 1
+    # bf16 at d = 64 / 128 on the sm90 route, everything else off it
+    t, d = q.shape[2], q.shape[3]
+    sm90 = int(kv_dtype != torch.int8 and da.kernel_route(kv_dtype, d) == "sm90")
+    assert da.COUNTS["flash_decode_sm90"] == before["flash_decode_sm90"] + sm90
+    assert da.COUNTS["flash_decode_sm90_prefill"] == (
+        before["flash_decode_sm90_prefill"] + sm90 * int(t > da.SPLIT_MAX_ROWS))
     ref = da.decode_attention_plain(q, k, v, limit, vf, da.decode_block(k.shape[2]),
                                     scale, ks, vs)
     assert got.dtype == torch.float32 and got.shape == ref.shape
@@ -83,15 +109,37 @@ def test_kernel_matches_plain(name, kv_dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_never_reads_past_limit():
+@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "prefill_request_d",
+                                  "decode_b1_split_k_short"])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_never_reads_past_limit(kv_dtype, name):
+    """NaN in every cache slot at or past ``limit`` (t = 1 and t = 64, a
+    split-K decode): the output must not change."""
     dev = _card()
-    q, k, v, limit, vf, scale, _, _ = _case("decode_gpt345m_b8", torch.float32, dev)
+    q, k, v, limit, vf, scale, _, _ = _case(name, kv_dtype, dev)
     ref = da.flash_decode(q, k, v, limit, vf, scale)
     k[:, :, limit:] = float("nan")
     v[:, :, limit:] = float("nan")
     got = da.flash_decode(q, k, v, limit, vf, scale)
     torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_b1_split_k", "decode_b8_long_split_k",
+                                  "decode_d128_split_k", "verify_t16", "prefill_request_d"])
+def test_kernel_is_bitwise_repeatable(name):
+    """The split-K kernel combines its partials in split order whichever
+    CTA arrives last, and the prefill has no atomics: the same inputs give
+    the same bits on every call."""
+    dev = _card()
+    q, k, v, limit, vf, scale, _, _ = _case(name, torch.bfloat16, dev)
+    first = da.flash_decode(q, k, v, limit, vf, scale)
+    for _ in range(3):
+        again = da.flash_decode(q, k, v, limit, vf, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
 
 
 @pytest.mark.cuda
@@ -531,8 +579,11 @@ def _leaves(tree):
 
 # (rows, n): the training path's micro-batch, rows and n that are not
 # multiples of anything (the kernels take any), one row, a wide row
+# K2's register path takes "gpt345m", "odd" and "one_row"; "above_cap" is
+# aligned but wider than its cap (fl.BWD_REGISTER_MAX_N), "tiny" and "wide"
+# no multiple of the 16-byte vector: those take its strided path
 LN_SHAPES = {"gpt345m": (8192, 1024), "odd": (8191, 1000), "tiny": (5, 7), "one_row": (1, 64),
-             "wide": (300, 4097)}
+             "wide": (300, 4097), "above_cap": (300, 4096)}
 # float32: summation order only; bfloat16: outputs within one bf16 ulp
 # (2**-7 of the value) of the plain version's, the float32 sums of the
 # two differing in order; dscale/dbias (float32 sums over the rows) 1e-4
@@ -577,6 +628,24 @@ def test_fused_ln_kernels_match_plain(dtype, name, with_res, record_property):
         err = (got - ref).abs().max().item()
         record_property(f"{what}_err", err)
         assert err <= 1e-4 * max(ref.abs().max().item(), 1.0), (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gpt345m", "odd", "above_cap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_ln_bwd_is_bitwise_repeatable(dtype, name):
+    """K2's sums run in a fixed order on both of its paths: the same inputs
+    give the same dx, dscale and dbias bits on every call."""
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    dev = _card()
+    x, res, scale, bias, gy = _ln_case(*LN_SHAPES[name], dtype, True, dev)
+    _, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    first = fl.launch_bwd(x, res, scale, mean, rstd, gy)
+    for _ in range(3):
+        again = fl.launch_bwd(x, res, scale, mean, rstd, gy)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.cuda
