@@ -18,20 +18,25 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      one PyTorch library call (scaled_dot_product_attention over the
      visible cache; int8 has none), and the least time the card could
      take (bytes / 3.35 TB/s against operations / peak of the input
-     type); bf16 K7 takes the sm90 route (csrc/decode_attention_sm90.cu:
-     split-K for t <= 16, tensor cores above) and is held also at request
-     D's prefill (t=64), t=16 and t=17, head dim 128, batch 1 at limit
-     1024, left pads that cut a tile and that skip whole tiles; a NaN
-     poison past ``limit`` (t=1 and t=64) leaves its output unchanged, and
-     a repeat call gives the same bits;
+     type); bf16 q takes the sm90 route (csrc/decode_attention_sm90.cu:
+     split-K for t <= 16, tensor cores above) over bf16 caches (K7) and
+     int8 caches (K8), each held also at request D's prefill (t=64), t=16
+     and t=17, head dim 128, batch 1 at limit 1024, left pads that cut a
+     tile and that skip whole tiles; a NaN poison past ``limit`` (in the
+     caches, or for int8 in the scales; t=1 over several splits and t=64)
+     leaves the output unchanged, and a repeat call gives the same bits;
+     the main-path rows of K8 (request D's decode step and its prefill)
+     carry bf16 K7's time at the same shape as a yardstick; int8 caches
+     under f32 q (the sweep's shapes and the decode step's) and under bf16
+     q at head dim 32 take K8's CUDA-core kernel (csrc/decode_attention.cu);
   4. the slice at full width: ``python -m paddlefleetx_tpu_torch.tools.serve
      -c configs/gpt/pretrain_gpt_345M_single.yaml`` (24 layers, hidden
      1024, 16 heads, vocab 50304, bf16, random weights from Global.seed,
      greedy, 32 new tokens) answers four /generate requests, two of them
      coalesced; /healthz must show decode-kernel launches > 0, every bf16
      K7 launch on the sm90 route and no plain-version call; then again
-     with --kv-dtype int8 for the q8 kernel; SIGTERM must drain with exit
-     0;
+     with --kv-dtype int8 for the q8 kernel (K8), every launch on the sm90
+     route; SIGTERM must drain with exit 0;
   5. the same two prompts through the port in float32 on the card
      (kernels) and on the CPU (plain version), same weights: first-step
      logits within 1e-3 and identical greedy tokens;
@@ -74,10 +79,12 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      micro-batches of 8, bf16 over float32 masters, flash attention,
      selective recompute, AdamW with clip 1.0 at a constant 1e-4, random
      weights from Global.seed and one fixed random batch; 10 steps with
-     flash_bwd split and 10 with fused.  Every step must launch K3 and
-     K4 + K5 (split: 48 each) or K6 (fused: 48), every launch on the
-     tensor-core route, and no plain version; the loss must be finite and
-     fall; prints step ms, tokens/s and peak memory;
+     flash_bwd split (the stock config, F.layer_norm) and 10 with fused and
+     use_fused_ln.  Every step must launch K3 and K4 + K5 (split: 48 each)
+     or K6 (fused: 48), every launch on the tensor-core route, K1 194 and
+     K2 98 times with use_fused_ln (else none), and no plain version; the
+     loss must be finite and fall; prints step ms, tokens/s and peak
+     memory;
   11. the training step on the card against the CPU at float32: the
      345M width cut to 2 layers, batch 1, seq 512, dropout 0, both
      schedules: loss within 1e-5 relative, every grad within 1e-3 of its
@@ -87,10 +94,12 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
   12. the fused LayerNorm kernels (K1 forward, K2 backward) against their
      plain versions on the card: the training path's 8192 x 1024 rows in
      bf16 and f32, with and without a residual, and 8191 x 1000 (no
-     multiple of anything); with CUDA-event times of the kernel, the plain
-     version and torch.nn.functional.layer_norm (forward for K1, its
-     autograd backward for K2), and the bound; a repeat K2 call gives the
-     same bits;
+     multiple of a power of two above 8) on the kernels' register paths,
+     8191 x 1001 on their strided paths (the path of each row from
+     fused_layernorm.register_vecs, the training row's on the register
+     path); with CUDA-event times of the kernel, the plain version and
+     torch.nn.functional.layer_norm (forward for K1, its autograd backward
+     for K2), and the bound; repeat K1 and K2 calls give the same bits;
   13. the train CLI at full width: ``python -m
      paddlefleetx_tpu_torch.tools.train -c
      configs/gpt/pretrain_gpt_345M_single.yaml`` on a synthetic corpus
@@ -130,7 +139,7 @@ REPO = Path(__file__).resolve().parent
 CONFIG = "configs/gpt/pretrain_gpt_345M_single.yaml"
 SOURCES = {
     "flash_decode": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
-    "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
+    "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
     "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -257,9 +266,10 @@ def ptxas_kernel(mangled):
 # ---------------------------------------------------------------------------
 
 
-def make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed):
+def make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed, q_kind=None):
+    """q in ``q_kind`` (by default float32 for float32 caches, else bf16)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    qdt = torch.float32 if (q_kind or kind) == "float32" else torch.bfloat16
     q = torch.randn(b, n, t, d, generator=g, device="cuda").to(qdt)
     k = torch.randn(b, n, L, d, generator=g, device="cuda")
     v = torch.randn(b, n, L, d, generator=g, device="cuda")
@@ -293,12 +303,12 @@ def event_ms(torch, fn, iters, flush_mib=512):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound(kind, b, n, t, d, limit, vf):
+def bound(kind, b, n, t, d, limit, vf, q_kind=None):
     """Least time for the work these inputs need: each needed byte moved
     once (q, the visible K/V and scales, the f32 output) against the
     unmasked (query, key) pairs' 4*d operations per head."""
     elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kind]
-    q_elt = 4 if kind == "float32" else 2
+    q_elt = 4 if (q_kind or kind) == "float32" else 2
     keys = sum(max(0, limit - v) for v in vf)
     nbytes = b * n * t * d * (q_elt + 4) + 2 * n * keys * d * elt + 4 * b
     if kind == "int8":
@@ -313,16 +323,18 @@ def bound(kind, b, n, t, d, limit, vf):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20):
-    q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed)
+def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20, q_kind=None):
+    q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed, q_kind)
     scale = 1.0 / d**0.5
-    route = "q8" if kind == "int8" else da.kernel_route(getattr(torch, kind), d)
+    route = da.kernel_route(q.dtype, d)  # int8 caches: by q's dtype, as bf16 ones
+    key = "flash_decode_q8" if kind == "int8" else "flash_decode"
     before = dict(da.COUNTS)
     got = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
     torch.cuda.synchronize()
     sm90 = int(route == "sm90")
-    check(da.COUNTS["flash_decode_sm90"] - before["flash_decode_sm90"] == sm90
-          and da.COUNTS["flash_decode_sm90_prefill"] - before["flash_decode_sm90_prefill"]
+    check(da.COUNTS[key] - before[key] == 1
+          and da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == sm90
+          and da.COUNTS[f"{key}_sm90_prefill"] - before[f"{key}_sm90_prefill"]
           == sm90 * int(t > da.SPLIT_MAX_ROWS),
           f"{kind} b={b} t={t} d={d}: launch off its route {route}")
     ref = da.decode_attention_plain(q, k, v, limit, vft, da.decode_block(L), scale, ks, vs)
@@ -342,8 +354,8 @@ def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20):
         kk, vv = k[:, :, :limit], v[:, :, :limit]
         library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kk, vv, attn_mask=mask), iters)
-    bound_ms, bound_by = bound(kind, b, n, t, d, limit, vf)
-    return {"kind": kind, "b": b, "n": n, "t": t, "d": d, "L": L, "limit": limit,
+    bound_ms, bound_by = bound(kind, b, n, t, d, limit, vf, q_kind)
+    return {"kind": kind, "q": str(q.dtype).split(".")[1], "b": b, "n": n, "t": t, "d": d, "L": L, "limit": limit,
             "valid_from": vf, "route": route, "max_abs_err": err, "tol": TOL[kind],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -361,7 +373,7 @@ def sweep_cases():
 
 
 def sm90_cases():
-    """bf16 K7 on the sm90 route at the shapes around its two regimes:
+    """K7 and K8 on the sm90 route at the shapes around its two regimes:
     request D's prefill, each side of t = 16 (split-K / tensor cores), head
     dim 128 on both, and left pads that cut a key stage / tile or skip
     whole ones (batch 1 at limit 1024, where split-K matters, is in
@@ -381,6 +393,12 @@ def sm90_cases():
     ]
 
 
+def cuda_core_q8_cases():
+    """int8 caches under bf16 q at head dim 32 (not an sm90 head dim):
+    a decode step with left pads and a prefill."""
+    return [(2, 16, 1, 32, 300, 290, [0, 37]), (2, 16, 40, 32, 300, 290, [0, 37])]
+
+
 def main_path_shape():
     """The decode step of request D in phase 4: batch 8 in the 64-token
     bucket, 32 new tokens (cache 96), halfway through the decode."""
@@ -394,30 +412,38 @@ def main_prefill_shape():
 
 
 def decode_poison(torch, da):
-    """bf16 on the sm90 route: NaN in every cache slot at or past
-    ``limit`` leaves the output unchanged, at t = 1 (split-K, several
-    splits) and at t = 64 (the tensor-core prefill, whose tensor maps end
-    at ``limit``); and a repeat call gives the same bits."""
-    for b, n, t, d, L, limit, vf in ((2, 16, 1, 64, 1024, 700, [0, 37]),
-                                     main_prefill_shape()):
-        q, k, v, vft, _, _ = make_inputs(torch, da, "bfloat16", b, n, t, d, L, limit, vf, 3)
-        scale = 1.0 / d**0.5
-        clean = da.flash_decode(q, k, v, limit, vft, scale)
-        again = da.flash_decode(q, k, v, limit, vft, scale)
-        k[:, :, limit:] = float("nan")
-        v[:, :, limit:] = float("nan")
-        got = da.flash_decode(q, k, v, limit, vft, scale)
-        torch.cuda.synchronize()
-        check(torch.equal(again, clean), f"K7 sm90 t={t}: a repeat call differs")
-        check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
-              f"K7 sm90 t={t}: a NaN past limit={limit} changed the output")
-        log(f"  K7 sm90 t={t} limit={limit} L={L}: NaN past limit leaves the output "
-            f"unchanged; a repeat call is bitwise equal")
+    """K7 and K8 on the sm90 route: NaN in every cache slot at or past
+    ``limit`` (int8: in every scale there, the slots at the int8 extremes)
+    leaves the output unchanged, at t = 1 (split-K, several splits) and at
+    t = 64 (the tensor-core prefills, whose copies end at ``limit``); and a
+    repeat call gives the same bits."""
+    for kind, name in (("bfloat16", "K7"), ("int8", "K8")):
+        for b, n, t, d, L, limit, vf in ((2, 16, 1, 64, 1024, 700, [0, 37]),
+                                         main_prefill_shape()):
+            q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, 3)
+            scale = 1.0 / d**0.5
+            clean = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
+            again = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
+            if kind == "int8":
+                ks[:, :, limit:] = float("nan")
+                vs[:, :, limit:] = float("nan")
+                k[:, :, limit:] = 127
+                v[:, :, limit:] = -128
+            else:
+                k[:, :, limit:] = float("nan")
+                v[:, :, limit:] = float("nan")
+            got = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
+            torch.cuda.synchronize()
+            check(torch.equal(again, clean), f"{name} sm90 t={t}: a repeat call differs")
+            check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+                  f"{name} sm90 t={t}: a NaN past limit={limit} changed the output")
+            log(f"  {name} sm90 t={t} limit={limit} L={L}: NaN past limit leaves the output "
+                f"unchanged; a repeat call is bitwise equal")
 
 
 def log_case(row):
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-    log(f"  {row['kind']:8s} {row['route']:9s} b={row['b']} t={row['t']:3d} d={row['d']} "
+    log(f"  {row['kind']:8s} q {row['q']:8s} {row['route']:9s} b={row['b']} t={row['t']:3d} d={row['d']} "
         f"limit={row['limit']:4d}: err {row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms "
         f"plain {row['plain_ms']:.4f} library {lib} bound {row['bound_ms']:.4f} "
         f"({row['bound_by']})")
@@ -426,17 +452,35 @@ def log_case(row):
 def phase_kernels(torch, F, da):
     rows = []
     for kind in ("bfloat16", "float32", "int8"):
-        for case in sweep_cases() + (sm90_cases() if kind == "bfloat16" else []):
+        for case in sweep_cases() + (sm90_cases() if kind != "float32" else []):
             rows.append(kernel_case(torch, F, da, kind, *case))
             log_case(rows[-1])
+    # K8's CUDA-core kernel (csrc/decode_attention.cu): int8 caches under f32 q,
+    # or under bf16 q at a head dim the sm90 route does not take
+    for case, q_kind in ([(c, "float32") for c in sweep_cases()]
+                         + [(c, "bfloat16") for c in cuda_core_q8_cases()]):
+        rows.append(kernel_case(torch, F, da, "int8", *case, q_kind=q_kind))
+        check(rows[-1]["route"] == "cuda_core", f"int8 {case} q {q_kind}: {rows[-1]['route']}")
+        log_case(rows[-1])
     decode_poison(torch, da)
     main = {}
     for name, kind in (("flash_decode", "bfloat16"), ("flash_decode_q8", "int8")):
         main[name] = kernel_case(torch, F, da, kind, *main_path_shape(), iters=50)
         log_case(main[name])
-    main["flash_decode"]["prefill"] = kernel_case(torch, F, da, "bfloat16",
-                                                  *main_prefill_shape(), iters=50)
-    log_case(main["flash_decode"]["prefill"])
+        main[name]["prefill"] = kernel_case(torch, F, da, kind, *main_prefill_shape(), iters=50)
+        log_case(main[name]["prefill"])
+    # K8's CUDA-core route at the decode step's shape, under f32 q
+    q8 = main["flash_decode_q8"]
+    q8["cuda_core"] = kernel_case(torch, F, da, "int8", *main_path_shape(), iters=50,
+                                  q_kind="float32")
+    log_case(q8["cuda_core"])
+    # K8's yardstick: bf16 K7 at the same shapes (no PyTorch call takes int8 K/V)
+    q8["bf16_k7_ms"] = main["flash_decode"]["ms"]
+    q8["prefill"]["bf16_k7_ms"] = main["flash_decode"]["prefill"]["ms"]
+    for what, row in (("decode step", q8), ("prefill", q8["prefill"])):
+        log(f"  K8 main-path {what}: {row['route']} {row['ms']:.4f} ms, bf16 K7 "
+            f"{row['bf16_k7_ms']:.4f} ms, plain {row['plain_ms']:.4f}, bound "
+            f"{row['bound_ms']:.5f} ({row['bound_by']})")
     log("kernel_cases " + json.dumps({"cases": rows}))
     return main
 
@@ -548,9 +592,10 @@ def serve_once(kv_dtype, env):
     check(health["kernels"]["plain"] == 0, f"plain version ran on the card: {health}")
     key = "flash_decode_q8" if kv_dtype == "int8" else "flash_decode"
     check(health["kernels"][key] > 0, f"{key} never launched: {health['kernels']}")
-    # the bf16 model: every bf16 K7 launch on the sm90 route
-    check(health["kernels"]["flash_decode_sm90"] == health["kernels"]["flash_decode"],
-          f"bf16 K7 launches off the sm90 route: {health['kernels']}")
+    # the bf16 model: every K7 and K8 launch on the sm90 route
+    for name in ("flash_decode", "flash_decode_q8"):
+        check(health["kernels"][f"{name}_sm90"] == health["kernels"][name],
+              f"{name} launches off the sm90 route: {health['kernels']}")
     log(f"  serve kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, 4 requests in "
         f"{traffic_s:.2f}s, kernels {health['kernels']}, queue {health['queue']}")
     return health["kernels"], {"B": results["B"]["completion_ids"],
@@ -1114,7 +1159,7 @@ def host_batch(np, b, s, vocab=50304, seed=0):
             "position_ids": np.tile(np.arange(s), (b, 1))}
 
 
-def phase_train(torch, fa):
+def phase_train(torch, fa, fl):
     import numpy as np
 
     from paddlefleetx_tpu_torch.core.engine import Engine
@@ -1123,8 +1168,11 @@ def phase_train(torch, fa):
 
     batch = host_batch(np, TRAIN_GLOBAL, TRAIN_SEQ)
     out = {}
+    # split: the stock config (F.layer_norm); fused: with use_fused_ln (K1/K2)
     for mode in ("split", "fused"):
-        cfg = train_config(get_config, [f"Model.flash_bwd={mode}"])
+        fused_ln = mode == "fused"
+        cfg = train_config(get_config, [f"Model.flash_bwd={mode}",
+                                        f"Model.use_fused_ln={fused_ln}"])
         module = GPTModule(cfg)
         mc = module.config
         check((mc.num_layers, mc.hidden_size, mc.num_attention_heads, mc.vocab_size, mc.dtype)
@@ -1139,13 +1187,14 @@ def phase_train(torch, fa):
         wanted = ("flash_fwd",) + (("flash_bwd_fused",) if mode == "fused"
                                    else ("flash_bwd_dq", "flash_bwd_dkv"))
         fa.reset_counts()
-        losses, step_s, totals = [], [], dict.fromkeys(fa.COUNTS, 0)
+        fl.reset_counts()
+        losses, step_s, totals = [], [], dict.fromkeys({**fa.COUNTS, **fl.COUNTS}, 0)
         for _ in range(TRAIN_STEPS):
-            before = dict(fa.COUNTS)
+            before = {**fa.COUNTS, **fl.COUNTS}
             t1 = time.perf_counter()
             m = engine.train_step(batch)  # ends in a host read of the metrics
             step_s.append(time.perf_counter() - t1)
-            used = {k: fa.COUNTS[k] - before[k] for k in fa.COUNTS}
+            used = {k: v - before[k] for k, v in {**fa.COUNTS, **fl.COUNTS}.items()}
             # one backward launch per layer and micro-batch, none of the other schedule
             check(all(used[k] == N_LAYERS * TRAIN_GLOBAL // TRAIN_MICRO for k in wanted[1:])
                   and used["flash_fwd"] > 0 and used["flash_plain"] == 0
@@ -1154,6 +1203,12 @@ def phase_train(torch, fa):
             # bf16: every launch on the tensor-core route
             check(all(used[f"{k}_sm90"] == used[k] for k in fa.KERNELS),
                   f"{mode} step {len(losses)}: launches off the sm90 route: {used}")
+            # K1 per LayerNorm, twice per layer under selective recompute; K2 once
+            per_mb = TRAIN_GLOBAL // TRAIN_MICRO if fused_ln else 0
+            check(used["fused_ln_fwd"] == per_mb * (4 * N_LAYERS + 1)
+                  and used["fused_ln_bwd"] == per_mb * (2 * N_LAYERS + 1)
+                  and used["fused_ln_fwd_plain"] == used["fused_ln_bwd_plain"] == 0,
+                  f"{mode} step {len(losses)}: fused LayerNorm launches {used}")
             check(m["found_inf"] == 0.0, f"{mode}: non-finite step {m}")
             losses.append(m["loss"])
             for k in totals:
@@ -1166,8 +1221,9 @@ def phase_train(torch, fa):
                      "median_step_ms": steady * 1e3,
                      "tokens_per_s": TRAIN_GLOBAL * TRAIN_SEQ / steady,
                      "peak_bytes": peak, "init_s": init_s, "launches": totals,
-                     "per_step": {k: totals[k] // TRAIN_STEPS for k in wanted}}
-        log(f"  train flash_bwd={mode}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
+                     "per_step": {k: totals[k] // TRAIN_STEPS
+                                  for k in wanted + ("fused_ln_fwd", "fused_ln_bwd")}}
+        log(f"  train flash_bwd={mode} use_fused_ln={fused_ln}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
             f"{steady * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
             f"{step_s[0] * 1e3:.1f}), {TRAIN_GLOBAL * TRAIN_SEQ / steady:.0f} tokens/s, peak "
             f"{peak / 2**30:.2f} GiB, launches {totals}")
@@ -1359,7 +1415,12 @@ def ln_case(torch, F, fl, kind, rows, n, residual, iters=20, seed=0):
     bias = torch.randn(n, generator=g, device="cuda")
     gy = torch.randn(rows, n, generator=g, device="cuda").to(dt)
     y, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    again = fl.launch_fwd(x, res, scale, bias, 1e-5)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(again, (y, mean, rstd))),
+          f"fused LayerNorm {kind} {rows}x{n} res={residual}: a repeat K1 call differs")
+    vpl = fl.register_vecs(dt, n, x.data_ptr(), None if res is None else res.data_ptr(),
+                           scale.data_ptr(), bias.data_ptr(), y.data_ptr())
     ref_y, ref_mean, ref_rstd = fl.layer_norm_fwd_plain(x, res, scale, bias, 1e-5)
     dx, dscale, dbias = fl.launch_bwd(x, res, scale, ref_mean, ref_rstd, gy)
     again = fl.launch_bwd(x, res, scale, ref_mean, ref_rstd, gy)
@@ -1405,6 +1466,7 @@ def ln_case(torch, F, fl, kind, rows, n, residual, iters=20, seed=0):
         bound_ms, bound_by = ln_bound(name, kind, rows, n, residual)
         rows_out[name] = {
             "kind": kind, "rows": rows, "n": n, "residual": residual,
+            "path": f"register (x{vpl})" if vpl else "strided",
             "max_abs_err": errs["y" if name == "fused_ln_fwd" else "dx"],
             "sum_err": max(errs["dscale"], errs["dbias"]) if name == "fused_ln_bwd" else None,
             "ms": ms[name], "plain_ms": plain_ms[name],
@@ -1418,14 +1480,17 @@ def phase_layernorm(torch, F, fl):
     then the others."""
     cases = [("bfloat16", 8192, 1024, False), ("bfloat16", 8192, 1024, True),
              ("float32", 8192, 1024, False), ("float32", 8192, 1024, True),
-             ("bfloat16", 8191, 1000, False), ("float32", 8191, 1000, True)]
+             ("bfloat16", 8191, 1000, False), ("float32", 8191, 1000, True),
+             ("bfloat16", 8191, 1001, True), ("float32", 8191, 1001, False)]
     main, table = None, []
     for kind, rows, n, residual in cases:
         out = ln_case(torch, F, fl, kind, rows, n, residual)
+        check(out["fused_ln_fwd"]["path"].startswith("strided") == (n % 8 != 0),
+              f"fused LayerNorm {kind} {rows}x{n}: path {out['fused_ln_fwd']['path']}")
         main = main or out
         for name, row in out.items():
             table.append(dict(row, name=name))
-            log(f"  {name:12s} {kind:8s} {rows}x{n} res={residual!s:5s}: err "
+            log(f"  {name:12s} {kind:8s} {rows}x{n} res={residual!s:5s} {row['path']:12s}: err "
                 f"{row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms plain "
                 f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
                 f"{row['bound_ms']:.4f} ({row['bound_by']})")
@@ -1612,7 +1677,7 @@ def main():
     log("== phase 9: flash attention kernels against their plain versions")
     flash_rows = phase_flash(torch, F, fa)
     log("== phase 10: GPT-345M pretraining steps at full width")
-    train = phase_train(torch, fa)
+    train = phase_train(torch, fa, fl)
     log("== phase 11: training step, card against cpu, float32")
     phase_train_card_vs_cpu(torch, fa)
     log("== phase 12: fused LayerNorm kernels against their plain versions")
@@ -1621,7 +1686,6 @@ def main():
     cli = phase_train_cli(env)
     log("== phase 14: training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
-    prefill_launches = counts_bf16["flash_decode_sm90_prefill"]
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
@@ -1652,15 +1716,33 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
         }
-        if name == "flash_decode":  # the same entry's prefill regime, request D's shape
+        if name in ("flash_decode", "flash_decode_q8"):
+            # the same entry's prefill regime, request D's shape
             pre = row["prefill"]
+            counts = counts_bf16 if name == "flash_decode" else counts_q8
             entry["kernel_route"] = row["route"]
             entry["prefill"] = {
-                "launches": prefill_launches, "max_abs_err": pre["max_abs_err"],
+                "launches": counts[f"{name}_sm90_prefill"], "max_abs_err": pre["max_abs_err"],
                 "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
                 "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
                 "shape": {"b": pre["b"], "n": pre["n"], "t": pre["t"], "d": pre["d"],
                           "L": pre["L"], "limit": pre["limit"], "dtype": pre["kind"]}}
+            if name == "flash_decode_q8":
+                entry["bf16_k7_ms"] = row["bf16_k7_ms"]
+                entry["prefill"]["bf16_k7_ms"] = pre["bf16_k7_ms"]
+                # the CUDA-core route (f32 q, other head dims): not on the bf16
+                # model's path, so its launches there are 0
+                cc = row["cuda_core"]
+                entry["cuda_core"] = {
+                    "source": "paddlefleetx_tpu_torch/csrc/decode_attention.cu",
+                    "launches": counts_q8["flash_decode_q8"] - counts_q8["flash_decode_q8_sm90"],
+                    "max_abs_err": cc["max_abs_err"], "ms": cc["ms"], "plain_ms": cc["plain_ms"],
+                    "bound_ms": cc["bound_ms"], "bound_by": cc["bound_by"], "library_ms": None,
+                    "shape": {"b": cc["b"], "n": cc["n"], "t": cc["t"], "d": cc["d"],
+                              "L": cc["L"], "limit": cc["limit"], "dtype": "int8",
+                              "q": cc["q"]}}
+        if name == "fused_ln_fwd":
+            entry["kernel_route"] = row["path"]
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,27 +1,32 @@
-// Contiguous flash-decode attention over bfloat16 caches at head dim 64 or
-// 128 on Hopper (sm_90a): the bf16 route of K7.
+// Contiguous flash-decode attention at head dim 64 or 128 on Hopper
+// (sm_90a), for bfloat16 q over bfloat16 caches (the bf16 route of K7) or
+// over int8 caches with per-key scales (the bf16 route of K8).
 //
-// Replaces, for bfloat16 q and caches at d in {64, 128}, the TPU kernel of
+// Replaces, for bfloat16 q at d in {64, 128}, the TPU kernels of
 // paddlefleetx_tpu/ops/decode_attention.py:
-//   _decode_kernel (:256, launched by _decode_pallas :374) -> flash_decode_sm90
-// csrc/decode_attention.cu keeps float32, bfloat16 at other head dims and the
-// int8 kernel (K8).
+//   _decode_kernel    (:256, launched by _decode_pallas :374) -> flash_decode_sm90
+//   _decode_kernel_q8 (:295, launched by _decode_pallas :358) -> flash_decode_q8_sm90
+// csrc/decode_attention.cu keeps float32 q and other head dims.
 //
 // What it computes (the contract of csrc/decode_attention.cu, unchanged): for
 // each (batch b, head h) and query row r of q [b, n, t, d], at position
 // limit - t + r, attention over the cache keys col with
 //     kv_valid_from[b] <= col <= limit - t + r
 // as an online softmax with float32 state; output float32 [b, n, t, d] =
-// acc / max(l, 1e-30), so a row with no visible key is 0, not NaN.  The
-// probabilities are rounded to bf16 before p @ v (the Pallas kernel's
-// p.astype(v.dtype)).  No key at or past `limit` is ever read.
+// acc / max(l, 1e-30), so a row with no visible key is 0, not NaN.  bf16
+// caches: the probabilities are rounded to bf16 before p @ v (the Pallas
+// kernel's p.astype(v.dtype)).  int8 caches: s = scale * (q . k) *
+// k_scale[col] with k taken as float32, and acc += (p * v_scale[col]) @ v
+// with p * v_scale kept in float32 (the TPU's q8 kernel rounds nothing).  No
+// key, and no scale, at or past `limit` is ever read.
 //
 // What bounds it on the card: device-memory bytes.  Decode (t = 1) reads
-// 2 * b * n * keys * d * 2 bytes of K/V for 4 * d operations per key and
-// head; a prefill of t rows does t / 2 times that work on the same bytes
-// and stays under the ridge (295 operations a byte) below t ~ 600 at d = 64.
+// 2 * b * n * keys * d bytes of K/V per cache byte (2 for bf16, 1 for int8,
+// plus 8 bytes of scales a key) for 4 * d operations per key and head; a
+// prefill of t rows does t / 2 times that work on the same bytes and stays
+// under the ridge (295 operations a byte) below t ~ 600 at d = 64.
 //
-// Two regimes behind the one entry, chosen by t:
+// Two regimes behind each entry, chosen by t:
 //  * t <= 16 (decode, speculative verify): flash-decoding.  The grid is
 //    (b * n, splits, row groups of up to 4 rows); the host picks the split
 //    count from b * n and the key count (ops/decode_attention.decode_splits)
@@ -31,28 +36,43 @@
 //    more than the extra copies in flight bring).  A CTA takes its share
 //    of the keys [kv_valid_from, its last causal column], so left-pad keys
 //    and keys past `limit` are never read, and fetches them into a 4-stage
-//    shared-memory ring (16 KB of K and V a stage) with cp.async.bulk,
-//    completing on mbarriers; K/V stay bf16 there.  Each CTA streams its
-//    keys on its own, so the ring's depth, not the split count, hides the
-//    copies' latency.  A lane group of d / 8 lanes takes one key at a time
-//    (16 bytes of its row per lane: a quarter-warp reads one contiguous
-//    row, no bank conflicts), sums q.k with shuffles and keeps its own
+//    shared-memory ring (8 KB of K and of V a stage) with cp.async.bulk,
+//    completing on mbarriers; the cache stays in its own type there.  Each
+//    CTA streams its keys on its own, so the ring's depth, not the split
+//    count, hides the copies' latency.  A lane group takes one key at a time,
+//    16 bytes of its row per lane (bf16: d / 8 lanes, 8 values; int8: d / 16
+//    lanes, 16 values widened to float32 by a byte permute into 2^23's
+//    mantissa, which is exact), sums q.k with shuffles and keeps its own
 //    (m, l, acc) in registers; the groups' states merge by butterflies and
-//    then in warp order.  With more than one split each CTA writes its
-//    float32 partial state to scratch, and the last CTA of its (b, h, row
-//    group) to arrive (an integer counter, no float atomics) combines all
-//    partials in split order and resets the counter for the next call: one
-//    launch per call, no memset, and the same bits on every call.
+//    then in warp order.  int8: a stage's k_scale / v_scale slices travel in
+//    the same ring: every thread copies a key's 4-byte scale with cp.async
+//    (zeros, nothing read, past the CTA's last key), and the stage's
+//    mbarrier counts each thread's copies as one arrival beside the bulk
+//    copies' bytes, so no slice needs 16-byte alignment or can run past the
+//    end of the [b, n, L] scales.  With more than one split each CTA writes
+//    its float32 partial state to scratch, and the last CTA of its (b, h,
+//    row group) to arrive (an integer counter, no float atomics) combines
+//    all partials in split order and resets the counter for the next call:
+//    one launch per call, no memset, and the same bits on every call.
 //  * t > 16 (prefill): the tensor cores, on K3's skeleton
-//    (csrc/flash_attention_sm90.cu).  A CTA is one warpgroup on a 64-row
-//    query tile plus one TMA warp; K/V tiles (128 keys at d = 64, 64 at
-//    d = 128: 32 KB a stage) arrive through a 2-stage mbarrier ring;
+//    (csrc/flash_attention_sm90.cu).  bf16: a CTA is one warpgroup on a
+//    64-row query tile plus one TMA warp; K/V tiles (128 keys at d = 64, 64
+//    at d = 128: 32 KB a stage) arrive through a 2-stage mbarrier ring;
 //    S = Q.K^T is wgmma from shared memory, and P, rounded to bf16, feeds
-//    P.V as the register A operand.  The causal mask carries the row offset
-//    limit - t; tiles wholly before kv_valid_from[b] or past the CTA's last
-//    causal column are never loaded.  The K/V tensor maps declare `limit`
+//    P.V as the register A operand.  The K/V tensor maps declare `limit`
 //    keys, not L, so TMA zero-fills keys at or past `limit`: a NaN there
-//    cannot reach P.V through 0 x NaN.
+//    cannot reach P.V through 0 x NaN.  int8: one warpgroup that issues its
+//    own copies: int8 K/V rows (bulk copies that end at `limit`) and their
+//    scales (cp.async, zeros past `limit`) into a 2-stage ring; the
+//    warpgroup widens each tile to bf16 (exact) in the 128-byte-swizzled
+//    layout wgmma reads, S = Q.K^T on the tensor cores (bf16 x int8-valued
+//    bf16 products are exact, float32 sums) times k_scale per column, and
+//    P.V with p * v_scale split into a bf16 high part and a bf16 low part
+//    (hi = bf16(x), lo = bf16(x - hi)): two wgmmas into one float32
+//    accumulator keep p * v_scale to ~2^-17 of itself, where one bf16
+//    rounding (2^-9) would miss the int8 gate of 1e-4.  Both: the causal
+//    mask carries the row offset limit - t; tiles wholly before
+//    kv_valid_from[b] or past the CTA's last causal column are never loaded.
 //
 // Plain C interface (loaded with ctypes); every entry point launches on the
 // given stream and returns a CUDA error code (or kMapFailed) after its
@@ -81,16 +101,20 @@ constexpr int kDecThreads = 128;
 constexpr int kDecStages = 4;    // the bulk-copy ring
 constexpr int kKeysPerGroup = 4;  // keys a lane group takes from each stage
 
-template <int D>
+// Q8: int8 caches with float32 scales; else bf16
+template <int D, bool Q8>
 struct DecGeom {
-  static constexpr int kLanesPerKey = D / 8;          // 16 bytes of a key row per lane
+  static constexpr int kPer = Q8 ? 16 : 8;             // values of a key row per lane: 16 bytes
+  static constexpr int kLanesPerKey = D / kPer;
   static constexpr int kGroups = 32 / kLanesPerKey;  // lane groups per warp
-  static constexpr int kStreams = 4 * kGroups;       // lane groups per CTA: 16 or 8
-  static constexpr int kKeys = kStreams * kKeysPerGroup;  // keys per stage: 64 or 32
-  static constexpr int kTile = kKeys * D * 2;         // bytes of K (or V) per stage: 8 KB
+  static constexpr int kStreams = 4 * kGroups;       // lane groups per CTA
+  static constexpr int kKeys = kStreams * kKeysPerGroup;  // keys per stage: bf16 64 / 32, int8 128 / 64
+  static constexpr int kRow = Q8 ? D : 2 * D;         // bytes of a key row
+  static constexpr int kTile = kKeys * kRow;          // bytes of K (or V) per stage: 8 KB
   static constexpr int kK = 0;                        // kDecStages stages
   static constexpr int kV = kDecStages * kTile;       // kDecStages stages
-  static constexpr int kBar = 2 * kDecStages * kTile;  // kDecStages mbarriers
+  static constexpr int kScl = 2 * kDecStages * kTile;  // int8: k_scale, v_scale [kKeys] a stage
+  static constexpr int kBar = kScl + (Q8 ? kDecStages * 2 * kKeys * 4 : 0);  // kDecStages mbarriers
   static constexpr int kFlag = kBar + 8 * kDecStages;
   static constexpr int kBytes = kFlag + 16 + 128;     // + slack to align the base to 128
 };
@@ -124,16 +148,59 @@ __device__ __forceinline__ float round_bf16(float p) {
   return __bfloat162float(__float2bfloat16(p));
 }
 
-// R: query rows per CTA (1 at t = 1, else 4; grid.z covers t).  Scores and
-// the running max are kept in the log2 domain (scale * log2(e) folded in).
-template <int D, int R>
+// the 16 int8 of a 16-byte chunk as float32 (byte i is value i): each byte,
+// biased to unsigned, becomes the low mantissa byte of 2^23, and 2^23 + 128
+// is subtracted; exact, and a permute and an add where a conversion
+// instruction runs at a quarter of the rate
+__device__ __forceinline__ void unpack16_s8(const uint4& u, float (&f)[16]) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                         u.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4b000000u, 0x7540u | b)) - 8388736.0f;
+}
+
+// 16 bytes of a key row at p as float32: 8 bf16 or 16 int8
+template <bool Q8, int P>
+__device__ __forceinline__ void load_row(const uint8_t* p, float (&f)[P]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if constexpr (Q8)
+    unpack16_s8(u, f);
+  else
+    unpack8(u, f);
+}
+
+// 4 bytes from global into shared memory with cp.async, or 4 zero bytes
+// (nothing read) when !read
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool read) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(read ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread has issued has
+// landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// R: query rows per CTA (1 at t = 1, else 4; grid.z covers t).  Q8: int8
+// caches, with k_scale / v_scale [b, n, L] (else bf16 caches, scales null).
+// Scores and the running max are kept in the log2 domain (scale * log2(e)
+// folded in).
+template <int D, int R, bool Q8>
 __global__ void __launch_bounds__(kDecThreads)
-flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid_from,
+flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
+                          const uint8_t* __restrict__ v, const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale, const int* __restrict__ valid_from,
                           float* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ counters, int n, int t, int L, int limit,
                           float scale_log2e) {
-  using G = DecGeom<D>;
+  using G = DecGeom<D, Q8>;
+  constexpr int P = G::kPer;
   constexpr int ldr = D + 2;  // a partial row: acc[D], m, l
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align128(smem_raw);
@@ -158,46 +225,67 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int lo = valid + split * chunk;
   const int hi = min(lo + chunk, col_end);
   const int nstages = hi > lo ? (hi - lo + G::kKeys - 1) / G::kKeys : 0;
-  const __nv_bfloat16* k_head = k + static_cast<size_t>(bn) * L * D;
-  const __nv_bfloat16* v_head = v + static_cast<size_t>(bn) * L * D;
+  const uint8_t* k_head = k + static_cast<size_t>(bn) * L * G::kRow;
+  const uint8_t* v_head = v + static_cast<size_t>(bn) * L * G::kRow;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kDecStages; ++i) mbar_init(full + i, 1);
+    // int8: each stage also waits for every thread's scale copies
+    for (int i = 0; i < kDecStages; ++i) mbar_init(full + i, Q8 ? 1 + kDecThreads : 1);
     fence_barrier_init();
   }
   __syncthreads();
-  auto issue = [&](int s) {
+  auto issue = [&](int s) {  // thread 0: the stage's K and V rows
     const int c0 = lo + s * G::kKeys;
-    const uint32_t bytes = static_cast<uint32_t>(min(G::kKeys, hi - c0)) * D * 2;
+    const uint32_t bytes = static_cast<uint32_t>(min(G::kKeys, hi - c0)) * G::kRow;
     const int st = s % kDecStages;
     uint64_t* bar = full + st;
     mbar_expect_tx(bar, 2 * bytes);
-    bulk_load(smem + G::kK + st * G::kTile, k_head + static_cast<size_t>(c0) * D, bytes, bar);
-    bulk_load(smem + G::kV + st * G::kTile, v_head + static_cast<size_t>(c0) * D, bytes, bar);
+    bulk_load(smem + G::kK + st * G::kTile, k_head + static_cast<size_t>(c0) * G::kRow, bytes, bar);
+    bulk_load(smem + G::kV + st * G::kTile, v_head + static_cast<size_t>(c0) * G::kRow, bytes, bar);
   };
+  auto issue_scales = [&](int s) {  // every thread (int8): the stage's scales, zeros past hi
+    const int c0 = lo + s * G::kKeys;
+    const int st = s % kDecStages;
+    float* dst = reinterpret_cast<float*>(smem + G::kScl) + st * 2 * G::kKeys;
+    const size_t row = static_cast<size_t>(bn) * L;
+    for (int i = threadIdx.x; i < 2 * G::kKeys; i += kDecThreads) {
+      const int col = c0 + i % G::kKeys;
+      const float* src = (i < G::kKeys ? k_scale : v_scale) + row + min(col, hi - 1);
+      cp_async4(dst + i, src, col < hi);
+    }
+    cp_async_arrive(full + st);
+  };
+  if constexpr (Q8)
+    for (int s = 0; s < min(kDecStages, nstages); ++s) issue_scales(s);
   if (threadIdx.x == 0) {
     for (int s = 0; s < min(kDecStages, nstages); ++s) issue(s);
   }
 
-  float qf[R][8];
+  float qf[R][P];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < nrows) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + (static_cast<size_t>(bn) * t + r0 + r) * D + sub * 8);
-      unpack8(u, qf[r]);
+      const uint4* qp = reinterpret_cast<const uint4*>(
+          q + (static_cast<size_t>(bn) * t + r0 + r) * D + sub * P);
+#pragma unroll
+      for (int h = 0; h < P / 8; ++h) {
+        float f8[8];
+        unpack8(qp[h], f8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) qf[r][8 * h + e] = f8[e];
+      }
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qf[r][e] = 0.f;
+      for (int e = 0; e < P; ++e) qf[r][e] = 0.f;
     }
   }
-  float m[R], l[R], acc[R][8];
+  float m[R], l[R], acc[R][P];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < P; ++e) acc[r][e] = 0.f;
   }
 
   for (int s = 0; s < nstages; ++s) {
@@ -207,22 +295,24 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     const int cnt = min(G::kKeys, hi - c0);
     const uint8_t* kt = smem + G::kK + st * G::kTile;
     const uint8_t* vt = smem + G::kV + st * G::kTile;
+    const float* kss = reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys;
     // scores of this group's keys: key j of the stage is 16 bytes per lane
     float sc[kKeysPerGroup][R];
 #pragma unroll
     for (int kk = 0; kk < kKeysPerGroup; ++kk) {
       const int j = stream + G::kStreams * kk;
-      float kf[8];
-      unpack8(*reinterpret_cast<const uint4*>(kt + j * D * 2 + sub * 16), kf);
+      float kf[P];
+      load_row<Q8>(kt + j * G::kRow + sub * 16, kf);
+      const float sl2 = Q8 ? scale_log2e * kss[j] : scale_log2e;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dot = fmaf(qf[r][e], kf[e], dot);
+        for (int e = 0; e < P; ++e) dot = fmaf(qf[r][e], kf[e], dot);
 #pragma unroll
         for (int o = 1; o < G::kLanesPerKey; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
         const bool ok = j < cnt && r < nrows && c0 + j <= pos0 + r;
-        sc[kk][r] = ok ? dot * scale_log2e : -INFINITY;
+        sc[kk][r] = ok ? dot * sl2 : -INFINITY;
       }
     }
     // online softmax over the group's keys of this stage
@@ -241,26 +331,29 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       }
       l[r] = l[r] * alpha + sum;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+      for (int e = 0; e < P; ++e) acc[r][e] *= alpha;
       m[r] = m_new;
     }
-    // acc += p_bf16 . v
+    // acc += p_bf16 . v (bf16) or (p * v_scale) . v (int8, p * v_scale in float32)
 #pragma unroll
     for (int kk = 0; kk < kKeysPerGroup; ++kk) {
       const int j = stream + G::kStreams * kk;
       if (j < cnt) {  // a slot past cnt holds stale bytes: never multiplied
-        float vf[8];
-        unpack8(*reinterpret_cast<const uint4*>(vt + j * D * 2 + sub * 16), vf);
+        float vf[P];
+        load_row<Q8>(vt + j * G::kRow + sub * 16, vf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float p = round_bf16(sc[kk][r]);
+          const float p = Q8 ? sc[kk][r] * kss[G::kKeys + j] : round_bf16(sc[kk][r]);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+          for (int e = 0; e < P; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
         }
       }
     }
     __syncthreads();  // the stage is read: refill it
-    if (threadIdx.x == 0 && s + kDecStages < nstages) issue(s + kDecStages);
+    if (s + kDecStages < nstages) {
+      if constexpr (Q8) issue_scales(s + kDecStages);
+      if (threadIdx.x == 0) issue(s + kDecStages);
+    }
   }
 
   // merge the warp's lane groups (xor butterflies: every lane gets the same bits)
@@ -274,7 +367,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       const float fa = exp2f(m[r] - mm), fb = exp2f(mo - mm);
       l[r] = l[r] * fa + lo_ * fb;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < P; ++e) {
         const float ao = __shfl_xor_sync(kFull, acc[r][e], o);
         acc[r][e] = acc[r][e] * fa + ao * fb;
       }
@@ -288,7 +381,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     for (int r = 0; r < R; ++r) {
       float* row = red + (warp * R + r) * ldr;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) row[sub * 8 + e] = acc[r][e];
+      for (int e = 0; e < P; ++e) row[sub * P + e] = acc[r][e];
       if (sub == 0) {
         row[D] = m[r];
         row[D + 1] = l[r];
@@ -530,6 +623,255 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// int8 caches: one warpgroup issues its own copies into a 2-stage ring and
+// widens each tile to bf16 before its products
+constexpr int kPq8Threads = 128;
+constexpr int kPq8Stages = 2;
+
+template <int D>
+struct PreQ8Smem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kKeys = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr int kKBox = kKeys * 128;         // bytes of a [kKeys, 64 bf16] box
+  static constexpr int kTile = kBoxes * kKBox;      // [kKeys, D] bf16
+  static constexpr int kRaw = kKeys * D;            // [kKeys, D] int8
+  static constexpr int kQ = 0;                      // [64 rows, D] bf16 (TMA, swizzled)
+  static constexpr int kK = kQ + kBoxes * kQBox;    // the tile's K, widened
+  static constexpr int kV = kK + kTile;             // the tile's V, widened
+  static constexpr int kRawK = kV + kTile;          // kPq8Stages stages of int8 K rows
+  static constexpr int kRawV = kRawK + kPq8Stages * kRaw;
+  static constexpr int kScl = kRawV + kPq8Stages * kRaw;    // stages of k_scale, v_scale [kKeys]
+  static constexpr int kCur = kScl + kPq8Stages * 2 * kKeys * 4;  // the tile's scales [2][kKeys]
+  static constexpr int kBar = kCur + 2 * kKeys * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + kPq8Stages) + 1024;  // + slack to align to 1024
+};
+
+// int8 rows [KEYS, D] at `raw` (rows at or past `cnt` read as zeros) into
+// bf16 [KEYS, 64] boxes at `dst` in TMA's 128-byte swizzle, the layout the
+// bf16 prefill's wgmma descriptors read; a thread widens 16 values of a row
+template <int D, int KEYS>
+__device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int cnt) {
+  constexpr int kChunks = D / 16;
+  for (int i = threadIdx.x; i < KEYS * kChunks; i += kPq8Threads) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+    if (r < cnt) {
+      float f[16];
+      unpack16_s8(*reinterpret_cast<const uint4*>(raw + r * D + 16 * c), f);
+      a = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                     pack_bf16(f[6], f[7]));
+      b = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
+                     pack_bf16(f[14], f[15]));
+    }
+    uint8_t* box = dst + (16 * c / 64) * KEYS * 128;
+    const int col_byte = 2 * (16 * c % 64);
+    *reinterpret_cast<uint4*>(box + sw128(r, col_byte)) = a;
+    *reinterpret_cast<uint4*>(box + sw128(r, col_byte + 16)) = b;
+  }
+}
+
+// float32 values x (an m64nNk16 accumulator) as the bf16 A fragments of
+// their high parts bf16(x) and of their low parts bf16(x - bf16(x))
+template <int KS>
+__device__ __forceinline__ void to_a_frags_split(const float* x, uint32_t (&hi)[KS][4],
+                                                 uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * kk + 2 * i], b = x[8 * kk + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][i] = pack_bf16(a - hf.x, b - hf.y);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kPq8Threads)
+flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale,
+                               const int* __restrict__ valid_from, float* __restrict__ out,
+                               int n, int bn_total, int t, int L, int limit, float scale_log2e) {
+  using S = PreQ8Smem<D>;
+  constexpr int kKeys = S::kKeys;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* full = bar_q + 1;
+  float* cur = reinterpret_cast<float*>(smem + S::kCur);  // [k_scale, v_scale][kKeys]
+  const int ntq = (t + 63) / 64;
+  const int qi = ntq - 1 - static_cast<int>(blockIdx.x) / bn_total;  // longest rows first
+  const int bn = static_cast<int>(blockIdx.x) % bn_total;
+  const int q0 = 64 * qi;
+  const int valid = valid_from != nullptr ? max(valid_from[bn / n], 0) : 0;
+  const int pos_first = limit - t + q0;  // position of the tile's first row
+  const int pos_last = limit - t + min(q0 + 63, t - 1);
+  const int j0 = valid / kKeys;  // the first key tile holding a visible key
+  const int nkv = valid <= pos_last ? pos_last / kKeys - j0 + 1 : 0;
+  const uint8_t* k_head = k + static_cast<size_t>(bn) * L * D;
+  const uint8_t* v_head = v + static_cast<size_t>(bn) * L * D;
+  const size_t srow = static_cast<size_t>(bn) * L;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < kPq8Stages; ++i) mbar_init(full + i, 1 + kPq8Threads);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // tile j into stage j % kPq8Stages: every thread copies scales (zeros at
+  // or past `limit`), thread 0 the K and V rows up to `limit`
+  auto issue = [&](int j) {
+    const int st = j % kPq8Stages;
+    const int key0 = kKeys * (j0 + j);  // <= pos_last < limit
+    float* dst = reinterpret_cast<float*>(smem + S::kScl) + st * 2 * kKeys;
+    for (int i = threadIdx.x; i < 2 * kKeys; i += kPq8Threads) {
+      const int col = key0 + i % kKeys;
+      cp_async4(dst + i, (i < kKeys ? k_scale : v_scale) + srow + min(col, limit - 1),
+                col < limit);
+    }
+    cp_async_arrive(full + st);
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(min(kKeys, limit - key0)) * D;
+      mbar_expect_tx(full + st, 2 * bytes);
+      bulk_load(smem + S::kRawK + st * S::kRaw, k_head + static_cast<size_t>(key0) * D, bytes,
+                full + st);
+      bulk_load(smem + S::kRawV + st * S::kRaw, v_head + static_cast<size_t>(key0) * D, bytes,
+                full + st);
+    }
+  };
+  if (nkv > 0) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, S::kBoxes * kQBox);
+      for (int c = 0; c < S::kBoxes; ++c)
+        tma_load(smem + S::kQ + c * kQBox, &tm_q, bar_q, 64 * c, q0, bn);
+    }
+    for (int j = 0; j < min(kPq8Stages, nkv); ++j) issue(j);
+  }
+
+  // thread t holds rows r_in and r_in + 8 of the tile
+  const int lane = threadIdx.x % 32;
+  const int r_in = 16 * (threadIdx.x / 32) + lane / 4;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t q_s = smem_u32(smem + S::kQ);
+  const uint32_t k_s = smem_u32(smem + S::kK);
+  const uint32_t v_s = smem_u32(smem + S::kV);
+  if (nkv > 0) mbar_wait(bar_q, 0);
+  for (int j = 0; j < nkv; ++j) {
+    const int st = j % kPq8Stages;
+    const int k0 = kKeys * (j0 + j);
+    mbar_wait(full + st, (j / kPq8Stages) & 1);
+    __syncthreads();  // the last tile's products have read K, V and `cur`
+    const int cnt = min(kKeys, limit - k0);
+    widen_tile<D, kKeys>(smem + S::kRawK + st * S::kRaw, smem + S::kK, cnt);
+    widen_tile<D, kKeys>(smem + S::kRawV + st * S::kRaw, smem + S::kV, cnt);
+    const float* scl = reinterpret_cast<const float*>(smem + S::kScl) + st * 2 * kKeys;
+    for (int i = threadIdx.x; i < 2 * kKeys; i += kPq8Threads) cur[i] = scl[i];
+    fence_proxy_async();  // the widened tiles, for wgmma
+    __syncthreads();
+    if (j + kPq8Stages < nkv) issue(j + kPq8Stages);  // the stage is free
+    // S = Q.K^T: [64 rows, kKeys], K-major operands, d in k16 steps
+    constexpr int NS = kKeys / 2;  // S's accumulator registers a thread
+    float sc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      const uint64_t dq = sw128_desc(q_s + (kk / 4) * kQBox + col, 16, 1024);
+      const uint64_t dk = sw128_desc(k_s + (kk / 4) * S::kKBox + col, 16, 1024);
+      if constexpr (kKeys == 128)
+        wgmma_ss_n128<0, 0>(sc, dq, dk, kk > 0);
+      else
+        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+    // k_scale per column, then the masks (a select: 0 x a NaN never survives)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] *= cur[key_of(i, lane)];
+    if (k0 < valid || k0 + kKeys - 1 > pos_first) {  // crosses valid_from or the diagonal
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = k0 + key_of(i, lane);
+        if (col < valid || col > pos_first + r_in + 8 * ((i >> 1) & 1)) sc[i] = -INFINITY;
+      }
+    }
+    // online softmax in the log2 domain: a row's values sit in a quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * scale_log2e);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      neg_m[h] = -m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = exp2f(fmaf(sc[i], scale_log2e, neg_m[h]));  // masked: exp2(-inf) = 0
+      sum[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
+      sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // o += (P * v_scale).V, P * v_scale as bf16 high + low parts from
+    // registers; V [keys, d] an MN-major B whose 64-column boxes are kKBox apart
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] *= cur[kKeys + key_of(i, lane)];
+    constexpr int KS = kKeys / 16;
+    uint32_t ph[KS][4], pl[KS][4];
+    to_a_frags_split<KS>(sc, ph, pl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t bv = sw128_desc(v_s + kk * 16 * 128, S::kKBox, 1024);
+      if constexpr (D == 64) {
+        wgmma_rs_n64<1>(o, ph[kk], bv, 1);
+        wgmma_rs_n64<1>(o, pl[kk], bv, 1);
+      } else {
+        wgmma_rs_n128<1>(o, ph[kk], bv, 1);
+        wgmma_rs_n128<1>(o, pl[kk], bv, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+  }
+  // epilogue: out = o / max(l, 1e-30) in float32, rows past t dropped
+  float l_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int row = q0 + r_in + 8 * h;
+    if (row < t) {
+      const int col = 8 * (i >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + (static_cast<size_t>(bn) * t + row) * D + col) =
+          make_float2(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -553,18 +895,19 @@ bool make_map(CUtensorMap* map, const void* ptr, int bn, int rows, int head_rows
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int R>
-int launch_split(const void* q, const void* k, const void* v, const int* vf, float* out, float* part,
-          int* counters, int bn, int n, int t, int L, int limit, int splits, float scale_log2e,
-          cudaStream_t st) {
-  auto kern = flash_decode_split_kernel<D, R>;
-  const int smem = DecGeom<D>::kBytes;
+template <int D, int R, bool Q8>
+int launch_split(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+                 const int* vf, float* out, float* part, int* counters, int bn, int n, int t,
+                 int L, int limit, int splits, float scale_log2e, cudaStream_t st) {
+  auto kern = flash_decode_split_kernel<D, R, Q8>;
+  const int smem = DecGeom<D, Q8>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bn, splits, (t + R - 1) / R);
   kern<<<grid, kDecThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), vf, out, part, counters, n, t, L, limit, scale_log2e);
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), ks, vs, vf, out, part, counters, n, t, L, limit,
+      scale_log2e);
   return cudaGetLastError();
 }
 
@@ -585,6 +928,47 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* vf, f
   return cudaGetLastError();
 }
 
+template <int D>
+int launch_prefill_q8(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* vf, float* out, int bn, int n, int t, int L,
+                      int limit, float scale_log2e, cudaStream_t st) {
+  CUtensorMap tq;
+  if (!make_map(&tq, q, bn, t, t, D, 64)) return kMapFailed;
+  auto kern = flash_decode_prefill_q8_kernel<D>;
+  const int smem = PreQ8Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<bn * ((t + 63) / 64), kPq8Threads, smem, st>>>(
+      tq, static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), ks, vs, vf, out, n, bn,
+      t, L, limit, scale_log2e);
+  return cudaGetLastError();
+}
+
+// the split-K kernel at t <= kSplitMaxRows: one row per CTA at t = 1, else 4
+template <bool Q8>
+int launch_decode(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+                  const int* vf, float* o, float* pt, int* ct, int bn, int n, int t, int L, int d,
+                  int limit, int splits, float sl2, cudaStream_t st) {
+  if (t == 1)
+    return d == 64 ? launch_split<64, 1, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
+                                             splits, sl2, st)
+                   : launch_split<128, 1, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
+                                              splits, sl2, st);
+  return d == 64 ? launch_split<64, 4, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
+                                           splits, sl2, st)
+                 : launch_split<128, 4, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
+                                            splits, sl2, st);
+}
+
+// what neither entry takes
+bool bad_args(const void* part, const void* counters, int b, int n, int t, int L, int d,
+              int limit, int splits) {
+  const long long bn = static_cast<long long>(b) * n;
+  return (d != 64 && d != 128) || t < 1 || t > limit || limit > L || b < 1 || n < 1 ||
+         bn * ((t + 63) / 64) > 0x7fffffffLL || splits < 1 || splits > 65535 ||
+         (t <= kSplitMaxRows && splits > 1 && (part == nullptr || counters == nullptr));
+}
+
 }  // namespace
 
 extern "C" {
@@ -599,28 +983,44 @@ extern "C" {
 int flash_decode_sm90(const void* q, const void* k, const void* v, const void* valid_from,
                       void* out, void* part, void* counters, int b, int n, int t, int L, int d,
                       int limit, int splits, float scale, void* stream) {
-  const long long bn = static_cast<long long>(b) * n;
-  if ((d != 64 && d != 128) || t < 1 || t > limit || limit > L || b < 1 || n < 1 ||
-      bn * ((t + 63) / 64) > 0x7fffffffLL || splits < 1 || splits > 65535 ||
-      (t <= kSplitMaxRows && splits > 1 && (part == nullptr || counters == nullptr)))
+  if (bad_args(part, counters, b, n, t, L, d, limit, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* vf = static_cast<const int*>(valid_from);
   float* o = static_cast<float*>(out);
-  float* pt = static_cast<float*>(part);
-  int* ct = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
-  const int bni = static_cast<int>(bn);
+  const int bn = b * n;
   if (t > kSplitMaxRows) {
-    return d == 64 ? launch_prefill<64>(q, k, v, vf, o, bni, n, t, L, limit, sl2, st)
-                   : launch_prefill<128>(q, k, v, vf, o, bni, n, t, L, limit, sl2, st);
+    return d == 64 ? launch_prefill<64>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st)
+                   : launch_prefill<128>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st);
   }
-  if (t == 1) {
-    return d == 64 ? launch_split<64, 1>(q, k, v, vf, o, pt, ct, bni, n, t, L, limit, splits, sl2, st)
-                   : launch_split<128, 1>(q, k, v, vf, o, pt, ct, bni, n, t, L, limit, splits, sl2, st);
+  return launch_decode<false>(q, k, v, nullptr, nullptr, vf, o, static_cast<float*>(part),
+                              static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2,
+                              st);
+}
+
+// The same over int8 caches [b, n, L, d] with float32 k_scale / v_scale
+// [b, n, L]; q bfloat16, the rest as flash_decode_sm90.
+int flash_decode_q8_sm90(const void* q, const void* k, const void* v, const void* k_scale,
+                         const void* v_scale, const void* valid_from, void* out, void* part,
+                         void* counters, int b, int n, int t, int L, int d, int limit,
+                         int splits, float scale, void* stream) {
+  if (bad_args(part, counters, b, n, t, L, d, limit, splits) || k_scale == nullptr ||
+      v_scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* vf = static_cast<const int*>(valid_from);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sl2 = scale * kLog2e;
+  const int bn = b * n;
+  if (t > kSplitMaxRows) {
+    return d == 64 ? launch_prefill_q8<64>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st)
+                   : launch_prefill_q8<128>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st);
   }
-  return d == 64 ? launch_split<64, 4>(q, k, v, vf, o, pt, ct, bni, n, t, L, limit, splits, sl2, st)
-                 : launch_split<128, 4>(q, k, v, vf, o, pt, ct, bni, n, t, L, limit, splits, sl2, st);
+  return launch_decode<true>(q, k, v, ks, vs, vf, o, static_cast<float*>(part),
+                             static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2, st);
 }
 
 const char* flash_decode_sm90_error_string(int code) {

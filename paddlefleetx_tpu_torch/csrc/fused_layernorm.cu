@@ -30,26 +30,36 @@
 // x and g and writes dx (50.3 MB) against a few operations per element.
 //
 // Design:
-//  * K1: one warp per row, 8 rows per CTA.  Three passes over the row
-//    (sum, squared deviations, output), lane i taking columns i, i+32, ..:
-//    coalesced scalar loads that take any n and any alignment; the second
-//    and third passes find the row in L1/L2.  128-bit loads and rows held
-//    in registers are later work.
+//  * One route rule for both kernels, applied by the entry points alone
+//    (reg_vecs; exported as fused_ln_register_vecs for the wrapper's
+//    labels): the register path where n is a multiple of the 16-byte
+//    vector, every row start, scale and bias (and the outputs) are 16-byte
+//    aligned and n is at most 32 * kMaxVecs vectors (2048 bf16, 1024
+//    float32); the strided path for any other n or alignment.
+//  * K1, register path: one warp per row, 8 rows per CTA.  Each lane issues
+//    all of its 16-byte loads of x (and res) at once (n = 1024 bf16: four
+//    per tensor, 2 KB per warp in flight) and holds the row in float32
+//    registers, so each byte of x is read from device memory once; mean,
+//    then the squared deviations, come from shuffles over those registers;
+//    scale and bias arrive as float4 through __ldg and y leaves in 16-byte
+//    stores.  __launch_bounds__ keeps the VPL <= 4 instances within 64
+//    registers, so four CTAs (32 warps, 64 KB of loads in flight) share an
+//    SM.  Strided path: three passes over the row (sum, squared deviations,
+//    output), lane i taking columns i, i+32, ..: coalesced scalar loads that
+//    take any n and any alignment, the second and third passes finding the
+//    row in L1/L2.
 //  * K2: one CTA of 8 warps per band of kBand rows (256 CTAs, about two
-//    per SM, at 8192 rows).  Register path, where n is a multiple of the
-//    16-byte vector, every row start is 16-byte aligned and n is at most
-//    32 * kMaxVecs vectors (2048 bf16, 1024 float32): one warp per row
-//    holds x (+ res) and g in registers from 16-byte loads (n = 1024 bf16:
-//    four per lane and tensor), so each is read from device memory once;
-//    m1 and m2 come from shuffles, dx leaves in 16-byte stores, and each
-//    lane keeps its own columns' dscale/dbias sums over its warp's rows in
-//    its warp's slice of shared memory (float4 slots, lane-contiguous: no
-//    bank conflicts); held in registers instead, they left room for one
-//    CTA per SM, two waves at 8192 rows.  The warps' sums are added in
-//    warp order into the band's partial row.  Strided path, for any other
-//    n or alignment: phase A, a warp per row, reduces m1, m2 with
-//    shuffles; phase B, a thread per column walks the band's rows for dx
-//    and the column sums (x and g read twice).
+//    per SM, at 8192 rows).  Register path: one warp per row holds x
+//    (+ res) and g in registers from 16-byte loads (n = 1024 bf16: four
+//    per lane and tensor), so each is read from device memory once; m1 and
+//    m2 come from shuffles, dx leaves in 16-byte stores, and each lane
+//    keeps its own columns' dscale/dbias sums over its warp's rows in its
+//    warp's slice of shared memory (float4 slots, lane-contiguous: no bank
+//    conflicts); held in registers instead, they left room for one CTA per
+//    SM, two waves at 8192 rows.  The warps' sums are added in warp order
+//    into the band's partial row.  Strided path: phase A, a warp per row,
+//    reduces m1, m2 with shuffles; phase B, a thread per column walks the
+//    band's rows for dx and the column sums (x and g read twice).
 //  * K2 reduce: a 32 x 16 block per 32 columns; each of the 16 row lanes
 //    adds every 16th band, then the 16 partial sums are added in order.
 //    Every sum has a fixed order: the same inputs give the same bits.
@@ -61,13 +71,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace {
 
 constexpr int kFwdWarps = 8;       // rows per K1 CTA
 constexpr int kBand = 32;          // rows per K2 CTA
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kMaxVecs = 8;        // K2's register path: 16-byte vectors per lane and tensor
+constexpr int kMaxVecs = 8;        // register paths: 16-byte vectors per lane and tensor
 constexpr int kRedCols = 32;       // reduce block: 32 columns x 16 band lanes
 constexpr int kRedLanes = 16;
 constexpr unsigned kFull = 0xffffffffu;
@@ -99,6 +111,8 @@ __device__ __forceinline__ float load_v(const T* __restrict__ x, const T* __rest
   return v;
 }
 
+// K1 on the strided path: three passes over the row, lane i taking columns
+// i, i + 32, ..
 template <typename T>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 fused_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
@@ -179,6 +193,82 @@ __device__ __forceinline__ void load_scale(const float* __restrict__ scale, int 
     f[i + 1] = s4.y;
     f[i + 2] = s4.z;
     f[i + 3] = s4.w;
+  }
+}
+
+// K1 on the register path (VPL 16-byte vectors per lane): one warp per row;
+// every lane's loads of x (+ res) are issued before any is used, the row
+// stays in float32 registers, and mean and the squared deviations come from
+// shuffles over them; y leaves in 16-byte stores.  VPL <= 4 is held to 64
+// registers (four CTAs per SM), VPL = 8 to 128.
+template <typename T, int VPL>
+__global__ void __launch_bounds__(kFwdWarps * 32, VPL <= 4 ? 4 : 2)
+fused_ln_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                        const float* __restrict__ scale, const float* __restrict__ bias,
+                        T* __restrict__ y, float* __restrict__ mean_out,
+                        float* __restrict__ rstd_out, int64_t rows, int n, float eps) {
+  constexpr int E = Vec<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nvec = n / E;
+  const float inv_n = 1.0f / static_cast<float>(n);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+  const uint4* rr = reinterpret_cast<const uint4*>(res + row * n);
+  uint4 xu[VPL], ru[VPL];
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    const int vi = lane + 32 * u;
+    if (vi < nvec) {
+      xu[u] = xr[vi];
+      if (res != nullptr) ru[u] = rr[vi];
+    }
+  }
+  float v[VPL][E];  // x (+ res), in float32
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    if (lane + 32 * u < nvec) {
+      unpack(xu[u], v[u]);
+      if (res != nullptr) {
+        float rf[E];
+        unpack(ru[u], rf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[u][e] += rf[e];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) sum += v[u][e];
+    }
+  }
+  const float mean = warp_sum(sum) * inv_n;
+  float sq = 0.f;
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    if (lane + 32 * u < nvec) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = v[u][e] - mean;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * inv_n + eps);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * n);
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    const int vi = lane + 32 * u;
+    if (vi < nvec) {
+      float sc[E], bi[E], o[E];
+      load_scale<E>(scale, vi * E, sc);
+      load_scale<E>(bias, vi * E, bi);
+#pragma unroll
+      for (int e = 0; e < E; ++e) o[e] = (v[u][e] - mean) * rstd * sc[e] + bi[e];
+      yr[vi] = pack(o);
+    }
+  }
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
   }
 }
 
@@ -388,31 +478,56 @@ fused_ln_bwd_reduce_kernel(const float* __restrict__ part_scale,
   }
 }
 
-template <typename T>
-cudaError_t fwd(const void* x, const void* res, const void* scale, const void* bias, void* y,
-                void* mean, void* rstd, int64_t rows, int n, float eps, cudaStream_t st) {
-  const int64_t grid = (rows + kFwdWarps - 1) / kFwdWarps;
-  fused_ln_fwd_kernel<T><<<static_cast<unsigned>(grid), kFwdWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), rows, n, eps);
+template <typename T, int VPL>
+cudaError_t fwd_rows(const void* x, const void* res, const void* scale, const void* bias,
+                     void* y, void* mean, void* rstd, int64_t rows, int n, float eps,
+                     cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>((rows + kFwdWarps - 1) / kFwdWarps);
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* mu = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rstd);
+  if constexpr (VPL > 0)
+    fused_ln_fwd_reg_kernel<T, VPL><<<grid, kFwdWarps * 32, 0, st>>>(
+        xt, rt, sc, bi, static_cast<T*>(y), mu, rs, rows, n, eps);
+  else
+    fused_ln_fwd_kernel<T><<<grid, kFwdWarps * 32, 0, st>>>(xt, rt, sc, bi, static_cast<T*>(y),
+                                                            mu, rs, rows, n, eps);
   return cudaGetLastError();
 }
 
-// 16-byte vectors per lane and tensor for the register path of K2 at n
-// (0: the strided path): n a multiple of the vector, every row start and
-// scale 16-byte aligned, and n within 32 * kMaxVecs vectors
 template <typename T>
-int bwd_vecs(const void* x, const void* res, const void* scale, const void* g, const void* dx,
-             int n) {
+cudaError_t fwd(const void* x, const void* res, const void* scale, const void* bias, void* y,
+                void* mean, void* rstd, int64_t rows, int n, float eps, int vpl,
+                cudaStream_t st) {
+  switch (vpl) {
+    case 1: return fwd_rows<T, 1>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st);
+    case 2: return fwd_rows<T, 2>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st);
+    case 4: return fwd_rows<T, 4>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st);
+    case 8: return fwd_rows<T, 8>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st);
+    default: return fwd_rows<T, 0>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st);
+  }
+}
+
+// 16-byte vectors per lane and tensor on the register paths of K1 and K2 at
+// n (0: the strided path): n a multiple of the vector, every address
+// (`addr`, the OR of the tensors' addresses) 16-byte aligned, and n within
+// 32 * kMaxVecs vectors (exported as fused_ln_register_vecs).
+template <typename T>
+int reg_vecs(uintptr_t addr, int n) {
   constexpr int E = Vec<T>::kN;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(res) |
-                         reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(g) |
-                         reinterpret_cast<uintptr_t>(dx);
   if (n % E != 0 || (addr & 15) != 0 || n > 32 * kMaxVecs * E) return 0;
   int vpl = 1;
   while (32 * vpl * E < n) vpl *= 2;
   return vpl;
+}
+
+uintptr_t addr_or(std::initializer_list<const void*> ptrs) {
+  uintptr_t a = 0;
+  for (const void* p : ptrs) a |= reinterpret_cast<uintptr_t>(p);
+  return a;
 }
 
 template <typename T, int VPL>
@@ -437,10 +552,10 @@ cudaError_t bwd_band(const void* x, const void* res, const void* scale, const vo
 template <typename T>
 cudaError_t bwd(const void* x, const void* res, const void* scale, const void* mean,
                 const void* rstd, const void* g, void* dx, void* part_scale, void* part_bias,
-                void* dscale, void* dbias, int64_t rows, int n, cudaStream_t st) {
+                void* dscale, void* dbias, int64_t rows, int n, int vpl, cudaStream_t st) {
   const int bands = static_cast<int>((rows + kBand - 1) / kBand);
   cudaError_t err;
-  switch (bwd_vecs<T>(x, res, scale, g, dx, n)) {
+  switch (vpl) {
     case 1:
       err = bwd_band<T, 1>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias, rows, n,
                            bands, st);
@@ -483,6 +598,17 @@ extern "C" {
 // for dscale and dbias), for the wrapper to allocate.
 int64_t fused_ln_bwd_bands(int64_t rows) { return (rows + kBand - 1) / kBand; }
 
+// 16-byte vectors per lane that K1 and K2 take for rows of n elements
+// (dtype 0 float32, 1 bfloat16) over tensors whose addresses OR to `addr`:
+// the register path's VPL, or 0 for the strided path; -1 for another
+// dtype.  The entry points below choose their path by this rule; the
+// wrapper asks it only to label a launch.
+int fused_ln_register_vecs(int dtype, int n, uintptr_t addr) {
+  if (dtype == 0) return reg_vecs<float>(addr, n);
+  if (dtype == 1) return reg_vecs<__nv_bfloat16>(addr, n);
+  return -1;
+}
+
 // y [rows, n] in the input type; mean, rstd float32 [rows].  res may be
 // null (no residual).
 int fused_ln_fwd(const void* x, const void* res, const void* scale, const void* bias,
@@ -490,10 +616,12 @@ int fused_ln_fwd(const void* x, const void* res, const void* scale, const void* 
                  void* stream) {
   if (bad_shape(rows, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(fwd<float>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st));
+  const int vpl = fused_ln_register_vecs(dtype, n, addr_or({x, res, scale, bias, y}));
+  if (dtype == 0)
+    return static_cast<int>(fwd<float>(x, res, scale, bias, y, mean, rstd, rows, n, eps, vpl, st));
   if (dtype == 1)
     return static_cast<int>(
-        fwd<__nv_bfloat16>(x, res, scale, bias, y, mean, rstd, rows, n, eps, st));
+        fwd<__nv_bfloat16>(x, res, scale, bias, y, mean, rstd, rows, n, eps, vpl, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -505,12 +633,13 @@ int fused_ln_bwd(const void* x, const void* res, const void* scale, const void* 
                  void* dscale, void* dbias, int64_t rows, int n, int dtype, void* stream) {
   if (bad_shape(rows, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vpl = fused_ln_register_vecs(dtype, n, addr_or({x, res, scale, g, dx}));
   if (dtype == 0)
     return static_cast<int>(bwd<float>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias,
-                                       dscale, dbias, rows, n, st));
+                                       dscale, dbias, rows, n, vpl, st));
   if (dtype == 1)
     return static_cast<int>(bwd<__nv_bfloat16>(x, res, scale, mean, rstd, g, dx, part_scale,
-                                               part_bias, dscale, dbias, rows, n, st));
+                                               part_bias, dscale, dbias, rows, n, vpl, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,13 +10,13 @@ Two spellings behind :func:`flash_decode`:
 
   - the CUDA kernels (built on first use by ``ops/_build.py``) for
     tensors on the card.  ``flash_decode`` (the TPU's ``_decode_kernel``)
-    takes one of two routes by dtype and head dim only
-    (:func:`kernel_route`): bf16 at d = 64 or 128 the Hopper kernels of
-    ``csrc/decode_attention_sm90.cu`` ("sm90": split-K flash-decoding
-    over bulk copies for t <= 16, the tensor cores for a longer prefill),
-    anything else the CUDA-core kernel of ``csrc/decode_attention.cu``
-    ("cuda_core").  ``flash_decode_q8`` (``_decode_kernel_q8``, int8
-    caches with per-slot scales) is in ``csrc/decode_attention.cu``;
+    and ``flash_decode_q8`` (``_decode_kernel_q8``, int8 caches with
+    per-slot scales) each take one of two routes by q's dtype and the head
+    dim only (:func:`kernel_route`): bf16 q at d = 64 or 128 the Hopper
+    kernels of ``csrc/decode_attention_sm90.cu`` ("sm90": split-K
+    flash-decoding over bulk copies for t <= 16, the tensor cores for a
+    longer prefill), anything else the CUDA-core kernels of
+    ``csrc/decode_attention.cu`` ("cuda_core");
   - :func:`decode_attention_plain`, the plain PyTorch version of
     ``_decode_lax`` (same blocked loop, same order of operations), for
     tensors on the CPU, and the reference the kernels are held against.
@@ -59,14 +59,15 @@ _MAX_HEAD_DIM = 128
 
 # Kernel launches per kernel, and calls of the plain versions through
 # flash_decode ("plain") and paged_decode_attention ("paged_plain") on CPU
-# tensors.  "flash_decode" counts every launch of the bf16/f32 kernel on
-# either route; "flash_decode_sm90" those on the sm90 route, and
-# "flash_decode_sm90_prefill" those of them that took its prefill kernel
-# (t > SPLIT_MAX_ROWS).  Process-wide; reset with reset_counts().
+# tensors.  "flash_decode" counts every launch of the bf16/f32 kernel and
+# "flash_decode_q8" every launch of the int8 one, on either route;
+# "<kernel>_sm90" those on the sm90 route, and "<kernel>_sm90_prefill"
+# those of them that took its prefill kernel (t > SPLIT_MAX_ROWS).
+# Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
-    "flash_decode_q8": 0, "plain": 0,
-    "paged_decode": 0, "paged_decode_q8": 0, "paged_plain": 0,
+    "flash_decode_q8": 0, "flash_decode_q8_sm90": 0, "flash_decode_q8_sm90_prefill": 0,
+    "plain": 0, "paged_decode": 0, "paged_decode_q8": 0, "paged_plain": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -85,11 +86,10 @@ def reset_counts() -> None:
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route a CUDA launch of ``flash_decode`` takes for q and caches
-    of ``dtype`` at ``head_dim``: "sm90" (``csrc/decode_attention_sm90.cu``)
-    for bfloat16 at d = 64 or 128, else "cuda_core"
-    (``csrc/decode_attention.cu``).  int8 caches take ``flash_decode_q8``
-    whatever this says."""
+    """The route a CUDA launch of ``flash_decode`` takes for q of ``dtype``
+    at ``head_dim``, over caches of q's dtype or int8 caches alike: "sm90"
+    (``csrc/decode_attention_sm90.cu``) for bfloat16 q at d = 64 or 128,
+    else "cuda_core" (``csrc/decode_attention.cu``)."""
     return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "cuda_core"
 
 
@@ -273,6 +273,8 @@ def _sm90_lib() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_decode_sm90.argtypes = [ptr] * 7 + [i32] * 7 + [f32, ptr]
         lib.flash_decode_sm90.restype = i32
+        lib.flash_decode_q8_sm90.argtypes = [ptr] * 9 + [i32] * 7 + [f32, ptr]
+        lib.flash_decode_q8_sm90.restype = i32
         lib.flash_decode_sm90_error_string.argtypes = [i32]
         lib.flash_decode_sm90_error_string.restype = ctypes.c_char_p
         _SM90_LIB = lib
@@ -292,10 +294,12 @@ def _split_scratch(dev: torch.device, stream: int, part_floats: int, groups: int
     return part, counters
 
 
-def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream):
-    """The sm90 route: the split-K kernel for t <= SPLIT_MAX_ROWS (its
-    split count from :func:`decode_splits`), the tensor-core prefill
-    above.  TMA and the bulk copies need 16-byte aligned tensors."""
+def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_scale, v_scale):
+    """The sm90 route, over bf16 caches (``flash_decode_sm90``) or int8
+    caches with their scales (``flash_decode_q8_sm90``): the split-K kernel
+    for t <= SPLIT_MAX_ROWS (its split count from :func:`decode_splits`),
+    the tensor-core prefill above.  TMA and the bulk copies need 16-byte
+    aligned tensors."""
     dev = q_t.device
     b, n, t, d = q_t.shape
     L = k_cache.shape[2]
@@ -311,19 +315,24 @@ def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream):
         if splits > 1:
             part, counters = _split_scratch(dev, stream, groups * splits * rows * (d + 2), groups)
     lib = _sm90_lib()
-    rc = lib.flash_decode_sm90(
-        q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), vf_ptr, out.data_ptr(),
-        None if part is None else part.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        b, n, t, L, d, int(limit), splits, float(scale), stream,
-    )
+    scratch = (out.data_ptr(), None if part is None else part.data_ptr(),
+               None if counters is None else counters.data_ptr(),
+               b, n, t, L, d, int(limit), splits, float(scale), stream)
+    if k_scale is not None:
+        name = "flash_decode_q8"
+        rc = lib.flash_decode_q8_sm90(q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                      k_scale.data_ptr(), v_scale.data_ptr(), vf_ptr, *scratch)
+    else:
+        name = "flash_decode"
+        rc = lib.flash_decode_sm90(q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                   vf_ptr, *scratch)
     if rc != 0:
         msg = lib.flash_decode_sm90_error_string(rc).decode()
-        raise RuntimeError(f"flash_decode (sm90) kernel launch failed: CUDA error {rc} ({msg})")
-    COUNTS["flash_decode"] += 1
-    COUNTS["flash_decode_sm90"] += 1
+        raise RuntimeError(f"{name} (sm90) kernel launch failed: CUDA error {rc} ({msg})")
+    COUNTS[name] += 1
+    COUNTS[f"{name}_sm90"] += 1
     if t > SPLIT_MAX_ROWS:
-        COUNTS["flash_decode_sm90_prefill"] += 1
+        COUNTS[f"{name}_sm90_prefill"] += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -366,8 +375,8 @@ def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
     out = torch.empty((b, n, t, d), dtype=torch.float32, device=dev)
     vf_ptr = valid_from.data_ptr() if valid_from is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if not quant and kernel_route(q_t.dtype, d) == "sm90":
-        _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream)
+    if kernel_route(q_t.dtype, d) == "sm90":
+        _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_scale, v_scale)
         return out
     lib = _lib()
     if quant:

@@ -14,8 +14,11 @@ Two spellings of each direction, chosen by the tensors' device only:
   - the CUDA kernels of ``csrc/fused_layernorm.cu`` (built on first use by
     ``ops/_build.py``) for tensors on the card: ``fused_ln_fwd`` (K1, the
     TPU's ``_fwd_kernel``) and ``fused_ln_bwd`` (K2, ``_bwd_kernel``: dx
-    per row from rows held in registers, then the per-band column sums
-    added in a fixed order);
+    per row, then the per-band column sums added in a fixed order).  Each
+    takes one of two paths, chosen in the library by dtype, width and
+    alignment only (:func:`register_vecs` reports it): rows held in
+    registers from 16-byte loads, or a strided path for any other width or
+    alignment;
   - :func:`layer_norm_fwd_plain` and :func:`layer_norm_bwd_plain`, plain
     PyTorch versions with the same math (the variance as the mean of
     squared deviations, the residual added in float32 inside the norm),
@@ -44,11 +47,12 @@ from torch import Tensor
 COUNTS = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_ln_fwd_plain": 0,
           "fused_ln_bwd_plain": 0}
 
-# K2's register path (csrc/fused_layernorm.cu, kMaxVecs 16-byte vectors per
-# lane) takes rows up to this n, where n is a multiple of the vector (8 bf16,
-# 4 float32) and the rows are 16-byte aligned; other rows take its strided
-# path.  Both are held against the plain version.
-BWD_REGISTER_MAX_N = {torch.float32: 1024, torch.bfloat16: 2048}
+# The register paths of K1 and K2 (csrc/fused_layernorm.cu, up to 8 16-byte
+# vectors per lane and tensor) take rows up to this n, where n is a multiple
+# of the vector (8 bf16, 4 float32) and the tensors are 16-byte aligned;
+# other rows take the strided paths.  Both are held against the plain
+# version.  The kernels choose the path themselves (register_vecs asks them).
+REGISTER_MAX_N = {torch.float32: 1024, torch.bfloat16: 2048}
 
 
 def reset_counts() -> None:
@@ -114,10 +118,24 @@ def _lib() -> ctypes.CDLL:
         lib.fused_ln_bwd.restype = i32
         lib.fused_ln_bwd_bands.argtypes = [i64]
         lib.fused_ln_bwd_bands.restype = i64
+        lib.fused_ln_register_vecs.argtypes = [i32, i32, ctypes.c_uint64]
+        lib.fused_ln_register_vecs.restype = i32
         lib.fused_ln_error_string.argtypes = [i32]
         lib.fused_ln_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def register_vecs(dtype: torch.dtype, n: int, *ptrs: Optional[int]) -> int:
+    """The path K1 / K2 take for rows of ``n`` elements of ``dtype`` over
+    tensors at the addresses ``ptrs`` (None for an absent residual), as the
+    kernels' library chooses it: the 16-byte vectors per lane of the
+    register path, or 0 for the strided path.  Labels only: the entry
+    points apply the rule themselves."""
+    addr = 0
+    for p in ptrs:
+        addr |= p or 0
+    return _lib().fused_ln_register_vecs(_DTYPE_CODES[dtype], n, addr)
 
 
 def _check_inputs(name: str, rows_tensors, vecs, stats=()) -> None:

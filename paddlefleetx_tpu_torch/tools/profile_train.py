@@ -10,8 +10,9 @@ accumulation).  After two warm steps it prints the host wall time of
 each step (each ends in a host read of the metrics), then profiles
 ``--steps`` steps and prints the device time per step (the sum of the
 card's kernel times), that time split into groups (the flash attention
-kernels, the fused LayerNorm kernels, matrix products, the rest), and the kernels and host operators
-that take the most time.  ``--device cpu`` runs the same on the CPU (host
+kernels, the fused LayerNorm kernels, matrix products, the rest), the
+host time of the fused LayerNorm operators, and the kernels and host
+operators that take the most time.  ``--device cpu`` runs the same on the CPU (host
 times only).
 """
 
@@ -47,6 +48,19 @@ def _groups(prof, steps: int) -> dict:
     return out
 
 
+def _host_fused_ln(prof, steps: int) -> dict:
+    """Host (self CPU) time and calls per step of the fused LayerNorm's
+    operators: the ``pfx::fused_ln_fwd`` op and the autograd backward node,
+    the wrappers' Python included."""
+    us = calls = 0.0
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if e.device_type == DeviceType.CPU and ("fused_ln" in key or "fusedlayernorm" in key):
+            us += e.self_cpu_time_total / steps
+            calls += e.count / steps
+    return {"self_cpu_us": us, "calls": calls}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser("paddlefleetx_tpu_torch.tools.profile_train")
     ap.add_argument("-c", "--config", required=True)
@@ -79,15 +93,19 @@ def main(argv=None) -> int:
         _sync(dev)
     table = _table(prof, args.steps)
     groups = _groups(prof, args.steps)
+    host_ln = _host_fused_ln(prof, args.steps)
     result = {"device": str(dev), "batch": args.batch, "seq": args.seq,
               "accumulate_steps": engine.accumulate_steps,
-              "step_ms": [s * 1e3 for s in step_s], "groups_us_per_step": groups, **table}
+              "step_ms": [s * 1e3 for s in step_s], "groups_us_per_step": groups,
+              "host_fused_ln_per_step": host_ln, **table}
     print(f"train step {np.median(step_s) * 1e3:.1f} ms (median host wall, {args.batch} x "
           f"{args.seq} tokens, {engine.accumulate_steps} micro-batches); profiled step: host "
           f"{table['host_us_per_step'] / 1e3:.1f} ms of operator time, device "
           f"{table['device_us_per_step'] / 1e3:.1f} ms of kernel time", flush=True)
     for name, us in groups.items():
         print(f"  group {us / 1e3:9.2f} ms  {name}")
+    print(f"  host  {host_ln['self_cpu_us'] / 1e3:9.2f} ms x{host_ln['calls']:6.1f}  "
+          f"fused LayerNorm operators (self CPU)")
     for k in table["kernels"]:
         print(f"  dev  {k['device_us'] / 1e3:9.2f} ms x{k['calls']:6.1f}  {k['kernel']}")
     for o in table["host_ops"]:

@@ -7,7 +7,8 @@ tests/test_decode_attention.py.  Covers decode (t = 1) and prefill /
 chunks (t > 1), blocks 8 and 16, an unaligned cache length, left-padded
 rows (fully masked rows must be 0, not NaN), the int8 cache, and the
 shapes around the card's sm90 route (head dims 64 and 128, t = 16, 17 and
-64).  The route and split-count rules of the card's wrapper are plain
+64; for the int8 cache also t = 1 and 4, and lengths, limits and pads that
+are not multiples of 4).  The route and split-count rules of the card's wrapper are plain
 Python and are pinned here too.
 """
 
@@ -42,8 +43,30 @@ CASES = {
 }
 
 
+# The int8 cache at the boundaries of the card's int8 sm90 route: t = 1, 4,
+# 16 (split-K: 128-key stages at d = 64, 64-key at d = 128, each with its
+# scale slices) and 17, 64 (tensor cores: 128-key tiles at d = 64, 64-key at
+# d = 128) at both head dims; cache lengths L, limits (pos + t) and left
+# pads that are not multiples of 4 (a scale slice of any start or end, the
+# last head's slice at the very end of the [b, n, L] scales); pads that cut
+# a stage or tile and pads that skip whole ones
+Q8_CASES = {
+    "q8_decode_t1_d64": (2, 1, 2, 64, 301, 290, 0, [37, 130]),
+    "q8_decode_t1_d64_skip_stages": (1, 1, 2, 64, 1023, 1000, 0, [517]),
+    "q8_decode_t1_d128_limit_is_L": (2, 1, 2, 128, 203, 202, 0, [0, 65]),
+    "q8_verify_t4_d64": (2, 4, 2, 64, 150, 97, 0, [5, 0]),
+    "q8_verify_t4_d128": (2, 4, 2, 128, 151, 147, 0, [66, 3]),
+    "q8_verify_t16_d64": (2, 16, 2, 64, 301, 250, 0, [131, 2]),
+    "q8_verify_t16_d128": (2, 16, 2, 128, 150, 117, 0, [70, 1]),
+    "q8_prefill_t17_d64": (2, 17, 2, 64, 150, 100, 0, [70, 0]),
+    "q8_prefill_t17_d128": (2, 17, 2, 128, 150, 100, 0, [3, 90]),
+    "q8_prefill_t64_d64_pads": (2, 64, 2, 64, 299, 235, 0, [131, 262]),
+    "q8_prefill_t64_d128_limit_is_L": (2, 64, 2, 128, 267, 203, 0, [65, 195]),
+}
+
+
 def _inputs(case, seed=0):
-    b, t, n, d, L, pos, block, vf = CASES[case]
+    b, t, n, d, L, pos, block, vf = {**CASES, **Q8_CASES}[case]
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, t, n, d)).astype(np.float32)
     kc = rng.normal(size=(b, n, L, d)).astype(np.float32)
@@ -88,6 +111,21 @@ def test_plain_decode_q8_matches_jax(case, impl):
     vq, vs = (np.asarray(a) for a in jax_da.quantize_kv(jnp.asarray(vc)))
     ref = _jax(q, kq, vq, pos, block, vf, impl, ks, vs)
     got = _port(q, kq, vq, pos, block, vf, ks, vs)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "lax"])
+@pytest.mark.parametrize("case", sorted(Q8_CASES))
+def test_plain_decode_q8_matches_jax_at_sm90_boundaries(case, impl):
+    """bf16 q, as the card's int8 sm90 route takes it (the model's dtype):
+    both sides read the same bf16 values as float32."""
+    q, kc, vc, pos, block, vf = _inputs(case, seed=4)
+    q = np.asarray(jnp.asarray(q, jnp.bfloat16), np.float32)
+    kq, ks = (np.asarray(a) for a in jax_da.quantize_kv(jnp.asarray(kc)))
+    vq, vs = (np.asarray(a) for a in jax_da.quantize_kv(jnp.asarray(vc)))
+    ref = _jax(q, kq, vq, pos, block, vf, impl, ks, vs)
+    got = _port(q, kq, vq, pos, block, vf, ks, vs)
+    assert got.shape == ref.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
@@ -168,6 +206,18 @@ def test_knobs_fail_loudly(monkeypatch):
 ])
 def test_kernel_route_follows_dtype_and_head_dim(dtype, head_dim, route):
     assert pt_da.kernel_route(dtype, head_dim) == route
+
+
+@pytest.mark.parametrize("q_dtype,head_dim,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 32, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_kernel_route_answers_for_int8_caches(q_dtype, head_dim, route):
+    """int8 caches route by q's dtype and the head dim, as bf16 ones do:
+    bf16 q at d = 64 / 128 takes flash_decode_q8_sm90, f32 q or another d
+    the CUDA-core flash_decode_q8."""
+    assert pt_da.kernel_route(q_dtype, head_dim) == route
 
 
 def test_split_count_rule():

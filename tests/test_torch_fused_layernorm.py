@@ -31,11 +31,13 @@ from paddlefleetx_tpu_torch.utils.config import AttrDict, process_configs
 torch.set_num_threads(2)
 
 # tests/test_fused_layernorm.py's shapes, rows that are not a power of two
-# (21 and 15 rows), and the widths at the edges of K2's two paths on the
-# card: n = 1024 and 1000 (its register path, 16-byte vectors) and an
-# aligned n past the register path's bf16 cap (its strided path)
+# (21 and 15 rows), and the widths at the edges of the two paths K1 and K2
+# take on the card: n = 1000 (the register path, 16-byte vectors), each
+# dtype's register cap and one vector past it (the strided path), and an n
+# that is no multiple of either vector (strided)
 SHAPES = [(4, 16, 64), (2, 128), (3, 7, 40), (15, 24), (5, 1024), (3, 1000),
-          (3, fl.BWD_REGISTER_MAX_N[torch.bfloat16] + 8)]
+          (3, fl.REGISTER_MAX_N[torch.float32] + 4), (3, fl.REGISTER_MAX_N[torch.bfloat16]),
+          (3, fl.REGISTER_MAX_N[torch.bfloat16] + 8), (2, 1001)]
 
 
 def _inputs(shape, seed, with_res):
@@ -45,6 +47,9 @@ def _inputs(shape, seed, with_res):
     scale = rng.normal(size=shape[-1:]).astype(np.float32)
     bias = rng.normal(size=shape[-1:]).astype(np.float32)
     return x, res, scale, bias
+
+
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
 def _port(*arrays):
@@ -100,6 +105,32 @@ def test_plain_bf16_matches_jax():
     # and against the unfused float32 LayerNorm, as the JAX test holds it
     ref = gpt.layer_norm(torch.tensor(x), *_port(scale, bias))
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=2e-2, atol=2e-2)
+
+
+# the widths of the card's path table (tests/test_torch_kernels_cuda.py,
+# test_register_path_follows_dtype_width_and_alignment): register path
+# boundaries and strided widths, in both dtypes
+PATH_WIDTHS = [(torch.bfloat16, n) for n in (1024, 1000, 64, 256, 264, 2048, 2056, 1001, 1004)] \
+    + [(torch.float32, n) for n in (1024, 1028, 1000, 128, 1022, 7)]
+
+
+@pytest.mark.parametrize("dtype,n", PATH_WIDTHS)
+def test_cpu_op_takes_the_plain_version_at_the_kernels_path_widths(dtype, n):
+    """On CPU tensors the K1 op runs its plain version (never the
+    library), at every width the kernels' path rule tells apart, and
+    matches JAX's forward (bf16 at JAX's own bf16 bar)."""
+    x, res, scale, bias = _inputs((3, n), 4, True)
+    want = jax_fused_layer_norm(jnp.asarray(x, _JNP[dtype]), jnp.asarray(scale),
+                                jnp.asarray(bias), residual=jnp.asarray(res, _JNP[dtype]))
+    tx, tres = (torch.tensor(a).to(dtype) for a in (x, res))
+    before = dict(fl.COUNTS)
+    y, mean, rstd = torch.ops.pfx.fused_ln_fwd(tx, tres, *_port(scale, bias), 1e-5)
+    assert fl.COUNTS["fused_ln_fwd_plain"] == before["fused_ln_fwd_plain"] + 1
+    assert fl.COUNTS["fused_ln_fwd"] == before["fused_ln_fwd"]
+    assert y.dtype == dtype and mean.dtype == rstd.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
 
 
 def test_plain_backward_returns_scale_dtype_and_dres_is_dx():

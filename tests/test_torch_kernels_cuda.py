@@ -9,7 +9,9 @@ no JAX, so it runs on a GPU machine without it:
 Tolerances: float32 1e-4 (summation order and the four-warp merge differ
 from the plain loop), bfloat16 2e-2 absolute in float32 (probabilities
 are rounded to bf16 before p @ v on both sides, at different points of
-the sum), int8 1e-4 (the same dequantization math as the plain version).
+the sum), int8 1e-4 (the plain version's dequantization math in another
+order; the tensor-core prefill keeps p * v_scale as a bf16 high and low
+part, within ~2^-17 of itself).
 The flash kernels have their own limits (``FLASH_TOL``, ``BF16_ROW_TOL``,
 ``BF16_DIFFER_TOL``, the values of ``chip_smoke.py`` phase 9).
 """
@@ -25,10 +27,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 1e-4}
 # request D's eight prompts in the 64-token bucket, left-padded
 D_PADS = [64 - n for n in (12, 20, 28, 36, 44, 52, 60, 64)]
 
-# (b, n, t, d, L, limit, kv_valid_from).  bf16 at d = 64 or 128 takes the
-# sm90 route: its split-K kernel up to t = 16 (64-key stages at d = 64, 32
-# at d = 128), its tensor-core prefill (128-key tiles at d = 64, 64 at
-# d = 128) above
+# (b, n, t, d, L, limit, kv_valid_from).  bf16 q at d = 64 or 128 takes the
+# sm90 route, over bf16 or int8 caches: its split-K kernel up to t = 16
+# (bf16: 64-key stages at d = 64, 32 at d = 128; int8: 128 and 64), its
+# tensor-core prefill (128-key tiles at d = 64, 64 at d = 128) above.  The
+# "odd" shapes put cache lengths, limits, pads and split boundaries off
+# multiples of 4 keys (the int8 kernels' scale slices, 4 bytes a key)
 SHAPES = {
     "decode_gpt345m_b8": (8, 16, 1, 64, 1024, 517, None),
     "prefill_left_pad": (3, 16, 70, 64, 256, 70, [0, 13, 69]),
@@ -49,6 +53,13 @@ SHAPES = {
     "prefill_pad_skips_tiles": (2, 4, 300, 64, 512, 500, [260, 400]),
     "prefill_limit_mid_tile": (2, 4, 500, 64, 512, 500, [0, 1]),
     "decode_b1_split_k_short": (1, 16, 1, 64, 1024, 700, [5]),
+    "decode_b1_split_k_odd": (1, 16, 1, 64, 1023, 1021, [7]),
+    "decode_odd": (2, 4, 1, 64, 301, 291, [37, 130]),
+    "decode_d128_limit_is_odd_L": (2, 4, 1, 128, 203, 203, [0, 65]),
+    "verify_t4_odd": (2, 4, 4, 64, 151, 147, [66, 3]),
+    "verify_t16_d128_odd": (2, 4, 16, 128, 150, 133, [70, 1]),
+    "prefill_t64_d128_limit_is_odd_L": (2, 4, 64, 128, 267, 267, [65, 195]),
+    "prefill_t64_odd": (2, 4, 64, 64, 299, 299, [131, 262]),
 }
 
 
@@ -88,12 +99,16 @@ def test_kernel_matches_plain(name, kv_dtype):
     got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
     torch.cuda.synchronize()
     assert da.COUNTS[key] == before[key] + 1
-    # bf16 at d = 64 / 128 on the sm90 route, everything else off it
+    # bf16 q at d = 64 / 128 on the sm90 route (bf16 or int8 caches),
+    # everything else off it
     t, d = q.shape[2], q.shape[3]
-    sm90 = int(kv_dtype != torch.int8 and da.kernel_route(kv_dtype, d) == "sm90")
-    assert da.COUNTS["flash_decode_sm90"] == before["flash_decode_sm90"] + sm90
-    assert da.COUNTS["flash_decode_sm90_prefill"] == (
-        before["flash_decode_sm90_prefill"] + sm90 * int(t > da.SPLIT_MAX_ROWS))
+    sm90 = int(da.kernel_route(q.dtype, d) == "sm90")
+    assert da.COUNTS[f"{key}_sm90"] == before[f"{key}_sm90"] + sm90
+    assert da.COUNTS[f"{key}_sm90_prefill"] == (
+        before[f"{key}_sm90_prefill"] + sm90 * int(t > da.SPLIT_MAX_ROWS))
+    other = "flash_decode" if key == "flash_decode_q8" else "flash_decode_q8"
+    assert all(da.COUNTS[k] == before[k]
+               for k in (other, f"{other}_sm90", f"{other}_sm90_prefill"))
     ref = da.decode_attention_plain(q, k, v, limit, vf, da.decode_block(k.shape[2]),
                                     scale, ks, vs)
     assert got.dtype == torch.float32 and got.shape == ref.shape
@@ -111,16 +126,24 @@ def test_kernel_matches_plain(name, kv_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["decode_gpt345m_b8", "prefill_request_d",
                                   "decode_b1_split_k_short"])
-@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
 def test_kernel_never_reads_past_limit(kv_dtype, name):
-    """NaN in every cache slot at or past ``limit`` (t = 1 and t = 64, a
-    split-K decode): the output must not change."""
+    """NaN in every cache slot at or past ``limit`` (int8: in every scale
+    there, the slots at the int8 extremes; t = 1 and t = 64, a split-K decode
+    over several splits): the output must not change."""
     dev = _card()
-    q, k, v, limit, vf, scale, _, _ = _case(name, kv_dtype, dev)
-    ref = da.flash_decode(q, k, v, limit, vf, scale)
-    k[:, :, limit:] = float("nan")
-    v[:, :, limit:] = float("nan")
-    got = da.flash_decode(q, k, v, limit, vf, scale)
+    q, k, v, limit, vf, scale, ks, vs = _case(name, kv_dtype, dev)
+    ref = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    if kv_dtype == torch.int8:
+        for x in (ks, vs):
+            x[:, :, limit:] = float("nan")
+        k[:, :, limit:] = 127
+        v[:, :, limit:] = -128
+    else:
+        k[:, :, limit:] = float("nan")
+        v[:, :, limit:] = float("nan")
+    got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert torch.equal(got, ref)
@@ -143,6 +166,22 @@ def test_kernel_is_bitwise_repeatable(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_b1_split_k_odd", "decode_b8_long_split_k",
+                                  "decode_d128_split_k", "verify_t16", "prefill_request_d",
+                                  "prefill_t64_d128_limit_is_odd_L"])
+def test_q8_kernel_is_bitwise_repeatable(name):
+    """The int8 kernels on the sm90 route: split order for the partials,
+    no atomics in the prefill, the same bits on every call."""
+    dev = _card()
+    q, k, v, limit, vf, scale, ks, vs = _case(name, torch.int8, dev)
+    first = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    for _ in range(3):
+        again = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     dev = _card()
     q, k, v, limit, vf, scale, _, _ = _case("chunk_unaligned", torch.bfloat16, dev)
@@ -154,6 +193,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         da.flash_decode(q, k, v, limit, vf.cpu(), scale)  # device mismatch
     with pytest.raises(ValueError):
         da.flash_decode(q, k, v, k.shape[2] + 1, vf, scale)  # limit past the cache
+    q, k, v, limit, vf, scale, ks, vs = _case("chunk_unaligned", torch.int8, dev)
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, limit, vf, scale, ks)  # one scale without the other
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, limit, vf, scale, ks.bfloat16(), vs)  # scale dtype
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, limit, vf, scale, ks[:, :, :-1], vs)  # scale shape
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k.float(), v, limit, vf, scale, ks, vs)  # int8 caches only
 
 
 @pytest.mark.cuda
@@ -578,12 +626,14 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 # (rows, n): the training path's micro-batch, rows and n that are not
-# multiples of anything (the kernels take any), one row, a wide row
-# K2's register path takes "gpt345m", "odd" and "one_row"; "above_cap" is
-# aligned but wider than its cap (fl.BWD_REGISTER_MAX_N), "tiny" and "wide"
-# no multiple of the 16-byte vector: those take its strided path
+# multiples of anything (the kernels take any), one row, a wide row.
+# The register paths of K1 and K2 take "gpt345m", "odd" and "one_row", and
+# "at_cap" in bf16 (fl.REGISTER_MAX_N); "past_cap" (one bf16 vector past
+# the bf16 cap) and "above_cap" are aligned but wider than the caps, "tiny"
+# and "wide" no multiple of the 16-byte vector: those take the strided paths
 LN_SHAPES = {"gpt345m": (8192, 1024), "odd": (8191, 1000), "tiny": (5, 7), "one_row": (1, 64),
-             "wide": (300, 4097), "above_cap": (300, 4096)}
+             "wide": (300, 4097), "above_cap": (300, 4096), "at_cap": (300, 2048),
+             "past_cap": (300, 2056)}
 # float32: summation order only; bfloat16: outputs within one bf16 ulp
 # (2**-7 of the value) of the plain version's, the float32 sums of the
 # two differing in order; dscale/dbias (float32 sums over the rows) 1e-4
@@ -611,6 +661,7 @@ def test_fused_ln_kernels_match_plain(dtype, name, with_res, record_property):
     dev = _card()
     x, res, scale, bias, gy = _ln_case(*LN_SHAPES[name], dtype, with_res, dev)
     atol, rtol = LN_TOL[dtype]
+    record_property("register_vecs", fl.register_vecs(x.dtype, x.shape[1], x.data_ptr()))
     before = dict(fl.COUNTS)
     y, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
     dx, dscale, dbias = fl.launch_bwd(x, res, scale, mean, rstd, gy)
@@ -649,6 +700,23 @@ def test_fused_ln_bwd_is_bitwise_repeatable(dtype, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gpt345m", "odd", "at_cap", "past_cap", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_ln_fwd_is_bitwise_repeatable(dtype, name):
+    """K1 sums each row in a fixed order on both of its paths: the same
+    inputs give the same y, mean and rstd bits on every call."""
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    dev = _card()
+    x, res, scale, bias, _ = _ln_case(*LN_SHAPES[name], dtype, True, dev)
+    first = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    for _ in range(3):
+        again = fl.launch_fwd(x, res, scale, bias, 1e-5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.cuda
 def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
     from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
 
@@ -666,6 +734,35 @@ def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
         fl.launch_fwd(x, None, scale.cpu(), bias, 1e-5)  # device mismatch
     with pytest.raises(ValueError):
         fl.fused_ln_fwd(x.half(), None, scale, bias, 1e-5)  # the op: no fallback either
+    # a dtype code no kernel takes is refused by the entry point itself
+    with pytest.raises(RuntimeError):
+        fl._call("fused_ln_fwd", x.data_ptr(), None, scale.data_ptr(), bias.data_ptr(),
+                 x.data_ptr(), x.data_ptr(), x.data_ptr(), 16, 64, 1e-5, 2,
+                 torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,vpl", [
+    (torch.bfloat16, 1024, 4), (torch.bfloat16, 1000, 4), (torch.bfloat16, 64, 1),
+    (torch.bfloat16, 256, 1), (torch.bfloat16, 264, 2), (torch.bfloat16, 2048, 8),
+    (torch.bfloat16, 2056, 0), (torch.bfloat16, 1001, 0), (torch.bfloat16, 1004, 0),
+    (torch.float32, 1024, 8), (torch.float32, 1028, 0), (torch.float32, 1000, 8),
+    (torch.float32, 128, 1), (torch.float32, 1022, 0), (torch.float32, 7, 0),
+])
+def test_register_path_follows_dtype_width_and_alignment(dtype, n, vpl):
+    """The path K1 and K2 take, as their library chooses it: 16-byte
+    vectors per lane covering the row, or 0 for the strided path; the
+    register cap is ``fl.REGISTER_MAX_N``."""
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    _card()
+    assert fl.register_vecs(dtype, n, 4096, None, 8192) == vpl
+    assert vpl == 0 or fl.REGISTER_MAX_N[dtype] >= n
+    per = 4 if dtype == torch.float32 else 8
+    cap = fl.REGISTER_MAX_N[dtype]
+    assert fl.register_vecs(dtype, cap, 4096) > 0 == fl.register_vecs(dtype, cap + per, 4096)
+    # one tensor off the 16-byte grid sends every width to the strided path
+    assert fl.register_vecs(dtype, n, 4096, 4104) == 0
 
 
 @pytest.mark.cuda
