@@ -44,22 +44,29 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      against its plain version on the card at
      GPT-345M shapes (16 heads, head dim 64, block 16, batch 8, positions
      5 .. 1023 over shuffled pool blocks, null-padded tables), decode t=1
-     and verify t=4 in bf16, f32 and int8, plus a NaN-poison case, with
-     CUDA-event times of the kernel, the plain version and
-     scaled_dot_product_attention over the same rows' K/V already gathered
-     into a dense cache (the gather not timed; int8 has none), and the
-     bound;
+     and verify t=4 in bf16, f32 and int8, and at phase 7's decode step in
+     bf16 and int8; bf16 q takes the sm90 route
+     (csrc/paged_attention_sm90.cu: split-K over the block tables), f32 q
+     the CUDA-core one (csrc/paged_attention.cu), and at each sm90 shape
+     the CUDA-core kernel is held and timed on the same inputs too, and the
+     sm90 kernel timed at 128, 256 and 512 keys a split; CUDA-event times
+     of the kernel, the plain version and scaled_dot_product_attention
+     over the same rows' K/V already gathered into a dense cache (the
+     gather not timed; int8 has none), and the bound; NaN in every pool
+     block no row sees and in each row's last block past its bound (int8:
+     in the scales there) leaves the output of either route unchanged at
+     t=1 and t=4, and a repeat call of the sm90 kernel is bitwise equal;
   7. the continuous path at full width: ``tools.serve --scheduler
      continuous`` answers eight /generate requests of 32 new tokens sent
      at staggered times, so rows join the running batch while others
      decode; /healthz must show paged-kernel launches (24 per engine step),
-     the paged prefills' K7 launches all on the sm90 route, and no
-     plain-version call; then again with --kv-dtype int8; SIGTERM must
-     drain with exit 0;
-  8. two prompts through PagedDecodeEngine in float32 on the card (K9)
-     and on the CPU (plain version), same weights: first-step logits
-     within 1e-3 and identical greedy tokens; then again with int8 pools
-     (paged_decode_q8 against the plain int8 version);
+     every one on the sm90 route, the paged prefills' K7 launches all on
+     the sm90 route, and no plain-version call; then again with
+     --kv-dtype int8; SIGTERM must drain with exit 0;
+  8. two prompts through PagedDecodeEngine in float32 on the card (K9 on
+     its CUDA-core route) and on the CPU (plain version), same weights:
+     first-step logits within 1e-3 and identical greedy tokens; then again
+     with int8 pools (paged_decode_q8 against the plain int8 version);
   9. the flash attention kernels (K3 forward, K4 + K5 split backward, K6
      fused backward) against their plain versions on the card: at the
      training step's shape (micro-batch 8 x 16 heads, seq 1024, head dim
@@ -140,8 +147,8 @@ CONFIG = "configs/gpt/pretrain_gpt_345M_single.yaml"
 SOURCES = {
     "flash_decode": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
     "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
-    "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
-    "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
+    "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
     "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -189,6 +196,8 @@ D_LENS = [12, 20, 28, 36, 44, 52, 60, 64]
 # phase 6: paged rows (block 16) at these positions, one per row
 KV_BLOCK = 16
 PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
+# phase 6: keys a split of the sm90 paged kernel, timed against each other
+PAGED_SPLIT_KEYS = (128, 256, 512)
 N_LAYERS = 24
 # phase 12: K1/K2 against their plain versions.  float32: summation order
 # only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
@@ -705,16 +714,22 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     transposed back and cast to q's dtype) against the plain output given
     the same layout and cast (``wrapper_err``, at the output type's
     tolerance: bf16 for an int8 cache read by a bf16 model).  ``ms`` times
-    the wrapper, ``launch_ms`` the bare kernel launch, ``plain_ms`` the
-    plain version with the wrapper's layout work."""
+    the wrapper, ``launch_ms`` the bare kernel launch on its route,
+    ``plain_ms`` the plain version with the wrapper's layout work.  On the
+    sm90 route, the CUDA-core kernel is held and timed on the same inputs
+    too (``cuda_core``), and the sm90 launch at each PAGED_SPLIT_KEYS
+    (``split_ms``)."""
     b, n, d, bs = len(positions), 16, 64, KV_BLOCK
     q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
                                                 positions, seed)
     q_t = q.transpose(1, 2).contiguous()
     scale = 1.0 / d**0.5
+    route = da.paged_kernel_route(q.dtype, d, t, bs)
+    key = "paged_decode_q8" if kind == "int8" else "paged_decode"
 
-    def launch():
-        return da._paged_launch(q_t, k, v, tables, pos, scale, ks, vs)
+    def launch(route=route, split_keys=da.PAGED_SPLIT_KEYS):
+        return da._paged_launch(q_t, k, v, tables, pos, scale, ks, vs, route=route,
+                                split_keys=split_keys)
 
     def kernel():
         return da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
@@ -724,16 +739,20 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
                                               pos, scale, ks, vs)
         return out.transpose(1, 2).to(q.dtype)
 
+    before = dict(da.COUNTS)
     raw = launch()
     got = kernel()
     torch.cuda.synchronize()
+    check(da.COUNTS[key] - before[key] == 2
+          and da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == 2 * (route == "sm90"),
+          f"paged {kind} t={t}: launches off their route {route}")
     check(got.shape == q.shape and got.dtype == q.dtype,
           f"paged {kind} t={t}: wrapper gave {got.dtype} {tuple(got.shape)}")
     ref = da.paged_decode_attention_plain(q_t, k, v, tables, pos, scale, ks, vs)
     check(bool(torch.isfinite(raw).all() and torch.isfinite(got).all()),
           f"paged {kind} t={t}: output not finite")
     err = (raw - ref).abs().max().item()
-    check(err <= TOL[kind], f"paged {kind} t={t} kernel vs plain: max |err| {err} > "
+    check(err <= TOL[kind], f"paged {kind} t={t} kernel ({route}) vs plain: max |err| {err} > "
                             f"{TOL[kind]}")
     out_kind = "float32" if q.dtype == torch.float32 else "bfloat16"
     wrapper_err = (got.float() - ref.transpose(1, 2).to(q.dtype).float()).abs().max().item()
@@ -742,6 +761,19 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     ms = event_ms(torch, kernel, iters)
     launch_ms = event_ms(torch, launch, iters)
     plain_ms = event_ms(torch, plain, max(3, iters // 4))
+    cuda_core = split_ms = None
+    if route == "sm90":
+        cc = launch("cuda_core")
+        torch.cuda.synchronize()
+        cc_err = (cc - ref).abs().max().item()
+        check(cc_err <= TOL[kind], f"paged {kind} t={t} CUDA-core kernel vs plain: {cc_err}")
+        cuda_core = {"max_abs_err": cc_err,
+                     "launch_ms": event_ms(torch, lambda: launch("cuda_core"), iters)}
+        split_ms = {}
+        for sk in PAGED_SPLIT_KEYS:
+            split_err = (launch(split_keys=sk) - ref).abs().max().item()
+            check(split_err <= TOL[kind], f"paged {kind} t={t} split {sk}: {split_err}")
+            split_ms[sk] = event_ms(torch, lambda: launch(split_keys=sk), iters)
     library_ms = None
     if kind != "int8":
         # the same rows' K/V gathered into a dense [b, n, L, d] cache first
@@ -762,41 +794,67 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
         library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
             q_t, kd, vd, attn_mask=mask), iters)
     bound_ms, bound_by = paged_bound(kind, b, n, t, d, positions, tables.shape[1])
-    return {"kind": kind, "b": b, "t": t, "bs": bs, "positions": positions,
+    return {"kind": kind, "b": b, "t": t, "bs": bs, "positions": positions, "route": route,
             "max_abs_err": err, "tol": TOL[kind], "wrapper_err": wrapper_err,
             "wrapper_tol": TOL[out_kind], "ms": ms, "launch_ms": launch_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "cuda_core": cuda_core, "split_ms": split_ms}
 
 
 def paged_poison(torch, da):
     """NaN in every pool block no row can see (the null block that pads
-    the tables included, and one spare block past the rows' own): the
-    wrapper must give the same finite result, which agrees with the plain
-    version on the clean pools."""
+    the tables included, and one spare block past the rows' own) and in
+    the slots of each row's last block past its bound, positions + t - 1
+    (int8 pools: NaN scales there, the payload at the int8 extremes): the
+    wrapper must give the same finite result, on either route (f32: the
+    CUDA-core kernel; bf16, int8: sm90), at t = 1 and 4; the f32 result
+    agrees with the plain version on the clean pools; a repeat call of
+    the sm90 kernel (rows over several splits) gives the same bits."""
     positions = PAGED_POS
-    b, t, n, d, bs = len(positions), 4, 16, 64, KV_BLOCK
-    q, k, v, tables, pos, _, _ = paged_inputs(torch, da, "float32", b, n, t, d, bs,
-                                              positions, 5)
-    k = torch.cat([k, k[:1]])
-    v = torch.cat([v, v[:1]])
-    ref = da.paged_decode_attention_plain(q.transpose(1, 2).contiguous(), k, v, tables, pos,
-                                          1.0 / d**0.5).transpose(1, 2)
-    clean = da.paged_decode_attention(q, k, v, tables, pos)
-    seen = set()
-    for i, p in enumerate(positions):
-        seen.update(tables[i, : (p + t - 1) // bs + 1].tolist())
-    unseen = [x for x in range(k.shape[0]) if x not in seen]
-    k[unseen] = float("nan")
-    v[unseen] = float("nan")
-    got = da.paged_decode_attention(q, k, v, tables, pos)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
-          "paged kernel read a block past a row's bound (NaN poison)")
-    err = (got - ref).abs().max().item()
-    check(err <= TOL["float32"], f"paged NaN poison vs plain on clean pools: {err}")
-    log(f"  paged NaN poison: {len(unseen)} unseen pool blocks poisoned, result unchanged, "
-        f"vs plain {err:.2e}")
+    b, n, d, bs = len(positions), 16, 64, KV_BLOCK
+    for kind in ("float32", "bfloat16", "int8"):
+        for t in (1, 4):
+            q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
+                                                        positions, 5)
+            k = torch.cat([k, k[:1]])
+            v = torch.cat([v, v[:1]])
+            if ks is not None:
+                ks = torch.cat([ks, ks[:1]])
+                vs = torch.cat([vs, vs[:1]])
+            ref = None if kind != "float32" else da.paged_decode_attention_plain(
+                q.transpose(1, 2).contiguous(), k, v, tables, pos, 1.0 / d**0.5).transpose(1, 2)
+            clean = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
+            again = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
+            seen, cuts = set(), []
+            for i, p in enumerate(positions):
+                last = (p + t - 1) // bs
+                seen.update(tables[i, : last + 1].tolist())
+                cuts.append((int(tables[i, last]), slice((p + t - 1) % bs + 1, None)))
+            unseen = [x for x in range(k.shape[0]) if x not in seen]
+            cuts += [(x, slice(None)) for x in unseen]
+            for blk, sl in cuts:
+                if ks is None:
+                    k[blk, :, sl] = float("nan")
+                    v[blk, :, sl] = float("nan")
+                else:
+                    ks[blk, :, sl] = float("nan")
+                    vs[blk, :, sl] = float("nan")
+                    k[blk, :, sl] = 127
+                    v[blk, :, sl] = -128
+            got = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            route = da.paged_kernel_route(q.dtype, d, t, bs)
+            check(route == ("cuda_core" if kind == "float32" else "sm90"), f"{kind}: {route}")
+            check(torch.equal(again, clean), f"paged {kind} t={t} ({route}): a repeat call "
+                                             "differs")
+            check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+                  f"paged {kind} t={t} ({route}): a NaN past a row's bound changed the output")
+            if ref is not None:
+                err = (got - ref).abs().max().item()
+                check(err <= TOL["float32"], f"paged NaN poison vs plain on clean pools: {err}")
+            log(f"  paged {kind:8s} t={t} {route:9s}: NaN in {len(unseen)} unseen pool blocks and "
+                f"in {b} last blocks past the bound leaves the output unchanged; a repeat call "
+                f"is bitwise equal")
 
 
 def paged_main_positions():
@@ -805,26 +863,31 @@ def paged_main_positions():
     return [n + MAX_NEW // 2 for n in D_LENS]
 
 
+def log_paged(what, row):
+    lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    extra = ""
+    if row["cuda_core"] is not None:
+        cc = row["cuda_core"]
+        splits = " ".join(f"{k}:{v:.4f}" for k, v in row["split_ms"].items())
+        extra = (f"; cuda_core launch {cc['launch_ms']:.4f} (err {cc['max_abs_err']:.2e}); "
+                 f"split keys {splits}")
+    log(f"  {what} {row['kind']:8s} {row['route']:9s} t={row['t']}: err "
+        f"{row['max_abs_err']:.2e} (wrapper {row['wrapper_err']:.2e}) wrapper {row['ms']:.4f} "
+        f"ms (launch {row['launch_ms']:.4f}) plain {row['plain_ms']:.4f} library {lib} bound "
+        f"{row['bound_ms']:.5f} ({row['bound_by']}){extra}")
+
+
 def phase_paged(torch, F, da):
     rows = []
     for kind in ("bfloat16", "float32", "int8"):
         for t in (1, 4):
-            row = paged_case(torch, F, da, kind, t, PAGED_POS)
-            rows.append(row)
-            lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-            log(f"  paged {kind:8s} b=8 t={t}: err {row['max_abs_err']:.2e} (wrapper "
-                f"{row['wrapper_err']:.2e}) wrapper "
-                f"{row['ms']:.4f} ms (launch {row['launch_ms']:.4f}) plain "
-                f"{row['plain_ms']:.4f} library {lib} bound {row['bound_ms']:.4f} "
-                f"({row['bound_by']})")
+            rows.append(paged_case(torch, F, da, kind, t, PAGED_POS))
+            log_paged("paged b=8 PAGED_POS", rows[-1])
     paged_poison(torch, da)
     main = {}
     for name, kind in (("paged_decode", "bfloat16"), ("paged_decode_q8", "int8")):
         main[name] = row = paged_case(torch, F, da, kind, 1, paged_main_positions(), iters=50)
-        log(f"  {name} main-path step: err {row['max_abs_err']:.2e} (wrapper "
-            f"{row['wrapper_err']:.2e}) wrapper "
-            f"{row['ms']:.4f} ms (launch {row['launch_ms']:.4f}) plain "
-            f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']})")
+        log_paged(f"{name} main-path step", row)
     log("paged_cases " + json.dumps({"cases": rows}))
     return main
 
@@ -908,6 +971,8 @@ def serve_continuous(kv_dtype, env):
           f"plain version ran on the card: {kernels}")
     check(kernels[key] > 0 and kernels[key] == N_LAYERS * steps,
           f"{key}: {kernels[key]} launches for {steps} engine steps")
+    check(kernels[f"{key}_sm90"] == kernels[key],
+          f"{key}: launches off the sm90 route (the CUDA-core kernel ran): {kernels}")
     check(kernels["flash_decode"] > 0, f"the prefill did not run flash_decode: {kernels}")
     check(kernels["flash_decode_sm90"] == kernels["flash_decode"],
           f"the prefill's bf16 K7 launches off the sm90 route: {kernels}")
@@ -959,6 +1024,8 @@ def phase_paged_card_vs_cpu(torch, bc, kv_dtype):
     key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
     check(out["cuda"][3][key] > 0 and out["cuda"][3]["paged_plain"] == 0,
           f"card run did not take {key}: {out['cuda'][3]}")
+    check(out["cuda"][3][f"{key}_sm90"] == 0,
+          f"f32 q took the sm90 route, not the CUDA-core one: {out['cuda'][3]}")
     check(out["cpu"][3]["paged_plain"] > 0, "cpu run did not take the plain version")
     errs = [(out["cuda"][i] - out["cpu"][i]).abs().max().item() for i in (0, 1)]
     # float32 pools: both steps at 1e-3; int8 pools: the first step (the
@@ -1741,6 +1808,22 @@ def main():
                     "shape": {"b": cc["b"], "n": cc["n"], "t": cc["t"], "d": cc["d"],
                               "L": cc["L"], "limit": cc["limit"], "dtype": "int8",
                               "q": cc["q"]}}
+        if name in ("paged_decode", "paged_decode_q8"):
+            # launch_ms: the bare launch (ms: through the engine's wrapper);
+            # the CUDA-core route (f32 q, other shapes): not on the bf16
+            # model's path, so its launches there are 0
+            counts = cb_bf16 if name == "paged_decode" else cb_q8
+            cc = row["cuda_core"]
+            entry["kernel_route"] = row["route"]
+            entry["launch_ms"] = row["launch_ms"]
+            entry["split_ms"] = row["split_ms"]
+            entry["cuda_core"] = {
+                "source": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
+                "launches": counts[name] - counts[f"{name}_sm90"],
+                "max_abs_err": cc["max_abs_err"], "ms": cc["launch_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": shape}
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)

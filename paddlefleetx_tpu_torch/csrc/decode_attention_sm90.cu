@@ -74,6 +74,10 @@
 //    mask carries the row offset limit - t; tiles wholly before
 //    kv_valid_from[b] or past the CTA's last causal column are never loaded.
 //
+// The split-K kernel's geometry, stage compute and merge live in
+// csrc/sm90.cuh (DecGeom, split_stage, split_finish), shared with the paged
+// kernel (csrc/paged_attention_sm90.cu).
+//
 // Plain C interface (loaded with ctypes); every entry point launches on the
 // given stream and returns a CUDA error code (or kMapFailed) after its
 // launch.
@@ -88,89 +92,11 @@
 namespace {
 
 constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSplitMaxRows = 16;  // t up to this takes the split-K kernel
 
 // ---------------------------------------------------------------------------
 // t <= 16: split-K over bulk copies
 // ---------------------------------------------------------------------------
-
-constexpr int kDecThreads = 128;
-constexpr int kDecStages = 4;    // the bulk-copy ring
-constexpr int kKeysPerGroup = 4;  // keys a lane group takes from each stage
-
-// Q8: int8 caches with float32 scales; else bf16
-template <int D, bool Q8>
-struct DecGeom {
-  static constexpr int kPer = Q8 ? 16 : 8;             // values of a key row per lane: 16 bytes
-  static constexpr int kLanesPerKey = D / kPer;
-  static constexpr int kGroups = 32 / kLanesPerKey;  // lane groups per warp
-  static constexpr int kStreams = 4 * kGroups;       // lane groups per CTA
-  static constexpr int kKeys = kStreams * kKeysPerGroup;  // keys per stage: bf16 64 / 32, int8 128 / 64
-  static constexpr int kRow = Q8 ? D : 2 * D;         // bytes of a key row
-  static constexpr int kTile = kKeys * kRow;          // bytes of K (or V) per stage: 8 KB
-  static constexpr int kK = 0;                        // kDecStages stages
-  static constexpr int kV = kDecStages * kTile;       // kDecStages stages
-  static constexpr int kScl = 2 * kDecStages * kTile;  // int8: k_scale, v_scale [kKeys] a stage
-  static constexpr int kBar = kScl + (Q8 ? kDecStages * 2 * kKeys * 4 : 0);  // kDecStages mbarriers
-  static constexpr int kFlag = kBar + 8 * kDecStages;
-  static constexpr int kBytes = kFlag + 16 + 128;     // + slack to align the base to 128
-};
-
-__device__ __forceinline__ uint8_t* align128(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 127u) & ~127u) - a);
-}
-
-// `bytes` contiguous bytes from global into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// the 8 bf16 of a 16-byte chunk as float32 (the low half is the lower index)
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float p) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-// the 16 int8 of a 16-byte chunk as float32 (byte i is value i): each byte,
-// biased to unsigned, becomes the low mantissa byte of 2^23, and 2^23 + 128
-// is subtracted; exact, and a permute and an add where a conversion
-// instruction runs at a quarter of the rate
-__device__ __forceinline__ void unpack16_s8(const uint4& u, float (&f)[16]) {
-  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
-                         u.w ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4b000000u, 0x7540u | b)) - 8388736.0f;
-}
-
-// 16 bytes of a key row at p as float32: 8 bf16 or 16 int8
-template <bool Q8, int P>
-__device__ __forceinline__ void load_row(const uint8_t* p, float (&f)[P]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  if constexpr (Q8)
-    unpack16_s8(u, f);
-  else
-    unpack8(u, f);
-}
 
 // 4 bytes from global into shared memory with cp.async, or 4 zero bytes
 // (nothing read) when !read
@@ -201,7 +127,6 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
                           float scale_log2e) {
   using G = DecGeom<D, Q8>;
   constexpr int P = G::kPer;
-  constexpr int ldr = D + 2;  // a partial row: acc[D], m, l
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align128(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBar);
@@ -262,23 +187,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
   }
 
   float qf[R][P];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < nrows) {
-      const uint4* qp = reinterpret_cast<const uint4*>(
-          q + (static_cast<size_t>(bn) * t + r0 + r) * D + sub * P);
-#pragma unroll
-      for (int h = 0; h < P / 8; ++h) {
-        float f8[8];
-        unpack8(qp[h], f8);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) qf[r][8 * h + e] = f8[e];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < P; ++e) qf[r][e] = 0.f;
-    }
-  }
+  split_load_q<D, R, Q8>(q + (static_cast<size_t>(bn) * t + r0) * D, nrows, sub, qf);
   float m[R], l[R], acc[R][P];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -292,63 +201,10 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
     const int st = s % kDecStages;
     mbar_wait(full + st, (s / kDecStages) & 1);
     const int c0 = lo + s * G::kKeys;
-    const int cnt = min(G::kKeys, hi - c0);
-    const uint8_t* kt = smem + G::kK + st * G::kTile;
-    const uint8_t* vt = smem + G::kV + st * G::kTile;
-    const float* kss = reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys;
-    // scores of this group's keys: key j of the stage is 16 bytes per lane
-    float sc[kKeysPerGroup][R];
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerGroup; ++kk) {
-      const int j = stream + G::kStreams * kk;
-      float kf[P];
-      load_row<Q8>(kt + j * G::kRow + sub * 16, kf);
-      const float sl2 = Q8 ? scale_log2e * kss[j] : scale_log2e;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < P; ++e) dot = fmaf(qf[r][e], kf[e], dot);
-#pragma unroll
-        for (int o = 1; o < G::kLanesPerKey; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
-        const bool ok = j < cnt && r < nrows && c0 + j <= pos0 + r;
-        sc[kk][r] = ok ? dot * sl2 : -INFINITY;
-      }
-    }
-    // online softmax over the group's keys of this stage
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = sc[0][r];
-#pragma unroll
-      for (int kk = 1; kk < kKeysPerGroup; ++kk) mx = fmaxf(mx, sc[kk][r]);
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeysPerGroup; ++kk) {
-        sc[kk][r] = exp2f(sc[kk][r] - m_new);  // a masked key gives exp2(-inf) = 0
-        sum += sc[kk][r];
-      }
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int e = 0; e < P; ++e) acc[r][e] *= alpha;
-      m[r] = m_new;
-    }
-    // acc += p_bf16 . v (bf16) or (p * v_scale) . v (int8, p * v_scale in float32)
-#pragma unroll
-    for (int kk = 0; kk < kKeysPerGroup; ++kk) {
-      const int j = stream + G::kStreams * kk;
-      if (j < cnt) {  // a slot past cnt holds stale bytes: never multiplied
-        float vf[P];
-        load_row<Q8>(vt + j * G::kRow + sub * 16, vf);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float p = Q8 ? sc[kk][r] * kss[G::kKeys + j] : round_bf16(sc[kk][r]);
-#pragma unroll
-          for (int e = 0; e < P; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
-        }
-      }
-    }
+    split_stage<D, R, Q8>(smem + G::kK + st * G::kTile, smem + G::kV + st * G::kTile,
+                          reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys,
+                          stream, sub, c0, min(G::kKeys, hi - c0), pos0, nrows, scale_log2e, qf,
+                          m, l, acc);
     __syncthreads();  // the stage is read: refill it
     if (s + kDecStages < nstages) {
       if constexpr (Q8) issue_scales(s + kDecStages);
@@ -356,89 +212,12 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
     }
   }
 
-  // merge the warp's lane groups (xor butterflies: every lane gets the same bits)
-#pragma unroll
-  for (int o = G::kLanesPerKey; o < 32; o <<= 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float mo = __shfl_xor_sync(kFull, m[r], o);
-      const float lo_ = __shfl_xor_sync(kFull, l[r], o);
-      const float mm = fmaxf(m[r], mo);
-      const float fa = exp2f(m[r] - mm), fb = exp2f(mo - mm);
-      l[r] = l[r] * fa + lo_ * fb;
-#pragma unroll
-      for (int e = 0; e < P; ++e) {
-        const float ao = __shfl_xor_sync(kFull, acc[r][e], o);
-        acc[r][e] = acc[r][e] * fa + ao * fb;
-      }
-      m[r] = mm;
-    }
-  }
-  // then the four warps, in warp order, through shared memory (the ring is idle)
-  float* red = reinterpret_cast<float*>(smem);  // [4 warps][R][D + 2]
-  if (lane < G::kLanesPerKey) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float* row = red + (warp * R + r) * ldr;
-#pragma unroll
-      for (int e = 0; e < P; ++e) row[sub * P + e] = acc[r][e];
-      if (sub == 0) {
-        row[D] = m[r];
-        row[D + 1] = l[r];
-      }
-    }
-  }
-  __syncthreads();
   const int idx = bn * gridDim.z + blockIdx.z;  // (b, h, row group)
-  float* mine = splits > 1 ? part + (static_cast<size_t>(idx) * splits + split) * R * ldr : nullptr;
-  for (int e = threadIdx.x; e < R * D; e += kDecThreads) {
-    const int r = e / D, c = e - r * D;
-    float mm = kNegInf;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, red[(w * R + r) * ldr + D]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float* row = red + (w * R + r) * ldr;
-      const float f = exp2f(row[D] - mm);
-      den += row[D + 1] * f;
-      num += row[c] * f;
-    }
-    if (splits == 1) {
-      if (r < nrows) out[(static_cast<size_t>(bn) * t + r0 + r) * D + c] = num / fmaxf(den, 1e-30f);
-    } else {
-      mine[r * ldr + c] = num;
-      if (c == 0) {
-        mine[r * ldr + D] = mm;
-        mine[r * ldr + D + 1] = den;
-      }
-    }
-  }
-  if (splits == 1) return;
-
-  // the last split of this (b, h, row group) to arrive combines them all
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) *last = atomicAdd(counters + idx, 1) == splits - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  const float* all = part + static_cast<size_t>(idx) * splits * R * ldr;
-  for (int e = threadIdx.x; e < R * D; e += kDecThreads) {
-    const int r = e / D, c = e - r * D;
-    if (r >= nrows) continue;
-    float mm = kNegInf;
-    for (int sp = 0; sp < splits; ++sp) mm = fmaxf(mm, __ldcg(all + (sp * R + r) * ldr + D));
-    float den = 0.f, num = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float* row = all + (sp * R + r) * ldr;
-      const float f = exp2f(__ldcg(row + D) - mm);
-      den += __ldcg(row + D + 1) * f;
-      num += __ldcg(row + c) * f;
-    }
-    out[(static_cast<size_t>(bn) * t + r0 + r) * D + c] = num / fmaxf(den, 1e-30f);
-  }
-  if (threadIdx.x == 0) counters[idx] = 0;  // ready for the next call
+  split_finish<D, R, Q8>(m, l, acc, reinterpret_cast<float*>(smem), last,
+                         out + (static_cast<size_t>(bn) * t + r0) * D, nrows,
+                         splits > 1 ? part + static_cast<size_t>(idx) * splits * R * (D + 2)
+                                    : nullptr,
+                         counters + idx, split, splits);
 }
 
 // ---------------------------------------------------------------------------

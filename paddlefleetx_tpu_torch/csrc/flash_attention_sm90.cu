@@ -134,8 +134,6 @@ constexpr int kConsumers = 256;    // warpgroups 0 and 1 compute
 constexpr int kThreads = kConsumers + 32;  // warp 8 loads
 constexpr int kStages = 2;
 constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // K3: forward
@@ -161,7 +159,6 @@ struct FwdSmem {
 // order, the exp2 of the bulk and the running max taken from tensor-core
 // scores: a few ulps to a few tens of ulps each.
 constexpr int kBoundaryUlps = 96;
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool near_bf16_boundary(float p) {
   // the low 16 bits within kBoundaryUlps of 0x8000, where bf16 rounding flips

@@ -1,12 +1,15 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
+// Hopper (sm_90a) building blocks shared by the port's kernels:
 // shared-memory addresses, mbarriers, TMA loads / stores / reduce-adds and
 // bulk groups, wgmma (bf16 in, float32 accumulators) with its 128-byte
 // swizzled shared-memory descriptors, the accumulator-to-A-fragment
-// packing, and the host's route to cuTensorMapEncodeTiled.
+// packing, the split-K decode pieces (bulk copies, the bf16 and int8
+// widening, a stage's scores and online softmax, the merge of the splits)
+// and the host's route to cuTensorMapEncodeTiled.
 //
-// Included by csrc/flash_attention_sm90.cu (K3-K6) and
-// csrc/decode_attention_sm90.cu (K7); each builds into its own library,
-// so everything here has internal linkage.
+// Included by csrc/flash_attention_sm90.cu (K3-K6),
+// csrc/decode_attention_sm90.cu (K7, K8) and csrc/paged_attention_sm90.cu
+// (K9); each builds into its own library, so everything here has internal
+// linkage.
 
 #pragma once
 
@@ -16,6 +19,10 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // PTX wrappers: shared-memory addresses, mbarriers, TMA, wgmma
@@ -296,6 +303,280 @@ __device__ __forceinline__ void to_a_frags(const float* x, uint32_t (&a)[KS][4])
 // product
 __device__ __forceinline__ int key_of(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// ---------------------------------------------------------------------------
+// split-K decode (K7, K8 and K9 at t <= 16): a CTA of four warps streams its
+// share of one (row, head)'s keys through a ring of bulk copies; a lane group
+// takes one key at a time, 16 bytes of its row per lane, and keeps its own
+// float32 (m, l, acc) for R query rows, in the log2 domain
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 128;
+constexpr int kDecStages = 4;    // the bulk-copy ring
+constexpr int kKeysPerGroup = 4;  // keys a lane group takes from each stage
+
+// Q8: int8 caches with float32 scales; else bf16
+template <int D, bool Q8>
+struct DecGeom {
+  static constexpr int kPer = Q8 ? 16 : 8;             // values of a key row per lane: 16 bytes
+  static constexpr int kLanesPerKey = D / kPer;
+  static constexpr int kGroups = 32 / kLanesPerKey;  // lane groups per warp
+  static constexpr int kStreams = 4 * kGroups;       // lane groups per CTA
+  static constexpr int kKeys = kStreams * kKeysPerGroup;  // keys per stage: bf16 64 / 32, int8 128 / 64
+  static constexpr int kRow = Q8 ? D : 2 * D;         // bytes of a key row
+  static constexpr int kTile = kKeys * kRow;          // bytes of K (or V) per stage: 8 KB
+  static constexpr int kK = 0;                        // kDecStages stages
+  static constexpr int kV = kDecStages * kTile;       // kDecStages stages
+  static constexpr int kScl = 2 * kDecStages * kTile;  // int8: k_scale, v_scale [kKeys] a stage
+  static constexpr int kBar = kScl + (Q8 ? kDecStages * 2 * kKeys * 4 : 0);  // kDecStages mbarriers
+  static constexpr int kFlag = kBar + 8 * kDecStages;
+  static constexpr int kBytes = kFlag + 16 + 128;     // + slack to align the base to 128
+};
+
+__device__ __forceinline__ uint8_t* align128(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 127u) & ~127u) - a);
+}
+
+// `bytes` contiguous bytes from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the 8 bf16 of a 16-byte chunk as float32 (the low half is the lower index)
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+// the 16 int8 of a 16-byte chunk as float32 (byte i is value i): each byte,
+// biased to unsigned, becomes the low mantissa byte of 2^23, and 2^23 + 128
+// is subtracted; exact, and a permute and an add where a conversion
+// instruction runs at a quarter of the rate
+__device__ __forceinline__ void unpack16_s8(const uint4& u, float (&f)[16]) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                         u.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4b000000u, 0x7540u | b)) - 8388736.0f;
+}
+
+// 16 bytes of a key row at p as float32: 8 bf16 or 16 int8
+template <bool Q8, int P>
+__device__ __forceinline__ void load_row(const uint8_t* p, float (&f)[P]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if constexpr (Q8)
+    unpack16_s8(u, f);
+  else
+    unpack8(u, f);
+}
+
+// the lane's 16-byte slices of the CTA's R query rows of bf16 q [bn, t, D]
+// as float32 (zeros past nrows)
+template <int D, int R, bool Q8>
+__device__ __forceinline__ void split_load_q(const __nv_bfloat16* q_rows, int nrows, int sub,
+                                             float (&qf)[R][DecGeom<D, Q8>::kPer]) {
+  constexpr int P = DecGeom<D, Q8>::kPer;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nrows) {
+      const uint4* qp = reinterpret_cast<const uint4*>(q_rows + r * D + sub * P);
+#pragma unroll
+      for (int h = 0; h < P / 8; ++h) {
+        float f8[8];
+        unpack8(qp[h], f8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) qf[r][8 * h + e] = f8[e];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < P; ++e) qf[r][e] = 0.f;
+    }
+  }
+}
+
+// One stage of the ring: key j of the stage (row j of kt / vt) is key c0 + j;
+// the first cnt are the CTA's, and row r sees keys up to pos0 + r.  kss: the
+// stage's k_scale[kKeys] then v_scale[kKeys] (int8).  A masked score is
+// selected away, never multiplied, and a slot past cnt is never multiplied
+// into acc: stale or NaN bytes there cannot reach the output.
+template <int D, int R, bool Q8>
+__device__ __forceinline__ void split_stage(const uint8_t* kt, const uint8_t* vt,
+                                            const float* kss, int stream, int sub, int c0,
+                                            int cnt, int pos0, int nrows, float scale_log2e,
+                                            const float (&qf)[R][DecGeom<D, Q8>::kPer],
+                                            float (&m)[R], float (&l)[R],
+                                            float (&acc)[R][DecGeom<D, Q8>::kPer]) {
+  using G = DecGeom<D, Q8>;
+  constexpr int P = G::kPer;
+  // scores of this group's keys: key j of the stage is 16 bytes per lane
+  float sc[kKeysPerGroup][R];
+#pragma unroll
+  for (int kk = 0; kk < kKeysPerGroup; ++kk) {
+    const int j = stream + G::kStreams * kk;
+    float kf[P];
+    load_row<Q8>(kt + j * G::kRow + sub * 16, kf);
+    const float sl2 = Q8 ? scale_log2e * kss[j] : scale_log2e;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < P; ++e) dot = fmaf(qf[r][e], kf[e], dot);
+#pragma unroll
+      for (int o = 1; o < G::kLanesPerKey; o <<= 1) dot += __shfl_xor_sync(kFull, dot, o);
+      const bool ok = j < cnt && r < nrows && c0 + j <= pos0 + r;
+      sc[kk][r] = ok ? dot * sl2 : -INFINITY;
+    }
+  }
+  // online softmax over the group's keys of this stage
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float mx = sc[0][r];
+#pragma unroll
+    for (int kk = 1; kk < kKeysPerGroup; ++kk) mx = fmaxf(mx, sc[kk][r]);
+    const float m_new = fmaxf(m[r], mx);
+    const float alpha = exp2f(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKeysPerGroup; ++kk) {
+      sc[kk][r] = exp2f(sc[kk][r] - m_new);  // a masked key gives exp2(-inf) = 0
+      sum += sc[kk][r];
+    }
+    l[r] = l[r] * alpha + sum;
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[r][e] *= alpha;
+    m[r] = m_new;
+  }
+  // acc += p_bf16 . v (bf16) or (p * v_scale) . v (int8, p * v_scale in float32)
+#pragma unroll
+  for (int kk = 0; kk < kKeysPerGroup; ++kk) {
+    const int j = stream + G::kStreams * kk;
+    if (j < cnt) {  // a slot past cnt holds stale bytes: never multiplied
+      float vf[P];
+      load_row<Q8>(vt + j * G::kRow + sub * 16, vf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = Q8 ? sc[kk][r] * kss[G::kKeys + j] : round_bf16(sc[kk][r]);
+#pragma unroll
+        for (int e = 0; e < P; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+      }
+    }
+  }
+}
+
+// The end of a split-K CTA, once its ring is idle.  Its lane groups merge by
+// xor butterflies (every lane gets the same bits), then its four warps in
+// warp order through `red` (shared memory, 4 * R * (D + 2) floats).  With one
+// active split of the CTA's (row, head, row group), it writes its nrows rows
+// of out_rows [.., D]; else it writes its float32 partial (acc, m, l per row)
+// to group_part + split * R * (D + 2), and the last of the `active` splits to
+// bump *counter (an integer, no float atomics) combines all partials in split
+// order and resets the counter for the next call: the same bits every call.
+template <int D, int R, bool Q8>
+__device__ __forceinline__ void split_finish(float (&m)[R], float (&l)[R],
+                                             float (&acc)[R][DecGeom<D, Q8>::kPer], float* red,
+                                             int* last, float* out_rows, int nrows,
+                                             float* group_part, int* counter, int split,
+                                             int active) {
+  using G = DecGeom<D, Q8>;
+  constexpr int P = G::kPer;
+  constexpr int ldr = D + 2;  // a partial row: acc[D], m, l
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % G::kLanesPerKey;
+#pragma unroll
+  for (int o = G::kLanesPerKey; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float mo = __shfl_xor_sync(kFull, m[r], o);
+      const float lo_ = __shfl_xor_sync(kFull, l[r], o);
+      const float mm = fmaxf(m[r], mo);
+      const float fa = exp2f(m[r] - mm), fb = exp2f(mo - mm);
+      l[r] = l[r] * fa + lo_ * fb;
+#pragma unroll
+      for (int e = 0; e < P; ++e) {
+        const float ao = __shfl_xor_sync(kFull, acc[r][e], o);
+        acc[r][e] = acc[r][e] * fa + ao * fb;
+      }
+      m[r] = mm;
+    }
+  }
+  if (lane < G::kLanesPerKey) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float* row = red + (warp * R + r) * ldr;
+#pragma unroll
+      for (int e = 0; e < P; ++e) row[sub * P + e] = acc[r][e];
+      if (sub == 0) {
+        row[D] = m[r];
+        row[D + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  float* mine = active > 1 ? group_part + split * R * ldr : nullptr;
+  for (int e = threadIdx.x; e < R * D; e += kDecThreads) {
+    const int r = e / D, c = e - r * D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, red[(w * R + r) * ldr + D]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* row = red + (w * R + r) * ldr;
+      const float f = exp2f(row[D] - mm);
+      den += row[D + 1] * f;
+      num += row[c] * f;
+    }
+    if (active == 1) {
+      if (r < nrows) out_rows[r * D + c] = num / fmaxf(den, 1e-30f);
+    } else {
+      mine[r * ldr + c] = num;
+      if (c == 0) {
+        mine[r * ldr + D] = mm;
+        mine[r * ldr + D + 1] = den;
+      }
+    }
+  }
+  if (active == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(counter, 1) == active - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < R * D; e += kDecThreads) {
+    const int r = e / D, c = e - r * D;
+    if (r >= nrows) continue;
+    float mm = kNegInf;
+    for (int sp = 0; sp < active; ++sp) mm = fmaxf(mm, __ldcg(group_part + (sp * R + r) * ldr + D));
+    float den = 0.f, num = 0.f;
+    for (int sp = 0; sp < active; ++sp) {
+      const float* row = group_part + (sp * R + r) * ldr;
+      const float f = exp2f(__ldcg(row + D) - mm);
+      den += __ldcg(row + D + 1) * f;
+      num += __ldcg(row + c) * f;
+    }
+    out_rows[r * D + c] = num / fmaxf(den, 1e-30f);
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next call
 }
 
 // ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("decode_attention", "decode_attention_sm90", "paged_attention", "flash_attention",
-           "flash_attention_sm90", "fused_layernorm")
+           "flash_attention_sm90", "fused_layernorm", "paged_attention_sm90")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

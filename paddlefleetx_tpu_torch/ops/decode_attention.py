@@ -24,8 +24,12 @@ Two spellings behind :func:`flash_decode`:
 The paged counterpart (``_paged_lax`` / ``_paged_kernel``, the
 continuous-batching engine's attention over block tables) has the same
 two spellings behind :func:`paged_decode_attention`: the CUDA kernels
-``paged_decode`` / ``paged_decode_q8`` (``csrc/paged_attention.cu``) and
-:func:`paged_decode_attention_plain`.
+``paged_decode`` / ``paged_decode_q8``, on one of two routes by q's dtype
+and the shapes only (:func:`paged_kernel_route`): bf16 q at d = 64 or
+128, t <= 16 and a block size of 8-128 (a power of two) the Hopper
+split-K kernel of ``csrc/paged_attention_sm90.cu`` ("sm90"), anything
+else the CUDA-core kernel of ``csrc/paged_attention.cu`` ("cuda_core");
+and :func:`paged_decode_attention_plain`.
 
 The routing follows the tensors' device only: a CUDA tensor reaches the
 kernel or raises; nothing falls back.  :data:`COUNTS` counts kernel
@@ -59,15 +63,16 @@ _MAX_HEAD_DIM = 128
 
 # Kernel launches per kernel, and calls of the plain versions through
 # flash_decode ("plain") and paged_decode_attention ("paged_plain") on CPU
-# tensors.  "flash_decode" counts every launch of the bf16/f32 kernel and
-# "flash_decode_q8" every launch of the int8 one, on either route;
-# "<kernel>_sm90" those on the sm90 route, and "<kernel>_sm90_prefill"
-# those of them that took its prefill kernel (t > SPLIT_MAX_ROWS).
-# Process-wide; reset with reset_counts().
+# tensors.  "flash_decode" / "paged_decode" count every launch of the
+# bf16/f32 kernel and "flash_decode_q8" / "paged_decode_q8" every launch
+# of the int8 one, on either route; "<kernel>_sm90" those on the sm90
+# route, and "<kernel>_sm90_prefill" those of them that took its prefill
+# kernel (t > SPLIT_MAX_ROWS).  Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
     "flash_decode_q8": 0, "flash_decode_q8_sm90": 0, "flash_decode_q8_sm90_prefill": 0,
-    "plain": 0, "paged_decode": 0, "paged_decode_q8": 0, "paged_plain": 0,
+    "plain": 0, "paged_decode": 0, "paged_decode_sm90": 0, "paged_decode_q8": 0,
+    "paged_decode_q8_sm90": 0, "paged_plain": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -78,6 +83,13 @@ SM90_HEAD_DIMS = (64, 128)
 SPLIT_MAX_ROWS = 16
 SPLIT_ROWS = 4
 SPLIT_MIN_KEYS = 64
+# The sm90 paged route (csrc/paged_attention_sm90.cu): block sizes it takes,
+# and the keys of a row one CTA takes (a multiple of 128 up to 512, so of
+# every block size and key stage).  256 measured fastest of 128 / 256 / 512
+# on rows of 6 to 1027 keys, and all three alike on phase 7's short rows,
+# which take one split each (chip_smoke.py phase 6; PERF.md).
+PAGED_SM90_BLOCKS = (8, 16, 32, 64, 128)
+PAGED_SPLIT_KEYS = 256
 
 
 def reset_counts() -> None:
@@ -91,6 +103,29 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     (``csrc/decode_attention_sm90.cu``) for bfloat16 q at d = 64 or 128,
     else "cuda_core" (``csrc/decode_attention.cu``)."""
     return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "cuda_core"
+
+
+def paged_kernel_route(dtype: torch.dtype, head_dim: int, t: int, block: int) -> str:
+    """The route a CUDA launch of ``paged_decode`` takes for q of ``dtype``
+    at ``head_dim`` with ``t`` queries a row over pools of ``block`` slots a
+    block, bf16 or int8 pools alike: "sm90" (``csrc/paged_attention_sm90.cu``)
+    for bfloat16 q at d = 64 or 128, t <= SPLIT_MAX_ROWS and a block size in
+    PAGED_SM90_BLOCKS (each divides the kernel's key stage or is a multiple
+    of it), else "cuda_core" (``csrc/paged_attention.cu``)."""
+    if (dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS and 1 <= t <= SPLIT_MAX_ROWS
+            and block in PAGED_SM90_BLOCKS):
+        return "sm90"
+    return "cuda_core"
+
+
+def paged_splits(table_width: int, block: int, split_keys: int = PAGED_SPLIT_KEYS) -> int:
+    """How many splits the sm90 paged kernel cuts each (row, head, row
+    group) into: enough of ``split_keys`` keys each to cover the
+    ``table_width`` x ``block`` slots of the widest row the tables allow.
+    From shapes only, never from the rows' positions (no copy to the host):
+    on the card a split past its row's end exits at once, so a row of
+    ``positions + t`` keys runs ceil(keys / split_keys) CTAs."""
+    return max(1, -(-int(table_width) * int(block) // int(split_keys)))
 
 
 def split_rows(t: int) -> int:
@@ -559,6 +594,7 @@ def paged_decode_attention_plain(
 
 
 _PAGED_LIB: Optional[ctypes.CDLL] = None
+_PAGED_SM90_LIB: Optional[ctypes.CDLL] = None
 _MAX_PAGED_BLOCK = 128
 
 
@@ -579,15 +615,74 @@ def _paged_lib() -> ctypes.CDLL:
     return _PAGED_LIB
 
 
+def _paged_sm90_lib() -> ctypes.CDLL:
+    global _PAGED_SM90_LIB
+    if _PAGED_SM90_LIB is None:
+        from paddlefleetx_tpu_torch.ops import _build
+
+        lib = _build.load("paged_attention_sm90")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_decode_sm90.argtypes = [ptr] * 8 + [i32] * 9 + [f32, ptr]
+        lib.paged_decode_sm90.restype = i32
+        lib.paged_decode_q8_sm90.argtypes = [ptr] * 10 + [i32] * 9 + [f32, ptr]
+        lib.paged_decode_q8_sm90.restype = i32
+        lib.paged_decode_sm90_error_string.argtypes = [i32]
+        lib.paged_decode_sm90_error_string.restype = ctypes.c_char_p
+        _PAGED_SM90_LIB = lib
+    return _PAGED_SM90_LIB
+
+
+def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
+                       stream, split_keys):
+    """The sm90 route over bf16 pools (``paged_decode_sm90``) or int8 pools
+    with their scales (``paged_decode_q8_sm90``): split-K over the block
+    tables, :func:`paged_splits` CTAs of ``split_keys`` keys a row.  The
+    scratch comes from :func:`_split_scratch` (shared with the contiguous
+    route: launches on one stream run in order).  Bulk copies need 16-byte
+    aligned tensors."""
+    dev = q_t.device
+    b, n, t, d = q_t.shape
+    nb, _, bs, _ = k_pool.shape
+    M = tables.shape[1]
+    tensors = (q_t, k_pool, v_pool) + (() if k_scale is None else (k_scale, v_scale))
+    for x in tensors:
+        _paged_require(x.data_ptr() % 16 == 0, "the sm90 route needs 16-byte aligned tensors")
+    rows = split_rows(t)
+    groups = b * n * -(-t // rows)
+    splits = paged_splits(M, bs, split_keys)
+    part = counters = None
+    if splits > 1:
+        part, counters = _split_scratch(dev, stream, groups * splits * rows * (d + 2), groups)
+    lib = _paged_sm90_lib()
+    args = (tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, n, t, M, bs, d, nb, splits, split_keys, float(scale), stream)
+    if k_scale is not None:
+        rc = lib.paged_decode_q8_sm90(q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                                      k_scale.data_ptr(), v_scale.data_ptr(), *args)
+    else:
+        rc = lib.paged_decode_sm90(q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *args)
+    if rc != 0:
+        msg = lib.paged_decode_sm90_error_string(rc).decode()
+        raise RuntimeError(f"paged_decode (sm90) kernel launch failed: CUDA error {rc} ({msg})")
+
+
 def _paged_require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_decode: {msg}")
 
 
-def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale):
+def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, route=None,
+                  split_keys=PAGED_SPLIT_KEYS):
     """Check the inputs, allocate the float32 output and launch on the
-    current stream.  ``tables`` and ``positions`` must already be int32
-    CUDA tensors (the engine uploads them once per step)."""
+    current stream, on the route :func:`paged_kernel_route` gives.
+    ``tables`` and ``positions`` must already be int32 CUDA tensors (the
+    engine uploads them once per step).  ``route`` and ``split_keys`` are
+    for measurements only (``chip_smoke.py`` times the CUDA-core route at
+    the sm90 route's shapes, ``tools/paged_split_sweep.py`` other split
+    sizes): the wrapper never passes them, and "sm90" where the shapes do
+    not take it raises."""
     dev = q_t.device
     b, n, t, d = q_t.shape
     nb, _, bs, _ = k_pool.shape
@@ -622,8 +717,19 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
     for x in tensors:
         _paged_require(x.device == dev, f"tensor on {x.device}, q on {dev}")
         _paged_require(x.is_contiguous(), "inputs must be contiguous")
+    shape_route = paged_kernel_route(q_t.dtype, d, t, bs)
+    route = route or shape_route
+    _paged_require(route == "cuda_core" or shape_route == "sm90",
+                   f"the sm90 route does not take q {q_t.dtype}, d={d}, t={t}, block {bs}")
     out = torch.empty((b, n, t, d), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "paged_decode_q8" if quant else "paged_decode"
+    if route == "sm90":
+        _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
+                           stream, split_keys)
+        COUNTS[name] += 1
+        COUNTS[f"{name}_sm90"] += 1
+        return out
     lib = _paged_lib()
     if quant:
         rc = lib.paged_decode_q8(
@@ -667,8 +773,9 @@ def paged_decode_attention(
     ``v_scale`` [num_blocks, n, block] (both or neither).  Returns
     [b, t, n, d] in q's dtype.
 
-    CUDA tensors launch ``paged_decode`` / ``paged_decode_q8`` (or
-    raise); CPU tensors run :func:`paged_decode_attention_plain`."""
+    CUDA tensors launch ``paged_decode`` / ``paged_decode_q8`` on the
+    route of :func:`paged_kernel_route` (or raise); CPU tensors run
+    :func:`paged_decode_attention_plain`."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
     b, t, n, d = q.shape

@@ -227,15 +227,32 @@ def test_generation_on_card_matches_cpu():
 
 
 # (b, n, t, d, bs, M, positions): paged decode / verify over shuffled pool
-# blocks, each row's table null-padded past its last needed block
+# blocks, each row's table null-padded past its last needed block.  bf16 q
+# at d = 64 or 128, t <= 16 and bs 8-128 takes the sm90 route (split-K of
+# 256 keys over bulk copies; key stages of 64 / 32 bf16 keys at d = 64 /
+# 128, 128 / 64 int8 keys), every other case the CUDA-core one.  The skew
+# cases are chip_smoke.py's PAGED_POS (rows of 6 to 1027 keys: 1 to 5
+# splits), "main_path_step" its phase-7 decode step halfway
+PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
 PAGED_SHAPES = {
-    "decode_gpt345m_b8": (8, 16, 1, 64, 16, 128, [5, 17, 80, 200, 511, 700, 1000, 1023]),
-    "verify_t4_gpt345m": (8, 16, 4, 64, 16, 128, [5, 17, 80, 200, 511, 700, 1000, 1023]),
+    "decode_gpt345m_b8": (8, 16, 1, 64, 16, 128, PAGED_POS),
+    "verify_t4_gpt345m": (8, 16, 4, 64, 16, 128, PAGED_POS),
     "block8_boundaries": (3, 4, 2, 64, 8, 8, [7, 15, 0]),
     "block32_head_dim_128": (2, 8, 1, 128, 32, 4, [31, 100]),
     "block24_head_dim_8": (2, 4, 3, 8, 24, 4, [10, 60]),
     "verify_t16": (2, 4, 16, 64, 16, 8, [0, 40]),
+    "main_path_step": (8, 16, 1, 64, 16, 8, [n + 16 for n in (12, 20, 28, 36, 44, 52, 60, 64)]),
+    "block8_head_dim_128": (3, 8, 1, 128, 8, 64, [300, 37, 511]),
+    "block64_head_dim_128": (2, 8, 4, 128, 64, 16, [700, 63]),
+    "block128_head_dim_128": (3, 8, 1, 128, 128, 8, [1000, 127, 128]),
+    "block8_long_rows": (2, 4, 1, 64, 8, 128, [1000, 517]),
+    "verify_t16_mid_block": (3, 4, 16, 64, 16, 16, [37, 5, 100]),
+    "verify_t16_head_dim_128": (2, 4, 16, 128, 32, 8, [3, 150]),
+    "verify_t16_long_rows": (2, 4, 16, 64, 16, 64, [600, 33]),
+    "verify_t17": (2, 4, 17, 64, 16, 8, [3, 60]),
 }
+# the cases whose bf16 q (bf16 and int8 pools) leave the sm90 route
+PAGED_CUDA_CORE = {"block24_head_dim_8", "verify_t17"}
 
 
 def _paged_case(name, kv_dtype, dev, seed=0):
@@ -268,12 +285,16 @@ def test_paged_kernel_matches_plain(name, kv_dtype):
     dev = _card()
     q, k, v, tables, positions, ks, vs = _paged_case(name, kv_dtype, dev)
     key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
-    before = da.COUNTS[key]
+    route = da.paged_kernel_route(q.dtype, q.shape[-1], q.shape[1], k.shape[2])
+    assert route == ("cuda_core" if kv_dtype == torch.float32 or name in PAGED_CUDA_CORE
+                     else "sm90")
+    before = dict(da.COUNTS)
     q_t = q.transpose(1, 2).contiguous()
     scale = 1.0 / q.shape[-1] ** 0.5
     got = da._paged_launch(q_t, k, v, tables, positions, scale, ks, vs)  # float32 out
     torch.cuda.synchronize()
-    assert da.COUNTS[key] == before + 1
+    assert da.COUNTS[key] == before[key] + 1
+    assert da.COUNTS[f"{key}_sm90"] == before[f"{key}_sm90"] + (route == "sm90")
     ref = da.paged_decode_attention_plain(q_t, k, v, tables, positions, scale, ks, vs)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert torch.isfinite(got).all()
@@ -282,31 +303,70 @@ def test_paged_kernel_matches_plain(name, kv_dtype):
     # the wrapper the engine calls: [b, t, n, d] in q's dtype, against the
     # plain output given the same layout and cast
     out = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
-    assert da.COUNTS[key] == before + 2
+    assert da.COUNTS[key] == before[key] + 2
     assert out.dtype == q.dtype and out.shape == q.shape
     want = ref.transpose(1, 2).to(q.dtype).float()
     assert (out.float() - want).abs().max().item() <= TOL[q.dtype]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "block8_boundaries"])
-def test_paged_kernel_never_reads_past_a_rows_bound(name):
-    """Every pool block a row cannot see (the null block included, which
-    pads the tables) is NaN-poisoned: the result must not change."""
-    dev = _card()
-    q, k, v, tables, positions, _, _ = _paged_case(name, torch.float32, dev)
-    clean = da.paged_decode_attention(q, k, v, tables, positions)
-    t, bs = q.shape[1], k.shape[2]
+def _poison_past_bounds(k, v, ks, vs, tables, positions, t):
+    """NaN in every pool block no row can see (the null block included,
+    which pads the tables) and in the slots of each row's last block past
+    its bound, positions + t - 1; int8 pools: NaN scales there, the
+    payload at the int8 extremes."""
+    bs = k.shape[2]
     seen = set()
     for i, p in enumerate(positions.tolist()):
-        seen.update(tables[i, : (p + t - 1) // bs + 1].tolist())
-    for blk in range(k.shape[0]):
-        if blk not in seen:
-            k[blk] = float("nan")
-            v[blk] = float("nan")
-    got = da.paged_decode_attention(q, k, v, tables, positions)
+        last = (p + t - 1) // bs
+        seen.update(tables[i, : last + 1].tolist())
+    cuts = [(blk, slice(None)) for blk in range(k.shape[0]) if blk not in seen]
+    for i, p in enumerate(positions.tolist()):
+        cuts.append((int(tables[i, (p + t - 1) // bs]), slice((p + t - 1) % bs + 1, None)))
+    for blk, sl in cuts:
+        if ks is None:
+            k[blk, :, sl] = float("nan")
+            v[blk, :, sl] = float("nan")
+        else:
+            ks[blk, :, sl] = float("nan")
+            vs[blk, :, sl] = float("nan")
+            k[blk, :, sl] = 127
+            v[blk, :, sl] = -128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "block8_boundaries", "verify_t4_gpt345m",
+                                  "verify_t16_mid_block", "block128_head_dim_128"])
+def test_paged_kernel_never_reads_past_a_rows_bound(name, kv_dtype):
+    """Every pool block a row cannot see, and every slot of a row's last
+    block past its bound, is NaN-poisoned: the result must not change, on
+    either route (f32: the CUDA-core kernel, bf16 / int8: sm90)."""
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _paged_case(name, kv_dtype, dev)
+    clean = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    _poison_past_bounds(k, v, ks, vs, tables, positions, q.shape[1])
+    got = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     assert torch.equal(got, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "verify_t4_gpt345m", "block8_long_rows",
+                                  "block64_head_dim_128", "verify_t16_long_rows"])
+def test_paged_sm90_kernel_is_bitwise_repeatable(name, kv_dtype):
+    """Rows over several splits: the last split to arrive merges them in
+    split order, so two calls give the same bits."""
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _paged_case(name, kv_dtype, dev)
+    assert da.paged_kernel_route(q.dtype, q.shape[-1], q.shape[1], k.shape[2]) == "sm90"
+    assert da.paged_splits(tables.shape[1], k.shape[2]) > 1
+    a = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    b = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -321,6 +381,10 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
         da.paged_decode_attention(q.float(), k, v, tables, positions)  # dtype mismatch
     with pytest.raises(ValueError):
         da.paged_decode_attention(q, k[:, :, :4], v[:, :, :4], tables, positions)  # block 4
+    q_t = q.float().transpose(1, 2).contiguous()
+    with pytest.raises(ValueError, match="sm90 route"):  # f32 q is not the sm90 route's
+        da._paged_launch(q_t, k.float(), v.float(), tables, positions, 0.125, None, None,
+                         route="sm90")
 
 
 @pytest.mark.cuda

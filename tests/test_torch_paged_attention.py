@@ -7,7 +7,11 @@ Same numpy inputs on both sides; float32; tolerance 2e-5, the bar of
 tests/test_paged_cache.py.  Covers decode (t = 1) and the verify chunk
 (t = 3), float32 and int8 pools with scale tiles, shuffled pool blocks
 with null-padded tables, a row ending exactly on a block boundary, a
-table wider than any row needs, and the NaN-poison visit bound.
+table wider than any row needs, and the NaN-poison visit bound.  At the
+shapes of the kernels' sm90 route (d = 64 / 128, blocks 8, 16 and 128,
+t = 1, 4 and 16, skewed row lengths) the float32 outputs of both sides
+are held for float32 pools, int8 pools under bf16 q (2e-5) and bf16
+pools (``BF16_P_ROUNDING``); the route and split rules are pinned too.
 """
 
 import os
@@ -134,3 +138,130 @@ def test_loud_errors():
                                      k_scale=t(k_pool[:, :, :, 0]))
     with pytest.raises(ValueError, match="t >= 1"):
         pt_da.paged_decode_attention(t(q[:, :0]), t(k_pool), t(v_pool), t(tables), t(pos))
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the sm90 route (paged_kernel_route: bf16 q at d = 64 / 128,
+# t <= 16, block 8-128): the plain version the card holds that kernel
+# against, held here against the JAX function's float32 output
+# ---------------------------------------------------------------------------
+
+# (b, n, d, bs, M, positions): skewed row lengths over shuffled pool blocks,
+# tables null-padded past each row's last needed block
+SM90_CASES = {
+    "d64_bs8_skew": (3, 2, 64, 8, 32, [5, 200, 17]),
+    "d64_bs16_skew": (4, 2, 64, 16, 16, [0, 230, 31, 100]),
+    "d128_bs128": (2, 2, 128, 128, 4, [300, 3]),
+}
+# bf16 pools: both sides round p to bf16 before p @ v, from scores summed in
+# another order, so a p can land on the neighbouring bf16 value, at most
+# 2**-7 of p away; the output, sum(p v) / l, then moves by at most
+# 2**-7 * max|v| however many p do.  f32 pools and int8 pools (bf16 q, whose
+# products with the int8 values are exact in float32): summation order only.
+BF16_P_ROUNDING = 2.0**-7
+
+
+def _bf16_exact(x):
+    """float32 values that bf16 holds exactly (both sides then start from
+    the same bf16 numbers)."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _sm90_inputs(case, t, kind, seed=0):
+    b, n, d, bs, M, pos = SM90_CASES[case]
+    rng = np.random.default_rng(seed)
+    nb = b * M + 1
+    k_pool = rng.normal(size=(nb, n, bs, d)).astype(np.float32)
+    v_pool = rng.normal(size=(nb, n, bs, d)).astype(np.float32)
+    q_t = rng.normal(size=(b, n, t, d)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, nb))[: b * M].reshape(b, M).astype(np.int32)
+    for i, p in enumerate(pos):
+        tables[i, (p + t - 1) // bs + 1:] = 0
+    ks = vs = None
+    if kind == "int8":
+        kq, ks = pt_da.quantize_kv(torch.from_numpy(k_pool))
+        vq, vs = pt_da.quantize_kv(torch.from_numpy(v_pool))
+        k_pool, v_pool, ks, vs = kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy()
+    if kind in ("bf16", "int8"):
+        q_t = _bf16_exact(q_t)
+    if kind == "bf16":
+        k_pool, v_pool = _bf16_exact(k_pool), _bf16_exact(v_pool)
+    return q_t, k_pool, v_pool, tables, np.asarray(pos, np.int32), ks, vs
+
+
+def _both(kind, q_t, k_pool, v_pool, tables, pos, ks, vs, jax_fn):
+    """(port plain, JAX) float32 [b, n, t, d] on the same inputs, q and
+    pools in bf16 where ``kind`` says so."""
+    scale = 1.0 / q_t.shape[-1] ** 0.5
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.bfloat16}[kind]
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.bfloat16}[kind]
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    c = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    pool_j = (lambda a: jnp.asarray(a, jnp.bfloat16)) if kind == "bf16" else j
+    pool_t = (lambda a: c(a).to(torch.bfloat16)) if kind == "bf16" else c
+    want = np.asarray(jax_fn(jnp.asarray(q_t, jdt), pool_j(k_pool), pool_j(v_pool), j(tables),
+                             j(pos), scale, j(ks), j(vs)))
+    got = pt_da.paged_decode_attention_plain(c(q_t).to(tdt), pool_t(k_pool), pool_t(v_pool),
+                                             c(tables), c(pos), scale, c(ks), c(vs)).numpy()
+    return got, want
+
+
+def _tol(kind, v_pool):
+    if kind == "bf16":
+        return BF16_P_ROUNDING * float(np.abs(v_pool).max()) + TOL
+    return TOL
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("t", [1, 4, 16])
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_plain_matches_jax_lax_at_sm90_route_shapes(case, t, kind):
+    args = _sm90_inputs(case, t, kind)
+    got, want = _both(kind, *args, jax_fn=jax_da._paged_lax)
+    assert got.shape == want.shape == args[0].shape and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=_tol(kind, args[2]), rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_plain_matches_pallas_interpret_at_sm90_route_shapes(kind):
+    args = _sm90_inputs("d64_bs16_skew", 4, kind)
+    got, want = _both(kind, *args, jax_fn=jax_da._paged_pallas)
+    np.testing.assert_allclose(got, want, atol=_tol(kind, args[2]), rtol=0)
+
+
+@pytest.mark.parametrize("dtype,d,t,bs,route", [
+    (torch.bfloat16, 64, 1, 16, "sm90"),
+    (torch.bfloat16, 128, 16, 8, "sm90"),
+    (torch.bfloat16, 64, 4, 128, "sm90"),
+    (torch.bfloat16, 64, 1, 32, "sm90"),
+    (torch.bfloat16, 128, 1, 64, "sm90"),
+    (torch.float32, 64, 1, 16, "cuda_core"),  # phase 8's float32 model
+    (torch.bfloat16, 64, 17, 16, "cuda_core"),  # t past the split-K kernel's 16 rows
+    (torch.bfloat16, 32, 1, 16, "cuda_core"),  # head dims other than 64 / 128
+    (torch.bfloat16, 8, 3, 24, "cuda_core"),
+    (torch.bfloat16, 64, 1, 24, "cuda_core"),  # a block neither dividing the stage nor a multiple
+    (torch.bfloat16, 64, 1, 256, "cuda_core"),
+])
+def test_paged_kernel_route(dtype, d, t, bs, route):
+    assert pt_da.paged_kernel_route(dtype, d, t, bs) == route
+
+
+@pytest.mark.parametrize("M,bs,split_keys,splits", [
+    (8, 16, 256, 1),    # phase 7's table: one split, no partials
+    (64, 16, 256, 4),   # PAGED_POS at t = 1: the 1023-key row takes 4 CTAs
+    (128, 16, 256, 8),  # PAGED_POS at t = 4 (table width 128)
+    (1, 8, 256, 1),
+    (33, 8, 256, 2),
+    (4, 128, 128, 4),
+    (4, 128, 512, 1),
+])
+def test_paged_splits_cover_the_table_from_shapes_alone(M, bs, split_keys, splits):
+    assert pt_da.paged_splits(M, bs, split_keys) == splits
+    assert splits * split_keys >= M * bs > (splits - 1) * split_keys
+
+
+def test_paged_split_keys_fit_every_stage_and_block():
+    """The kernel takes split sizes that are multiples of 128 up to 512: a
+    whole number of key stages (32-128 keys) and of blocks (8-128)."""
+    assert pt_da.PAGED_SPLIT_KEYS % 128 == 0 and 128 <= pt_da.PAGED_SPLIT_KEYS <= 512
+    assert all(pt_da.PAGED_SPLIT_KEYS % bs == 0 for bs in pt_da.PAGED_SM90_BLOCKS)
