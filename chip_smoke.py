@@ -36,7 +36,9 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      coalesced; /healthz must show decode-kernel launches > 0, every bf16
      K7 launch on the sm90 route and no plain-version call; then again
      with --kv-dtype int8 for the q8 kernel (K8), every launch on the sm90
-     route; SIGTERM must drain with exit 0;
+     route; SIGTERM must drain with exit 0 (the traffic runs
+     ``TIMED_ROUNDS`` times a server: the first round is the one checked,
+     every round is timed for tokens/s);
   5. the same two prompts through the port in float32 on the card
      (kernels) and on the CPU (plain version), same weights: first-step
      logits within 1e-3 and identical greedy tokens;
@@ -123,7 +125,28 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      agree within ``RESUME_LOSS_TOL`` (K6's reduce-adds make the card's sums
      vary from run to run); the checkpoints are deleted;
   14. phase 11 once more with use_fused_ln (K1/K2 on the card against
-     their plain versions on the CPU).
+     their plain versions on the CPU);
+  15. K7, K8 and K9 at the speculative verify chunk, t = draft_k + 1 = 5
+     (and 8, 16, 17: the last t of the split-K kernels and the first past
+     them, K7/K8's tensor-core prefill, K9's CUDA-core kernel): K7/K8 at
+     request D's rows halfway, K9 at phase 7's, against their plain
+     versions with CUDA-event times, SDPA's (bf16; the int8 rows carry the
+     bf16 kernel's time) and the bound; the stale tail a rewind leaves
+     (NaN past every query's causal bound: in the cache past pos + t, in
+     each row's last block and its reserved slack blocks) leaves the
+     output of each unchanged at t = 5;
+  16. phases 4 and 7 again with ``--draft-k 4`` (n-gram self-drafting,
+     greedy), bf16 and int8 KV, the same requests: /healthz must show
+     drafts proposed, every K7/K8 launch a prefill or a multi-query
+     verify chunk on the sm90 route (continuous: every K9 launch a t = 5
+     launch on the sm90 route), no plain-version call, and SIGTERM must
+     drain with exit 0.  Against the plain answers: each row identical up
+     to its first difference, and every token of either answer within
+     ``SPEC_ULPS`` bf16 ulps of the argmax under teacher forcing of its
+     own prefix (the verify chunk's t = 5 GEMMs and attention round
+     differently from the t = 1 step's, which flips near-ties of the top
+     two logits); prints tokens/s with and without speculation and the
+     accept rate.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -198,6 +221,17 @@ KV_BLOCK = 16
 PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
 # phase 6: keys a split of the sm90 paged kernel, timed against each other
 PAGED_SPLIT_KEYS = (128, 256, 512)
+# phases 15-16: speculative decoding, draft_k 4 served (t = 5), the kernels
+# also held at t = 8, 16 and 17 (K7/K8's prefill kernel, K9's CUDA-core one)
+SPEC_K = 4
+VERIFY_TS = (SPEC_K + 1, 8, 16, 17)
+# an answer token's logit under its prefix's argmax, in bf16 ulps of the
+# argmax: ties and near-ties flip with rounding (PERF.md), a wrong token
+# sits far below
+SPEC_ULPS = 4.0
+# phases 4, 7 and 16: the traffic runs this many times a server, the first
+# round checked, every round timed (tokens/s: the rounds' median)
+TIMED_ROUNDS = 3
 N_LAYERS = 24
 # phase 12: K1/K2 against their plain versions.  float32: summation order
 # only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
@@ -341,10 +375,13 @@ def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20, 
     got = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
     torch.cuda.synchronize()
     sm90 = int(route == "sm90")
+    multi = int(1 < t <= da.SPLIT_MAX_ROWS)
     check(da.COUNTS[key] - before[key] == 1
           and da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == sm90
           and da.COUNTS[f"{key}_sm90_prefill"] - before[f"{key}_sm90_prefill"]
-          == sm90 * int(t > da.SPLIT_MAX_ROWS),
+          == sm90 * int(t > da.SPLIT_MAX_ROWS)
+          and da.COUNTS[f"{key}_multi"] - before[f"{key}_multi"] == multi
+          and da.COUNTS[f"{key}_sm90_multi"] - before[f"{key}_sm90_multi"] == multi * sm90,
           f"{kind} b={b} t={t} d={d}: launch off its route {route}")
     ref = da.decode_attention_plain(q, k, v, limit, vft, da.decode_block(L), scale, ks, vs)
     check(bool(torch.isfinite(got).all()), f"{kind} kernel output not finite")
@@ -420,15 +457,15 @@ def main_prefill_shape():
     return (8, 16, 64, 64, 64 + MAX_NEW, 64, [64 - n for n in D_LENS])
 
 
-def decode_poison(torch, da):
+def decode_poison(torch, da, shapes=None):
     """K7 and K8 on the sm90 route: NaN in every cache slot at or past
     ``limit`` (int8: in every scale there, the slots at the int8 extremes)
     leaves the output unchanged, at t = 1 (split-K, several splits) and at
-    t = 64 (the tensor-core prefills, whose copies end at ``limit``); and a
-    repeat call gives the same bits."""
+    t = 64 (the tensor-core prefills, whose copies end at ``limit``), or at
+    ``shapes``; and a repeat call gives the same bits."""
+    shapes = shapes or ((2, 16, 1, 64, 1024, 700, [0, 37]), main_prefill_shape())
     for kind, name in (("bfloat16", "K7"), ("int8", "K8")):
-        for b, n, t, d, L, limit, vf in ((2, 16, 1, 64, 1024, 700, [0, 37]),
-                                         main_prefill_shape()):
+        for b, n, t, d, L, limit, vf in shapes:
             q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, 3)
             scale = 1.0 / d**0.5
             clean = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
@@ -530,13 +567,19 @@ def check_rows(rows, what):
               f"{what}: bad completion {str(row)[:200]}")
 
 
-def serve_once(kv_dtype, env):
+def serve_once(kv_dtype, env, draft_k=0):
+    """Phase 4 (and, with ``draft_k``, phase 16): requests A, D (eight
+    prompts), B and C through the coalescing scheduler.  Returns (the
+    traffic's kernel counts, the answers by request, B and C's prompts,
+    the run's numbers)."""
     port = free_port()
     cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
            "--port", str(port), "-o", "Generation.decode_strategy=greedy_search",
            "-o", f"Generation.max_dec_len={MAX_NEW}"]
     if kv_dtype:
         cmd += ["--kv-dtype", kv_dtype]
+    if draft_k:
+        cmd += ["--draft-k", str(draft_k)]
     t0 = time.time()
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -558,35 +601,46 @@ def serve_once(kv_dtype, env):
         # the counts start at 0 when traffic begins (warmup launches excluded)
         check(all(v == 0 for v in health["kernels"].values()),
               f"kernel counts not 0 before traffic: {health['kernels']}")
-        t1 = time.time()
-        a = http(port, "/generate", {"prompt_ids": prompts(1, [20])[0], "max_tokens": MAX_NEW})
-        check_rows([a["completion_ids"]], "request A")
-        results = {}
-
-        def post(name, body):
-            try:
-                results[name] = http(port, "/generate", body)
-            except Exception as e:  # noqa: BLE001 — reported below
-                results[name] = e
-
+        serving0 = health["serving"]
         bc = prompts(2, [30, 40])
-        threads = [threading.Thread(target=post, args=("D", {
-            "prompts_ids": prompts(3, D_LENS), "max_tokens": MAX_NEW}))]
-        threads[0].start()
-        time.sleep(0.05)  # D holds the scheduler: B and C wait and coalesce
-        for name, p in zip("BC", bc):
-            threads.append(threading.Thread(target=post, args=(name, {
-                "prompt_ids": p, "max_tokens": MAX_NEW})))
-            threads[-1].start()
-        for th in threads:
-            th.join(timeout=600)
-        for name in "DBC":
-            check(isinstance(results.get(name), dict), f"request {name}: {results.get(name)}")
-        check_rows(results["D"]["completions_ids"], "request D")
-        check(len(results["D"]["completions_ids"]) == 8, "request D: rows")
-        check_rows([results["B"]["completion_ids"], results["C"]["completion_ids"]], "B/C")
-        traffic_s = time.time() - t1
+
+        def traffic():
+            t1 = time.time()
+            a = http(port, "/generate", {"prompt_ids": prompts(1, [20])[0],
+                                         "max_tokens": MAX_NEW})
+            check_rows([a["completion_ids"]], "request A")
+            results = {}
+
+            def post(name, body):
+                try:
+                    results[name] = http(port, "/generate", body)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    results[name] = e
+
+            threads = [threading.Thread(target=post, args=("D", {
+                "prompts_ids": prompts(3, D_LENS), "max_tokens": MAX_NEW}))]
+            threads[0].start()
+            time.sleep(0.05)  # D holds the scheduler: B and C wait and coalesce
+            for name, p in zip("BC", bc):
+                threads.append(threading.Thread(target=post, args=(name, {
+                    "prompt_ids": p, "max_tokens": MAX_NEW})))
+                threads[-1].start()
+            for th in threads:
+                th.join(timeout=600)
+            for name in "DBC":
+                check(isinstance(results.get(name), dict),
+                      f"request {name}: {results.get(name)}")
+            check_rows(results["D"]["completions_ids"], "request D")
+            check(len(results["D"]["completions_ids"]) == 8, "request D: rows")
+            check_rows([results["B"]["completion_ids"], results["C"]["completion_ids"]], "B/C")
+            return {"A": [a["completion_ids"]], "D": results["D"]["completions_ids"],
+                    "B": [results["B"]["completion_ids"]],
+                    "C": [results["C"]["completion_ids"]]}, time.time() - t1
+
+        # the checked round; its counts and answers are the phase's
+        answers, traffic_s = traffic()
         health = http(port, "/healthz", timeout=30)
+        walls = [traffic_s] + [traffic()[1] for _ in range(TIMED_ROUNDS - 1)]
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(timeout=10)
@@ -598,17 +652,40 @@ def serve_once(kv_dtype, env):
             proc.wait(timeout=30)
     check(health["queue"]["coalesced_requests"] >= 2,
           f"B and C did not coalesce: {health['queue']}")
-    check(health["kernels"]["plain"] == 0, f"plain version ran on the card: {health}")
+    kernels = health["kernels"]
+    check(kernels["plain"] == 0, f"plain version ran on the card: {health}")
     key = "flash_decode_q8" if kv_dtype == "int8" else "flash_decode"
-    check(health["kernels"][key] > 0, f"{key} never launched: {health['kernels']}")
+    check(kernels[key] > 0, f"{key} never launched: {kernels}")
     # the bf16 model: every K7 and K8 launch on the sm90 route
     for name in ("flash_decode", "flash_decode_q8"):
-        check(health["kernels"][f"{name}_sm90"] == health["kernels"][name],
-              f"{name} launches off the sm90 route: {health['kernels']}")
-    log(f"  serve kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, 4 requests in "
-        f"{traffic_s:.2f}s, kernels {health['kernels']}, queue {health['queue']}")
-    return health["kernels"], {"B": results["B"]["completion_ids"],
-                               "C": results["C"]["completion_ids"]}, bc
+        check(kernels[f"{name}_sm90"] == kernels[name],
+              f"{name} launches off the sm90 route: {kernels}")
+    info = serve_numbers(answers, walls, serving0, health["serving"])
+    if draft_k:
+        # the 64-token prompt buckets take K7/K8's prefill kernel, every
+        # verify chunk (t = draft_k + 1) the split-K kernel: nothing else
+        check(info["spec_proposed"] > 0, f"no drafts proposed: {health['serving']}")
+        check(kernels[f"{key}_sm90_multi"] == kernels[f"{key}_multi"] > 0
+              and kernels[key] == kernels[f"{key}_multi"] + kernels[f"{key}_sm90_prefill"],
+              f"{key}: verify chunks off the sm90 split-K kernel: {kernels}")
+    log(f"  serve kv={kv_dtype or 'bf16'} draft_k={draft_k}: boot {boot_s:.1f}s, 4 requests "
+        f"in {traffic_s:.2f}s ({info['tokens']} tokens; {info['tokens_per_s']:.1f} tokens/s, "
+        f"the median of {TIMED_ROUNDS} rounds {[round(w, 3) for w in walls]} s; accept rate "
+        f"{info['accept_rate']}), kernels {kernels}, queue {health['queue']}")
+    return kernels, answers, bc, info
+
+
+def serve_numbers(answers, walls, serving0, serving1):
+    """Tokens generated a round, tokens/s over each round's wall (and
+    their median), and the drafts proposed and accepted during the checked
+    round (warmup excluded)."""
+    tokens = sum(len(row) for rows in answers.values() for row in rows)
+    prop = serving1.get("spec_proposed", 0) - serving0.get("spec_proposed", 0)
+    acc = serving1.get("spec_accepted", 0) - serving0.get("spec_accepted", 0)
+    rates = sorted(tokens / w for w in walls)
+    return {"tokens": tokens, "traffic_s": walls, "tokens_per_s": rates[len(rates) // 2],
+            "tokens_per_s_rounds": [tokens / w for w in walls], "spec_proposed": prop,
+            "spec_accepted": acc, "accept_rate": round(acc / prop, 4) if prop else None}
 
 
 # ---------------------------------------------------------------------------
@@ -660,12 +737,13 @@ def phase_card_vs_cpu(torch, bc):
 # ---------------------------------------------------------------------------
 
 
-def paged_inputs(torch, da, kind, b, n, t, d, bs, positions, seed):
+def paged_inputs(torch, da, kind, b, n, t, d, bs, positions, seed, slack=0):
     """Pools [nb, n, bs, d] holding each row's blocks at shuffled pool
-    ids, tables [b, M] null-padded past each row's last needed block (M a
-    power of two, as the engine's width bucket), q [b, t, n, d]."""
+    ids, tables [b, M] null-padded past each row's last needed block, or
+    past ``slack`` slots more (a speculative row's reservation; M a power
+    of two, as the engine's width bucket), q [b, t, n, d]."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    need = [(p + t - 1) // bs + 1 for p in positions]
+    need = [(p + t - 1 + slack) // bs + 1 for p in positions]
     M = 1
     while M < max(need):
         M *= 2
@@ -801,21 +879,22 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
             "bound_by": bound_by, "cuda_core": cuda_core, "split_ms": split_ms}
 
 
-def paged_poison(torch, da):
+def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
+                 kinds=("float32", "bfloat16", "int8"), slack=0):
     """NaN in every pool block no row can see (the null block that pads
-    the tables included, and one spare block past the rows' own) and in
-    the slots of each row's last block past its bound, positions + t - 1
-    (int8 pools: NaN scales there, the payload at the int8 extremes): the
-    wrapper must give the same finite result, on either route (f32: the
-    CUDA-core kernel; bf16, int8: sm90), at t = 1 and 4; the f32 result
-    agrees with the plain version on the clean pools; a repeat call of
-    the sm90 kernel (rows over several splits) gives the same bits."""
-    positions = PAGED_POS
+    the tables included, a row's reserved ``slack`` blocks past its bound,
+    and one spare block past the rows' own) and in the slots of each row's
+    last block past its bound, positions + t - 1 (int8 pools: NaN scales
+    there, the payload at the int8 extremes): the wrapper must give the
+    same finite result, on either route (f32: the CUDA-core kernel; bf16,
+    int8: sm90 for t <= 16), at each of ``ts``; the f32 result agrees with
+    the plain version on the clean pools; a repeat call of the sm90 kernel
+    (rows over several splits) gives the same bits."""
     b, n, d, bs = len(positions), 16, 64, KV_BLOCK
-    for kind in ("float32", "bfloat16", "int8"):
-        for t in (1, 4):
+    for kind in kinds:
+        for t in ts:
             q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
-                                                        positions, 5)
+                                                        positions, 5, slack)
             k = torch.cat([k, k[:1]])
             v = torch.cat([v, v[:1]])
             if ks is not None:
@@ -844,7 +923,8 @@ def paged_poison(torch, da):
             got = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
             torch.cuda.synchronize()
             route = da.paged_kernel_route(q.dtype, d, t, bs)
-            check(route == ("cuda_core" if kind == "float32" else "sm90"), f"{kind}: {route}")
+            check(route == ("cuda_core" if kind == "float32" or t > da.SPLIT_MAX_ROWS
+                            else "sm90"), f"{kind} t={t}: {route}")
             check(torch.equal(again, clean), f"paged {kind} t={t} ({route}): a repeat call "
                                              "differs")
             check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
@@ -897,7 +977,10 @@ def phase_paged(torch, F, da):
 # ---------------------------------------------------------------------------
 
 
-def serve_continuous(kv_dtype, env):
+def serve_continuous(kv_dtype, env, draft_k=0):
+    """Phase 7 (and, with ``draft_k``, phase 16): eight staggered requests
+    through the continuous scheduler.  Returns (the traffic's kernel
+    counts, the run's numbers and answers)."""
     port = free_port()
     cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
            "--port", str(port), "--scheduler", "continuous", "--cb-batch", "8",
@@ -905,6 +988,8 @@ def serve_continuous(kv_dtype, env):
            "-o", f"Generation.max_dec_len={MAX_NEW}"]
     if kv_dtype:
         cmd += ["--kv-dtype", kv_dtype]
+    if draft_k:
+        cmd += ["--draft-k", str(draft_k)]
     t0 = time.time()
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -912,15 +997,40 @@ def serve_continuous(kv_dtype, env):
     reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout), daemon=True)
     reader.start()
     ps = prompts(7, D_LENS)
-    results, sent, done = {}, {}, {}
 
-    def post(i):
-        sent[i] = time.time()
-        try:
-            results[i] = http(port, "/generate", {"prompt_ids": ps[i], "max_tokens": MAX_NEW})
-        except Exception as e:  # noqa: BLE001 — reported below
-            results[i] = e
-        done[i] = time.time()
+    def traffic():
+        """The first request decoding before the others arrive, one by one;
+        returns (answers, latencies, wall)."""
+        results, sent, done = {}, {}, {}
+
+        def post(i):
+            sent[i] = time.time()
+            try:
+                results[i] = http(port, "/generate", {"prompt_ids": ps[i],
+                                                      "max_tokens": MAX_NEW})
+            except Exception as e:  # noqa: BLE001 — reported below
+                results[i] = e
+            done[i] = time.time()
+
+        steps_at = http(port, "/healthz", timeout=30)["serving"]["steps"]
+        t1 = time.time()
+        threads = [threading.Thread(target=post, args=(0,))]
+        threads[0].start()
+        while http(port, "/healthz", timeout=30)["serving"]["steps"] < steps_at + 2:
+            check(time.time() - t1 < 120, "the first request never stepped")
+            time.sleep(0.01)
+        for i in range(1, len(ps)):
+            threads.append(threading.Thread(target=post, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.03)
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t1
+        for i in range(len(ps)):
+            check(isinstance(results.get(i), dict), f"request {i}: {results.get(i)}")
+            check_rows([results[i]["completion_ids"]], f"request {i}")
+        return ({"P7": [results[i]["completion_ids"] for i in range(len(ps))]},
+                [done[i] - sent[i] for i in range(len(ps))], wall)
 
     try:
         health = None
@@ -937,24 +1047,11 @@ def serve_continuous(kv_dtype, env):
         check(all(v == 0 for v in health["kernels"].values()),
               f"kernel counts not 0 before traffic: {health['kernels']}")
         steps0 = health["serving"]["steps"]
-        t1 = time.time()
-        threads = [threading.Thread(target=post, args=(0,))]
-        threads[0].start()
-        # the first row is decoding before the others arrive, one by one
-        while http(port, "/healthz", timeout=30)["serving"]["steps"] < steps0 + 2:
-            check(time.time() - t1 < 120, "the first request never stepped")
-            time.sleep(0.01)
-        for i in range(1, len(ps)):
-            threads.append(threading.Thread(target=post, args=(i,)))
-            threads[-1].start()
-            time.sleep(0.03)
-        for th in threads:
-            th.join(timeout=600)
-        traffic_s = time.time() - t1
-        for i in range(len(ps)):
-            check(isinstance(results.get(i), dict), f"request {i}: {results.get(i)}")
-            check_rows([results[i]["completion_ids"]], f"request {i}")
+        serving0 = health["serving"]
+        # the checked round; its counts and answers are the phase's
+        answers, lat, traffic_s = traffic()
         health = http(port, "/healthz", timeout=30)
+        walls = [traffic_s] + [traffic()[2] for _ in range(TIMED_ROUNDS - 1)]
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(timeout=10)
@@ -973,17 +1070,25 @@ def serve_continuous(kv_dtype, env):
           f"{key}: {kernels[key]} launches for {steps} engine steps")
     check(kernels[f"{key}_sm90"] == kernels[key],
           f"{key}: launches off the sm90 route (the CUDA-core kernel ran): {kernels}")
+    if draft_k:  # every engine step is a verify chunk, t = draft_k + 1
+        check(kernels[f"{key}_sm90_multi"] == kernels[f"{key}_multi"] == kernels[key],
+              f"{key}: engine steps that were not multi-query sm90 launches: {kernels}")
     check(kernels["flash_decode"] > 0, f"the prefill did not run flash_decode: {kernels}")
     check(kernels["flash_decode_sm90"] == kernels["flash_decode"],
           f"the prefill's bf16 K7 launches off the sm90 route: {kernels}")
     check(serving["mid_decode_admits"] >= 1, f"no row joined mid-decode: {serving}")
     check(health["queue"]["completed"] == len(D_LENS), f"queue {health['queue']}")
-    lat = [done[i] - sent[i] for i in range(len(D_LENS))]
-    log(f"  continuous kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, 8 requests in "
-        f"{traffic_s:.2f}s (latency {min(lat):.2f}-{max(lat):.2f}s), {steps} engine "
-        f"steps, {serving['mid_decode_admits']} mid-decode admissions, kernels {kernels}")
-    return kernels, {"boot_s": boot_s, "traffic_s": traffic_s, "latency_s": lat,
-                     "steps": steps, "mid_decode_admits": serving["mid_decode_admits"]}
+    info = serve_numbers(answers, walls, serving0, serving)
+    if draft_k:
+        check(info["spec_proposed"] > 0, f"no drafts proposed: {serving}")
+    log(f"  continuous kv={kv_dtype or 'bf16'} draft_k={draft_k}: boot {boot_s:.1f}s, 8 "
+        f"requests in {traffic_s:.2f}s (latency {min(lat):.2f}-{max(lat):.2f}s; "
+        f"{info['tokens_per_s']:.1f} tokens/s, the median of {TIMED_ROUNDS} rounds "
+        f"{[round(w, 3) for w in walls]} s; accept rate {info['accept_rate']}), {steps} "
+        f"engine steps, {serving['mid_decode_admits']} mid-decode admissions, kernels {kernels}")
+    info.update({"boot_s": boot_s, "latency_s": lat, "steps": steps,
+                 "mid_decode_admits": serving["mid_decode_admits"], "answers": answers})
+    return kernels, info
 
 
 # ---------------------------------------------------------------------------
@@ -1701,6 +1806,128 @@ def phase_train_cli(env):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: K7, K8 and K9 at the speculative verify chunk, t = draft_k + 1
+# ---------------------------------------------------------------------------
+
+
+def verify_shape(t):
+    """Request D's verify chunk in phase 16's coalescing run halfway
+    through: batch 8 in the 64-token bucket, the cache 64 + 32 + 16 slots
+    (up to draft_k 16 of slack), the chunk at [80, 80 + t)."""
+    return (8, 16, t, 64, 64 + MAX_NEW + 16, 64 + MAX_NEW // 2 + t, [64 - n for n in D_LENS])
+
+
+def phase_verify(torch, F, da):
+    """K7 / K8 at :func:`verify_shape` and K9 at phase 7's rows halfway
+    (:func:`paged_main_positions`), at t = 5 (draft_k 4, served in phase
+    16), 8, 16 and 17 (the first t past the split-K kernels), against
+    their plain versions with CUDA-event times, SDPA's (bf16) and the
+    bound; then the stale tail a rewind leaves: NaN past every query's
+    causal bound (in the cache past pos + t; in each row's last block and
+    its reserved slack blocks) leaves the output unchanged at t = 5."""
+    rows = {}
+    for name, kind in (("flash_decode", "bfloat16"), ("flash_decode_q8", "int8")):
+        rows[name] = []
+        for t in VERIFY_TS:
+            rows[name].append(kernel_case(torch, F, da, kind, *verify_shape(t), iters=50))
+            log_case(rows[name][-1])
+    for name, kind in (("paged_decode", "bfloat16"), ("paged_decode_q8", "int8")):
+        rows[name] = []
+        for t in VERIFY_TS:
+            rows[name].append(paged_case(torch, F, da, kind, t, paged_main_positions(), iters=50))
+            log_paged(f"{name} verify", rows[name][-1])
+    # the int8 kernels' yardstick: the bf16 kernel at the same shape
+    for q8, bf16 in (("flash_decode_q8", "flash_decode"), ("paged_decode_q8", "paged_decode")):
+        for row, ref in zip(rows[q8], rows[bf16]):
+            row["bf16_ms"] = ref["ms"]
+    t = SPEC_K + 1
+    decode_poison(torch, da, shapes=(verify_shape(t),))
+    paged_poison(torch, da, positions=paged_main_positions(), ts=(t,),
+                 kinds=("bfloat16", "int8"), slack=SPEC_K)
+    log("verify_cases " + json.dumps(rows))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: speculative serving at full width
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
+
+
+def greedy_deficits(torch, G, model, cfg, prompt, answer, kv_dtype):
+    """Teacher-force ``prompt + answer`` through the cached forward on the
+    card (one prefill, a cache of ``kv_dtype``): for each answer token,
+    how far its logit sits under the largest, in bf16 ulps of the largest.
+    0 where the token is the argmax."""
+    ids = torch.tensor([prompt + answer], device="cuda")
+    with torch.inference_mode():
+        cache = G.init_cache(cfg, 1, ids.shape[1], torch.device("cuda"),
+                             kv_dtype=kv_dtype or "bf16")
+        lg = G.forward_cached(model, ids, cache, 0)[0].float()
+    lg = lg[len(prompt) - 1: len(prompt) - 1 + len(answer)]
+    top = lg.max(dim=-1).values
+    chosen = lg.gather(-1, torch.tensor(answer, device="cuda")[:, None])[:, 0]
+    return [(a - c) / bf16_ulp(a) for a, c in zip(top.tolist(), chosen.tolist())]
+
+
+def phase_spec_check(torch, plain, spec):
+    """Speculative answers against the plain ones, on the card in bf16: a
+    verify chunk's GEMMs and attention run at t = k + 1 where the plain
+    step runs at t = 1, so the logits differ by rounding, and where a
+    row's top two logits sit within a few bf16 ulps the argmax can flip.
+    Each row is identical up to its first difference; every answer token,
+    plain or speculative, must be the argmax of the model under teacher
+    forcing of its own prefix up to SPEC_ULPS ulps (a wrong accept shows
+    as a token far below the argmax).  ``plain`` / ``spec``: {(scheduler,
+    kv): {request: [answers]}}, requests as in phases 4 and 7."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG))
+    module = GPTModule(cfg)
+    model = module.init_model(cfg.Global.seed, "cuda")
+    bc = prompts(2, [30, 40])
+    prompts_of = {"A": prompts(1, [20]), "D": prompts(3, D_LENS), "B": bc[:1], "C": bc[1:],
+                  "P7": prompts(7, D_LENS)}
+    report = {}
+    for run, answers in plain.items():
+        same = diverged = 0
+        worst = 0.0
+        firsts = []
+        for req, rows in answers.items():
+            for i, (a, b) in enumerate(zip(rows, spec[run][req])):
+                prompt = prompts_of[req][i]
+                for ans in (a, b):
+                    d = greedy_deficits(torch, G, model, module.config, prompt, ans, run[1])
+                    worst = max([worst] + d)
+                if a == b:
+                    same += 1
+                    continue
+                diverged += 1
+                j = next((x for x in range(min(len(a), len(b))) if a[x] != b[x]),
+                         min(len(a), len(b)))
+                firsts.append([req, i, j])
+        check(worst <= SPEC_ULPS,
+              f"{run}: an answer token sits {worst:.1f} bf16 ulps under the argmax of its "
+              f"prefix (> {SPEC_ULPS}): a wrong token, not a rounding tie")
+        report[f"{run[0]}_{run[1] or 'bf16'}"] = {
+            "rows": same + diverged, "identical": same, "first_differences": firsts,
+            "worst_deficit_ulps": worst}
+        log(f"  {run[0]} kv={run[1] or 'bf16'}: {same} of {same + diverged} rows identical "
+            f"to the plain answers; first differences (request, row, token) {firsts}; every "
+            f"token within {worst:.1f} bf16 ulps of its prefix's argmax (gate {SPEC_ULPS})")
+    del model
+    return report
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1728,8 +1955,8 @@ def main():
     main_rows = phase_kernels(torch, F, da)
     log("== phase 4: serve GPT-345M at full width")
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    counts_bf16, _, bc = serve_once("", env)
-    counts_q8, _, _ = serve_once("int8", env)
+    counts_bf16, ans_bf16, bc, info_bf16 = serve_once("", env)
+    counts_q8, ans_q8, _, info_q8 = serve_once("int8", env)
     log("== phase 5: card against cpu, float32, full width")
     phase_card_vs_cpu(torch, bc)
     log("== phase 6: paged kernel against its plain version")
@@ -1753,10 +1980,43 @@ def main():
     cli = phase_train_cli(env)
     log("== phase 14: training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
+    log(f"== phase 15: K7, K8 and K9 at the verify chunk, t = {VERIFY_TS}")
+    verify_rows = phase_verify(torch, F, da)
+    log(f"== phase 16: speculative serving of GPT-345M at full width, --draft-k {SPEC_K}")
+    plain_runs = {("coalesce", ""): (counts_bf16, ans_bf16, info_bf16),
+                  ("coalesce", "int8"): (counts_q8, ans_q8, info_q8),
+                  ("continuous", ""): (cb_bf16, wall_bf16["answers"], wall_bf16),
+                  ("continuous", "int8"): (cb_q8, wall_q8["answers"], wall_q8)}
+    spec_runs = {}
+    for kv in ("", "int8"):
+        counts, answers, _, info = serve_once(kv, env, draft_k=SPEC_K)
+        spec_runs[("coalesce", kv)] = (counts, answers, info)
+    for kv in ("", "int8"):
+        counts, info = serve_continuous(kv, env, draft_k=SPEC_K)
+        spec_runs[("continuous", kv)] = (counts, info["answers"], info)
+    spec_report = phase_spec_check(torch, {r: v[1] for r, v in plain_runs.items()},
+                                   {r: v[1] for r, v in spec_runs.items()})
+    for run in plain_runs:
+        p_info, s_info = plain_runs[run][2], spec_runs[run][2]
+        spec_report[f"{run[0]}_{run[1] or 'bf16'}"].update({
+            "tokens_per_s": s_info["tokens_per_s"], "plain_tokens_per_s": p_info["tokens_per_s"],
+            "accept_rate": s_info["accept_rate"], "spec_proposed": s_info["spec_proposed"],
+            "spec_accepted": s_info["spec_accepted"]})
+        log(f"  {run[0]} kv={run[1] or 'bf16'}: {s_info['tokens_per_s']:.1f} tokens/s with "
+            f"--draft-k {SPEC_K} (accept rate {s_info['accept_rate']}), "
+            f"{p_info['tokens_per_s']:.1f} without")
+    log("spec_serving " + json.dumps(spec_report))
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
                 "paged_decode_q8": cb_q8["paged_decode_q8"],
+                # phase 16's multi-query launches (the verify chunks)
+                "verify": {"flash_decode": spec_runs[("coalesce", "")][0]["flash_decode_multi"],
+                           "flash_decode_q8":
+                               spec_runs[("coalesce", "int8")][0]["flash_decode_q8_multi"],
+                           "paged_decode": spec_runs[("continuous", "")][0]["paged_decode_multi"],
+                           "paged_decode_q8":
+                               spec_runs[("continuous", "int8")][0]["paged_decode_q8_multi"]},
                 "flash_fwd": train["split"]["launches"]["flash_fwd"],
                 "flash_bwd_dq": train["split"]["launches"]["flash_bwd_dq"],
                 "flash_bwd_dkv": train["split"]["launches"]["flash_bwd_dkv"],
@@ -1824,6 +2084,14 @@ def main():
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": shape}
+        if name in verify_rows:
+            # the speculative verify chunk: launches in phase 16 (all t = 5),
+            # the kernel held and timed in phase 15 at t = 5, 8, 16, 17
+            entry["verify"] = {"launches": launches["verify"][name], "rows": [
+                {k: r[k] for k in ("t", "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms") + (("bf16_ms",) if "bf16_ms" in r
+                                                                 else ())}
+                for r in verify_rows[name]]}
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)

@@ -15,6 +15,10 @@ them, and no row pays another row's length.
     one int32 array, runs ``models/gpt/generation.decode_step`` (the
     paged attention kernel on the card, its plain version on the CPU)
     and reads back the sampled tokens and the new activity in one copy.
+    With speculation on (``Generation.speculative.draft_k``), each step
+    is one draft-verify iteration instead (``decode_step_spec``): the
+    host drafts k tokens a row from its own history (n-gram lookup), the
+    step verifies them at t = k + 1 and commits 1 to k + 1 tokens a row.
   - :class:`ContinuousScheduler`: the host side, with the admission
     surface of ``core/request_queue.RequestQueue`` (bounded ``submit``
     -> QueueFull/QueueClosed, deadlines, ``try_remove``, graceful
@@ -24,10 +28,10 @@ them, and no row pays another row's length.
     admit from the queue head (FCFS) while slots and blocks allow, step.
 
 Greedy outputs are token-identical to the coalescing path and to the
-JAX engine.  The stepping is synchronous: the JAX scheduler's
-dispatch-ahead decode and its ``PFX_SCHED_QUANTUM`` are not ported, and
-neither variable is read here.  Not ported either, and refused where
-asked for: speculative decoding, the prefix cache and its spill tier,
+JAX engine, with or without speculation.  The stepping is synchronous:
+the JAX scheduler's dispatch-ahead decode and its ``PFX_SCHED_QUANTUM``
+are not ported, and neither variable is read here.  Not ported either,
+and refused where asked for: the prefix cache and its spill tier,
 chunked prefill, KV handoff, tenancy and preemption, streaming, the
 decision log and the goodput ledgers.  No CUDA graphs yet: the
 ``stats["traces"]`` count of distinct step and prefill shapes is what a
@@ -61,10 +65,16 @@ from paddlefleetx_tpu_torch.models.gpt.generation import (
     PagedRows,
     bucket_len,
     decode_step,
+    decode_step_spec,
     init_paged_pools,
     paged_prefill,
 )
 from paddlefleetx_tpu_torch.ops.decode_attention import kv_cache_dtype
+from paddlefleetx_tpu_torch.ops.speculative import (
+    NGRAM_WINDOW,
+    SpecConfig,
+    ngram_propose_host,
+)
 from paddlefleetx_tpu_torch.utils.log import logger
 
 
@@ -93,9 +103,13 @@ class _Row:
     seq_id: int
     entry: Optional["_CBEntry"]
     row_idx: int  # index into the entry's prompts
-    prompt_len: int
+    prompt_ids: List[int]  # the speculative drafter reads prompt + tokens
     table: List[int]
     tokens: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt_ids)
 
 
 @dataclasses.dataclass(eq=False)
@@ -126,14 +140,16 @@ class PagedDecodeEngine:
     failed donating dispatch."""
 
     def __init__(self, server, *, max_batch: int = 8, block: int = 0,
-                 num_blocks: int = 0, spec=None, kv_dtype: str = "",
+                 num_blocks: int = 0, spec="auto", kv_dtype: str = "",
                  prefix_cache_blocks: int = 0, prefill_chunk: int = 0,
                  prefix_spill_bytes: int = 0) -> None:
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding on the paged engine (decode_step_spec) is "
-                "not ported to the PyTorch port yet"
-            )
+        # speculation: "auto" inherits the server's parsed
+        # Generation.speculative (one parse site, so both schedulers agree
+        # on one config); a SpecConfig overrides, None turns it off
+        if spec == "auto":
+            spec = server.spec
+        if spec is not None and not isinstance(spec, SpecConfig):
+            raise ValueError(f"spec must be a SpecConfig or None, got {spec!r}")
         if prefix_cache_blocks or prefix_spill_bytes:
             raise NotImplementedError(
                 "the shared-prefix cache (prefix_cache_blocks) and its spill tier "
@@ -147,6 +163,8 @@ class PagedDecodeEngine:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.server = server
+        self.spec = spec
+        self.draft_k = spec.draft_k if spec is not None else 0
         self.model = server.model
         self.mcfg = server.module.config
         self.gen = server.gen
@@ -155,7 +173,7 @@ class PagedDecodeEngine:
         self.block = kv_block_size(block)
         self.kv_dtype = kv_cache_dtype(kv_dtype) if kv_dtype else server.kv_dtype
         self.context = int(self.mcfg.max_position_embeddings)
-        self.max_row_blocks = blocks_for(self.context, self.block)
+        self.max_row_blocks = blocks_for(self.context + self.draft_k, self.block)
         self.capacity = int(max_batch)
         if num_blocks <= 0:
             num_blocks = self.capacity * self.max_row_blocks + 1
@@ -165,6 +183,7 @@ class PagedDecodeEngine:
         B, vocab = self.capacity, int(self.mcfg.vocab_size)
         self._logits = torch.zeros((B, vocab), dtype=torch.float32, device=self.device)
         self._counts = torch.zeros((B, vocab), dtype=torch.int32, device=self.device)
+        self._reject = torch.full((B,), -1, dtype=torch.int32, device=self.device)
         self.positions = np.zeros((B,), np.int32)
         self.gen_steps = np.zeros((B,), np.int32)
         self.max_news = np.zeros((B,), np.int32)
@@ -172,23 +191,28 @@ class PagedDecodeEngine:
         self.active = np.zeros((B,), bool)
         self.slots: List[Optional[_Row]] = [None] * B
         self._seq_counter = 0
+        self._warmup = False  # warmup steps are not traffic: no spec stats
         # distinct (capacity, table width) step shapes and (prompt bucket,
         # prefill blocks) shapes run so far: the JAX engine's compile
         # families, and what a CUDA-graph capture would key on
         self._shapes: set = set()
         self.stats: Dict[str, Any] = {
             "traces": 0, "steps": 0, "prefills": 0, "prefill_tokens": 0,
-            "mid_decode_admits": 0,
+            "mid_decode_admits": 0, "spec_proposed": 0, "spec_accepted": 0,
+            "spec_accept_rate": 0.0,
         }
 
     # -- capacity queries ----------------------------------------------
     def row_capacity_tokens(self, prompt_len: int, max_new: int) -> int:
         """Cache slots a row reserves: its full decode budget (clamped to
         the context room, as admit() clamps it) plus at least the prefill
-        bucket width, whose pad junk lands in the row's own blocks."""
+        bucket width, whose pad junk lands in the row's own blocks.  With
+        speculation on, ``draft_k`` slack slots take the verify chunk's
+        rejected tail past the budget: a chunk slot past a row's table
+        would clamp onto the table's last entry, a real slot of the row."""
         P = bucket_len(prompt_len, self.bucket)
         limit = self.context - P
-        return max(prompt_len + min(max_new, max(1, limit)), P)
+        return max(prompt_len + min(max_new, max(1, limit)) + self.draft_k, P)
 
     def free_slots(self) -> int:
         return sum(1 for r in self.slots if r is None)
@@ -272,8 +296,9 @@ class PagedDecodeEngine:
         # run end of core/serving.plan_decode, not the raw budget
         self.forced_steps[slot] = min(-(-max_new // 32) * 32, limit) - 1
         self.active[slot] = True
+        self._reject[slot] = -1
         self.slots[slot] = _Row(
-            seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_len=plen, table=table,
+            seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids, table=table,
         )
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += plen
@@ -284,44 +309,82 @@ class PagedDecodeEngine:
         return min(_pow2_at_least(widest), _pow2_at_least(self.max_row_blocks))
 
     # -- stepping --------------------------------------------------------
+    def _host_drafts(self) -> np.ndarray:
+        """Self-draft every active row from its prompt and tokens on the
+        host: the n-gram lookup proposes k + 1 tokens; proposal[0] guesses
+        the pending token the step samples first, proposals[1:] are the
+        drafts of the verify chunk.  The lookup never scans past
+        NGRAM_WINDOW, so it gets only that tail (plus the needle and draft
+        slack): no copy of a row's whole history per step."""
+        k, n = self.spec.draft_k, self.spec.ngram
+        need = NGRAM_WINDOW + n + k + 2
+        out = np.zeros((self.capacity, k), np.int32)
+        for i, r in enumerate(self.slots):
+            if r is not None and self.active[i]:
+                if len(r.tokens) >= need:
+                    seq = r.tokens[-need:]
+                else:
+                    seq = r.prompt_ids[-(need - len(r.tokens)):] + r.tokens
+                out[i] = ngram_propose_host(seq, k + 1, n=n)[1:]
+        return out
+
     @torch.inference_mode()
     def step(self) -> List[int]:
-        """Run ONE decode step for every active row; returns the slots that
-        finished (their tokens are complete: release them with
-        :meth:`release`).  Raises :class:`ArenaReset` when the step fails."""
+        """Run ONE decode step for every active row (speculative: one
+        draft-verify iteration, committing 1 to draft_k + 1 tokens a row);
+        returns the slots that finished (their tokens are complete:
+        release them with :meth:`release`).  A row finishes on EOS or on
+        its budget inside the committed window, never past it.  Raises
+        :class:`ArenaReset` when the step fails."""
         if not self.active.any():
             return []
         B = self.capacity
         M = self.table_width_bucket()
+        k = self.draft_k
         was_active = self.active.copy()
-        # one host -> device copy per step: the null-padded block tables
-        # and the five per-row int32 state rows, as int32 views of one array
-        flat = np.full((B * M + 5 * B,), NULL_BLOCK, np.int32)
+        # one host -> device copy per step: the null-padded block tables,
+        # the five per-row int32 state rows and the drafts, as int32 views
+        # of one array
+        flat = np.full((B * M + 5 * B + B * k,), NULL_BLOCK, np.int32)
         tables = flat[:B * M].reshape(B, M)
         for i, r in enumerate(self.slots):
             if r is not None:
                 tables[i, : len(r.table)] = r.table
-        flat[B * M:] = np.concatenate([
+        flat[B * M:B * M + 5 * B] = np.concatenate([
             self.positions, self.gen_steps, self.max_news, self.forced_steps,
             self.active.astype(np.int32),
         ])
-        dev_flat = torch.from_numpy(flat).to(self.device)
-        st = dev_flat[B * M:].view(5, B)
-        rows = PagedRows(
-            logits=self._logits, counts=self._counts, positions=st[0], gen_steps=st[1],
-            max_news=st[2], active=st[4].bool(), forced_steps=st[3],
-        )
+        if k:
+            flat[B * M + 5 * B:] = self._host_drafts().reshape(-1)
         try:
             nb = self.cache.allocator.num_blocks
             if tables.min() < 0 or tables.max() >= nb:  # the kernel trusts its tables
                 raise RuntimeError(f"block table entry outside [0, {nb}): {tables.tolist()}")
-            nxt, rows2 = decode_step(
-                self.model, self.pools, dev_flat[:B * M].view(B, M), rows, self.gen,
-                generator=self.server.generator,
+            dev_flat = torch.from_numpy(flat).to(self.device)
+            st = dev_flat[B * M:B * M + 5 * B].view(5, B)
+            rows = PagedRows(
+                logits=self._logits, counts=self._counts, positions=st[0], gen_steps=st[1],
+                max_news=st[2], active=st[4].bool(), forced_steps=st[3],
+                reject=self._reject if k else None,
             )
+            dev_tables = dev_flat[:B * M].view(B, M)
+            if k:
+                window, ncommit, rows2 = decode_step_spec(
+                    self.model, self.pools, dev_tables, rows,
+                    dev_flat[B * M + 5 * B:].view(B, k), self.gen,
+                    generator=self.server.generator,
+                )
+                self._reject = rows2.reject
+            else:
+                nxt, rows2 = decode_step(
+                    self.model, self.pools, dev_tables, rows, self.gen,
+                    generator=self.server.generator,
+                )
+                window, ncommit = nxt[:, None], rows.active.long()
             self._logits = rows2.logits
             self._counts = rows2.counts
-            out = torch.stack([nxt, rows2.active.long()]).cpu().numpy()
+            out = torch.cat([window.long(), ncommit.long()[:, None],
+                             rows2.active.long()[:, None]], dim=1).cpu().numpy()
         except BaseException as exc:
             dead = self.reset()
             raise ArenaReset(
@@ -329,19 +392,26 @@ class PagedDecodeEngine:
             ) from exc
         self._note_shape(("step", B, M))
         self.stats["steps"] += 1
-        new_active = out[1].astype(bool)
-        self.positions[was_active] += 1
-        self.gen_steps[was_active] += 1
+        ncommit = out[:, -2].astype(np.int32)
+        new_active = out[:, -1].astype(bool)
+        self.positions[was_active] += ncommit[was_active]
+        self.gen_steps[was_active] += ncommit[was_active]
         self.active[was_active] = new_active[was_active]
         finished: List[int] = []
         for i, r in enumerate(self.slots):
             if r is None or not was_active[i]:
                 continue
-            tok = int(out[0, i])
-            if tok != self.gen.eos_token_id:
-                r.tokens.append(tok)
+            for tok in out[i, :ncommit[i]].tolist():
+                if tok != self.gen.eos_token_id:
+                    r.tokens.append(tok)
             if not new_active[i]:
                 finished.append(i)
+        n_act = int(was_active.sum())
+        if k and n_act and not self._warmup:
+            self.stats["spec_proposed"] += k * n_act
+            self.stats["spec_accepted"] += int(ncommit[was_active].sum()) - n_act
+            self.stats["spec_accept_rate"] = (
+                self.stats["spec_accepted"] / self.stats["spec_proposed"])
         return finished
 
     def release(self, slot: int) -> None:
@@ -376,26 +446,33 @@ class PagedDecodeEngine:
         )
         self._logits = torch.zeros_like(self._logits)
         self._counts = torch.zeros_like(self._counts)
+        self._reject = torch.full_like(self._reject, -1)
         return dead
 
     def warmup(self, prompt_lens: Sequence[int]) -> Dict[str, float]:
         """Run one admission and one step per prompt bucket before traffic
-        (builds the kernels on the card); fails loudly naming the bucket."""
+        (builds the kernels on the card; with speculation on, the step is
+        the t = draft_k + 1 verify); fails loudly naming the bucket."""
         per: Dict[str, float] = {}
-        for n in prompt_lens:
-            t0 = time.time()
-            try:
-                slot = self.admit([1] * int(n), max_new=self.gen.max_dec_len)
-                self.step()
-                if self.slots[slot] is not None:
-                    self.release(slot)
-            except Exception as exc:
-                raise RuntimeError(
-                    f"continuous warmup failed at bucket {n} (warmed so far: "
-                    f"{sorted(per) or 'none'}): {type(exc).__name__}: {exc}"
-                ) from exc
-            per[str(int(n))] = round(time.time() - t0, 3)
-            logger.info(f"continuous warmup: prompt bucket {n} ran in {per[str(int(n))]:.2f}s")
+        self._warmup = True
+        try:
+            for n in prompt_lens:
+                t0 = time.time()
+                try:
+                    slot = self.admit([1] * int(n), max_new=self.gen.max_dec_len)
+                    self.step()
+                    if self.slots[slot] is not None:
+                        self.release(slot)
+                except Exception as exc:
+                    raise RuntimeError(
+                        f"continuous warmup failed at bucket {n} (warmed so far: "
+                        f"{sorted(per) or 'none'}): {type(exc).__name__}: {exc}"
+                    ) from exc
+                per[str(int(n))] = round(time.time() - t0, 3)
+                logger.info(
+                    f"continuous warmup: prompt bucket {n} ran in {per[str(int(n))]:.2f}s")
+        finally:
+            self._warmup = False
         return per
 
 

@@ -5,7 +5,9 @@ to power-of-two batch buckets and ``pad_to_multiple`` prompt buckets, and
 the decode length to 32-token buckets (:func:`plan_decode`), as the JAX
 server does to bound its compiled artifacts; here the buckets key a
 small LRU pool of KV caches that are reused in place between requests of
-the same shape instead of reallocated.
+the same shape instead of reallocated.  ``Generation.speculative.draft_k``
+> 0 decodes through the speculative loop (``generate(..., spec=)``), with
+``draft_k`` slack slots in every cache and the draft counts in ``stats``.
 """
 
 from __future__ import annotations
@@ -75,8 +77,10 @@ class GenerationServer:
             forced_bos_token_id=int(gen_cfg.get("forced_bos_token_id", -1)),
             forced_eos_token_id=int(gen_cfg.get("forced_eos_token_id", -1)),
         )
+        # Generation.speculative: {draft_k, drafter, ngram, kv_dtype}; the one
+        # parse site, read by both schedulers (the paged engine inherits it)
         spec_section = dict(gen_cfg.get("speculative", {}) or {})
-        spec_config_from(spec_section)  # raises when speculation is asked for
+        self.spec = spec_config_from(spec_section)
         self.kv_dtype = kv_cache_dtype(str(spec_section.get("kv_dtype", "") or ""))
         seed = int(cfg.get("Global", {}).get("seed", 0))
         self.generator = torch.Generator(device=device).manual_seed(seed)
@@ -84,7 +88,8 @@ class GenerationServer:
         self._cache_pool_size = int(gen_cfg.get("cache_pool_size", 4))
         self.stats: Dict = {
             "requests": 0, "tokens_out": 0, "time_s": 0.0, "gen_errors": 0,
-            "last_latency_s": 0.0, "last_error": "",
+            "last_latency_s": 0.0, "last_error": "", "spec_proposed": 0,
+            "spec_accepted": 0, "spec_accept_rate": 0.0,
         }
 
     @property
@@ -119,14 +124,22 @@ class GenerationServer:
         key = (gen, target, P)
         cache = self._cache_pool.pop(key, None)
         if cache is None:
+            # speculation needs draft_k slack slots for the verify chunk's
+            # rejected tail
+            slack = self.spec.draft_k if self.spec is not None else 0
             cache = init_cache(
-                self.module.config, target, P + run_len, self.device, kv_dtype=self.kv_dtype
+                self.module.config, target, P + run_len + slack, self.device,
+                kv_dtype=self.kv_dtype,
             )
+        spec_stats = None
         try:
             out = generate(
                 self.model, ids, gen, generator=self.generator,
-                prompt_lens=lens, cache=cache,
+                prompt_lens=lens, cache=cache, spec=self.spec,
+                return_spec_stats=self.spec is not None,
             )
+            if self.spec is not None:
+                out, spec_stats = out
             out = out[:n_req].cpu().tolist()
         except Exception as exc:
             # a failed decode leaves the cache half written: drop it
@@ -147,6 +160,12 @@ class GenerationServer:
         self.stats["tokens_out"] += sum(len(o) for o in outs)
         self.stats["time_s"] += dt
         self.stats["last_latency_s"] = round(dt, 4)
+        if spec_stats is not None:
+            self.stats["spec_proposed"] += spec_stats[0]
+            self.stats["spec_accepted"] += spec_stats[1]
+            self.stats["spec_accept_rate"] = (
+                self.stats["spec_accepted"] / self.stats["spec_proposed"]
+                if self.stats["spec_proposed"] else 0.0)
         return outs
 
     def warmup(

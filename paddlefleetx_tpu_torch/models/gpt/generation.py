@@ -26,9 +26,18 @@ positions, budgets and block tables into a shared arena
 (``core/continuous_batching.py``) can admit and retire rows at every
 step boundary.  Its arena writes are in place too.
 
-Beam search, speculative decoding (``decode_step_spec``), chunked paged
-prefill and the KV block gather/scatter of the handoff path are later
-slices of the port; they raise where they are asked for.
+Speculative decoding runs on both halves: ``generate(..., spec=)``
+verifies a [pending, draft_0 .. draft_k-1] chunk per iteration in one
+t = k + 1 forward and commits the batch's least accepted prefix (the
+contiguous cache writes one chunk at a shared position), and
+:func:`decode_step_spec` does the same over the paged arena with a true
+per-row commit.  Greedy output is token-identical to the plain loops:
+every caller samples through the one processor chain,
+:func:`process_step_logits`.
+
+Beam search, chunked paged prefill and the KV block gather/scatter of the
+handoff path are later slices of the port; they raise where they are
+asked for.
 """
 
 from __future__ import annotations
@@ -56,7 +65,12 @@ from paddlefleetx_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     quantize_kv,
 )
-from paddlefleetx_tpu_torch.ops.sampling import sample_logits
+from paddlefleetx_tpu_torch.ops.sampling import filtered_logits, sample_logits
+from paddlefleetx_tpu_torch.ops.speculative import (
+    SpecConfig,
+    ngram_propose,
+    speculative_verify,
+)
 
 
 @dataclasses.dataclass
@@ -314,6 +328,8 @@ def generate(
     prompt_lens: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     return_cache: bool = False,
+    spec: Optional[SpecConfig] = None,
+    return_spec_stats: bool = False,
 ):
     """input_ids [b, P] -> generated ids int64 [b, max_dec_len] (pad-filled
     after a row emits EOS).
@@ -324,10 +340,26 @@ def generate(
 
     ``cache``: a preallocated ``init_cache(cfg, b, P + max_dec_len)`` to
     write into (it is mutated); ``return_cache`` returns ``(tokens,
-    cache)``."""
+    cache)``.
+
+    ``spec`` routes the decode through the speculative loop
+    (:func:`_generate_speculative`): k drafts an iteration, verified in
+    one t = k + 1 forward; greedy output is token-identical to the plain
+    loop.  The cache then needs ``spec.draft_k`` slack slots past
+    ``P + max_dec_len`` for the last chunk's rejected tail.
+    ``return_spec_stats`` appends ``(proposed, accepted)`` draft counts
+    to the returned tuple."""
+    if return_spec_stats and spec is None:
+        raise ValueError("return_spec_stats needs a SpecConfig")
+    if spec is not None and decode_loop_mode() == "scan":
+        raise ValueError(
+            "speculative decoding needs the early-exit decode loop (a variable "
+            "number of tokens an iteration); unset PFX_DECODE_SCAN"
+        )
     cfg = model.config
     b, prompt_len = input_ids.shape
     max_len = prompt_len + gen.max_dec_len
+    cache_len = max_len + (spec.draft_k if spec is not None else 0)
     if max_len > cfg.max_position_embeddings:
         # with prompt_lens the positions are bounded by the real lengths
         real = None if prompt_lens is None else int(prompt_lens.max()) + gen.max_dec_len
@@ -338,13 +370,14 @@ def generate(
             )
     dev = input_ids.device
     pad_len, prefill_pos_ids = _left_pad_prefill(prompt_len, prompt_lens)
-    want = (cfg.num_layers, b, cfg.num_attention_heads, max_len, cfg.head_dim)
+    want = (cfg.num_layers, b, cfg.num_attention_heads, cache_len, cfg.head_dim)
     if cache is None:
-        cache = init_cache(cfg, b, max_len, dev)
+        cache = init_cache(cfg, b, cache_len, dev)
     elif tuple(cache.k.shape) != want:
         raise ValueError(
             f"provided cache shape {tuple(cache.k.shape)} != required {want} "
-            f"(prompt {prompt_len} + max_dec_len {gen.max_dec_len})"
+            f"(prompt {prompt_len} + max_dec_len {gen.max_dec_len}"
+            + (f" + draft_k {spec.draft_k}" if spec is not None else "") + ")"
         )
 
     if pad_len is None:
@@ -361,6 +394,13 @@ def generate(
         position_ids=prefill_pos_ids, kv_valid_from=pad_len,
     )
     last = logits[:, -1, :].float()
+    if spec is not None:
+        tokens, stats = _generate_speculative(
+            model, input_ids, gen, spec, generator, prompt_lens, pad_len, cache, counts, last,
+        )
+        out = (tokens,) + ((cache,) if return_cache else ()) + (
+            (stats,) if return_spec_stats else ())
+        return out if len(out) > 1 else tokens
 
     tokens = torch.full((b, gen.max_dec_len), gen.pad_token_id, dtype=torch.int64, device=dev)
     unfinished = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -391,6 +431,100 @@ def generate(
         )
         last = new_logits[:, -1, :].float()
     return (tokens, cache) if return_cache else tokens
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode loop (contiguous path): each iteration forwards a
+# [pending, draft_0 .. draft_k-1] chunk (t = k + 1) through the same cached
+# forward as the plain loop, verifies the drafts against the target's own
+# processed logits and commits the batch's least accepted prefix plus the
+# pending token: 1 to k + 1 tokens a forward instead of 1.
+# ---------------------------------------------------------------------------
+
+
+def _generate_speculative(model, input_ids, gen, spec, generator, prompt_lens, pad_len, cache,
+                          counts, last):
+    """The speculative spelling of :func:`generate`'s loop, from the
+    prefill's last logits ``last`` [b, v] and the prompt counts on.
+    Returns (tokens [b, max_dec_len], (proposed, accepted)).
+
+    Commit rule: every row verifies its own drafts, but the batch commits
+    the LEAST accepted length m over unfinished rows (one [b, t] chunk
+    is written at one cache position, so rows cannot advance apart).  A
+    row's committed tokens are a verified prefix of its own acceptance,
+    so greedy output equals the plain loop's; a row that accepted more
+    verifies the surplus again next iteration.  A row that hit EOS inside
+    its accepted prefix stops constraining m.
+
+    Cache rewind: the chunk writes K/V at [pos, pos + k], only [pos, pos +
+    m] are committed, and the next chunk starts at pos + m + 1 and spans
+    k + 1 slots, so every stale slot is written again before attention
+    reads it (attention never reads past pos + t).  The cache carries
+    ``draft_k`` slack slots for the last iteration's overrun, whose
+    position ids clamp to the embedding table (never committed)."""
+    cfg = model.config
+    b, prompt_len = input_ids.shape
+    dev = input_ids.device
+    k = spec.draft_k
+    K = k + 1
+    DEC = gen.max_dec_len
+    pad = gen.pad_token_id
+    use_counts = gen.repetition_penalty != 1.0
+    # pending_0: the plain loop's step-0 token, through the same processors
+    p0 = process_step_logits(
+        last, torch.zeros((b,), dtype=torch.int64, device=dev), counts,
+        torch.full((b,), DEC - 1, dtype=torch.int64, device=dev), gen,
+    )
+    if gen.decode_strategy == "greedy_search":
+        pending = torch.argmax(p0, dim=-1)
+    else:
+        pending = sample_logits(
+            p0, temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
+            generator=generator,
+        )
+    # the drafter's context: the prompt, then the committed tokens (with
+    # k + 1 write slack past max_dec_len)
+    ctx = torch.full((b, prompt_len + DEC + K), pad, dtype=torch.int64, device=dev)
+    ctx[:, :prompt_len] = input_ids
+    tokens = ctx[:, prompt_len:]
+    base = (prompt_lens.long() if prompt_lens is not None
+            else torch.full((b,), prompt_len, dtype=torch.int64, device=dev))
+    slots = torch.arange(K, device=dev)
+    unfinished = torch.ones((b,), dtype=torch.bool, device=dev)
+    emitted = proposed = accepted = 0
+    while emitted < DEC:
+        n_alive = int(unfinished.sum())
+        if n_alive == 0:
+            break
+        draft = ngram_propose(ctx, prompt_len + emitted, pending, k, n=spec.ngram)
+        chunk = torch.cat([pending[:, None], draft], dim=1)
+        pos_ids = torch.clamp(base[:, None] + emitted + slots[None, :],
+                              0, cfg.max_position_embeddings - 1)
+        logits_all = forward_cached(model, chunk, cache, prompt_len + emitted,
+                                    position_ids=pos_ids, kv_valid_from=pad_len)
+        sv = speculative_verify(
+            logits_all.float(), chunk, counts if use_counts else None, unfinished, emitted,
+            gen, generator=generator,
+        )
+        # rows finished before the window, or by it (EOS inside their
+        # accepted prefix), stop constraining the commit
+        constraint = torch.where(~unfinished | sv.eos_hit.any(dim=1),
+                                 torch.full_like(sv.accepted, k), sv.accepted)
+        m = min(int(constraint.min()), DEC - 1 - emitted)
+        jmask = slots <= m
+        tokens[:, emitted:emitted + K] = torch.where(jmask[None, :], sv.w,
+                                                     torch.full_like(sv.w, pad))
+        counts.scatter_add_(1, sv.w, jmask[None, :].expand(b, K).to(torch.int32))
+        unfinished = unfinished & ~(sv.eos_hit & jmask[None, :]).any(dim=1)
+        # the next pending token: the already-accepted surplus draft where
+        # the row out-accepted the batch, else the verify candidate
+        # (correction, residual draw or bonus token)
+        nxt = torch.where(sv.accepted > m, chunk[:, min(m + 1, k)], sv.pend[:, m])
+        pending = torch.where(unfinished, nxt, torch.full_like(nxt, pad))
+        emitted += m + 1
+        proposed += k * n_alive
+        accepted += m * n_alive
+    return tokens[:, :DEC].clone(), (proposed, accepted)
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +579,14 @@ class PagedRows:
     ``forced_steps`` the step where ``forced_eos_token_id`` fires (the
     contiguous path's bucketed run end); ``logits`` [B, vocab] float32
     are the pending next-token logits and ``counts`` [B, vocab] int32
-    back the repetition penalty."""
+    back the repetition penalty.
+
+    ``reject`` (speculative steps only, else None) [B]: the draft the
+    last verify REJECTED at exactly the carried logits' position, or -1.
+    Sampled decode masks it out of the filtered distribution before the
+    next draw: the residual rule carried across the step boundary.
+    Greedy ignores it (the argmax already differs from a rejected
+    draft)."""
 
     logits: torch.Tensor
     counts: torch.Tensor
@@ -454,6 +595,7 @@ class PagedRows:
     max_news: torch.Tensor
     active: torch.Tensor
     forced_steps: torch.Tensor
+    reject: Optional[torch.Tensor] = None
 
 
 def _paged_layer_step(
@@ -586,21 +728,27 @@ def paged_prefill(
 
 
 def process_step_logits(logits, steps, counts, forced_steps, gen: GenerationConfig):
-    """THE per-row logits-processor chain (min-length -> repetition
-    penalty -> forced BOS/EOS) of the paged step: ``logits`` [B, vocab]
-    with ``steps``/``forced_steps`` [B] (rows sit at different steps).
-    The same processors as :func:`generate`, per row."""
+    """THE per-step logits-processor chain (min-length -> repetition
+    penalty -> forced BOS/EOS), at any shape: ``logits`` [..., vocab]
+    with ``steps`` / ``forced_steps`` broadcasting over the leading dims
+    (per row on the paged step, per slot on the speculative verify
+    chunk).  The same processors as :func:`generate`.  One function on
+    purpose: :func:`decode_step`, :func:`decode_step_spec`, the
+    speculative prefill seed and ``ops/speculative.speculative_verify``
+    must stay bitwise equal, or greedy speculation drifts from the plain
+    loops.  ``counts`` None skips the repetition penalty (callers pass
+    None only when it is 1.0)."""
     vocab = logits.shape[-1]
-    cols = torch.arange(vocab, device=logits.device)[None, :]
+    cols = torch.arange(vocab, device=logits.device)
     if gen.min_dec_len > 0:
-        eos = (steps < gen.min_dec_len)[:, None] & (cols == gen.eos_token_id)
+        eos = (steps < gen.min_dec_len)[..., None] & (cols == gen.eos_token_id)
         logits = torch.where(eos, torch.full_like(logits, -1e10), logits)
-    logits = apply_repetition_penalty(logits, counts, gen.repetition_penalty)
-    for token_id, at in ((gen.forced_bos_token_id, torch.zeros_like(steps)),
-                         (gen.forced_eos_token_id, forced_steps)):
+    if counts is not None:
+        logits = apply_repetition_penalty(logits, counts, gen.repetition_penalty)
+    for token_id, at in ((gen.forced_bos_token_id, 0), (gen.forced_eos_token_id, forced_steps)):
         if token_id >= 0:
             forced = torch.where(cols == token_id, 0.0, -1e10).to(logits.dtype)
-            logits = torch.where((steps == at)[:, None], forced, logits)
+            logits = torch.where((steps == at)[..., None], forced, logits)
     return logits
 
 
@@ -643,4 +791,102 @@ def decode_step(
         max_news=rows.max_news,
         active=rows.active & ~finished,
         forced_steps=rows.forced_steps,
+    )
+
+
+def decode_step_spec(
+    model: GPTModel,
+    pools: PagedPools,
+    tables: torch.Tensor,
+    rows: PagedRows,
+    drafts: torch.Tensor,
+    gen: GenerationConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, PagedRows]:
+    """ONE speculative iteration over the running batch: the paged
+    spelling of :func:`_generate_speculative`'s body with a TRUE per-row
+    commit (each row owns its positions, so accepted lengths never hold
+    each other back).  ``drafts`` [B, k] are the host's proposals.
+
+    Per row: sample the pending token t0 from ``rows.logits`` through
+    :func:`decode_step`'s processor chain (greedy rows are bitwise the
+    plain step), forward the [t0, draft_0 .. draft_k-1] chunk in ONE
+    t = k + 1 forward (K/V written at positions .. positions + k), verify
+    the drafts with ``speculative_verify`` and commit t0 and the accepted
+    prefix, cut by the row's budget.  The rejected tail's K/V stays in
+    the pools past the row's new position and is written again by the
+    next chunk before any query's causal bound reaches it: positions
+    advance by the committed count only (the per-row rewind).  Block
+    tables are untouched: rows reserved their budget plus ``draft_k``
+    slack slots at admission.
+
+    Returns (window [B, k+1] committed tokens, pad past each row's count;
+    ncommit [B] in [0, k+1], 0 only for inactive rows; the rows' next
+    state, whose ``logits`` are the raw target logits at each row's last
+    committed position and ``reject`` the residual mask of the next
+    sample).  ``rows.counts`` is updated in place."""
+    B, vocab = rows.logits.shape
+    dev = rows.logits.device
+    k = int(drafts.shape[1])
+    K = k + 1
+    i = rows.gen_steps.long()
+    pad = gen.pad_token_id
+    use_counts = gen.repetition_penalty != 1.0
+    logits = process_step_logits(rows.logits, i, rows.counts, rows.forced_steps, gen)
+    if gen.decode_strategy == "greedy_search":
+        t0 = torch.argmax(logits, dim=-1)
+    else:
+        filt = filtered_logits(logits, temperature=gen.temperature, top_k=gen.top_k,
+                               top_p=gen.top_p)
+        if rows.reject is not None:
+            # the residual rule across the step boundary: mask the draft the
+            # last verify rejected at THIS position, after the filters, so
+            # the renormalized nucleus is the exact residual
+            cols = torch.arange(vocab, device=dev)[None, :]
+            hit = (rows.reject >= 0)[:, None] & (cols == rows.reject.long()[:, None])
+            filt = torch.where(hit, torch.full_like(filt, -1e10), filt)
+        t0 = sample_logits(filt, generator=generator)
+    nxt0 = torch.where(rows.active, t0, torch.full_like(t0, pad))
+    chunk = torch.cat([nxt0[:, None], drafts.long()], dim=1)
+
+    logits_all = paged_forward_step(model, chunk, pools, tables, rows.positions, rows.active)
+    sv = speculative_verify(
+        logits_all, chunk, rows.counts if use_counts else None, rows.active, i, gen,
+        forced_steps=rows.forced_steps, generator=generator,
+    )
+
+    # per-row commit: the accepted prefix cut by the decode budget
+    slots = torch.arange(K, device=dev)[None, :]
+    valid = sv.real & ((i[:, None] + slots) < rows.max_news[:, None])
+    ncommit = valid.sum(dim=1)
+    window = torch.where(valid, sv.w, torch.full_like(sv.w, pad))
+    rows.counts.scatter_add_(1, window, (slots < ncommit[:, None]).to(torch.int32))
+    eos_fin = (sv.eos_hit & valid).any(dim=1)
+    finished = rows.active & (eos_fin | ((i + ncommit) >= rows.max_news))
+
+    # the raw logits at each row's last committed position
+    sel = torch.clamp(ncommit - 1, 0, k)
+    new_logits = logits_all[torch.arange(B, device=dev), sel]
+    new_logits = torch.where(rows.active[:, None], new_logits, rows.logits)
+
+    # residual mask: a rejected draft at exactly the carried slot
+    a = sv.accepted
+    a_cl = torch.clamp(a, 0, k - 1)[:, None]
+    ok_at_a = torch.gather(sv.ok, 1, a_cl)[:, 0]
+    real_at_a = torch.gather(sv.real, 1, a[:, None])[:, 0]
+    mism = (a < k) & real_at_a & ~ok_at_a
+    rej_draft = torch.gather(drafts.long(), 1, a_cl)[:, 0]
+    active_after = rows.active & ~finished
+    reject = torch.where(mism & (ncommit == a + 1) & active_after, rej_draft,
+                         torch.full_like(rej_draft, -1)).to(torch.int32)
+    ncommit32 = ncommit.to(rows.positions.dtype)
+    return window, ncommit, PagedRows(
+        logits=new_logits,
+        counts=rows.counts,
+        positions=rows.positions + ncommit32,
+        gen_steps=rows.gen_steps + ncommit32,
+        max_news=rows.max_news,
+        active=active_after,
+        forced_steps=rows.forced_steps,
+        reject=reject,
     )

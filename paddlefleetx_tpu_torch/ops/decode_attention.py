@@ -67,12 +67,18 @@ _MAX_HEAD_DIM = 128
 # bf16/f32 kernel and "flash_decode_q8" / "paged_decode_q8" every launch
 # of the int8 one, on either route; "<kernel>_sm90" those on the sm90
 # route, and "<kernel>_sm90_prefill" those of them that took its prefill
-# kernel (t > SPLIT_MAX_ROWS).  Process-wide; reset with reset_counts().
+# kernel (t > SPLIT_MAX_ROWS).  "<kernel>_multi" counts the multi-query
+# launches (1 < t <= SPLIT_MAX_ROWS: the speculative verify chunk) on
+# either route and "<kernel>_sm90_multi" those on the sm90 route.
+# Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
+    "flash_decode_multi": 0, "flash_decode_sm90_multi": 0,
     "flash_decode_q8": 0, "flash_decode_q8_sm90": 0, "flash_decode_q8_sm90_prefill": 0,
-    "plain": 0, "paged_decode": 0, "paged_decode_sm90": 0, "paged_decode_q8": 0,
-    "paged_decode_q8_sm90": 0, "paged_plain": 0,
+    "flash_decode_q8_multi": 0, "flash_decode_q8_sm90_multi": 0,
+    "plain": 0, "paged_decode": 0, "paged_decode_sm90": 0, "paged_decode_multi": 0,
+    "paged_decode_sm90_multi": 0, "paged_decode_q8": 0, "paged_decode_q8_sm90": 0,
+    "paged_decode_q8_multi": 0, "paged_decode_q8_sm90_multi": 0, "paged_plain": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -95,6 +101,16 @@ PAGED_SPLIT_KEYS = 256
 def reset_counts() -> None:
     for key in COUNTS:
         COUNTS[key] = 0
+
+
+def _count(name: str, t: int, route: str) -> None:
+    """One launch of kernel ``name`` with ``t`` queries a row on ``route``."""
+    multi = 1 < t <= SPLIT_MAX_ROWS
+    COUNTS[name] += 1
+    COUNTS[f"{name}_multi"] += multi
+    if route == "sm90":
+        COUNTS[f"{name}_sm90"] += 1
+        COUNTS[f"{name}_sm90_multi"] += multi
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -364,8 +380,7 @@ def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_sca
     if rc != 0:
         msg = lib.flash_decode_sm90_error_string(rc).decode()
         raise RuntimeError(f"{name} (sm90) kernel launch failed: CUDA error {rc} ({msg})")
-    COUNTS[name] += 1
-    COUNTS[f"{name}_sm90"] += 1
+    _count(name, t, "sm90")
     if t > SPLIT_MAX_ROWS:
         COUNTS[f"{name}_sm90_prefill"] += 1
 
@@ -420,17 +435,18 @@ def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
             k_scale.data_ptr(), v_scale.data_ptr(), vf_ptr, out.data_ptr(),
             b, n, t, L, d, int(limit), float(scale), _DTYPE_CODES[q_t.dtype], stream,
         )
-        COUNTS["flash_decode_q8"] += 1
+        name = "flash_decode_q8"
     else:
         rc = lib.flash_decode(
             q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), vf_ptr,
             out.data_ptr(), b, n, t, L, d, int(limit), float(scale),
             _DTYPE_CODES[q_t.dtype], stream,
         )
-        COUNTS["flash_decode"] += 1
+        name = "flash_decode"
     if rc != 0:
         msg = lib.flash_decode_error_string(rc).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} ({msg})")
+    _count(name, t, "cuda_core")
     return out
 
 
@@ -727,8 +743,7 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
     if route == "sm90":
         _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
                            stream, split_keys)
-        COUNTS[name] += 1
-        COUNTS[f"{name}_sm90"] += 1
+        _count(name, t, "sm90")
         return out
     lib = _paged_lib()
     if quant:
@@ -737,17 +752,16 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
             v_scale.data_ptr(), tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             b, n, t, M, bs, d, nb, float(scale), _DTYPE_CODES[q_t.dtype], stream,
         )
-        COUNTS["paged_decode_q8"] += 1
     else:
         rc = lib.paged_decode(
             q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
             positions.data_ptr(), out.data_ptr(), b, n, t, M, bs, d, nb, float(scale),
             _DTYPE_CODES[q_t.dtype], stream,
         )
-        COUNTS["paged_decode"] += 1
     if rc != 0:
         msg = lib.paged_decode_error_string(rc).decode()
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc} ({msg})")
+    _count(name, t, "cuda_core")
     return out
 
 

@@ -143,7 +143,20 @@ def sample_logits(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """temperature -> top-k -> top-p -> categorical, for logits [b, vocab]
-    -> ids [b].  The top-p stage draws through :func:`sample_top_p_topk`."""
+    -> ids [b].  The top-p stage draws through :func:`sample_top_p_topk`.
+
+    Logits [b, K, vocab] (K positions) give ids [b, K]: each position is
+    an independent draw of the [b, vocab] form, in position order from
+    ``generator``.  The speculative verify rule draws its fresh and
+    residual candidates this way with every filter at its identity
+    setting: it filters once itself (``filtered_logits``), and filtering
+    again would re-truncate the renormalized nucleus."""
+    if logits.dim() == 3:
+        return torch.stack([
+            sample_logits(logits[:, j], temperature=temperature, top_k=top_k, top_p=top_p,
+                          top_p_prefilter_k=top_p_prefilter_k, generator=generator)
+            for j in range(logits.shape[1])
+        ], dim=1)
     if temperature != 1.0:
         logits = logits / temperature
     if top_k > 0:

@@ -8,9 +8,11 @@ Counterpart of ``tools/serve.py`` with its two schedulers:
     POST /generate  {"prompt_ids": [...], "max_tokens": 32, "deadline_s": 30}
                     -> {"completion_ids": [...]}
                     ("prompts_ids": [[...], ...] -> {"completions_ids": [...]})
-    GET  /healthz   state, queue and serving stats, and the attention
-                    kernels' launch counts since traffic began (flash
-                    decode, paged decode, and their plain versions)
+    GET  /healthz   state, queue and serving stats (with speculation:
+                    spec_proposed, spec_accepted, spec_accept_rate), and
+                    the attention kernels' launch counts since traffic
+                    began (flash decode, paged decode, their multi-query
+                    launches and their plain versions)
 
 Requests go through a bounded admission queue: a full queue answers 429
 with Retry-After, an expired deadline 503.  ``--scheduler coalesce``
@@ -21,13 +23,15 @@ continuous``: iteration-level scheduling over the paged KV arena
 arena blocks, block size PFX_KV_BLOCK): rows join and leave the running
 decode batch at every step.  SIGTERM or SIGINT drains: admission closes,
 every admitted request is answered, and the process exits 0 (a second
-signal force-quits).
+signal force-quits).  ``--draft-k N`` (the override
+``Generation.speculative.draft_k=N``) turns on speculative decoding on
+either scheduler: n-gram self-drafting, N drafts verified a step in one
+t = N + 1 forward; greedy output stays token-identical.
 
 The model runs on the card (``--device cuda``, the default) and the
 command fails without one; ``--device cpu`` runs the plain PyTorch path.
 Weights are random, drawn from ``Global.seed``.  Not ported yet, and
-refused where asked for: beam search, speculative decoding, checkpoint
-and tokenizer loading, token streaming, tenancy headers, ``/metrics``,
+refused where asked for: beam search, checkpoint and tokenizer loading, token streaming, tenancy headers, ``/metrics``,
 ``/debug/*`` and ``/admin/*``; the JAX CLI's prefix-cache and
 chunked-prefill flags do not exist here yet.
 """
@@ -308,6 +312,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; fails without a card) or cpu (the "
                     "plain PyTorch path)")
+    ap.add_argument("--draft-k", type=int, default=-1,
+                    help="speculative decoding: draft tokens per verify step "
+                    "(overrides Generation.speculative.draft_k; 0 disables, -1 "
+                    "leaves the config value)")
     ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="",
                     help="KV-cache storage dtype (overrides Generation."
                     "speculative.kv_dtype); int8 runs the q8 kernel")
@@ -340,6 +348,10 @@ def main(argv=None) -> int:
                     help="continuous scheduler: KV arena blocks (0 = cb-batch "
                     "full-context rows + the null block); block size PFX_KV_BLOCK")
     args = ap.parse_args(argv)
+    # the spec and KV flags are plain config overrides, so both schedulers
+    # read one Generation.speculative section
+    if args.draft_k >= 0:
+        args.override.append(f"Generation.speculative.draft_k={args.draft_k}")
     if args.kv_dtype:
         args.override.append(f"Generation.speculative.kv_dtype={args.kv_dtype}")
 

@@ -227,14 +227,22 @@ def test_engine_matches_jax_engine(servers, sequential, kv_dtype):
 
 def test_engine_refuses_what_is_not_ported(servers):
     _, pserver = servers
-    for kw in ({"spec": object()}, {"prefix_cache_blocks": 8}, {"prefix_spill_bytes": 1},
-               {"prefill_chunk": 16}):
+    for kw in ({"prefix_cache_blocks": 8}, {"prefix_spill_bytes": 1}, {"prefill_chunk": 16}):
         with pytest.raises(NotImplementedError):
             PagedDecodeEngine(pserver, **kw)
     with pytest.raises(NotImplementedError):
         pt_pc.PagedCacheManager(8, prefix_blocks=4)
-    with pytest.raises(NotImplementedError):  # Generation.speculative.draft_k
-        _server_with({"speculative": {"draft_k": 2}})
+    # speculation is ported: Generation.speculative.draft_k reaches the engine
+    # (spec="auto"), which reserves draft_k slack slots a row; a spec that is
+    # not a SpecConfig is refused
+    spec_server = _server_with({"speculative": {"draft_k": 2}})
+    eng = PagedDecodeEngine(spec_server, max_batch=2, block=8)
+    assert eng.spec is spec_server.spec and eng.spec.draft_k == 2
+    assert eng.row_capacity_tokens(5, 6) == PagedDecodeEngine(
+        pserver, max_batch=2, block=8).row_capacity_tokens(5, 6) + 2
+    assert PagedDecodeEngine(spec_server, max_batch=2, block=8, spec=None).spec is None
+    with pytest.raises(ValueError, match="SpecConfig"):
+        PagedDecodeEngine(pserver, spec=object())
     sched = build_scheduler(pserver, "continuous", queue_depth=4, max_coalesce=4)
     assert isinstance(sched, ContinuousScheduler) and sched.engine.capacity == 8
     with pytest.raises(ValueError):

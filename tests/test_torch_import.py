@@ -31,6 +31,14 @@ TRAINING = ("paddlefleetx_tpu_torch.core.engine", "paddlefleetx_tpu_torch.models
             "paddlefleetx_tpu_torch.data.indexed", "paddlefleetx_tpu_torch.utils.checkpoint",
             "paddlefleetx_tpu_torch.utils.registry", "paddlefleetx_tpu_torch.utils.resilience",
             "paddlefleetx_tpu_torch.utils.telemetry", "paddlefleetx_tpu_torch.tools.train")
+# the serving modules speculative decoding runs through, each imported above
+# without JAX
+SPECULATIVE = ("paddlefleetx_tpu_torch.ops.speculative", "paddlefleetx_tpu_torch.ops.sampling",
+               "paddlefleetx_tpu_torch.ops.decode_attention",
+               "paddlefleetx_tpu_torch.models.gpt.generation",
+               "paddlefleetx_tpu_torch.core.serving",
+               "paddlefleetx_tpu_torch.core.continuous_batching",
+               "paddlefleetx_tpu_torch.tools.serve")
 
 
 def _run(args, **kw):
@@ -47,6 +55,7 @@ def test_port_imports_no_jax():
     assert int(count) >= 25, out.stdout
     assert bad == "[]", out.stdout
     assert set(TRAINING) <= set(listed.split()), listed
+    assert set(SPECULATIVE) <= set(listed.split()), listed
 
 
 def test_serve_without_card_raises():

@@ -431,6 +431,226 @@ def test_paged_engine_on_card_matches_cpu(kv_dtype):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding: K7 / K8 / K9 at the verify chunk's t = draft_k + 1
+# ---------------------------------------------------------------------------
+
+# t = 5 (draft_k 4, the served default), 8, 16 (the split-K kernels' and the
+# sm90 paged route's last t) and 17 (K7/K8's tensor-core prefill, K9's
+# CUDA-core kernel).  Rows sit at rewound positions: the rejected tail of
+# an earlier, longer chunk stays past each query's causal bound, NaN here.
+VERIFY_TS = [5, 8, 16, 17]
+VERIFY_LENS = (12, 20, 28, 36, 44, 52, 60, 64)  # chip_smoke.py's request D
+
+
+def _multi_delta(before, key, t, sm90):
+    """The multi-query and prefill counts one launch at ``t`` should add."""
+    multi = int(1 < t <= da.SPLIT_MAX_ROWS)
+    return {f"{key}_multi": multi, f"{key}_sm90_multi": multi * sm90,
+            f"{key}_sm90": sm90}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", VERIFY_TS)
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_contiguous_verify_chunk_over_a_stale_tail(kv_dtype, t):
+    """K7 (bf16 caches) and K8 (int8) against the plain version at request
+    D's rows (batch 8, 16 heads, d = 64, left pads), the chunk at
+    positions [pos, pos + t) of a cache rewound to pos = 80; NaN in every
+    slot at or past pos + t (int8: NaN scales, the payload at the int8
+    extremes) leaves the output bitwise unchanged."""
+    dev = _card()
+    b, n, d, pos = 8, 16, 64, 80
+    L = pos + 16 + 1 + 4  # the bucket, the decode budget and draft_k slack
+    limit = pos + t
+    g = torch.Generator().manual_seed(t)
+    q = torch.randn(b, n, t, d, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(b, n, L, d, generator=g)
+    v = torch.randn(b, n, L, d, generator=g)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, ks = da.quantize_kv(k)
+        v, vs = da.quantize_kv(v)
+        ks, vs = ks.to(dev), vs.to(dev)
+    k, v = k.to(dev, kv_dtype), v.to(dev, kv_dtype)
+    vf = torch.tensor([64 - x for x in VERIFY_LENS], dtype=torch.int32, device=dev)
+    scale = 1.0 / d**0.5
+    key = "flash_decode_q8" if kv_dtype == torch.int8 else "flash_decode"
+    before = dict(da.COUNTS)
+    clean = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    torch.cuda.synchronize()
+    for name, want in _multi_delta(before, key, t, 1).items():
+        assert da.COUNTS[name] - before[name] == want, name
+    assert da.COUNTS[f"{key}_sm90_prefill"] - before[f"{key}_sm90_prefill"] == int(t > 16)
+    ref = da.decode_attention_plain(q, k, v, limit, vf, da.decode_block(L), scale, ks, vs)
+    assert (clean - ref).abs().max().item() <= TOL[kv_dtype]
+    if ks is None:
+        k[:, :, limit:] = float("nan")
+        v[:, :, limit:] = float("nan")
+    else:
+        ks[:, :, limit:] = float("nan")
+        vs[:, :, limit:] = float("nan")
+        k[:, :, limit:] = 127
+        v[:, :, limit:] = -128
+    got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", VERIFY_TS)
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_paged_verify_chunk_over_a_stale_tail(kv_dtype, t):
+    """K9 against its plain version at the continuous path's verify chunk:
+    batch 8, 16 heads, d = 64, block 16, rows at request D's lengths plus
+    16 generated tokens, each table holding the row's reserved blocks
+    (positions + t plus draft_k slack, so blocks past the bound are in the
+    table); NaN past every query's bound positions + j + 1, in the row's
+    last block and in its slack blocks, leaves the output bitwise
+    unchanged.  t <= 16 takes the sm90 route, t = 17 the CUDA-core one."""
+    dev = _card()
+    b, n, d, bs = 8, 16, 64, 16
+    positions = [x + 16 for x in VERIFY_LENS]
+    g = torch.Generator().manual_seed(t)
+    need = [(p + t - 1 + 16) // bs + 1 for p in positions]  # reserved: + slack
+    M = 1
+    while M < max(need):
+        M *= 2
+    nb = sum(need) + 1
+    ids = (torch.randperm(nb - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((b, M), dtype=torch.int32)
+    at = 0
+    for i, c in enumerate(need):
+        tables[i, :c] = torch.tensor(ids[at:at + c], dtype=torch.int32)
+        at += c
+    q = torch.randn(b, t, n, d, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(nb, n, bs, d, generator=g)
+    v = torch.randn(nb, n, bs, d, generator=g)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, ks = da.quantize_kv(k)
+        v, vs = da.quantize_kv(v)
+        ks, vs = ks.to(dev), vs.to(dev)
+    k, v = k.to(dev, kv_dtype), v.to(dev, kv_dtype)
+    tables = tables.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    route = da.paged_kernel_route(q.dtype, d, t, bs)
+    assert route == ("sm90" if t <= 16 else "cuda_core")
+    key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
+    before = dict(da.COUNTS)
+    clean = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    for name, want in _multi_delta(before, key, t, int(route == "sm90")).items():
+        assert da.COUNTS[name] - before[name] == want, name
+    q_t = q.transpose(1, 2).contiguous()
+    ref = da.paged_decode_attention_plain(q_t, k, v, tables, pos, 1.0 / d**0.5, ks, vs)
+    want = ref.transpose(1, 2).to(q.dtype).float()
+    assert (clean.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    _poison_past_bounds(k, v, ks, vs, tables, pos, t)
+    got = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+
+
+def _spec_card_server(dev, draft_k, kv_dtype="bf16"):
+    """A bf16 TINY model at head dim 64 (hidden 128, 2 heads, 2 layers,
+    vocab 96) on the card, so both attention kernels take their sm90
+    routes, with ``Generation.speculative.draft_k``."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.utils.config import AttrDict, process_configs
+
+    cfg = process_configs(AttrDict.from_nested({
+        "Global": {"seed": 3},
+        "Engine": {"mix_precision": {"enable": False}},
+        "Model": {"module": "GPTModule", "vocab_size": 96, "hidden_size": 128,
+                  "num_layers": 2, "num_attention_heads": 2,
+                  "max_position_embeddings": 128, "dtype": "bfloat16"},
+        "Generation": {"max_dec_len": 24, "decode_strategy": "greedy_search",
+                       "pad_to_multiple": 8, "eos_token_id": -1, "pad_token_id": 0,
+                       "speculative": {"draft_k": draft_k, "kv_dtype": kv_dtype}},
+    }))
+    module = GPTModule(cfg)
+    return GenerationServer(cfg, module, module.init_model(3, dev), dev)
+
+
+# an answer token's logit under its prefix's argmax, in bf16 ulps of the
+# argmax (chip_smoke.py's SPEC_ULPS): the verify chunk's GEMMs and attention
+# run at t = k + 1 and round differently from the t = 1 step, which flips
+# near-ties of the top two logits; a wrongly accepted draft sits far below
+SPEC_ULPS = 4.0
+
+
+def _deficit_ulps(server, prompt, answer):
+    """Teacher-force ``prompt + answer`` through the server's model (one
+    prefill over a cache of its KV dtype): the largest gap, in bf16 ulps
+    of the argmax, between an answer token's logit and its prefix's
+    argmax."""
+    import math
+
+    from paddlefleetx_tpu_torch.models.gpt import generation as gen_mod
+
+    ids = torch.tensor([prompt + answer], device=server.device)
+    with torch.inference_mode():
+        cache = gen_mod.init_cache(server.module.config, 1, ids.shape[1], server.device,
+                                   kv_dtype=server.kv_dtype)
+        lg = gen_mod.forward_cached(server.model, ids, cache, 0)[0].float()
+    lg = lg[len(prompt) - 1: len(prompt) - 1 + len(answer)]
+    top = lg.max(dim=-1).values.tolist()
+    chosen = lg.gather(-1, torch.tensor(answer, device=server.device)[:, None])[:, 0].tolist()
+    return max((a - c) / 2.0 ** (math.floor(math.log2(max(abs(a), 2.0**-126))) - 7)
+               for a, c in zip(top, chosen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft_k", [4, 16])
+@pytest.mark.parametrize("scheduler", ["coalesce", "continuous"])
+def test_spec_serving_on_card_matches_plain(scheduler, draft_k):
+    """Greedy speculation on the card against the plain loop, on both
+    schedulers: every token of either answer is its prefix's argmax up to
+    SPEC_ULPS (the two agree up to a near-tie of the top two bf16 logits).
+    draft_k 4 verifies at t = 5 (K7's split-K kernel, K9's sm90 route);
+    draft_k 16 at t = 17, where K7 takes its tensor-core prefill and K9
+    its CUDA-core kernel (csrc/paged_attention.cu)."""
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    # a 24-token bucket: the coalescing path's prefill takes K7's prefill
+    # kernel, so its multi-query launches are the verify chunks'
+    prompts = [rng.integers(1, 90, size=n).tolist() for n in (5, 20, 3, 9)]
+    outs, used, worst = {}, {}, {}
+    for k in (0, draft_k):
+        server = _spec_card_server(dev, k)
+        assert (server.spec is None) == (k == 0)
+        before = dict(da.COUNTS)
+        if scheduler == "coalesce":
+            outs[k] = server.generate_ids(prompts, max_dec_len=24)
+        else:
+            eng = PagedDecodeEngine(server, max_batch=4, block=16)
+            slots = [eng.admit(p, 24) for p in prompts[:2]]
+            eng.step()
+            slots += [eng.admit(p, 24) for p in prompts[2:]]  # admitted mid-decode
+            while eng.active.any():
+                eng.step()
+            outs[k] = [eng.slots[s].tokens for s in slots]
+        used[k] = {key: da.COUNTS[key] - before[key] for key in da.COUNTS}
+        worst[k] = max(_deficit_ulps(server, p, a) for p, a in zip(prompts, outs[k]))
+    assert [len(a) for a in outs[draft_k]] == [len(a) for a in outs[0]] == [24] * 4
+    assert max(worst.values()) <= SPEC_ULPS, (worst, outs)
+    got = used[draft_k]
+    assert got["plain"] == 0 and got["paged_plain"] == 0, got
+    if scheduler == "coalesce":
+        if draft_k == 16:  # every verify chunk on the tensor-core prefill
+            assert got["flash_decode_sm90_prefill"] > 0 and got["flash_decode_multi"] == 0
+        else:
+            assert got["flash_decode_sm90_multi"] == got["flash_decode_multi"] > 0
+    elif draft_k == 16:  # K9 past the sm90 route's t <= 16: the CUDA-core kernel
+        assert got["paged_decode"] > 0 and got["paged_decode_sm90"] == 0, got
+    else:
+        assert got["paged_decode_sm90_multi"] == got["paged_decode"] > 0, got
+
+
+# ---------------------------------------------------------------------------
 # flash attention: K3 (forward), K4 + K5 (split backward), K6 (fused)
 # ---------------------------------------------------------------------------
 

@@ -125,8 +125,14 @@ def test_warmup_validates_buckets(server):
 
 
 def test_unported_features_fail_loudly():
-    with pytest.raises(NotImplementedError):
-        _server({"speculative": {"draft_k": 4}})
+    # speculative decoding is ported: the section parses and is served
+    spec = _server({"speculative": {"draft_k": 4}})
+    assert spec.spec.draft_k == 4 and spec.spec.drafter == "ngram"
+    assert spec.generate_ids([[1, 2, 3]], max_dec_len=4) == _server().generate_ids(
+        [[1, 2, 3]], max_dec_len=4)
+    assert spec.stats["spec_proposed"] > 0
+    with pytest.raises(ValueError):  # an unknown drafter stays loud
+        _server({"speculative": {"draft_k": 4, "drafter": "medusa"}})
     with pytest.raises(NotImplementedError):
         _server({"decode_strategy": "beam_search"})
     with pytest.raises(NotImplementedError):
