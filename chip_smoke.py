@@ -146,7 +146,38 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      own prefix (the verify chunk's t = 5 GEMMs and attention round
      differently from the t = 1 step's, which flips near-ties of the top
      two logits); prints tokens/s with and without speculation and the
-     accept rate.
+     accept rate;
+  17. K9 at chunk width (a chunked prefill's chunk, a prefix hit's suffix):
+     one row, 16 heads, d = 64, block 16, bf16 and int8 pools, t = 256 at
+     slot 0 and at slot 512 (over a 512-token cached prefix), t = 64 and
+     t = 16 at slot 512, against the plain version (bf16 2e-2, int8 1e-4),
+     with CUDA-event times of the kernel, the plain version and SDPA over
+     the gathered keys with the causal-offset mask (bf16), and the bound;
+     t > 16 takes the CUDA-core kernel and counts in ``*_chunk``; NaN in
+     the null block, a spare block and past the last query's bound leaves
+     the output bitwise unchanged, and a repeat call gives the same bits;
+  18. chunked prefill and prefix reuse served at full width:
+     ``tools.serve --scheduler continuous --prefill-chunk 256
+     --prefix-cache-blocks 40 --prefix-spill-bytes 256 MiB``, bf16 and
+     int8 KV, greedy, 32 new tokens.  Two prompt families of a 512-token
+     shared prefix and 32-128-token suffixes, sent one at a time as A A A
+     B B B A A (the index holds one family's blocks, not two: B evicts A
+     to host RAM, A's return reads it back), and a 900-token prompt sent
+     while the seventh request decodes.  /healthz must show prefix hits,
+     spills, readmits and chunks, prompt tokens computed below the prompts'
+     sum, the long prompt's later chunks each run beside a decode step,
+     every K9 chunk launch (t = 256) on the CUDA-core route and every
+     other K9 launch on the sm90 one, no contiguous prefill and no plain
+     call; every answered token within ``SPEC_ULPS`` bf16 ulps of its
+     prefix's argmax under teacher forcing;
+  19. the same engine flags in float32, card against CPU, at full width
+     cut to ``PFX_F32_LAYERS`` layers, float32 and int8 pools: families A,
+     A, B, A (a hit, a spill, a readmit) and the 900-token prompt
+     streaming in while A decodes (one chunk a step, the decoding row one
+     token a step).  Greedy tokens and the reuse accounting identical card
+     against CPU, each prompt's first-step logits within 1e-3; with
+     float32 pools the tokens also identical to the card's own monolithic
+     uncached run, its logits within 1e-3.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -229,6 +260,16 @@ VERIFY_TS = (SPEC_K + 1, 8, 16, 17)
 # argmax: ties and near-ties flip with rounding (PERF.md), a wrong token
 # sits far below
 SPEC_ULPS = 4.0
+# phase 17: K9 at chunk width, one row: (t, slot of its first query)
+CHUNK_CASES = ((256, 0), (256, 512), (64, 512), (16, 512))
+# phases 18-19: prompt families of a PFX_LEN-token shared prefix, chunks of
+# PFX_CHUNK, an index of PFX_BLOCKS blocks (one family's published blocks,
+# not two), PFX_SPILL bytes of host RAM, and a LONG_PROMPT-token prompt
+PFX_LEN, PFX_CHUNK, PFX_BLOCKS, PFX_SPILL = 512, 256, 40, 256 << 20
+PFX_FAMILIES = "AAABBBAA"
+PFX_SUFFIXES = (32, 64, 96, 128, 48, 80, 112, 40)
+LONG_PROMPT = 900
+PFX_F32_LAYERS = 4
 # phases 4, 7 and 16: the traffic runs this many times a server, the first
 # round checked, every round timed (tokens/s: the rounds' median)
 TIMED_ROUNDS = 3
@@ -1928,6 +1969,307 @@ def phase_spec_check(torch, plain, spec):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: K9 at chunk width
+# ---------------------------------------------------------------------------
+
+
+def phase_chunk_kernel(torch, F, da):
+    """K9 at :data:`CHUNK_CASES` through the wrapper the engine calls,
+    against its plain version with CUDA-event times, SDPA's over the
+    gathered keys (bf16) and the bound; a launch wider than
+    SPLIT_MAX_ROWS counts in ``*_chunk``; NaN in the null block, a spare
+    block and past the last query's bound leaves the output unchanged, and
+    a repeat call gives the same bits."""
+    rows = {}
+    for name, kind in (("paged_decode", "bfloat16"), ("paged_decode_q8", "int8")):
+        rows[name] = []
+        for t, pos in CHUNK_CASES:
+            before = dict(da.COUNTS)
+            row = paged_case(torch, F, da, kind, t, [pos], iters=50)
+            launched = da.COUNTS[name] - before[name]
+            chunked = da.COUNTS[f"{name}_chunk"] - before[f"{name}_chunk"]
+            check(launched > 0 and chunked == launched * (t > da.SPLIT_MAX_ROWS),
+                  f"{name} t={t}: {chunked} of {launched} launches counted as chunks")
+            row["pos"] = pos
+            rows[name].append(row)
+            log_paged(f"{name} chunk at slot {pos}", row)
+            paged_poison(torch, da, positions=[pos], ts=(t,), kinds=(kind,))
+    for row, ref in zip(rows["paged_decode_q8"], rows["paged_decode"]):
+        row["bf16_ms"] = ref["ms"]
+    log("chunk_cases " + json.dumps(rows))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 18: chunked prefill and prefix reuse served at full width
+# ---------------------------------------------------------------------------
+
+
+def prefix_prompts():
+    """Phase 18-19's prompts: the families' requests in PFX_FAMILIES order
+    (each a PFX_LEN-token family prefix and its own suffix) and the
+    LONG_PROMPT-token prompt."""
+    pa, pb = prompts(17, [PFX_LEN, PFX_LEN])
+    sfx = prompts(18, PFX_SUFFIXES)
+    seq = [(pa if f == "A" else pb) + s for f, s in zip(PFX_FAMILIES, sfx)]
+    return seq, prompts(19, [LONG_PROMPT])[0]
+
+
+def serve_prefix(kv_dtype, env):
+    """Phase 18: the families one request at a time, the long prompt sent
+    while the seventh request decodes.  Returns (the traffic's kernel
+    counts, the run's numbers, answers and prompts)."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
+           "--port", str(port), "--scheduler", "continuous", "--cb-batch", "8",
+           "--prefill-chunk", str(PFX_CHUNK), "--prefix-cache-blocks", str(PFX_BLOCKS),
+           "--prefix-spill-bytes", str(PFX_SPILL),
+           "-o", "Generation.decode_strategy=greedy_search",
+           "-o", f"Generation.max_dec_len={MAX_NEW}"]
+    if kv_dtype:
+        cmd += ["--kv-dtype", kv_dtype]
+    seq, long_ = prefix_prompts()
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out_lines = []
+    reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout), daemon=True)
+    reader.start()
+
+    def ask(p, out, i):
+        try:
+            out[i] = http(port, "/generate", {"prompt_ids": p, "max_tokens": MAX_NEW})
+        except Exception as e:  # noqa: BLE001 — reported below
+            out[i] = e
+
+    try:
+        health = None
+        while health is None:
+            check(proc.poll() is None,
+                  f"server exited {proc.returncode}: {''.join(out_lines)[-3000:]}")
+            check(time.time() - t0 < 420, "server did not come up in 420 s")
+            try:
+                health = http(port, "/healthz", timeout=5)
+            except OSError:
+                time.sleep(1)
+        boot_s = time.time() - t0
+        check(health["identity"]["device"].startswith("cuda"), f"server device {health}")
+        check(all(v == 0 for v in health["kernels"].values()),
+              f"kernel counts not 0 before traffic: {health['kernels']}")
+        serving0 = health["serving"]
+        results = {}
+        t1 = time.time()
+        for i in range(6):
+            ask(seq[i], results, i)
+        # the long prompt arrives once the seventh request decodes
+        steps_at = http(port, "/healthz", timeout=30)["serving"]["steps"]
+        th = threading.Thread(target=ask, args=(seq[6], results, 6))
+        th.start()
+        while http(port, "/healthz", timeout=30)["serving"]["steps"] < steps_at + 2:
+            check(time.time() - t1 < 300, "the seventh request never stepped")
+            time.sleep(0.005)
+        window0 = http(port, "/healthz", timeout=30)["serving"]
+        ask(long_, results, "long")
+        th.join(timeout=600)
+        window1 = http(port, "/healthz", timeout=30)["serving"]
+        ask(seq[7], results, 7)
+        wall = time.time() - t1
+        health = http(port, "/healthz", timeout=30)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        check(rc == 0, f"server drain exit {rc}: {''.join(out_lines)[-3000:]}")
+        check("drained cleanly" in "".join(out_lines), "no clean-drain line")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    names = list(range(len(seq))) + ["long"]
+    for i in names:
+        check(isinstance(results.get(i), dict), f"request {i}: {results.get(i)}")
+        check_rows([results[i]["completion_ids"]], f"request {i}")
+    kernels, serving = health["kernels"], health["serving"]
+
+    def delta(a, b, *path):
+        for k in path:
+            a, b = a[k], b[k]
+        return b - a
+
+    hits = delta(serving0, serving, "prefix", "hits")
+    spills = delta(serving0, serving, "spill", "spills")
+    readmits = delta(serving0, serving, "spill", "readmits")
+    chunks = delta(serving0, serving, "prefill_chunks")
+    steps = delta(serving0, serving, "steps")
+    computed = delta(serving0, serving, "prefill_tokens")
+    sent = sum(len(p) for p in seq) + len(long_)
+    check(hits > 0 and spills >= 1 and readmits >= 1 and chunks > 0,
+          f"no reuse: hits {hits} spills {spills} readmits {readmits} chunks {chunks}: {serving}")
+    check(computed < sent, f"{computed} prompt tokens computed of {sent} sent: no reuse")
+    long_chunks = -(-LONG_PROMPT // PFX_CHUNK)
+    beside = delta(window0, window1, "interleaved_chunks")
+    check(beside >= long_chunks - 1 and delta(window0, window1, "steps") >= long_chunks,
+          f"the long prompt's chunks did not run beside decode steps: {beside} of "
+          f"{long_chunks - 1} interleaved, window {window0} -> {window1}")
+    key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
+    check(kernels["paged_plain"] == 0 and kernels["plain"] == 0,
+          f"plain version ran on the card: {kernels}")
+    check(kernels["flash_decode"] == 0 and kernels["flash_decode_q8"] == 0,
+          f"a monolithic prefill ran beside --prefill-chunk: {kernels}")
+    check(kernels[f"{key}_chunk"] == N_LAYERS * chunks and kernels[key] == N_LAYERS * (steps + chunks),
+          f"{key}: {kernels[key]} launches ({kernels[f'{key}_chunk']} chunk) for {steps} steps "
+          f"and {chunks} chunks")
+    check(kernels[f"{key}_sm90"] == kernels[key] - kernels[f"{key}_chunk"],
+          f"{key}: a t = 1 launch off the sm90 route or a chunk on it: {kernels}")
+    info = {"boot_s": boot_s, "traffic_s": wall, "hits": hits,
+            "hit_tokens": delta(serving0, serving, "prefix", "hit_tokens"),
+            "misses": delta(serving0, serving, "prefix", "misses"),
+            "evictions": delta(serving0, serving, "prefix", "evictions"), "spills": spills,
+            "readmits": readmits, "spill_discards": delta(serving0, serving, "spill", "discards"),
+            "prefill_chunks": chunks, "prefill_tokens": computed, "prompt_tokens": sent,
+            "steps": steps, "long_interleaved_chunks": beside,
+            "prefix_cached_blocks": serving["prefix_cached_blocks"],
+            "prefix_spill_bytes": serving["prefix_spill_bytes"],
+            "answers": [results[i]["completion_ids"] for i in names],
+            "prompts": seq + [long_]}
+    log(f"  prefix kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, {len(names)} requests in "
+        f"{wall:.2f}s; {hits} hits ({info['hit_tokens']} tokens), {spills} spills, {readmits} "
+        f"readmits, {chunks} chunks, {computed} of {sent} prompt tokens computed, {steps} "
+        f"steps, the long prompt's chunks beside decode {beside}; kernels {kernels}")
+    return kernels, info
+
+
+def phase_prefix_check(torch, runs):
+    """Every answered token of phase 18's runs within SPEC_ULPS bf16 ulps
+    of its prefix's argmax under teacher forcing with the plain model
+    (the contiguous cached forward on the card, a cache of the run's KV
+    dtype): the chunk path rounds differently from the monolithic one."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG))
+    module = GPTModule(cfg)
+    model = module.init_model(cfg.Global.seed, "cuda")
+    for kv, info in runs.items():
+        worst = 0.0
+        for prompt, answer in zip(info["prompts"], info["answers"]):
+            worst = max([worst] + greedy_deficits(torch, G, model, module.config, prompt,
+                                                  answer, kv))
+        check(worst <= SPEC_ULPS, f"prefix kv={kv or 'bf16'}: an answer token sits {worst:.1f} "
+                                  f"bf16 ulps under the argmax of its prefix (> {SPEC_ULPS})")
+        info["worst_deficit_ulps"] = worst
+        log(f"  prefix kv={kv or 'bf16'}: every token within {worst:.2f} bf16 ulps of its "
+            f"prefix's argmax (gate {SPEC_ULPS})")
+    del model
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the prefix and chunk paths, card against CPU, float32
+# ---------------------------------------------------------------------------
+
+
+def prefix_engine_run(torch, da, server, flags, family, long_):
+    """Families A, A, B, A one at a time (each prompt's prefill driven to
+    its end first, for its first-step logits), then the long prompt
+    admitted while the last decodes: with ``flags`` its chunks run one a
+    step, each beside the decoding row's next token."""
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+
+    eng = PagedDecodeEngine(server, max_batch=4, block=KV_BLOCK, **flags)
+    before = dict(da.COUNTS)
+    firsts, answers = [], []
+    for i, p in enumerate(family):
+        slot = eng.admit(p, MAX_NEW)
+        with torch.inference_mode():
+            while not eng.slots[slot].prefill_done:
+                eng._tick_prefill(slot)
+        firsts.append(eng._logits[slot].float().cpu())
+        if i == len(family) - 1:
+            eng.step()
+            eng.step()
+            lslot = eng.admit(long_, MAX_NEW)
+            long_row = eng.slots[lslot]
+            while not long_row.prefill_done:
+                pos, at = int(eng.positions[slot]), long_row.prefill_pos
+                decoding = bool(eng.active[slot])
+                eng.step()
+                check(long_row.prefill_pos - at == min(PFX_CHUNK, LONG_PROMPT - at)
+                      and int(eng.positions[slot]) == pos + decoding,
+                      f"step did not run one chunk beside one decode token: prefill "
+                      f"{at} -> {long_row.prefill_pos}, row {pos} -> {eng.positions[slot]}")
+        while eng.active.any():
+            eng.step()
+        answers.append(list(eng.slots[slot].tokens))
+        eng.release(slot)
+    answers.append(list(eng.slots[lslot].tokens))
+    eng.release(lslot)
+    used = {k: da.COUNTS[k] - before[k] for k in da.COUNTS}
+    acct = {"prefix": dict(eng.cache.prefix.stats), "spill": dict(eng.cache.spill.stats),
+            "prefill_tokens": eng.stats["prefill_tokens"],
+            "prefill_chunks": eng.stats["prefill_chunks"]}
+    return firsts, answers, acct, used
+
+
+def phase_prefix_card_vs_cpu(torch, kv_dtype):
+    """The chunk and prefix paths in float32 at full width, cut to
+    PFX_F32_LAYERS layers, with ``kv_dtype`` pools: card against CPU, and
+    with float32 pools against the card's monolithic uncached run too (an
+    int8 arena's monolithic prefill attends over the prompt's unquantized
+    K/V, the chunk path over the quantized blocks: another result)."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.ops import decode_attention as da
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG), [
+        "Model.dtype=float32", f"Model.num_layers={PFX_F32_LAYERS}",
+        "Generation.decode_strategy=greedy_search", f"Generation.max_dec_len={MAX_NEW}"])
+    module = GPTModule(cfg)
+    check(module.config.hidden_size == 1024 and module.config.num_attention_heads == 16,
+          "phase 19 cut a width")
+    seq, long_ = prefix_prompts()
+    family = [seq[0], seq[1], seq[3], seq[6]]  # A, A (hit), B (A spills), A (readmit)
+    flags = {"prefill_chunk": PFX_CHUNK, "prefix_cache_blocks": PFX_BLOCKS,
+             "prefix_spill_bytes": PFX_SPILL, "kv_dtype": kv_dtype}
+    runs = {}
+    plain = () if kv_dtype else (("cuda_plain", {}),)
+    for dev, fl in (("cuda", flags), ("cpu", flags)) + plain:
+        device = dev.split("_")[0]
+        server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, device),
+                                  torch.device(device))
+        t0 = time.time()
+        runs[dev] = prefix_engine_run(torch, da, server, fl, family, long_)
+        log(f"  prefix f32 kv={kv_dtype or 'f32'} {dev}: {time.time() - t0:.1f}s, "
+            f"{runs[dev][2]}")
+        del server
+    key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
+    used = runs["cuda"][3]
+    check(used[f"{key}_chunk"] > 0 and used["paged_plain"] == 0 and used[f"{key}_sm90"] == 0,
+          f"card run did not take the CUDA-core chunk launches of {key}: {used}")
+    check(runs["cpu"][3]["paged_plain"] > 0, "cpu run did not take the plain version")
+    acct = runs["cuda"][2]
+    check(acct == runs["cpu"][2], f"reuse accounting card {acct} vs cpu {runs['cpu'][2]}")
+    check(acct["prefix"]["hits"] >= 2 and acct["spill"]["spills"] >= 1
+          and acct["spill"]["readmits"] >= 1, f"no hit, spill or readmit: {acct}")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          f"greedy tokens card {runs['cuda'][1]} vs cpu {runs['cpu'][1]}")
+    errs = [(a - b).abs().max().item() for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
+    errs_plain = None
+    if plain:
+        check(runs["cuda"][1] == runs["cuda_plain"][1],
+              f"chunk/prefix tokens {runs['cuda'][1]} vs monolithic {runs['cuda_plain'][1]}")
+        errs_plain = [(a - b).abs().max().item()
+                      for a, b in zip(runs["cuda"][0], runs["cuda_plain"][0])]
+    check(max(errs + (errs_plain or [])) <= 1e-3,
+          f"first-step logits: card vs cpu {errs}, vs monolithic {errs_plain} (> 1e-3)")
+    log(f"  prefix f32 kv={kv_dtype or 'f32'}: tokens identical card / cpu"
+        f"{' / monolithic' if plain else ''} ({[len(r) for r in runs['cuda'][1]]}); first-step "
+        f"logits max |err| vs cpu {max(errs):.3e}, vs monolithic "
+        f"{max(errs_plain) if plain else None}; {acct}")
+    return {"errs": errs, "errs_monolithic": errs_plain, "accounting": acct}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -2006,6 +2348,19 @@ def main():
             f"--draft-k {SPEC_K} (accept rate {s_info['accept_rate']}), "
             f"{p_info['tokens_per_s']:.1f} without")
     log("spec_serving " + json.dumps(spec_report))
+    log(f"== phase 17: K9 at chunk width, t and slot {CHUNK_CASES}")
+    chunk_rows = phase_chunk_kernel(torch, F, da)
+    log(f"== phase 18: chunked prefill and prefix reuse served at full width, --prefill-chunk "
+        f"{PFX_CHUNK} --prefix-cache-blocks {PFX_BLOCKS} --prefix-spill-bytes {PFX_SPILL}")
+    pfx_runs = {kv: serve_prefix(kv, env) for kv in ("", "int8")}
+    phase_prefix_check(torch, {kv: run[1] for kv, run in pfx_runs.items()})
+    log("prefix_serving " + json.dumps({kv or "bf16": {k: v for k, v in run[1].items()
+                                                       if k not in ("answers", "prompts")}
+                                        for kv, run in pfx_runs.items()}))
+    log(f"== phase 19: chunk and prefix paths, card against cpu, float32, "
+        f"{PFX_F32_LAYERS} layers at full width")
+    pfx_f32 = {kv or "f32": phase_prefix_card_vs_cpu(torch, kv) for kv in ("", "int8")}
+    log("prefix_card_vs_cpu " + json.dumps(pfx_f32))
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
@@ -2092,6 +2447,23 @@ def main():
                                    "bound_by", "library_ms") + (("bf16_ms",) if "bf16_ms" in r
                                                                  else ())}
                 for r in verify_rows[name]]}
+        if name in chunk_rows:
+            # a chunked prefill's chunk or a prefix hit's suffix: launches in
+            # phase 18 (t = PFX_CHUNK), the kernel held and timed in phase 17
+            # at t = 256 over a 512-token cached prefix (and the other cases)
+            head = next(r for r in chunk_rows[name] if (r["t"], r["pos"]) == (256, 512))
+            counts = pfx_runs["int8" if name == "paged_decode_q8" else ""][0]
+            entry["chunk"] = {
+                "launches": counts[f"{name}_chunk"], "route": head["route"],
+                "source": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
+                **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "shape": {"b": 1, "n": 16, "t": 256, "d": 64, "bs": KV_BLOCK, "positions": [512],
+                          "dtype": head["kind"]},
+                "rows": [{k: r[k] for k in ("t", "pos", "route", "max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")
+                          + (("bf16_ms",) if "bf16_ms" in r else ())}
+                         for r in chunk_rows[name]]}
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)

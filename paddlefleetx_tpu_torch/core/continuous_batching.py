@@ -27,15 +27,30 @@ them, and no row pays another row's length.
     shed expired waiting entries, evict expired active rows mid-decode,
     admit from the queue head (FCFS) while slots and blocks allow, step.
 
+Two admission paths share the arena.  With no prefix hit and no
+``prefill_chunk`` a prompt prefills whole on admission (the contiguous
+forward, then a block repack).  With ``prefill_chunk`` set, or when the
+shared-prefix cache (``prefix_cache_blocks``) matched part of the
+prompt, the row sits decode-inactive while its unmatched suffix streams
+into its blocks one chunk per step (``paged_chunk_prefill``: the paged
+attention kernel at t = chunk width), oldest admission first, between
+the decode steps of the other rows.  Finished rows publish their prompt
+blocks to the radix index; a later prompt maps the cached full blocks
+into its table as shared entries and copies a partially matched block
+(copy-on-write).  With ``prefix_spill_bytes`` an evicted cached block
+demotes to host RAM and a later match brings it back instead of
+recomputing it.
+
 Greedy outputs are token-identical to the coalescing path and to the
-JAX engine, with or without speculation.  The stepping is synchronous:
-the JAX scheduler's dispatch-ahead decode and its ``PFX_SCHED_QUANTUM``
-are not ported, and neither variable is read here.  Not ported either,
-and refused where asked for: the prefix cache and its spill tier,
-chunked prefill, KV handoff, tenancy and preemption, streaming, the
-decision log and the goodput ledgers.  No CUDA graphs yet: the
-``stats["traces"]`` count of distinct step and prefill shapes is what a
-later capture would key on.
+JAX engine, with or without speculation, chunking or prefix hits.  The
+stepping is synchronous: the JAX scheduler's dispatch-ahead decode and
+its ``PFX_SCHED_QUANTUM`` are not ported, and neither variable is read
+here.  Not ported either, and refused where asked for: KV handoff
+(export/adopt) and prefix migration, tenancy and preemption, streaming,
+the ``spill_corrupt`` fault drill, the decision log and the goodput
+ledgers.  No CUDA graphs yet: the ``stats["traces"]`` count of distinct
+step, prefill, chunk and copy shapes is what a later capture would key
+on.
 """
 
 from __future__ import annotations
@@ -43,7 +58,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,8 +81,12 @@ from paddlefleetx_tpu_torch.models.gpt.generation import (
     bucket_len,
     decode_step,
     decode_step_spec,
+    gather_kv_blocks,
     init_paged_pools,
+    paged_chunk_prefill,
     paged_prefill,
+    prefix_token_counts,
+    scatter_kv_blocks,
 )
 from paddlefleetx_tpu_torch.ops.decode_attention import kv_cache_dtype
 from paddlefleetx_tpu_torch.ops.speculative import (
@@ -106,6 +125,16 @@ class _Row:
     prompt_ids: List[int]  # the speculative drafter reads prompt + tokens
     table: List[int]
     tokens: List[int] = dataclasses.field(default_factory=list)
+    # prefix reuse / chunked prefill: tokens matched against the prefix
+    # index (their KV was mapped shared, never recomputed), prompt tokens
+    # still to prefill, the next chunk's first slot, the row's chunk
+    # width, and whether prefill finished (only then is the row
+    # decode-active and its prefix publishable)
+    prefix_hit: int = 0
+    pending: List[int] = dataclasses.field(default_factory=list)
+    prefill_pos: int = 0
+    chunk: int = 0
+    prefill_done: bool = True
 
     @property
     def prompt_len(self) -> int:
@@ -134,10 +163,10 @@ class PagedDecodeEngine:
     model, device and generation config.  Host code drives it one decode
     step at a time (``admit`` / ``step`` / ``release``).
 
-    A failure inside a prefill or a step may leave the arena half
-    written: :meth:`reset` rebuilds it and the caller fails the rows that
-    were live (:class:`ArenaReset`), as the JAX engine does after a
-    failed donating dispatch."""
+    A failure inside a prefill, a chunk, a block copy or a step may leave
+    the arena half written: :meth:`reset` rebuilds it and the caller
+    fails the rows that were live (:class:`ArenaReset`), as the JAX
+    engine does after a failed donating dispatch."""
 
     def __init__(self, server, *, max_batch: int = 8, block: int = 0,
                  num_blocks: int = 0, spec="auto", kv_dtype: str = "",
@@ -150,16 +179,6 @@ class PagedDecodeEngine:
             spec = server.spec
         if spec is not None and not isinstance(spec, SpecConfig):
             raise ValueError(f"spec must be a SpecConfig or None, got {spec!r}")
-        if prefix_cache_blocks or prefix_spill_bytes:
-            raise NotImplementedError(
-                "the shared-prefix cache (prefix_cache_blocks) and its spill tier "
-                "(prefix_spill_bytes) are not ported to the PyTorch port yet"
-            )
-        if prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill (prefill_chunk) is not ported to the PyTorch "
-                "port yet; prompts prefill whole on admission"
-            )
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.server = server
@@ -177,7 +196,27 @@ class PagedDecodeEngine:
         self.capacity = int(max_batch)
         if num_blocks <= 0:
             num_blocks = self.capacity * self.max_row_blocks + 1
-        self.cache = PagedCacheManager(num_blocks, self.block)
+        # prefix_cache_blocks > 0: finished rows publish their prompt
+        # blocks into a radix index later admissions map as shared
+        # entries; prefill_chunk > 0 (a block multiple) streams prompts in
+        # chunks, one per step; the spill tier shadows the index
+        if prefix_cache_blocks < 0:
+            raise ValueError(f"prefix_cache_blocks must be >= 0, got {prefix_cache_blocks}")
+        if prefill_chunk and (prefill_chunk < self.block or prefill_chunk % self.block):
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be 0 or a positive multiple of the "
+                f"KV block size {self.block}"
+            )
+        if prefix_spill_bytes and not prefix_cache_blocks:
+            raise ValueError(
+                "prefix_spill_bytes requires prefix_cache_blocks > 0 (the spill tier "
+                "shadows the radix index)"
+            )
+        self.prefill_chunk = int(prefill_chunk)
+        self.cache = PagedCacheManager(num_blocks, self.block, prefix_blocks=prefix_cache_blocks,
+                                       spill_bytes=prefix_spill_bytes)
+        if self.cache.spill.enabled:
+            self.cache.prefix.spill_hook = self._spill_block
         self.pools = init_paged_pools(self.mcfg, num_blocks, self.block, self.device,
                                       kv_dtype=self.kv_dtype)
         B, vocab = self.capacity, int(self.mcfg.vocab_size)
@@ -191,15 +230,22 @@ class PagedDecodeEngine:
         self.active = np.zeros((B,), bool)
         self.slots: List[Optional[_Row]] = [None] * B
         self._seq_counter = 0
-        self._warmup = False  # warmup steps are not traffic: no spec stats
-        # distinct (capacity, table width) step shapes and (prompt bucket,
-        # prefill blocks) shapes run so far: the JAX engine's compile
-        # families, and what a CUDA-graph capture would key on
+        # warmup admissions and steps are not traffic: no spec stats, no
+        # prefix hits, publishes or spills
+        self._warmup = False
+        # distinct (capacity, table width) step shapes, (prompt bucket,
+        # prefill blocks) prefill shapes, (chunk width, table width) chunk
+        # shapes, the block copy and the readmit scatter run so far: the
+        # JAX engine's compile families, and what a CUDA-graph capture
+        # would key on.  "prefill_tokens" counts prompt tokens actually
+        # computed (a prefix hit's shared span never enters it);
+        # "prefill_chunks" counts chunk dispatches, "interleaved_chunks"
+        # those a step ran beside the decode step of other rows
         self._shapes: set = set()
         self.stats: Dict[str, Any] = {
             "traces": 0, "steps": 0, "prefills": 0, "prefill_tokens": 0,
-            "mid_decode_admits": 0, "spec_proposed": 0, "spec_accepted": 0,
-            "spec_accept_rate": 0.0,
+            "prefill_chunks": 0, "interleaved_chunks": 0, "mid_decode_admits": 0,
+            "spec_proposed": 0, "spec_accepted": 0, "spec_accept_rate": 0.0,
         }
 
     # -- capacity queries ----------------------------------------------
@@ -240,6 +286,122 @@ class PagedDecodeEngine:
             self._shapes.add(key)
             self.stats["traces"] = len(self._shapes)
 
+    def _guarded(self, fn: Callable[[], Any], what: str, release_seq: Optional[int] = None):
+        """Run one arena-writing call under the arena contract: on any
+        failure the arena may be half written, so release a row not yet
+        in ``slots`` (``release_seq``; rows in ``slots`` are released by
+        :meth:`reset`), rebuild the arena and raise :class:`ArenaReset`
+        with the dead rows.  One spelling for the prefill, chunk, block
+        copy and readmit writes."""
+        try:
+            return fn()
+        except BaseException as exc:
+            if release_seq is not None:
+                self.cache.release(release_seq)
+            dead = self.reset()
+            raise ArenaReset(
+                f"{what} failed ({type(exc).__name__}: {exc}); arena reset", dead
+            ) from exc
+
+    # -- prefix cache ----------------------------------------------------
+    @property
+    def prefix_enabled(self) -> bool:
+        return self.cache.prefix.enabled
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy arena block ``src`` into ``dst`` in every pool, the int8
+        scale planes too (copy-on-write of a partially matched block)."""
+        for pool in (self.pools.k, self.pools.v, self.pools.k_scale, self.pools.v_scale):
+            if pool is not None:
+                pool[:, dst] = pool[:, src]
+        self._note_shape(("copy",))
+
+    def _spill_block(self, path: tuple, block_id: int) -> None:
+        """The index's eviction hook: demote one evicted FULL block's KV
+        to the host spill store before its arena reference drops (the
+        block is still referenced while the copy runs; ``clear()``, the
+        ArenaReset path, never routes through here).  Warmup evictions
+        never spill.  A failure degrades to a plain eviction behind the
+        discard counter: spilling is an optimization, never a failure
+        mode."""
+        spill = self.cache.spill
+        if self._warmup or not spill.enabled:
+            return
+        try:
+            spill.put(path, gather_kv_blocks(self.pools, [int(block_id)]))
+        except Exception as exc:  # noqa: BLE001 — degrade, never block the eviction
+            logger.warning(f"prefix spill failed ({type(exc).__name__}: {exc}); block "
+                           "evicted without a host copy")
+            spill.stats["discards"] += 1
+
+    def _readmit_spilled(self, prompt_ids: List[int], m: int) -> int:
+        """Bring spilled host copies of this prompt's next full blocks
+        back into the arena, extending the radix match from ``m`` tokens
+        on: each allocates one block, scatters the host copy into it in
+        place and inserts the node (the caller matches again, so the
+        readmitted blocks go through the normal shared admission and hit
+        accounting).  A checksum miss or pool pressure stops the walk (the
+        rest recomputes); only :class:`ArenaReset` propagates."""
+        spill = self.cache.spill
+        limit = len(prompt_ids) - 1  # match's cap: >= 1 token recomputes
+        readmitted = 0
+        while m + self.block <= limit:
+            key = tuple(prompt_ids[:m + self.block])
+            arrays = spill.get(key)  # checksum-verified; None = miss
+            if arrays is None:
+                break
+            try:
+                fresh = self.cache.allocator.alloc(1)
+            except BlockPoolExhausted:
+                break  # recompute; the entry waits for calmer pressure
+            try:
+                self._guarded(lambda: scatter_kv_blocks(self.pools, fresh, arrays),
+                              "spill readmit")
+            except ArenaReset:
+                # reset() released every row and cleared the index; this
+                # orphan allocation is ours to return
+                self.cache.allocator.free(fresh)
+                raise
+            self._note_shape(("adopt", 1))
+            self.cache.prefix.insert_block(key, fresh[0])
+            spill.pop(key)  # back on the device: counted as a readmit
+            readmitted += 1
+            m += self.block
+        if readmitted:
+            self.cache.prefix.evict_to_budget()
+        return readmitted
+
+    def _prefix_admit(self, prompt_ids: List[int], capacity_tokens: int
+                      ) -> Tuple[int, List[int], List[int], Optional[Tuple[int, int]], int]:
+        """Radix lookup (with the spill tier's readmits), the block
+        reservation, the hit/miss accounting once the reservation landed,
+        and the copy-on-write block copy of a mid-block divergence.
+        Returns ``(seq_id, table, shared, cow, matched)``.  Warmup
+        admissions neither look up nor count."""
+        shared: List[int] = []
+        cow = None
+        m = 0
+        lookup = self.prefix_enabled and not self._warmup
+        if lookup:
+            shared, cow, m = self.cache.prefix.match(prompt_ids)
+            # the on-device trie ran dry at a block boundary: promote the
+            # spilled copies of the next blocks, then match again
+            if (self.cache.spill.enabled and cow is None and len(self.cache.spill)
+                    and self._readmit_spilled(prompt_ids, m)):
+                shared, cow, m = self.cache.prefix.match(prompt_ids)
+        self._seq_counter += 1
+        seq_id = self._seq_counter
+        table = self.cache.admit(seq_id, capacity_tokens, shared=shared)
+        if lookup:
+            self.cache.prefix.record_lookup(m)
+        if cow is not None:
+            # the diverging cached block goes into the row's first PRIVATE
+            # block; the suffix prefill overwrites it from the divergence
+            # slot on, so the cached original is never touched
+            src, dst = cow[0], table[len(shared)]
+            self._guarded(lambda: self._copy_block(src, dst), "COW copy", release_seq=seq_id)
+        return seq_id, table, shared, cow, m
+
     # -- admission -----------------------------------------------------
     @torch.inference_mode()
     def admit(self, prompt_ids: Sequence[int], max_new: int,
@@ -247,7 +409,13 @@ class PagedDecodeEngine:
         """Allocate blocks and a batch slot and prefill the prompt into the
         arena; returns the slot.  Raises :class:`BlockPoolExhausted` /
         RuntimeError("no free slot") when full (check :meth:`can_admit`
-        first) and :class:`ArenaReset` when the prefill fails."""
+        first) and :class:`ArenaReset` when an arena write fails.
+
+        With the prefix cache on, the cached span maps into the row's
+        table as shared blocks and only the suffix runs through the
+        model, in chunks; with ``prefill_chunk`` set every prompt does.
+        Such a row returns mid-prefill (its first chunk ran): the rest
+        streams in one chunk per :meth:`step`."""
         prompt_ids = [int(t) for t in prompt_ids]
         plen = len(prompt_ids)
         if plen < 1:
@@ -266,43 +434,117 @@ class PagedDecodeEngine:
         slot = next((i for i, r in enumerate(self.slots) if r is None), None)
         if slot is None:
             raise RuntimeError("no free slot in the running batch")
-        self._seq_counter += 1
-        seq_id = self._seq_counter
-        table = self.cache.admit(seq_id, self.row_capacity_tokens(plen, max_new))
-        # the prefill writes the bucket's PB blocks (pad junk included);
-        # the reservation always covers at least the bucket width
-        PB = blocks_for(P, self.block)
-        prompt = torch.full((1, P), self.gen.pad_token_id, dtype=torch.int64)
-        prompt[0, :plen] = torch.tensor(prompt_ids, dtype=torch.int64)
-        try:
-            last, counts = paged_prefill(
-                self.model, prompt.to(self.device), plen, self.pools, table[:PB]
-            )
+        mid_decode = bool((self.active & (self.gen_steps > 0)).any())
+        seq_id, table, _, _, m = self._prefix_admit(
+            prompt_ids, self.row_capacity_tokens(plen, max_new))
+        if m == 0 and self.prefill_chunk == 0:
+            # no reuse, no chunking: the monolithic prefill writes the
+            # bucket's PB blocks (pad junk included); the reservation
+            # always covers at least the bucket width
+            PB = blocks_for(P, self.block)
+            prompt = torch.full((1, P), self.gen.pad_token_id, dtype=torch.int64)
+            prompt[0, :plen] = torch.tensor(prompt_ids, dtype=torch.int64)
+            last, counts = self._guarded(
+                lambda: paged_prefill(self.model, prompt.to(self.device), plen, self.pools,
+                                      table[:PB]),
+                "prefill", release_seq=seq_id)
             self._logits[slot] = last
             self._counts[slot] = counts
-        except BaseException as exc:
-            self.cache.release(seq_id)
-            dead = self.reset()
-            raise ArenaReset(
-                f"prefill failed ({type(exc).__name__}: {exc}); arena reset", dead
-            ) from exc
-        self._note_shape(("prefill", P, PB))
-        if bool((self.active & (self.gen_steps > 0)).any()):
-            self.stats["mid_decode_admits"] += 1
-        self.positions[slot] = plen
+            self._reject[slot] = -1
+            self._note_shape(("prefill", P, PB))
+            self.stats["prefill_tokens"] += plen
+            row = _Row(seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids,
+                       table=table)
+        else:
+            # prefix hit or chunked: only the unmatched suffix [m, plen)
+            # runs through the model, in chunks.  The row sits
+            # decode-INACTIVE until its last chunk lands (a step ignores
+            # it), so decode latency stays flat while the prompt streams in
+            row = _Row(
+                seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids,
+                table=table, prefix_hit=m, pending=prompt_ids[m:], prefill_pos=m,
+                chunk=self.prefill_chunk or bucket_len(plen - m, self.bucket),
+                prefill_done=False,
+            )
+        self.positions[slot] = plen if row.prefill_done else m
         self.gen_steps[slot] = 0
         self.max_news[slot] = max_new
         # forced EOS fires where the coalescing path fires it: the bucketed
         # run end of core/serving.plan_decode, not the raw budget
         self.forced_steps[slot] = min(-(-max_new // 32) * 32, limit) - 1
-        self.active[slot] = True
-        self._reject[slot] = -1
-        self.slots[slot] = _Row(
-            seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids, table=table,
-        )
+        self.active[slot] = row.prefill_done
+        self.slots[slot] = row
         self.stats["prefills"] += 1
-        self.stats["prefill_tokens"] += plen
+        self.stats["mid_decode_admits"] += int(mid_decode)
+        if not row.prefill_done:
+            self._tick_prefill(slot)  # the first chunk runs now; the rest ride step()
         return slot
+
+    def _padded_chunk_table(self, table: List[int]) -> np.ndarray:
+        """A row's block table padded to the power-of-two width the chunk
+        shapes key on, with its LAST block repeated (the JAX engine pads
+        with the null block).  A chunk's pad queries sit past its real
+        tokens, and the attention kernel visits keys up to the widest
+        bound of a tile of queries: past the row's reservation those keys
+        now come from the row's own block, masked, never from the null
+        block, which the pads' own K/V writes go to (``n_valid``).  The
+        real queries' keys are the same either way."""
+        M = min(_pow2_at_least(len(table)), _pow2_at_least(self.max_row_blocks))
+        tbl = np.full((M,), table[-1], np.int32)
+        tbl[: len(table)] = table
+        return tbl
+
+    def _run_prefill_chunk(self, chunk: int, tbl: np.ndarray, pos: int,
+                           pending: List[int]) -> Tuple[torch.Tensor, int]:
+        """Run ONE prefill chunk of width ``chunk`` at slot ``pos`` over the
+        padded table ``tbl``: the first ``take`` of ``pending`` are real,
+        the rest pads (null-routed).  One host -> device copy: the table,
+        the position, the real count and the tokens as one int32 array.
+        Returns (the last real token's logits, take); counts nothing
+        but the shape (the warmup's null-table chunks are not traffic)."""
+        take = min(chunk, len(pending))
+        M = len(tbl)
+        nb = self.cache.allocator.num_blocks
+        if tbl.min() < 0 or tbl.max() >= nb:  # the kernel trusts its tables
+            raise RuntimeError(f"block table entry outside [0, {nb}): {tbl.tolist()}")
+        flat = np.full((M + 2 + chunk,), self.gen.pad_token_id, np.int32)
+        flat[:M] = tbl
+        flat[M] = pos
+        flat[M + 1] = take
+        flat[M + 2:M + 2 + take] = pending[:take]
+        dev = torch.from_numpy(flat).to(self.device)
+        last = paged_chunk_prefill(
+            self.model, dev[M + 2:].long()[None, :], self.pools, dev[:M][None, :],
+            dev[M:M + 1], dev[M + 1:M + 2], max(take - 1, 0),
+        )
+        self._note_shape(("chunk", chunk, M))
+        return last, take
+
+    def _tick_prefill(self, slot: int) -> None:
+        """Run ONE chunk of a mid-prefill row's prompt suffix.  The final
+        chunk seeds the row's pending logits (its last real prompt
+        token's), repetition counts and residual mask, and makes it
+        decode-active."""
+        row = self.slots[slot]
+        final = min(row.chunk, len(row.pending)) == len(row.pending)
+        # no release_seq: the row sits in slots, so reset() releases it
+        last, take = self._guarded(
+            lambda: self._run_prefill_chunk(row.chunk, self._padded_chunk_table(row.table),
+                                            row.prefill_pos, row.pending),
+            "chunk prefill")
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_tokens"] += take
+        row.pending = row.pending[take:]
+        row.prefill_pos += take
+        self.positions[slot] = row.prefill_pos
+        if final:
+            counts = prefix_token_counts(row.prompt_ids, int(self.mcfg.vocab_size))
+            self._logits[slot] = last
+            self._counts[slot] = torch.from_numpy(counts).to(self.device)
+            self._reject[slot] = -1
+            self.positions[slot] = row.prompt_len
+            self.active[slot] = True
+            row.prefill_done = True
 
     def table_width_bucket(self) -> int:
         widest = max((len(r.table) for r in self.slots if r is not None), default=1)
@@ -330,12 +572,18 @@ class PagedDecodeEngine:
 
     @torch.inference_mode()
     def step(self) -> List[int]:
-        """Run ONE decode step for every active row (speculative: one
-        draft-verify iteration, committing 1 to draft_k + 1 tokens a row);
-        returns the slots that finished (their tokens are complete:
+        """Run at most ONE pending prefill chunk (the oldest admission's:
+        a long prompt streams in across steps while the batch keeps
+        decoding), then ONE decode step for every active row (speculative:
+        one draft-verify iteration, committing 1 to draft_k + 1 tokens a
+        row); returns the slots that finished (their tokens are complete:
         release them with :meth:`release`).  A row finishes on EOS or on
         its budget inside the committed window, never past it.  Raises
-        :class:`ArenaReset` when the step fails."""
+        :class:`ArenaReset` when an arena write fails."""
+        pending = [i for i, r in enumerate(self.slots) if r is not None and not r.prefill_done]
+        if pending:
+            self.stats["interleaved_chunks"] += bool(self.active.any())
+            self._tick_prefill(min(pending, key=lambda i: self.slots[i].seq_id))
         if not self.active.any():
             return []
         B = self.capacity
@@ -356,7 +604,8 @@ class PagedDecodeEngine:
         ])
         if k:
             flat[B * M + 5 * B:] = self._host_drafts().reshape(-1)
-        try:
+
+        def run():
             nb = self.cache.allocator.num_blocks
             if tables.min() < 0 or tables.max() >= nb:  # the kernel trusts its tables
                 raise RuntimeError(f"block table entry outside [0, {nb}): {tables.tolist()}")
@@ -383,13 +632,10 @@ class PagedDecodeEngine:
                 window, ncommit = nxt[:, None], rows.active.long()
             self._logits = rows2.logits
             self._counts = rows2.counts
-            out = torch.cat([window.long(), ncommit.long()[:, None],
-                             rows2.active.long()[:, None]], dim=1).cpu().numpy()
-        except BaseException as exc:
-            dead = self.reset()
-            raise ArenaReset(
-                f"decode step failed ({type(exc).__name__}: {exc}); arena reset", dead
-            ) from exc
+            return torch.cat([window.long(), ncommit.long()[:, None],
+                              rows2.active.long()[:, None]], dim=1).cpu().numpy()
+
+        out = self._guarded(run, "decode step")
         self._note_shape(("step", B, M))
         self.stats["steps"] += 1
         ncommit = out[:, -2].astype(np.int32)
@@ -416,10 +662,16 @@ class PagedDecodeEngine:
 
     def release(self, slot: int) -> None:
         """Return a finished/evicted row's blocks to the pool and clear its
-        batch slot (loud on an empty slot)."""
+        batch slot (loud on an empty slot).  With the prefix cache on, a
+        row whose prefill finished publishes its prompt blocks first (the
+        index takes its own references, so they outlive the row under the
+        LRU budget); a row still mid-prefill never publishes: its blocks
+        are only partly written."""
         row = self.slots[slot]
         if row is None:
             raise ValueError(f"slot {slot} is already empty")
+        if self.prefix_enabled and not self._warmup and row.prefill_done:
+            self.cache.prefix.publish(row.prompt_ids, row.table)
         self.cache.release(row.seq_id)
         self.slots[slot] = None
         self.active[slot] = False
@@ -428,12 +680,32 @@ class PagedDecodeEngine:
         self.max_news[slot] = 0
         self.forced_steps[slot] = 0
 
+    def preempt_row(self, slot: int) -> List[int]:
+        raise NotImplementedError(
+            "preempt_row (priority preemption) comes with tenancy, a later slice of the "
+            "PyTorch port"
+        )
+
+    def prefill_export(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the KV handoff (prefill_export / adopt) and prefix migration "
+            "(export_hot_prefixes / adopt_prefixes) are not ported to the PyTorch port yet"
+        )
+
+    adopt = export_hot_prefixes = adopt_prefixes = prefill_export
+
     def reset(self) -> List[_Row]:
-        """Rebuild the arena after a failed prefill or step; returns the
-        rows that were live (the caller fails their requests)."""
+        """Rebuild the arena after a failed arena write; returns the rows
+        that were live (the caller fails their requests).  The rebuilt
+        pools hold none of the old blocks' KV, so the prefix index and the
+        spill store empty in the same breath: a dead arena's KV must never
+        come back as a hit or a readmit (``clear()`` frees directly, so
+        nothing spills here)."""
         dead = [r for r in self.slots if r is not None]
         for r in dead:
             self.cache.release(r.seq_id)
+        self.cache.prefix.clear()
+        self.cache.spill.clear()
         self.slots = [None] * self.capacity
         self.active[:] = False
         self.positions[:] = 0
@@ -449,17 +721,45 @@ class PagedDecodeEngine:
         self._reject = torch.full_like(self._reject, -1)
         return dead
 
+    def _warm_copy_family(self) -> None:
+        """The copy-on-write block copy once, as a null-block self-copy
+        (a no-op on the arena)."""
+        self._guarded(lambda: self._copy_block(NULL_BLOCK, NULL_BLOCK), "COW copy warmup")
+
+    def _warm_chunk_family(self, n: int) -> None:
+        """The chunks a prefix hit at prompt bucket ``n`` runs its suffix
+        through (needed only when ``prefill_chunk`` is off: a chunked
+        engine's warmup admission already runs chunks): the one-quantum
+        suffix and the full-bucket one, at the table width a bucket-``n``
+        row takes, over a null table with ``n_valid`` 0, so nothing
+        touches a real block."""
+        blocks = blocks_for(self.row_capacity_tokens(int(n), self.gen.max_dec_len), self.block)
+        tbl = np.full((min(_pow2_at_least(blocks), _pow2_at_least(self.max_row_blocks)),),
+                      NULL_BLOCK, np.int32)
+        for t in sorted({self.bucket, bucket_len(int(n), self.bucket)}):
+            self._guarded(lambda: self._run_prefill_chunk(t, tbl, 0, []), "chunk warmup")
+
+    @torch.inference_mode()
     def warmup(self, prompt_lens: Sequence[int]) -> Dict[str, float]:
         """Run one admission and one step per prompt bucket before traffic
         (builds the kernels on the card; with speculation on, the step is
-        the t = draft_k + 1 verify); fails loudly naming the bucket."""
+        the t = draft_k + 1 verify; with chunking, every chunk of the
+        warmup prompt runs), and with the prefix cache on the block copy
+        and the chunks a hit's suffix takes; fails loudly naming the
+        bucket."""
         per: Dict[str, float] = {}
         self._warmup = True
         try:
+            if self.prefix_enabled:
+                self._warm_copy_family()
             for n in prompt_lens:
                 t0 = time.time()
                 try:
+                    if self.prefix_enabled and self.prefill_chunk == 0:
+                        self._warm_chunk_family(int(n))
                     slot = self.admit([1] * int(n), max_new=self.gen.max_dec_len)
+                    while self.slots[slot] is not None and not self.slots[slot].prefill_done:
+                        self.step()
                     self.step()
                     if self.slots[slot] is not None:
                         self.release(slot)
@@ -484,7 +784,9 @@ class ContinuousScheduler:
     like RequestQueue); the scheduler thread loops one decode step per
     iteration: shed expired waiting entries, evict expired ACTIVE rows
     mid-decode (blocks freed at once), admit from the queue head while
-    slots and blocks allow (prefill-on-admit), then step the batch."""
+    slots and blocks (free, or cached and reclaimable) allow
+    (prefill-on-admit, or its first chunk), then step the batch (at most
+    one pending chunk, then the decode step)."""
 
     kind = "continuous"
 
@@ -555,9 +857,15 @@ class ContinuousScheduler:
             return dict(self.stats)
 
     def serving_stats(self) -> Dict[str, Any]:
-        """The engine's stats and the arena's occupancy."""
+        """The engine's stats (``prefill_chunks``, ``prefill_tokens``:
+        prompt tokens computed, a prefix hit's span excluded), the arena's
+        occupancy (``prefix_cached_blocks``, ``prefix_spill_bytes``,
+        ``prefix_spill_entries`` among it), and the prefix index's and the
+        spill store's counters: ``prefix`` {hits, misses, hit_tokens,
+        evictions}, ``spill`` {spills, readmits, discards}."""
         eng = self.engine
-        return {**eng.stats, **eng.cache.stats(), "active_rows": eng.active_rows()}
+        return {**eng.stats, **eng.cache.stats(), "active_rows": eng.active_rows(),
+                "prefix": dict(eng.cache.prefix.stats), "spill": dict(eng.cache.spill.stats)}
 
     def try_remove(self, future: RequestFuture) -> bool:
         """Shed a WAITING entry (no row admitted yet).  An entry already in
@@ -693,6 +1001,10 @@ class ContinuousScheduler:
             # own picks: a burst larger than the free capacity stays queued
             free_slots = eng.free_slots()
             free_blocks = eng.cache.allocator.free_count()
+            # cached-prefix blocks only the index references evict on
+            # demand inside admit: count them in lazily (the scan is
+            # O(cached blocks); an iteration the free pool covers skips it)
+            reclaim_counted = False
             self._entries = [e for e in self._entries if not e.future.done()]
             while self._entries:
                 head = self._entries[0]
@@ -700,6 +1012,9 @@ class ContinuousScheduler:
                 prompt = head.prompts[row_idx]
                 need = blocks_for(eng.row_capacity_tokens(len(prompt), head.max_new),
                                   eng.block)
+                if need > free_blocks and not reclaim_counted:
+                    free_blocks += eng.cache.prefix.reclaimable_blocks()
+                    reclaim_counted = True
                 if free_slots < 1 or need > free_blocks:
                     break  # head-of-line blocked until rows finish
                 free_slots -= 1

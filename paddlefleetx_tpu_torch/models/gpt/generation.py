@@ -35,17 +35,23 @@ per-row commit.  Greedy output is token-identical to the plain loops:
 every caller samples through the one processor chain,
 :func:`process_step_logits`.
 
-Beam search, chunked paged prefill and the KV block gather/scatter of the
-handoff path are later slices of the port; they raise where they are
-asked for.
+Chunked prefill and the prefix cache ride the same multi-token paged
+forward: :func:`paged_chunk_prefill` writes a chunk of prompt tokens
+straight into a row's blocks (pad slots null-routed by ``n_valid``),
+and :func:`gather_kv_blocks` / :func:`scatter_kv_blocks` move whole
+blocks between the arena and host RAM for the prefix spill tier.
+
+Beam search is a later slice of the port; it raises where it is asked
+for.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -643,6 +649,7 @@ def paged_forward_step(
     tables: torch.Tensor,
     positions: torch.Tensor,
     active: torch.Tensor,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """tokens [B] or [B, t] at per-row slots positions .. positions+t-1 ->
     logits [B, t, vocab] float32; the pools are written in place.
@@ -651,7 +658,14 @@ def paged_forward_step(
     feed the kernel as they are).  Inactive rows still run (fixed shape)
     but write to the null block, and their logits are garbage the caller
     ignores; a slot past a row's table gathers the last entry's clamp,
-    as in the JAX function."""
+    as in the JAX function.
+
+    ``n_valid`` [B] (chunked prefill) routes each row's chunk slots at or
+    past its real token count to the null block: a padded tail chunk's
+    pad positions can wrap onto REAL slots of the row's last block after
+    the table-width clamp, so pad K/V must never land in a row's blocks.
+    The null block then takes several writes of one step; no real query
+    ever reads it."""
     if tokens.dim() == 1:
         tokens = tokens[:, None]
     t = tokens.shape[1]
@@ -667,6 +681,9 @@ def paged_forward_step(
     blk_log = torch.clamp(pos_t // bs, 0, tables.shape[1] - 1)
     blk = torch.gather(tables.long(), 1, blk_log)
     blk = torch.where(active[:, None], blk, torch.zeros_like(blk))  # inactive -> null block
+    if n_valid is not None:  # pad chunk slots -> null block
+        pad = torch.arange(t, device=dev)[None, :] >= n_valid.long()[:, None]
+        blk = torch.where(pad, torch.zeros_like(blk), blk)
     off = pos_t % bs
     for li, layer in enumerate(model.layers):
         x = _paged_layer_step(layer, x, pools, li, blk, off, tables, positions)
@@ -725,6 +742,79 @@ def paged_prefill(
     counts = torch.zeros((cfg.vocab_size,), dtype=torch.int32, device=dev)
     counts.index_add_(0, prompt[0], (torch.arange(P, device=dev) < prompt_len).to(torch.int32))
     return last, counts
+
+
+def paged_chunk_prefill(
+    model: GPTModel,
+    tokens: torch.Tensor,
+    pools: PagedPools,
+    table: torch.Tensor,
+    position: torch.Tensor,
+    n_valid: torch.Tensor,
+    last_idx: int,
+) -> torch.Tensor:
+    """Prefill ONE row's next chunk of prompt tokens straight into the
+    arena: ``tokens`` [1, t] land at slots position .. position+t-1 of
+    the row's blocks ``table`` [1, M] (int32; ``position`` and
+    ``n_valid`` int32 [1]), attending over everything already in them,
+    so a cached prefix (shared blocks) and the earlier chunks are simply
+    THERE and only the unmatched suffix runs through the model.  The
+    multi-token path of :func:`paged_forward_step` (the verify chunk's):
+    the paged attention kernel at t = chunk width.  Slots at or past
+    ``n_valid`` are pads and write to the null block.  Returns the
+    logits of chunk slot ``last_idx`` [vocab] float32 (the last REAL
+    prompt token's on the final chunk)."""
+    logits = paged_forward_step(
+        model, tokens, pools, table, position,
+        torch.ones((1,), dtype=torch.bool, device=tokens.device), n_valid=n_valid,
+    )
+    return logits[0, last_idx]
+
+
+def prefix_token_counts(prompt_ids, vocab_size: int) -> np.ndarray:
+    """Host-side repetition-penalty seed counts of a prompt: the integer
+    bincount :func:`paged_prefill` computes on the device, for admissions
+    that skip the monolithic prefill (prefix hits, chunked prompts)."""
+    return np.bincount(
+        np.asarray(list(prompt_ids), np.int64), minlength=int(vocab_size)
+    ).astype(np.int32)
+
+
+_POOL_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def gather_kv_blocks(pools: PagedPools, table) -> Dict[str, torch.Tensor]:
+    """Copy arena blocks ``table`` to host: ``{"k", "v"[, "k_scale",
+    "v_scale"]}`` CPU tensors, k/v [layers, len(table), heads, block,
+    dim] in the ARENA dtype (int8 blocks with their scale planes, so a
+    readmit restores the quantized values bit-exactly).  Each copy waits
+    on the current stream only, never on the whole device."""
+    idx = torch.as_tensor(list(table), dtype=torch.long, device=pools.k.device)
+    return {name: getattr(pools, name)[:, idx].cpu()
+            for name in _POOL_NAMES if getattr(pools, name) is not None}
+
+
+def scatter_kv_blocks(pools: PagedPools, table, blocks) -> None:
+    """Write host blocks (from :func:`gather_kv_blocks`) into the arena at
+    ``table``, in place.  Refuses a set of arrays, a dtype or a per-block
+    shape the arena does not have, loudly: scattering mistyped bytes would
+    corrupt a live arena."""
+    want = {n for n in _POOL_NAMES if getattr(pools, n) is not None}
+    if set(blocks) != want:
+        raise ValueError(f"block arrays {sorted(blocks)} != arena arrays {sorted(want)}")
+    checked = {}
+    for name in sorted(want):
+        pool, arr = getattr(pools, name), blocks[name]
+        if not isinstance(arr, torch.Tensor) or arr.dtype != pool.dtype:
+            raise ValueError(f"block {name} dtype {getattr(arr, 'dtype', type(arr))} != "
+                             f"arena {pool.dtype}")
+        if tuple(arr.shape) != (pool.shape[0], len(table)) + tuple(pool.shape[2:]):
+            raise ValueError(f"block {name} shape {tuple(arr.shape)} does not cover "
+                             f"{len(table)} blocks of arena {tuple(pool.shape)}")
+        checked[name] = arr
+    idx = torch.as_tensor(list(table), dtype=torch.long, device=pools.k.device)
+    for name, arr in checked.items():
+        getattr(pools, name)[:, idx] = arr.to(pools.k.device)
 
 
 def process_step_logits(logits, steps, counts, forced_steps, gen: GenerationConfig):

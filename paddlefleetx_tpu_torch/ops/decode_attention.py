@@ -70,7 +70,9 @@ _MAX_HEAD_DIM = 128
 # kernel (t > SPLIT_MAX_ROWS).  "<kernel>_multi" counts the multi-query
 # launches (1 < t <= SPLIT_MAX_ROWS: the speculative verify chunk) on
 # either route and "<kernel>_sm90_multi" those on the sm90 route.
-# Process-wide; reset with reset_counts().
+# "paged_decode_chunk" / "paged_decode_q8_chunk" count the paged launches
+# wider than that (t > SPLIT_MAX_ROWS: a chunked prefill's chunk or a
+# prefix hit's suffix).  Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
     "flash_decode_multi": 0, "flash_decode_sm90_multi": 0,
@@ -78,7 +80,8 @@ COUNTS = {
     "flash_decode_q8_multi": 0, "flash_decode_q8_sm90_multi": 0,
     "plain": 0, "paged_decode": 0, "paged_decode_sm90": 0, "paged_decode_multi": 0,
     "paged_decode_sm90_multi": 0, "paged_decode_q8": 0, "paged_decode_q8_sm90": 0,
-    "paged_decode_q8_multi": 0, "paged_decode_q8_sm90_multi": 0, "paged_plain": 0,
+    "paged_decode_q8_multi": 0, "paged_decode_q8_sm90_multi": 0, "paged_decode_chunk": 0,
+    "paged_decode_q8_chunk": 0, "paged_plain": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -108,6 +111,8 @@ def _count(name: str, t: int, route: str) -> None:
     multi = 1 < t <= SPLIT_MAX_ROWS
     COUNTS[name] += 1
     COUNTS[f"{name}_multi"] += multi
+    if name.startswith("paged"):
+        COUNTS[f"{name}_chunk"] += t > SPLIT_MAX_ROWS
     if route == "sm90":
         COUNTS[f"{name}_sm90"] += 1
         COUNTS[f"{name}_sm90_multi"] += multi

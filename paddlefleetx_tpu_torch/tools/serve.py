@@ -28,12 +28,28 @@ signal force-quits).  ``--draft-k N`` (the override
 either scheduler: n-gram self-drafting, N drafts verified a step in one
 t = N + 1 forward; greedy output stays token-identical.
 
+The continuous scheduler also takes the JAX CLI's prompt-reuse flags:
+``--prefill-chunk N`` streams prompts into the arena N tokens (a block
+multiple) a step, between the decode steps of the other rows;
+``--prefix-cache-blocks N`` keeps up to N arena blocks of finished
+prompts in a radix index, so a later prompt with the same prefix maps
+those blocks and computes only its suffix; ``--prefix-spill-bytes S``
+demotes evicted cached blocks to S bytes of host RAM and brings them
+back on a later match.  ``/healthz`` ``serving`` then shows
+``prefill_chunks``, ``interleaved_chunks`` (those run beside decoding
+rows), ``prefill_tokens`` (prompt tokens computed),
+``prefix`` {hits, misses, hit_tokens, evictions},
+``prefix_cached_blocks``, ``spill`` {spills, readmits, discards},
+``prefix_spill_bytes`` and ``prefix_spill_entries``, and ``kernels``
+the chunk launches of the paged kernel in ``paged_decode_chunk`` /
+``paged_decode_q8_chunk``.
+
 The model runs on the card (``--device cuda``, the default) and the
 command fails without one; ``--device cpu`` runs the plain PyTorch path.
 Weights are random, drawn from ``Global.seed``.  Not ported yet, and
-refused where asked for: beam search, checkpoint and tokenizer loading, token streaming, tenancy headers, ``/metrics``,
-``/debug/*`` and ``/admin/*``; the JAX CLI's prefix-cache and
-chunked-prefill flags do not exist here yet.
+refused where asked for: beam search, checkpoint and tokenizer loading,
+token streaming, tenancy headers, ``/metrics``, ``/debug/*`` and
+``/admin/*`` (KV handoff and prefix migration among them).
 """
 
 from __future__ import annotations
@@ -104,22 +120,31 @@ def plan_request(prompts_ids, max_toks: int, *, bucket: int, context: int):
 
 
 def build_scheduler(server: GenerationServer, scheduler: str, *, queue_depth: int,
-                    max_coalesce: int, cb_batch: int = 8, kv_blocks: int = 0):
+                    max_coalesce: int, cb_batch: int = 8, kv_blocks: int = 0,
+                    prefill_chunk: int = 0, prefix_cache_blocks: int = 0,
+                    prefix_spill_bytes: int = 0):
     """The serving scheduler behind ``--scheduler``: ``coalesce`` (a
     ``RequestQueue`` whose runner is ``server.generate_ids``) or
     ``continuous`` (a ``ContinuousScheduler`` over a ``PagedDecodeEngine``
     with ``cb_batch`` rows and ``kv_blocks`` arena blocks, 0 = one full
-    context per row plus the null block).  Both expose kind / submit /
+    context per row plus the null block, and the chunk width, prefix
+    cache and spill budget of :class:`PagedDecodeEngine`; the coalescing
+    scheduler refuses those three).  Both expose kind / submit /
     try_remove / depth / busy_seconds / stats_snapshot / serving_stats /
     start / close / join, so the HTTP layer is scheduler-agnostic."""
+    reuse = {"prefill_chunk": prefill_chunk, "prefix_cache_blocks": prefix_cache_blocks,
+             "prefix_spill_bytes": prefix_spill_bytes}
     if scheduler == "coalesce":
+        if any(reuse.values()):
+            raise ValueError(f"{sorted(k for k, v in reuse.items() if v)} need "
+                             "--scheduler continuous")
         return RequestQueue(
             lambda prompts, max_new: server.generate_ids(prompts, max_dec_len=max_new),
             max_depth=queue_depth, max_coalesce=max_coalesce, name="serve",
             serving_stats=lambda: server.stats,
         )
     if scheduler == "continuous":
-        engine = PagedDecodeEngine(server, max_batch=cb_batch, num_blocks=kv_blocks)
+        engine = PagedDecodeEngine(server, max_batch=cb_batch, num_blocks=kv_blocks, **reuse)
         return ContinuousScheduler(engine, max_depth=queue_depth, name="serve")
     raise ValueError(f"unknown scheduler {scheduler!r}; valid: coalesce, continuous")
 
@@ -347,6 +372,19 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-blocks", type=int, default=0,
                     help="continuous scheduler: KV arena blocks (0 = cb-batch "
                     "full-context rows + the null block); block size PFX_KV_BLOCK")
+    ap.add_argument("--prefix-cache-blocks", type=int, default=0,
+                    help="continuous scheduler: shared-prefix KV cache budget in arena "
+                    "blocks (finished rows publish their prompt-prefix blocks; later "
+                    "admissions reuse them and prefill only the suffix; 0 disables)")
+    ap.add_argument("--prefix-spill-bytes", type=int, default=0,
+                    help="continuous scheduler: host-RAM budget (bytes) for the "
+                    "prefix-spill tier: LRU-evicted prefix blocks demote to host memory "
+                    "and readmit on a later prefix match instead of recomputing "
+                    "(requires --prefix-cache-blocks; 0 disables)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="continuous scheduler: admit long prompts in chunks of this "
+                    "many tokens (multiple of PFX_KV_BLOCK), one chunk per scheduler "
+                    "iteration interleaved with decode steps; 0 = monolithic prefill")
     args = ap.parse_args(argv)
     # the spec and KV flags are plain config overrides, so both schedulers
     # read one Generation.speculative section
@@ -359,6 +397,8 @@ def main(argv=None) -> int:
     queue = build_scheduler(
         server, args.scheduler, queue_depth=args.queue_depth,
         max_coalesce=args.max_coalesce, cb_batch=args.cb_batch, kv_blocks=args.kv_blocks,
+        prefill_chunk=args.prefill_chunk, prefix_cache_blocks=args.prefix_cache_blocks,
+        prefix_spill_bytes=args.prefix_spill_bytes,
     )
     if not args.no_warmup and queue.kind == "continuous":
         queue.warmup(_csv_ints(args.warmup_buckets) or [8])

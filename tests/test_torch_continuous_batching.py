@@ -226,12 +226,27 @@ def test_engine_matches_jax_engine(servers, sequential, kv_dtype):
 
 
 def test_engine_refuses_what_is_not_ported(servers):
-    _, pserver = servers
-    for kw in ({"prefix_cache_blocks": 8}, {"prefix_spill_bytes": 1}, {"prefill_chunk": 16}):
-        with pytest.raises(NotImplementedError):
+    jserver, pserver = servers
+    # the prefix cache, its spill tier and chunked prefill are ported: the
+    # engine and the manager build with them, and refuse what the JAX
+    # engine refuses with the same ValueError
+    eng = PagedDecodeEngine(pserver, prefix_cache_blocks=8, prefix_spill_bytes=1,
+                            prefill_chunk=16)
+    assert (eng.cache.prefix.budget, eng.cache.spill.budget, eng.prefill_chunk) == (8, 1, 16)
+    assert eng.cache.prefix.spill_hook == eng._spill_block
+    assert pt_pc.PagedCacheManager(8, prefix_blocks=4).prefix.enabled
+    for kw in ({"prefix_spill_bytes": 1}, {"prefill_chunk": 24}, {"prefix_cache_blocks": -1}):
+        with pytest.raises(ValueError) as want:
+            JaxEngine(jserver, **kw)
+        with pytest.raises(ValueError) as got:
             PagedDecodeEngine(pserver, **kw)
-    with pytest.raises(NotImplementedError):
-        pt_pc.PagedCacheManager(8, prefix_blocks=4)
+        assert str(got.value) == str(want.value)
+    # preemption (tenancy) and the KV handoff stay unported
+    for call in (lambda: eng.preempt_row(0), lambda: eng.prefill_export([1, 2], 4),
+                 lambda: eng.adopt({}, {}), lambda: eng.export_hot_prefixes(),
+                 lambda: eng.adopt_prefixes({}, {})):
+        with pytest.raises(NotImplementedError):
+            call()
     # speculation is ported: Generation.speculative.draft_k reaches the engine
     # (spec="auto"), which reserves draft_k slack slots a row; a spec that is
     # not a SpecConfig is refused

@@ -551,6 +551,133 @@ def test_paged_verify_chunk_over_a_stale_tail(kv_dtype, t):
     assert torch.isfinite(got).all() and torch.equal(got, clean)
 
 
+# ---------------------------------------------------------------------------
+# chunked prefill and a prefix hit's suffix: K9 at t = chunk width
+# ---------------------------------------------------------------------------
+
+# (t, position): one row, 16 heads, d = 64, block 16.  A 256-token chunk
+# opening a long prompt and one over a 512-token cached prefix, a prefix
+# hit's 64-token suffix bucket over it, and t = 16 (the sm90 route's last)
+CHUNK_CASES = [(256, 0), (256, 512), (64, 512), (16, 512)]
+
+
+def _chunk_case(t, pos, kv_dtype, dev, seed=0):
+    n, d, bs = 16, 64, 16
+    g = torch.Generator().manual_seed(seed + t + pos)
+    need = (pos + t - 1) // bs + 1
+    M = 1
+    while M < need:
+        M *= 2
+    nb = need + 2
+    tables = torch.zeros((1, M), dtype=torch.int32)
+    tables[0, :need] = torch.randperm(nb - 1, generator=g)[:need].to(torch.int32) + 1
+    q = torch.randn(1, t, n, d, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(nb, n, bs, d, generator=g)
+    v = torch.randn(nb, n, bs, d, generator=g)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, ks = da.quantize_kv(k)
+        v, vs = da.quantize_kv(v)
+        ks, vs = ks.to(dev), vs.to(dev)
+    k, v = k.to(dev, kv_dtype), v.to(dev, kv_dtype)
+    positions = torch.tensor([pos], dtype=torch.int32, device=dev)
+    return q, k, v, tables.to(dev), positions, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t,pos", CHUNK_CASES)
+def test_paged_chunk_over_a_cached_prefix(t, pos, kv_dtype):
+    """K9 at chunk width against its plain version (bf16 2e-2, int8 1e-4):
+    t > 16 takes the CUDA-core kernel and counts in ``*_chunk``, t = 16
+    the sm90 one; NaN in the null block, in the spare block and past the
+    last query's bound leaves the output bitwise unchanged, and two calls
+    give the same bits."""
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _chunk_case(t, pos, kv_dtype, dev)
+    route = da.paged_kernel_route(q.dtype, 64, t, 16)
+    assert route == ("sm90" if t <= da.SPLIT_MAX_ROWS else "cuda_core")
+    key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
+    before = dict(da.COUNTS)
+    q_t = q.transpose(1, 2).contiguous()
+    scale = 1.0 / 8.0
+    got = da._paged_launch(q_t, k, v, tables, positions, scale, ks, vs)
+    torch.cuda.synchronize()
+    assert da.COUNTS[f"{key}_chunk"] - before[f"{key}_chunk"] == (t > da.SPLIT_MAX_ROWS)
+    assert da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == (route == "sm90")
+    ref = da.paged_decode_attention_plain(q_t, k, v, tables, positions, scale, ks, vs)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= TOL[kv_dtype]
+    clean = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    again = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    _poison_past_bounds(k, v, ks, vs, tables, positions, t)
+    poisoned = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(again, clean)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_chunked_prefix_engine_on_card_matches_cpu(kv_dtype):
+    """The engine at float32 with chunked prefill (chunk 32), the prefix
+    cache and its spill tier: a long prompt streaming in next to a
+    decoding row, then a shared-prefix family that hits, spills and
+    readmits.  Greedy tokens and the reuse accounting on the card (K9
+    chunk launches, no plain call) equal the CPU's."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.utils.config import AttrDict, process_configs
+
+    cfg = process_configs(AttrDict.from_nested({
+        "Global": {"seed": 1},
+        "Engine": {"mix_precision": {"enable": False}},
+        "Model": {"module": "GPTModule", "vocab_size": 96, "hidden_size": 64,
+                  "num_layers": 2, "num_attention_heads": 4,
+                  "max_position_embeddings": 256, "dtype": "float32"},
+        "Generation": {"max_dec_len": 8, "decode_strategy": "greedy_search",
+                       "pad_to_multiple": 16, "eos_token_id": -1, "pad_token_id": 0},
+    }))
+    rng = np.random.default_rng(0)
+    pa, pb = rng.integers(1, 90, 48).tolist(), rng.integers(1, 90, 48).tolist()
+    short, long_ = rng.integers(1, 90, 5).tolist(), rng.integers(1, 90, 150).tolist()
+    family = [pa + [3, 4, 5], pb + [6, 7], pa + [8, 9, 10, 11]]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        module = GPTModule(cfg)
+        server = GenerationServer(cfg, module, module.init_model(1, device),
+                                  torch.device(device))
+        eng = PagedDecodeEngine(server, max_batch=4, block=16, kv_dtype=kv_dtype,
+                                prefill_chunk=32, prefix_cache_blocks=3,
+                                prefix_spill_bytes=1 << 26)
+        before = dict(da.COUNTS)
+        s0 = eng.admit(short, 8)
+        eng.step()
+        s1 = eng.admit(long_, 8)
+        toks = []
+        while eng.active.any() or any(r is not None and not r.prefill_done for r in eng.slots):
+            for slot in eng.step():
+                toks.append(list(eng.slots[slot].tokens))
+                eng.release(slot)
+        for p in family:
+            slot = eng.admit(p, 8)
+            while eng.slots[slot].tokens == [] or eng.active[slot]:
+                eng.step()
+            toks.append(list(eng.slots[slot].tokens))
+            eng.release(slot)
+        used = {key: da.COUNTS[key] - before[key] for key in da.COUNTS}
+        outs[device] = (toks, dict(eng.cache.prefix.stats), dict(eng.cache.spill.stats),
+                        eng.stats["prefill_tokens"], eng.stats["prefill_chunks"])
+        if device == "cuda":
+            key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
+            assert used[f"{key}_chunk"] > 0 and used["paged_plain"] == 0, used
+        del s0, s1
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cpu"][1]["hits"] >= 1 and outs["cpu"][2]["readmits"] >= 1
+
+
 def _spec_card_server(dev, draft_k, kv_dtype="bf16"):
     """A bf16 TINY model at head dim 64 (hidden 128, 2 heads, 2 layers,
     vocab 96) on the card, so both attention kernels take their sm90
