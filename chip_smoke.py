@@ -115,15 +115,15 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      (vocab 50304) written under a temporary directory: seq 1024, global
      batch 16 in micro-batches of 8, bf16, flash attention with the fused
      backward, selective recompute, use_fused_ln, AdamW at a constant
-     1e-4; 12 steps with a record per step, eval every 6 and a checkpoint
-     every 6.  Every step launches K1, K2, K3 and K6 (the counts the
+     1e-4; 12 steps with a record per step, eval every 6 and checkpoints
+     at steps 9 and 12.  Every step launches K1, K2, K3 and K6 (the counts the
      records carry), K3/K6 on the tensor-core route only, and no plain
      version; the loss is finite and falls;
      the records carry tokens/s, mfu and peak memory.  Then a second
-     launch resumes from step_6 through auto_resume: steps 7-12 read the
+     launch resumes from step_9 through auto_resume: steps 10-12 read the
      same batches (consumed_samples and token digests) and their losses
-     agree within ``RESUME_LOSS_TOL`` (K6's reduce-adds make the card's sums
-     vary from run to run); the checkpoints are deleted;
+     agree within ``RESUME_LOSS_TOL`` (K6's reduce-adds make the card's
+     sums vary from run to run); the checkpoints are deleted;
   14. phase 11 once more with use_fused_ln (K1/K2 on the card against
      their plain versions on the CPU);
   15. K7, K8 and K9 at the speculative verify chunk, t = draft_k + 1 = 5
@@ -170,15 +170,31 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      other K9 launch on the sm90 one, no contiguous prefill and no plain
      call; every answered token within ``SPEC_ULPS`` bf16 ulps of its
      prefix's argmax under teacher forcing;
-  19. the same engine flags in float32, card against CPU, at full width
-     cut to ``PFX_F32_LAYERS`` layers, float32 and int8 pools: families A,
-     A, B, A (a hit, a spill, a readmit) and the 900-token prompt
-     streaming in while A decodes (one chunk a step, the decoding row one
-     token a step).  Greedy tokens and the reuse accounting identical card
-     against CPU, each prompt's first-step logits within 1e-3; with
-     float32 pools the tokens also identical to the card's own monolithic
-     uncached run, its logits within 1e-3.
+  19. the same engine flags in float32 on the card, at full width cut to
+     ``PFX_F32_LAYERS`` layers: families A, A, B, A (a hit, a spill, a
+     readmit) and the 900-token prompt streaming in while A decodes (one
+     chunk a step, the decoding row one token a step).  float32 pools:
+     greedy tokens identical to the card's own monolithic uncached run,
+     each prompt's first-step logits within 1e-3; int8 pools: the reuse
+     accounting identical to the float32 pools' run, every chunk on the
+     q8 kernel's CUDA-core route;
+  20. multi-tenant serving at full width: ``tools.serve --scheduler
+     continuous --prefix-cache-blocks`` with a ``--tenants`` file of gold
+     (weight 4) and brz (weight 1), bf16 and int8 KV, greedy.  brz fills
+     the 8 rows with 96-token requests (the first streamed, in slot 0);
+     once every row has committed ``TEN_MIN_TOKENS``, a streamed gold
+     request at ``X-Priority: 5`` arrives and must preempt a brz row, which
+     resumes as a prefix hit (its suffix a K9 chunk).  /healthz must show
+     the preemption, equal to /metrics' ``pfx_tenant_preemptions_total``,
+     the admissions per tenant, K9 launches of 24 per engine step and
+     chunk with no plain call; streamed frames carry contiguous indices
+     across the preemption; every answer token within ``SPEC_ULPS`` bf16
+     ulps of its prefix's argmax.  Then ``PFX_FAULT=preempt_storm`` in
+     float32 on the card (``PFX_F32_LAYERS`` layers, the prefix cache on):
+     the forced preemption's resume gives the undisturbed run's tokens.
 
+Each phase's seconds are printed after it, and all of them in a
+``phase_seconds`` line.
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a card, or outside a checkout of the repo.
@@ -270,6 +286,20 @@ PFX_FAMILIES = "AAABBBAA"
 PFX_SUFFIXES = (32, 64, 96, 128, 48, 80, 112, 40)
 LONG_PROMPT = 900
 PFX_F32_LAYERS = 4
+# phase 20: tenants gold (weight 4) and brz (weight 1).  brz fills the
+# TEN_ROWS rows with requests of TEN_BRZ_NEW new tokens (prompts of
+# TEN_BRZ_LENS tokens, request 0 streamed and admitted first, so it holds
+# slot 0: the victim, whose stream then spans the preemption); a gold
+# request of TEN_GOLD_LEN tokens at priority TEN_GOLD_PRIORITY arrives once
+# every row has committed TEN_MIN_TOKENS (the preemption floor), streamed
+TEN_ROWS, TEN_BRZ_NEW, TEN_MIN_TOKENS, TEN_GOLD_PRIORITY = 8, 96, 8, 5
+TEN_BRZ_LENS = (100, 112, 80, 128, 64, 96, 90, 120)
+TEN_GOLD_LEN = 72
+TEN_PREFIX_BLOCKS = 96
+TENANTS = {"tenants": {"gold": {"weight": 4}, "brz": {"weight": 1}}}
+# phase 20's float32 preempt_storm drill: 4 rows, fired at iteration
+# STORM_ITER, PFX_F32_LAYERS layers
+STORM_ITER, STORM_NEW = 12, 24
 # phases 4, 7 and 16: the traffic runs this many times a server, the first
 # round checked, every round timed (tokens/s: the rounds' median)
 TIMED_ROUNDS = 3
@@ -280,9 +310,11 @@ N_LAYERS = 24
 # largest.  (abs, rel) for y and dx.
 LN_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2.0**-7)}
 LN_SUM_TOL = 1e-4
-# phase 13: the train CLI
-CLI_STEPS, CLI_EVAL_FREQ, CLI_EVAL_ITERS, CLI_SAVE = 12, 6, 2, 6
-# losses of steps 7-12, resumed run against the first, relative: K6 adds
+# phase 13: the train CLI, a checkpoint at step CLI_SAVE (and the final
+# one) that the resume starts from (the step count stays: the data order
+# depends on it)
+CLI_STEPS, CLI_EVAL_FREQ, CLI_EVAL_ITERS, CLI_SAVE = 12, 6, 2, 9
+# losses of steps 10-12, resumed run against the first, relative: K6 adds
 # dq with reductions in L2, so the card's sums differ from run to run.  15-20x
 # the largest differences read (4.6e-6 and 6.7e-6, PERF.md)
 RESUME_LOSS_TOL = 1e-4
@@ -299,6 +331,22 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+PHASE_S = {}
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def begin(name, title=""):
+    """Start phase ``name`` (None: end the last one): logs the header and
+    the seconds the previous phase took."""
+    now = time.time()
+    if _PHASE["name"] is not None:
+        PHASE_S[str(_PHASE["name"])] = round(now - _PHASE["t0"], 1)
+        log(f"   (phase {_PHASE['name']}: {PHASE_S[str(_PHASE['name'])]:.1f}s)")
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        log(f"== phase {name}: {title}")
 
 
 # ---------------------------------------------------------------------------
@@ -1815,7 +1863,7 @@ def phase_train_cli(env):
             f"{first[0]['compile_s']:.1f}s), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
             f"median step {step_s * 1e3:.1f} ms, {tps:.0f} tokens/s, mfu {mfu:.4f}, peak "
             f"{peak / 2**30:.2f} GiB, launches {launches}")
-        # resume: step_12 out of the way, auto_resume picks step_6
+        # resume: the final step_12 out of the way, auto_resume picks step_9
         shutil.rmtree(os.path.join(out_dir, f"step_{CLI_STEPS}"))
         os.rename(os.path.join(out_dir, "metrics.jsonl"), os.path.join(tmp, "first.jsonl"))
         second, wall2, out2 = train_cli(env, data_dir, out_dir,
@@ -2210,12 +2258,15 @@ def prefix_engine_run(torch, da, server, flags, family, long_):
     return firsts, answers, acct, used
 
 
-def phase_prefix_card_vs_cpu(torch, kv_dtype):
+def phase_prefix_card_vs_monolithic(torch, kv_dtype, f32_run=None):
     """The chunk and prefix paths in float32 at full width, cut to
-    PFX_F32_LAYERS layers, with ``kv_dtype`` pools: card against CPU, and
-    with float32 pools against the card's monolithic uncached run too (an
-    int8 arena's monolithic prefill attends over the prompt's unquantized
-    K/V, the chunk path over the quantized blocks: another result)."""
+    PFX_F32_LAYERS layers, on the card.  Float32 pools: against the card's
+    own monolithic uncached run (tokens identical, first-step logits within
+    1e-3).  int8 pools (an int8 arena's monolithic prefill attends over the
+    prompt's unquantized K/V, the chunk path over the quantized blocks:
+    another result): the reuse accounting of ``f32_run``, every chunk on
+    the q8 kernel's CUDA-core route; their logits' distance from the
+    float32 pools' is recorded, not gated."""
     from paddlefleetx_tpu_torch.core.module import GPTModule
     from paddlefleetx_tpu_torch.core.serving import GenerationServer
     from paddlefleetx_tpu_torch.ops import decode_attention as da
@@ -2233,40 +2284,328 @@ def phase_prefix_card_vs_cpu(torch, kv_dtype):
              "prefix_spill_bytes": PFX_SPILL, "kv_dtype": kv_dtype}
     runs = {}
     plain = () if kv_dtype else (("cuda_plain", {}),)
-    for dev, fl in (("cuda", flags), ("cpu", flags)) + plain:
-        device = dev.split("_")[0]
-        server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, device),
-                                  torch.device(device))
+    server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, "cuda"),
+                              torch.device("cuda"))
+    for name, fl in (("cuda", flags),) + plain:
         t0 = time.time()
-        runs[dev] = prefix_engine_run(torch, da, server, fl, family, long_)
-        log(f"  prefix f32 kv={kv_dtype or 'f32'} {dev}: {time.time() - t0:.1f}s, "
-            f"{runs[dev][2]}")
-        del server
+        runs[name] = prefix_engine_run(torch, da, server, fl, family, long_)
+        log(f"  prefix f32 kv={kv_dtype or 'f32'} {name}: {time.time() - t0:.1f}s, "
+            f"{runs[name][2]}")
+    del server
     key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
     used = runs["cuda"][3]
     check(used[f"{key}_chunk"] > 0 and used["paged_plain"] == 0 and used[f"{key}_sm90"] == 0,
           f"card run did not take the CUDA-core chunk launches of {key}: {used}")
-    check(runs["cpu"][3]["paged_plain"] > 0, "cpu run did not take the plain version")
     acct = runs["cuda"][2]
-    check(acct == runs["cpu"][2], f"reuse accounting card {acct} vs cpu {runs['cpu'][2]}")
     check(acct["prefix"]["hits"] >= 2 and acct["spill"]["spills"] >= 1
           and acct["spill"]["readmits"] >= 1, f"no hit, spill or readmit: {acct}")
-    check(runs["cuda"][1] == runs["cpu"][1],
-          f"greedy tokens card {runs['cuda'][1]} vs cpu {runs['cpu'][1]}")
-    errs = [(a - b).abs().max().item() for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
-    errs_plain = None
+    out = {"accounting": acct, "tokens": [len(r) for r in runs["cuda"][1]]}
     if plain:
         check(runs["cuda"][1] == runs["cuda_plain"][1],
               f"chunk/prefix tokens {runs['cuda'][1]} vs monolithic {runs['cuda_plain'][1]}")
-        errs_plain = [(a - b).abs().max().item()
-                      for a, b in zip(runs["cuda"][0], runs["cuda_plain"][0])]
-    check(max(errs + (errs_plain or [])) <= 1e-3,
-          f"first-step logits: card vs cpu {errs}, vs monolithic {errs_plain} (> 1e-3)")
-    log(f"  prefix f32 kv={kv_dtype or 'f32'}: tokens identical card / cpu"
-        f"{' / monolithic' if plain else ''} ({[len(r) for r in runs['cuda'][1]]}); first-step "
-        f"logits max |err| vs cpu {max(errs):.3e}, vs monolithic "
-        f"{max(errs_plain) if plain else None}; {acct}")
-    return {"errs": errs, "errs_monolithic": errs_plain, "accounting": acct}
+        errs = [(a - b).abs().max().item() for a, b in zip(runs["cuda"][0], runs["cuda_plain"][0])]
+        check(max(errs) <= 1e-3, f"first-step logits vs monolithic {errs} (> 1e-3)")
+        out.update({"errs_monolithic": errs, "firsts": runs["cuda"][0]})
+        log(f"  prefix f32 kv=f32: tokens identical chunk+prefix / monolithic "
+            f"({out['tokens']}); first-step logits max |err| {max(errs):.3e}; {acct}")
+    else:
+        check(f32_run is not None and acct == f32_run["accounting"],
+              f"int8 pools' reuse accounting {acct} vs float32 pools' "
+              f"{f32_run and f32_run['accounting']}")
+        out["errs_vs_f32_pools"] = [(a - b).abs().max().item()
+                                    for a, b in zip(runs["cuda"][0], f32_run["firsts"])]
+        log(f"  prefix f32 kv=int8: reuse accounting identical to float32 pools'; first-step "
+            f"logits max |err| from theirs {max(out['errs_vs_f32_pools']):.3e} (not gated)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: multi-tenant serving with a priority preemption at full width
+# ---------------------------------------------------------------------------
+
+
+def post_stream(port, body, headers, timeout=600):
+    """POST /generate?stream=1; returns the server-sent events as (event,
+    data) pairs (the body is close-delimited)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate?stream=1", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **headers})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.headers["Content-Type"] == "text/event-stream", f"stream headers {r.headers}")
+        text = r.read().decode()
+    frames = []
+    for block in text.strip().split("\n\n"):
+        fields = dict(line.split(": ", 1) for line in block.splitlines())
+        frames.append((fields["event"], json.loads(fields["data"])))
+    return frames
+
+
+def stream_answer(frames, what):
+    """The answer a one-prompt stream carries: its token frames joined,
+    each index where the last ended (across a preemption too), and the
+    summary's token count equal to it."""
+    toks = []
+    for event, data in frames[:-1]:
+        check(event == "token" and data["row"] == 0 and data["index"] == len(toks),
+              f"{what}: frame {event} {data} after {len(toks)} tokens")
+        toks.extend(data["tokens"])
+    check(frames[-1][0] == "summary" and frames[-1][1]["usage"]["tokens"] == len(toks),
+          f"{what}: last frame {frames[-1]} for {len(toks)} streamed tokens")
+    return toks
+
+
+def metric_rows(port):
+    from paddlefleetx_tpu_torch.utils.telemetry import parse_exposition
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/metrics")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        text = r.read().decode()
+    return {(n, tuple(sorted(lab.items()))): v for n, lab, v in parse_exposition(text)}
+
+
+def serve_tenants(kv_dtype, env):
+    """Phase 20: brz fills the batch, a gold arrival of higher priority
+    preempts one brz row, the row resumes as a prefix hit.  Returns (the
+    traffic's kernel counts, the run's numbers, answers and prompts)."""
+    import tempfile
+
+    port = free_port()
+    tdir = tempfile.mkdtemp(prefix="smoke_tenants_")
+    tenants = os.path.join(tdir, "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(TENANTS, f)
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
+           "--port", str(port), "--scheduler", "continuous", "--cb-batch", str(TEN_ROWS),
+           "--prefix-cache-blocks", str(TEN_PREFIX_BLOCKS), "--tenants", tenants,
+           "--preempt-min-tokens", str(TEN_MIN_TOKENS),
+           "-o", "Generation.decode_strategy=greedy_search",
+           "-o", f"Generation.max_dec_len={MAX_NEW}"]
+    if kv_dtype:
+        cmd += ["--kv-dtype", kv_dtype]
+    brz = prompts(23, TEN_BRZ_LENS)
+    gold = prompts(24, [TEN_GOLD_LEN])[0]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out_lines = []
+    reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    results = {}
+
+    def ask(key, p, n, headers, stream):
+        try:
+            body = {"prompt_ids": p, "max_tokens": n, "deadline_s": 300}
+            if stream:
+                results[key] = stream_answer(post_stream(port, body, headers), f"request {key}")
+            else:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json", **headers})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    results[key] = json.load(r)["completion_ids"]
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[key] = e
+
+    try:
+        health = None
+        while health is None:
+            check(proc.poll() is None,
+                  f"server exited {proc.returncode}: {''.join(out_lines)[-3000:]}")
+            check(time.time() - t0 < 420, "server did not come up in 420 s")
+            try:
+                health = http(port, "/healthz", timeout=5)
+            except OSError:
+                time.sleep(1)
+        boot_s = time.time() - t0
+        check(health["identity"]["device"].startswith("cuda"), f"server device {health}")
+        check(all(v == 0 for v in health["kernels"].values()),
+              f"kernel counts not 0 before traffic: {health['kernels']}")
+        serving0 = health["serving"]
+        t1 = time.time()
+        threads = []
+
+        def start(*a):
+            threads.append(threading.Thread(target=ask, args=a))
+            threads[-1].start()
+
+        # brz request 0 (streamed) first, so it takes slot 0; the rest fill
+        # the batch
+        start("brz0", brz[0], TEN_BRZ_NEW, {"X-Tenant": "brz"}, True)
+        while http(port, "/healthz", timeout=30)["serving"]["active_rows"] < 1:
+            check(time.time() - t1 < 120, "brz request 0 never admitted")
+            time.sleep(0.005)
+        for i in range(1, TEN_ROWS):
+            start(f"brz{i}", brz[i], TEN_BRZ_NEW, {"X-Tenant": "brz"}, False)
+        while True:
+            h = http(port, "/healthz", timeout=30)["serving"]
+            if h["active_rows"] == TEN_ROWS:
+                break
+            check(time.time() - t1 < 120, f"the batch never filled: {h}")
+            time.sleep(0.005)
+        full_at = h["steps"]
+        while http(port, "/healthz", timeout=30)["serving"]["steps"] < full_at + TEN_MIN_TOKENS + 2:
+            check(time.time() - t1 < 300, "the full batch never stepped")
+            time.sleep(0.005)
+        start("gold", gold, MAX_NEW, {"X-Tenant": "gold",
+                                      "X-Priority": str(TEN_GOLD_PRIORITY)}, True)
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t1
+        health = http(port, "/healthz", timeout=30)
+        rows = metric_rows(port)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        check(rc == 0, f"server drain exit {rc}: {''.join(out_lines)[-3000:]}")
+        check("drained cleanly" in "".join(out_lines), "no clean-drain line")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        import shutil
+
+        shutil.rmtree(tdir, ignore_errors=True)
+    names = [f"brz{i}" for i in range(TEN_ROWS)] + ["gold"]
+    for key in names:
+        ans = results.get(key)
+        check(isinstance(ans, list) and 0 < len(ans) <= (MAX_NEW if key == "gold" else TEN_BRZ_NEW)
+              and all(isinstance(x, int) and 0 <= x < 50304 for x in ans),
+              f"request {key}: {str(ans)[:300]}")
+    kernels, serving, queue, tenants_h = (health["kernels"], health["serving"], health["queue"],
+                                          health["tenants"])
+    pre = rows.get(("pfx_tenant_preemptions_total", (("tenant", "brz"),)), 0)
+    check(queue["preemptions"] >= 1, f"no preemption: {queue}")
+    check(queue["preemptions"] == tenants_h["brz"]["preemptions"] == pre
+          and not tenants_h.get("gold", {}).get("preemptions"),
+          f"preemptions: /healthz {queue['preemptions']} / {tenants_h}, /metrics {pre}")
+    check(rows[("pfx_tenant_admitted_total", (("tenant", "gold"),))] == 1
+          and rows[("pfx_tenant_admitted_total", (("tenant", "brz"),))]
+          == TEN_ROWS + queue["preemptions"],
+          f"admissions: {tenants_h}")
+    check(rows[("pfx_queue_completed_total", ())] == queue["completed"] == TEN_ROWS + 1,
+          f"completed: {queue}")
+    hits = serving["prefix"]["hits"] - serving0["prefix"]["hits"]
+    check(hits >= queue["preemptions"], f"a resume was not a prefix hit: {serving['prefix']}")
+    key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
+    steps = serving["steps"] - serving0["steps"]
+    chunks = serving["prefill_chunks"] - serving0["prefill_chunks"]
+    check(kernels["paged_plain"] == 0 and kernels["plain"] == 0,
+          f"plain version ran on the card: {kernels}")
+    check(kernels[key] == N_LAYERS * (steps + chunks),
+          f"{key}: {kernels[key]} launches for {steps} steps and {chunks} chunks")
+    # a resume's suffix chunk takes the sm90 route at t <= 16, the CUDA-core
+    # one above; every decode step the sm90 route
+    check(kernels[f"{key}_sm90"] + kernels[f"{key}_chunk"] == kernels[key]
+          and kernels[f"{key}_sm90"] >= N_LAYERS * steps,
+          f"{key}: routes {kernels}")
+    info = {"boot_s": boot_s, "traffic_s": wall, "preemptions": queue["preemptions"],
+            "prefix_hits": hits, "steps": steps, "resume_chunks": chunks,
+            "tenants": tenants_h, "ttft_p50_s": health["ttft_p50_s"],
+            "ttft_p99_s": health["ttft_p99_s"],
+            "gold_ttft_count": rows.get(("pfx_tenant_ttft_seconds_count",
+                                         (("tenant", "gold"),))),
+            "answers": [results[k] for k in names], "prompts": brz + [gold]}
+    log(f"  tenants kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, {len(names)} requests in "
+        f"{wall:.2f}s; {queue['preemptions']} preemption(s), {hits} prefix hit(s), {chunks} "
+        f"resume chunk(s), {steps} steps; tenants {tenants_h}; kernels {kernels}")
+    return kernels, info
+
+
+def phase_storm_f32(torch):
+    """PFX_FAULT=preempt_storm on the card in float32, PFX_F32_LAYERS
+    layers at full width, the prefix cache on: four rows, one forced
+    preemption at iteration STORM_ITER; every answer (the victim's too)
+    equals the undisturbed run's, and the victim's stream offsets stay
+    contiguous across the resume."""
+    from paddlefleetx_tpu_torch.core.continuous_batching import (
+        ContinuousScheduler,
+        PagedDecodeEngine,
+    )
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.ops import decode_attention as da
+    from paddlefleetx_tpu_torch.utils import resilience
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG), [
+        "Model.dtype=float32", f"Model.num_layers={PFX_F32_LAYERS}",
+        "Generation.decode_strategy=greedy_search", f"Generation.max_dec_len={MAX_NEW}"])
+    module = GPTModule(cfg)
+    server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, "cuda"),
+                              torch.device("cuda"))
+    ps = prompts(25, [40, 150, 70, 130])
+    runs = {}
+    for storm in (False, True):
+        eng = PagedDecodeEngine(server, max_batch=4, block=KV_BLOCK, prefix_cache_blocks=64)
+        sched = ContinuousScheduler(eng, max_depth=8, preempt_min_tokens=4)
+        victims = []
+        inner = sched._preempt_slot
+        sched._preempt_slot = lambda slot: (victims.append(slot), inner(slot))[1]
+        streams = {i: [] for i in range(len(ps))}
+        resilience.reset_fault_state()
+        if storm:
+            os.environ["PFX_FAULT"] = f"preempt_storm:{STORM_ITER}"
+        before = dict(da.COUNTS)
+        try:
+            futs = [sched.submit([p], STORM_NEW, deadline_s=600,
+                                 stream=(lambda i: lambda r, s, t: streams[i].append((s, t)))(i))
+                    for i, p in enumerate(ps)]
+            for _ in range(1000):
+                if all(f.done() for f in futs):
+                    break
+                sched._iterate()
+        finally:
+            os.environ.pop("PFX_FAULT", None)
+            resilience.reset_fault_state()
+        answers = [f.result(timeout=1)[0] for f in futs]
+        for i, pushes in streams.items():
+            acc = []
+            for start, toks in pushes:
+                check(start == len(acc), f"storm={storm} row {i}: stream hole at {start}")
+                acc.extend(toks)
+            check(acc == answers[i], f"storm={storm} row {i}: stream {acc} vs {answers[i]}")
+        runs[storm] = {"answers": answers, "victims": victims,
+                       "preemptions": int(sched.stats["preemptions"]),
+                       "prefix_hits": eng.cache.prefix.stats["hits"],
+                       "launches": {k: da.COUNTS[k] - before[k] for k in da.COUNTS
+                                    if da.COUNTS[k] != before[k]}}
+    calm, storm = runs[False], runs[True]
+    check(storm["preemptions"] == 1 and calm["preemptions"] == 0,
+          f"preemptions {calm['preemptions']} / {storm['preemptions']}")
+    check(storm["prefix_hits"] > calm["prefix_hits"], f"the resume was no prefix hit: {runs}")
+    check(storm["answers"] == calm["answers"],
+          f"preempt_storm tokens {storm['answers']} vs undisturbed {calm['answers']}")
+    used = storm["launches"]
+    check(used.get("paged_decode", 0) > 0 and not used.get("paged_plain")
+          and not used.get("plain"), f"storm run launches {used}")
+    log(f"  preempt_storm f32: victim slot {storm['victims']}, tokens identical to the "
+        f"undisturbed run ({[len(a) for a in storm['answers']]}); launches {used}")
+    del server
+    return {k: {kk: vv for kk, vv in v.items() if kk != "answers"} for k, v in
+            (("undisturbed", calm), ("storm", storm))}
+
+
+def phase_tenant_check(torch, runs):
+    """Every answer of phase 20's runs, the resumed row's included, within
+    SPEC_ULPS bf16 ulps of its prefix's argmax under teacher forcing."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG))
+    module = GPTModule(cfg)
+    model = module.init_model(cfg.Global.seed, "cuda")
+    for kv, info in runs.items():
+        worst = 0.0
+        for prompt, answer in zip(info["prompts"], info["answers"]):
+            worst = max([worst] + greedy_deficits(torch, G, model, module.config, prompt,
+                                                  answer, kv))
+        check(worst <= SPEC_ULPS, f"tenants kv={kv or 'bf16'}: an answer token sits "
+                                  f"{worst:.1f} bf16 ulps under its prefix's argmax")
+        info["worst_deficit_ulps"] = worst
+        log(f"  tenants kv={kv or 'bf16'}: every token within {worst:.2f} bf16 ulps of its "
+            f"prefix's argmax (gate {SPEC_ULPS})")
+    del model
 
 
 # ---------------------------------------------------------------------------
@@ -2291,40 +2630,40 @@ def main():
     t_start = time.time()
     card = card_line()
     log(f"card: {card}")
-    log("== phase 1-2: toolchain and build")
+    begin("1-2", "toolchain and build")
     phase_toolchain(torch, _build)
-    log("== phase 3: kernels against their plain version")
+    begin("3", "kernels against their plain version")
     main_rows = phase_kernels(torch, F, da)
-    log("== phase 4: serve GPT-345M at full width")
+    begin("4", "serve GPT-345M at full width")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     counts_bf16, ans_bf16, bc, info_bf16 = serve_once("", env)
     counts_q8, ans_q8, _, info_q8 = serve_once("int8", env)
-    log("== phase 5: card against cpu, float32, full width")
+    begin("5", "card against cpu, float32, full width")
     phase_card_vs_cpu(torch, bc)
-    log("== phase 6: paged kernel against its plain version")
+    begin("6", "paged kernel against its plain version")
     paged_rows = phase_paged(torch, F, da)
-    log("== phase 7: continuous serving of GPT-345M at full width")
+    begin("7", "continuous serving of GPT-345M at full width")
     cb_bf16, wall_bf16 = serve_continuous("", env)
     cb_q8, wall_q8 = serve_continuous("int8", env)
     log("continuous_wall " + json.dumps({"bf16": wall_bf16, "int8": wall_q8}))
-    log("== phase 8: paged engine, card against cpu, float32, full width")
+    begin("8", "paged engine, card against cpu, float32, full width")
     phase_paged_card_vs_cpu(torch, bc, "")
     phase_paged_card_vs_cpu(torch, bc, "int8")
-    log("== phase 9: flash attention kernels against their plain versions")
+    begin("9", "flash attention kernels against their plain versions")
     flash_rows = phase_flash(torch, F, fa)
-    log("== phase 10: GPT-345M pretraining steps at full width")
+    begin("10", "GPT-345M pretraining steps at full width")
     train = phase_train(torch, fa, fl)
-    log("== phase 11: training step, card against cpu, float32")
+    begin("11", "training step, card against cpu, float32")
     phase_train_card_vs_cpu(torch, fa)
-    log("== phase 12: fused LayerNorm kernels against their plain versions")
+    begin("12", "fused LayerNorm kernels against their plain versions")
     ln_rows = phase_layernorm(torch, F, fl)
-    log("== phase 13: the train CLI, GPT-345M at full width, and its resume")
+    begin("13", "the train CLI, GPT-345M at full width, and its resume")
     cli = phase_train_cli(env)
-    log("== phase 14: training step, card against cpu, float32, use_fused_ln")
+    begin("14", "training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
-    log(f"== phase 15: K7, K8 and K9 at the verify chunk, t = {VERIFY_TS}")
+    begin("15", f"K7, K8 and K9 at the verify chunk, t = {VERIFY_TS}")
     verify_rows = phase_verify(torch, F, da)
-    log(f"== phase 16: speculative serving of GPT-345M at full width, --draft-k {SPEC_K}")
+    begin("16", f"speculative serving of GPT-345M at full width, --draft-k {SPEC_K}")
     plain_runs = {("coalesce", ""): (counts_bf16, ans_bf16, info_bf16),
                   ("coalesce", "int8"): (counts_q8, ans_q8, info_q8),
                   ("continuous", ""): (cb_bf16, wall_bf16["answers"], wall_bf16),
@@ -2348,19 +2687,31 @@ def main():
             f"--draft-k {SPEC_K} (accept rate {s_info['accept_rate']}), "
             f"{p_info['tokens_per_s']:.1f} without")
     log("spec_serving " + json.dumps(spec_report))
-    log(f"== phase 17: K9 at chunk width, t and slot {CHUNK_CASES}")
+    begin("17", f"K9 at chunk width, t and slot {CHUNK_CASES}")
     chunk_rows = phase_chunk_kernel(torch, F, da)
-    log(f"== phase 18: chunked prefill and prefix reuse served at full width, --prefill-chunk "
-        f"{PFX_CHUNK} --prefix-cache-blocks {PFX_BLOCKS} --prefix-spill-bytes {PFX_SPILL}")
+    begin("18", f"chunked prefill and prefix reuse served at full width, --prefill-chunk "
+          f"{PFX_CHUNK} --prefix-cache-blocks {PFX_BLOCKS} --prefix-spill-bytes {PFX_SPILL}")
     pfx_runs = {kv: serve_prefix(kv, env) for kv in ("", "int8")}
     phase_prefix_check(torch, {kv: run[1] for kv, run in pfx_runs.items()})
     log("prefix_serving " + json.dumps({kv or "bf16": {k: v for k, v in run[1].items()
                                                        if k not in ("answers", "prompts")}
                                         for kv, run in pfx_runs.items()}))
-    log(f"== phase 19: chunk and prefix paths, card against cpu, float32, "
-        f"{PFX_F32_LAYERS} layers at full width")
-    pfx_f32 = {kv or "f32": phase_prefix_card_vs_cpu(torch, kv) for kv in ("", "int8")}
-    log("prefix_card_vs_cpu " + json.dumps(pfx_f32))
+    begin("19", f"chunk and prefix paths against the monolithic run, float32, "
+          f"{PFX_F32_LAYERS} layers at full width")
+    pfx_f32 = {"f32": phase_prefix_card_vs_monolithic(torch, "")}
+    pfx_f32["int8"] = phase_prefix_card_vs_monolithic(torch, "int8", pfx_f32["f32"])
+    pfx_f32["f32"].pop("firsts")
+    log("prefix_card_vs_monolithic " + json.dumps(pfx_f32))
+    begin("20", f"multi-tenant serving at full width: brz fills {TEN_ROWS} rows, a gold "
+          f"arrival at priority {TEN_GOLD_PRIORITY} preempts one; preempt_storm in float32")
+    ten_runs = {kv: serve_tenants(kv, env) for kv in ("", "int8")}
+    phase_tenant_check(torch, {kv: run[1] for kv, run in ten_runs.items()})
+    log("tenant_serving " + json.dumps({kv or "bf16": {k: v for k, v in run[1].items()
+                                                       if k not in ("answers", "prompts")}
+                                        for kv, run in ten_runs.items()}))
+    storm = phase_storm_f32(torch)
+    log("preempt_storm_f32 " + json.dumps(storm))
+    begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
                 "paged_decode": cb_bf16["paged_decode"],
@@ -2464,9 +2815,20 @@ def main():
                                             "bound_ms", "bound_by", "library_ms")
                           + (("bf16_ms",) if "bf16_ms" in r else ())}
                          for r in chunk_rows[name]]}
+        if name in ("flash_decode", "paged_decode", "paged_decode_q8"):
+            # phase 20: launches in the multi-tenant run (bf16 KV for K7's
+            # monolithic prefills; K9 by pool dtype), a preempted row's
+            # resume chunk in "chunk" (t > 16) or in "sm90" (t <= 16)
+            counts = ten_runs["int8" if name == "paged_decode_q8" else ""][0]
+            entry["tenancy"] = {k: counts[k] for k in counts
+                                if (k == name or k.startswith(f"{name}_"))
+                                and ("_q8" in k) == ("_q8" in name)}
+            entry["tenancy"]["preemptions"] = ten_runs[
+                "int8" if name == "paged_decode_q8" else ""][1]["preemptions"]
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)
+    log("phase_seconds " + json.dumps(PHASE_S))
     log(f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,7 +25,24 @@ them, and no row pays another row's length.
     ``close``/``join`` drain), so ``tools/serve.py`` swaps schedulers
     behind ``--scheduler``.  One thread, one iteration per decode step:
     shed expired waiting entries, evict expired active rows mid-decode,
-    admit from the queue head (FCFS) while slots and blocks allow, step.
+    admit while slots and blocks allow, preempt for a blocked arrival of
+    higher priority, step.
+
+Tenancy (``core/tenancy.py``): the admission pull is a deficit
+round-robin across tenant queues (weights from ``tenant_config``; FCFS
+within a tenant, one tenant is exactly FCFS).  An arrival that cannot
+fit may preempt the lowest-priority active row of strictly lower
+priority that has committed ``preempt_min_tokens`` since its last
+admission; the ``preempt_storm`` fault forces one such preemption.  A
+preempted row publishes its KV-valid prefix to the prefix index (when
+the cache is on), frees its slot and blocks, and re-enters its entry at
+the front of the queue as a continuation: prompt plus committed tokens,
+with the budget that remains.  Its resume is a prefix hit with the cache
+on (the suffix past the last published full block runs as a chunk) and a
+whole re-prefill with it off; either way greedy tokens equal the
+undisturbed run's.  A request's ``stream`` hook sees every step's
+commits, with offsets rebased across a preemption so they stay
+contiguous.
 
 Two admission paths share the arena.  With no prefix hit and no
 ``prefill_chunk`` a prompt prefills whole on admission (the contiguous
@@ -45,12 +62,12 @@ Greedy outputs are token-identical to the coalescing path and to the
 JAX engine, with or without speculation, chunking or prefix hits.  The
 stepping is synchronous: the JAX scheduler's dispatch-ahead decode and
 its ``PFX_SCHED_QUANTUM`` are not ported, and neither variable is read
-here.  Not ported either, and refused where asked for: KV handoff
-(export/adopt) and prefix migration, tenancy and preemption, streaming,
-the ``spill_corrupt`` fault drill, the decision log and the goodput
-ledgers.  No CUDA graphs yet: the ``stats["traces"]`` count of distinct
-step, prefill, chunk and copy shapes is what a later capture would key
-on.
+here (the JAX scheduler flushes its dispatched step before a preemption;
+this engine has none in flight, so nothing needs flushing).  Not ported
+either, and refused where asked for: KV handoff (export/adopt) and prefix
+migration, the decision log and the goodput ledgers.  No CUDA graphs
+yet: the ``stats["traces"]`` count of distinct step, prefill, chunk and
+copy shapes is what a later capture would key on.
 """
 
 from __future__ import annotations
@@ -71,10 +88,18 @@ from paddlefleetx_tpu_torch.core.paged_cache import (
     kv_block_size,
 )
 from paddlefleetx_tpu_torch.core.request_queue import (
+    QUEUE_METRICS,
     DeadlineExceeded,
     QueueClosed,
     QueueFull,
     RequestFuture,
+)
+from paddlefleetx_tpu_torch.core.tenancy import (
+    DEFAULT_TENANT,
+    DeficitRoundRobin,
+    TenantConfig,
+    TenantLabelCap,
+    normalize_tenant,
 )
 from paddlefleetx_tpu_torch.models.gpt.generation import (
     PagedRows,
@@ -95,6 +120,8 @@ from paddlefleetx_tpu_torch.ops.speculative import (
     ngram_propose_host,
 )
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.resilience import maybe_fire
+from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
 
 
 def _pow2_at_least(n: int) -> int:
@@ -153,9 +180,39 @@ class _CBEntry:
     next_row: int = 0  # rows [0, next_row) admitted so far
     done_rows: int = 0
     results: List[Optional[List[int]]] = dataclasses.field(default_factory=list)
+    # token streaming: ``stream(row_idx, start, tokens)``, called on the
+    # scheduler thread as each step's commits land (start = index of
+    # tokens[0] in the row's output so far).  A sink must be fast; one
+    # that raises is logged and dropped, the tokens are committed anyway
+    stream: Optional[Callable[[int, int, List[int]], Any]] = None
+    # tenancy: the fair-share queue the entry waits in and its priority
+    # class (higher may preempt lower)
+    tenant: str = DEFAULT_TENANT
+    priority: int = 0
+    # preempt-resume state: the tokens a preempted row had committed
+    # (row_idx -> tokens) and the rows waiting to re-enter the batch.  A
+    # continuation's prompt is ``prompts[row_idx] + row_prefill[row_idx]``
+    # with the budget cut by the committed count, so the resumed greedy
+    # decode continues the undisturbed stream; results and stream offsets
+    # are rebased onto the committed prefix
+    row_prefill: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
+    requeue_rows: List[int] = dataclasses.field(default_factory=list)
 
     def __post_init__(self) -> None:
         self.results = [None] * len(self.prompts)
+
+    def emit_stream(self, row_idx: int, start: int, tokens: List[int]) -> None:
+        """Push a row's new commits to the stream, ``start`` rebased past
+        what the row streamed before a preemption: one monotone index
+        across a preempt-resume."""
+        base = len(self.row_prefill.get(row_idx, ()))
+        self.stream(row_idx, base + start, tokens)
+
+    def finished_tokens(self, row_idx: int, tokens: List[int]) -> List[int]:
+        """The row's whole output: the preempt-committed prefix, then the
+        tokens decoded since the last resume."""
+        pre = self.row_prefill.get(row_idx)
+        return (pre + tokens) if pre else tokens
 
 
 class PagedDecodeEngine:
@@ -230,6 +287,8 @@ class PagedDecodeEngine:
         self.active = np.zeros((B,), bool)
         self.slots: List[Optional[_Row]] = [None] * B
         self._seq_counter = 0
+        # spill readmit probes so far: the spill_corrupt fault's step
+        self._spill_probes = 0
         # warmup admissions and steps are not traffic: no spec stats, no
         # prefix hits, publishes or spills
         self._warmup = False
@@ -347,6 +406,12 @@ class PagedDecodeEngine:
         readmitted = 0
         while m + self.block <= limit:
             key = tuple(prompt_ids[:m + self.block])
+            self._spill_probes += 1
+            # the spill_corrupt drill: the Kth probe finds its host copy
+            # torn, and the checksum below discards it (the request
+            # recomputes and succeeds)
+            if maybe_fire("spill_corrupt", self._spill_probes):
+                spill.tear(key)
             arrays = spill.get(key)  # checksum-verified; None = miss
             if arrays is None:
                 break
@@ -647,9 +712,17 @@ class PagedDecodeEngine:
         for i, r in enumerate(self.slots):
             if r is None or not was_active[i]:
                 continue
+            start = len(r.tokens)  # a speculative step may commit several
             for tok in out[i, :ncommit[i]].tolist():
                 if tok != self.gen.eos_token_id:
                     r.tokens.append(tok)
+            if (len(r.tokens) > start and not self._warmup and r.entry is not None
+                    and r.entry.stream is not None):
+                try:
+                    r.entry.emit_stream(r.row_idx, start, r.tokens[start:])
+                except Exception as exc:  # noqa: BLE001 — a sink never kills the batch
+                    logger.warning(f"stream sink failed for seq {r.seq_id}: "
+                                   f"{type(exc).__name__}: {exc}")
             if not new_active[i]:
                 finished.append(i)
         n_act = int(was_active.sum())
@@ -681,10 +754,32 @@ class PagedDecodeEngine:
         self.forced_steps[slot] = 0
 
     def preempt_row(self, slot: int) -> List[int]:
-        raise NotImplementedError(
-            "preempt_row (priority preemption) comes with tenancy, a later slice of the "
-            "PyTorch port"
-        )
+        """Evict a decode-active row for a priority preemption and return
+        the tokens it committed (the scheduler requeues the row as a
+        continuation: paused, not killed).  With the prefix cache on, the
+        row's KV-valid prefix (the prompt and the ``positions -
+        prompt_len`` committed tokens whose KV is written) is published
+        first, so the continuation's prefill is a prefix hit."""
+        row = self.slots[slot]
+        if row is None:
+            raise ValueError(f"slot {slot} is empty")
+        if not row.prefill_done:
+            raise ValueError(
+                f"slot {slot} is mid-chunked-prefill; only decode-active "
+                "rows are preemptible"
+            )
+        committed = list(row.tokens)
+        if self.prefix_enabled and not self._warmup:
+            kv_valid = max(0, int(self.positions[slot]) - row.prompt_len)
+            self.cache.prefix.publish(row.prompt_ids + committed[:kv_valid], row.table)
+        self.cache.release(row.seq_id)
+        self.slots[slot] = None
+        self.active[slot] = False
+        self.positions[slot] = 0
+        self.gen_steps[slot] = 0
+        self.max_news[slot] = 0
+        self.forced_steps[slot] = 0
+        return committed
 
     def prefill_export(self, *args, **kwargs):
         raise NotImplementedError(
@@ -778,25 +873,43 @@ class PagedDecodeEngine:
 
 class ContinuousScheduler:
     """Iteration-level scheduler with the ``RequestQueue`` admission
-    surface: single tenant, FCFS.
+    surface, weighted-fair across tenants, with priority preemption.
 
     ``submit`` -> bounded waiting queue (QueueFull / QueueClosed exactly
     like RequestQueue); the scheduler thread loops one decode step per
     iteration: shed expired waiting entries, evict expired ACTIVE rows
-    mid-decode (blocks freed at once), admit from the queue head while
-    slots and blocks (free, or cached and reclaimable) allow
-    (prefill-on-admit, or its first chunk), then step the batch (at most
-    one pending chunk, then the decode step)."""
+    mid-decode (blocks freed at once), admit the weighted-fair pick's
+    oldest unit while slots and blocks (free, or cached and reclaimable)
+    allow (prefill-on-admit, or its first chunk), preempt for a blocked
+    arrival of higher priority (or once at a ``preempt_storm`` fire),
+    then step the batch (at most one pending chunk, then the decode
+    step)."""
 
     kind = "continuous"
 
     def __init__(self, engine: PagedDecodeEngine, *, max_depth: int = 64,
-                 name: str = "serve-cb") -> None:
+                 name: str = "serve-cb", tenant_config: Optional[TenantConfig] = None,
+                 preempt_min_tokens: int = 8) -> None:
         if max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
+        if preempt_min_tokens < 1:
+            raise ValueError(f"preempt_min_tokens must be >= 1, got {preempt_min_tokens}")
         self.engine = engine
         self.max_depth = int(max_depth)
         self.name = name
+        # the admission pull: a deficit round-robin across tenant queues
+        # (FCFS within a tenant); a victim must have committed
+        # preempt_min_tokens since its last admission (the minimum-progress
+        # floor that keeps preemption from thrashing)
+        self.tenant_config = tenant_config or TenantConfig()
+        self._fair = DeficitRoundRobin(self.tenant_config.weight)
+        self._tenant_labels = TenantLabelCap(seed=self.tenant_config.known_tenants())
+        self.preempt_min_tokens = int(preempt_min_tokens)
+        # rows admitted and preempted per tenant label (scheduler thread
+        # only; the same sites bump the labelled registry counters)
+        self._tenant_admitted: Dict[str, int] = {}
+        self._tenant_preempted: Dict[str, int] = {}
+        self._iter_counter = 0
         self._entries: List[_CBEntry] = []
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -804,20 +917,70 @@ class ContinuousScheduler:
         self._busy_since: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
         # the RequestQueue keys that apply (no coalescing: rows join the
-        # running batch instead) plus the continuous-only counters
-        self.stats = {
-            "submitted": 0, "completed": 0, "batches": 0,
-            "shed_deadline": 0, "rejected_full": 0, "rejected_closed": 0,
-            "gen_errors": 0, "evictions": 0, "prefill_admits": 0,
-        }
+        # running batch instead) plus the continuous-only counters, under
+        # the JAX scheduler's registry names; "preemptions" stays local
+        # (pfx_tenant_preemptions_total is its labelled form)
+        self.stats = StatsView({
+            **{k: m for k, m in QUEUE_METRICS.items() if not k.startswith("coalesced")},
+            "evictions": "pfx_request_evictions_total",
+            "prefill_admits": "pfx_prefill_admits_total",
+            "preemptions": None,
+        })
+        get_registry().register_collector(self)
+
+    def collect(self):
+        """Registry collector: queue depth and busy seconds, the batch's
+        occupancy and the arena's blocks, the engine's speculation, prefix
+        and spill counters, and the waiting entries per tenant label."""
+        eng = self.engine
+        cstats = eng.cache.stats()
+        pfx, spill = eng.cache.prefix.stats, eng.cache.spill.stats
+        prop = float(eng.stats["spec_proposed"])
+        out = [
+            ("pfx_queue_depth", {}, float(self.depth())),
+            ("pfx_queue_busy_seconds", {}, self.busy_seconds()),
+            ("pfx_batch_occupancy", {}, eng.active_rows() / max(1, eng.capacity)),
+            ("pfx_kv_blocks_used", {}, float(cstats["kv_blocks_used"])),
+            ("pfx_kv_blocks_free", {}, float(cstats["kv_blocks_free"])),
+            ("pfx_kv_blocks_available", {}, float(eng.cache.available_blocks())),
+            ("pfx_prefix_cached_blocks", {}, float(cstats["prefix_cached_blocks"])),
+            ("pfx_prefix_spill_bytes", {}, float(cstats["prefix_spill_bytes"])),
+            ("pfx_prefix_spill_entries", {}, float(cstats["prefix_spill_entries"])),
+            ("pfx_prefix_hits_total", {}, float(pfx["hits"])),
+            ("pfx_prefix_misses_total", {}, float(pfx["misses"])),
+            ("pfx_prefix_hit_tokens_total", {}, float(pfx["hit_tokens"])),
+            ("pfx_prefix_evictions_total", {}, float(pfx["evictions"])),
+            ("pfx_prefill_chunks_total", {}, float(eng.stats["prefill_chunks"])),
+            ("pfx_prefix_spills_total", {}, float(spill["spills"])),
+            ("pfx_prefix_readmits_total", {}, float(spill["readmits"])),
+            ("pfx_prefix_spill_discards_total", {}, float(spill["discards"])),
+            ("pfx_spec_proposed_total", {}, prop),
+            ("pfx_spec_accepted_total", {}, float(eng.stats["spec_accepted"])),
+        ]
+        if eng.spec is not None:
+            out.append(("pfx_spec_accept_rate", {},
+                        float(eng.stats["spec_accepted"]) / prop if prop else 0.0))
+        per_tenant: Dict[str, int] = {}
+        with self._lock:
+            for e in self._entries:
+                lab = self._tenant_labels.label(e.tenant)
+                per_tenant[lab] = per_tenant.get(lab, 0) + 1
+        for lab, n in sorted(per_tenant.items()):
+            out.append(("pfx_tenant_queue_depth", {"tenant": lab}, float(n)))
+        return out
 
     # -- admission (RequestQueue-compatible surface) --------------------
     def submit(self, prompts: Sequence[Any], max_new_tokens: int, *,
-               coalesce_key=None, deadline_s: Optional[float] = None) -> RequestFuture:
+               coalesce_key=None, deadline_s: Optional[float] = None,
+               stream: Optional[Callable[[int, int, List[int]], Any]] = None,
+               tenant: Optional[str] = None, priority: int = 0) -> RequestFuture:
         """Admit a request and return its future (``coalesce_key`` is
-        accepted for the RequestQueue signature and ignored).  Raises
-        ValueError for a prompt that can never fit the arena,
-        ``QueueClosed`` when draining and ``QueueFull`` at capacity."""
+        accepted for the RequestQueue signature and ignored).  ``stream``
+        (optional) is called on the scheduler thread as tokens commit
+        (see :class:`_CBEntry`); ``tenant`` / ``priority`` place the entry
+        in its fair-share queue and priority class.  Raises ValueError for
+        a prompt that can never fit the arena, ``QueueClosed`` when
+        draining and ``QueueFull`` at capacity."""
         if not prompts:
             raise ValueError("prompts must be non-empty")
         for p in prompts:
@@ -829,6 +992,9 @@ class ContinuousScheduler:
             deadline=now + float(deadline_s) if deadline_s is not None else None,
             future=RequestFuture(),
             enqueued_at=now,
+            stream=stream,
+            tenant=normalize_tenant(tenant),
+            priority=int(priority),
         )
         with self._wake:
             if self._closed:
@@ -964,6 +1130,12 @@ class ContinuousScheduler:
 
     def _iterate(self) -> int:
         """One scheduler iteration; returns the rows it finished."""
+        try:
+            return self._iterate_inner()
+        finally:
+            self._iter_counter += 1
+
+    def _iterate_inner(self) -> int:
         eng = self.engine
         now = time.monotonic()
         admitted: List[tuple] = []
@@ -995,8 +1167,12 @@ class ContinuousScheduler:
             if not e.future.done():
                 self._evict_entry(e, "expired_partial" if e in partial else "mid-decode")
 
+        reserved_blocks = 0
+        blocked: Optional[tuple] = None
         with self._wake:
-            # FCFS admission from the queue head.  Nothing is allocated
+            # the weighted-fair pull: each pick serves the chosen tenant's
+            # oldest unit (a preempted row waiting to resume before any
+            # fresh row) and charges one deficit.  Nothing is allocated
             # until the prefill loop below, so the pull accounts for its
             # own picks: a burst larger than the free capacity stays queued
             free_slots = eng.free_slots()
@@ -1007,35 +1183,75 @@ class ContinuousScheduler:
             reclaim_counted = False
             self._entries = [e for e in self._entries if not e.future.done()]
             while self._entries:
-                head = self._entries[0]
-                row_idx = head.next_row
-                prompt = head.prompts[row_idx]
-                need = blocks_for(eng.row_capacity_tokens(len(prompt), head.max_new),
-                                  eng.block)
+                backlog: Dict[str, int] = {}
+                for e in self._entries:
+                    backlog[e.tenant] = backlog.get(e.tenant, 0) + 1
+                pick = self._fair.pick(backlog)
+                head = next(e for e in self._entries if e.tenant == pick)
+                row_idx, prompt, mx, resumed = self._next_unit(head)
+                need = blocks_for(eng.row_capacity_tokens(len(prompt), mx), eng.block)
                 if need > free_blocks and not reclaim_counted:
                     free_blocks += eng.cache.prefix.reclaimable_blocks()
                     reclaim_counted = True
                 if free_slots < 1 or need > free_blocks:
-                    break  # head-of-line blocked until rows finish
+                    # head-of-line blocked until rows finish: the priority
+                    # preemption candidate below
+                    blocked = (head, row_idx, prompt, mx, resumed, need)
+                    break
                 free_slots -= 1
                 free_blocks -= need
-                admitted.append((head, row_idx, prompt))
-                head.next_row += 1
-                if head.next_row >= len(head.prompts):
-                    self._entries.pop(0)
+                reserved_blocks += need
+                self._take_unit_locked(head, row_idx, prompt, mx, resumed, admitted)
+
+        # priority preemption (outside the lock: engine work).  A blocked
+        # arrival of strictly higher priority than the lowest-priority
+        # active row may seat itself by preempting that row;
+        # preempt_storm:K forces one preemption at iteration K with no
+        # arrival.  Victims must be past the minimum-progress floor, and a
+        # preempted row is requeued as a continuation, never killed.  The
+        # JAX scheduler flushes its dispatched step first; this engine's
+        # steps are synchronous, so no step is in flight here.
+        storm = maybe_fire("preempt_storm", self._iter_counter + 1)
+        want = blocked if blocked is not None and not blocked[0].future.done() else None
+        if want is not None or storm:
+            fits = False
+            for _ in range(eng.capacity + 1):
+                if want is not None:
+                    need = want[5]
+                    free_s = eng.free_slots() - len(admitted)
+                    free_b = eng.cache.allocator.free_count() - reserved_blocks
+                    if need > free_b:
+                        free_b += eng.cache.prefix.reclaimable_blocks()
+                    if free_s >= 1 and need <= free_b:
+                        fits = True
+                        break
+                victim = self._pick_victim(want[0].priority if want is not None else None)
+                if victim is None:
+                    break
+                self._preempt_slot(victim)
+                if want is None:
+                    break  # a storm fire: exactly one forced preemption
+            if want is not None and fits:
+                # seat the preemptor now: it earned the freed capacity (no
+                # second fair pick: priority cuts across fairness, and its
+                # tenant's deficit is still charged)
+                with self._wake:
+                    if not want[0].future.done():
+                        self._take_unit_locked(*want[:5], admitted)
 
         # prefill-on-admit (outside the lock: device work)
-        for entry, row_idx, prompt in admitted:
+        for entry, row_idx, prompt, mx in admitted:
             if entry.future.done():
                 continue  # an earlier row of this entry already failed
             try:
-                eng.admit(prompt, entry.max_new, entry=entry, row_idx=row_idx)
-                with self._lock:
-                    self.stats["prefill_admits"] += 1
+                eng.admit(prompt, mx, entry=entry, row_idx=row_idx)
+                self.stats["prefill_admits"] += 1
+                lab = self._tenant_labels.label(entry.tenant)
+                self._tenant_admitted[lab] = self._tenant_admitted.get(lab, 0) + 1
+                get_registry().counter("pfx_tenant_admitted_total", tenant=lab).inc()
             except ArenaReset as exc:
                 # the prefill failed: every live row died with the arena
-                with self._lock:
-                    self.stats["gen_errors"] += 1
+                self.stats["gen_errors"] += 1
                 self._fail_rows(exc.dead_rows, exc)
                 if not entry.future.done():
                     entry.future.set_exception(exc)
@@ -1043,8 +1259,7 @@ class ContinuousScheduler:
             except (BlockPoolExhausted, RuntimeError, ValueError) as exc:
                 # host-side failure before any device work: the arena is
                 # intact, fail only this entry (and its admitted rows)
-                with self._lock:
-                    self.stats["gen_errors"] += 1
+                self.stats["gen_errors"] += 1
                 for i, r in enumerate(eng.slots):
                     if r is not None and r.entry is entry:
                         eng.release(i)
@@ -1055,6 +1270,79 @@ class ContinuousScheduler:
         if not self._has_live_rows():
             return 0
         return self._step_batch()
+
+    def _take_unit_locked(self, head: _CBEntry, row_idx: int, prompt: List[int], mx: int,
+                          resumed: bool, admitted: List[tuple]) -> None:
+        """Book one picked unit for this iteration's admissions: charge
+        its tenant, advance the entry, and drop the entry from the queue
+        once every row of it is admitted."""
+        self._fair.charge(head.tenant)
+        admitted.append((head, row_idx, prompt, mx))
+        if resumed:
+            head.requeue_rows.pop(0)
+        else:
+            head.next_row += 1
+        if (head.next_row >= len(head.prompts) and not head.requeue_rows
+                and head in self._entries):
+            self._entries.remove(head)
+
+    def _next_unit(self, head: _CBEntry) -> tuple:
+        """The entry's next admissible unit, ``(row_idx, prompt, max_new,
+        resumed)``.  A preempted row waiting to resume goes before any
+        fresh row: its prompt is the original prompt plus every committed
+        token (mostly a prefix hit with the cache on), its budget what
+        remains."""
+        if head.requeue_rows:
+            row_idx = head.requeue_rows[0]
+            committed = head.row_prefill.get(row_idx, [])
+            return (row_idx, head.prompts[row_idx] + committed,
+                    head.max_new - len(committed), True)
+        return head.next_row, head.prompts[head.next_row], head.max_new, False
+
+    def _pick_victim(self, below_priority: Optional[int]) -> Optional[int]:
+        """The slot of the lowest-priority row eligible for preemption, or
+        None: decode-active with its prefill done, its entry live, at
+        least ``preempt_min_tokens`` committed since its last admission
+        (a resumed victim re-earns eligibility) and, unless
+        ``below_priority`` is None (the preempt_storm drill), strictly
+        below the preemptor's priority.  Ties: the lowest slot."""
+        eng = self.engine
+        best: Optional[int] = None
+        for i, r in enumerate(eng.slots):
+            if r is None or r.entry is None or r.entry.future.done():
+                continue
+            if not r.prefill_done or not bool(eng.active[i]):
+                continue
+            if len(r.tokens) < self.preempt_min_tokens:
+                continue
+            if below_priority is not None and r.entry.priority >= below_priority:
+                continue
+            if best is None or (r.entry.priority, i) < (eng.slots[best].entry.priority, best):
+                best = i
+        return best
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Preempt one active row and requeue it as a continuation: the
+        engine publishes its KV-valid prefix and frees the slot, the
+        committed tokens join the entry's resume state, and the entry
+        re-enters the queue at the FRONT (it already waited its turn)."""
+        eng = self.engine
+        row = eng.slots[slot]
+        entry = row.entry
+        committed = eng.preempt_row(slot)
+        entry.row_prefill[row.row_idx] = entry.row_prefill.get(row.row_idx, []) + committed
+        entry.requeue_rows.append(row.row_idx)
+        self.stats["preemptions"] += 1
+        lab = self._tenant_labels.label(entry.tenant)
+        self._tenant_preempted[lab] = self._tenant_preempted.get(lab, 0) + 1
+        get_registry().counter("pfx_tenant_preemptions_total", tenant=lab).inc()
+        logger.info(f"{self.name}: preempted slot {slot} (tenant {entry.tenant}, priority "
+                    f"{entry.priority}) after {len(committed)} committed token(s); requeued "
+                    "as a continuation")
+        with self._wake:
+            if entry not in self._entries:
+                self._entries.insert(0, entry)
+            self._wake.notify_all()
 
     def _step_batch(self) -> int:
         """One decode step, then resolve the rows it finished."""
@@ -1072,17 +1360,20 @@ class ContinuousScheduler:
 
     def _finish_rows(self, finished: List[int]) -> int:
         eng = self.engine
+        reg = get_registry()
         for slot in finished:
             row = eng.slots[slot]
             entry = row.entry
             eng.release(slot)
             if entry is None:
                 continue
-            entry.results[row.row_idx] = row.tokens
+            entry.results[row.row_idx] = entry.finished_tokens(row.row_idx, row.tokens)
             entry.done_rows += 1
             if entry.done_rows == len(entry.prompts) and not entry.future.done():
                 entry.future.set_result(list(entry.results))
-                with self._lock:
-                    self.stats["completed"] += 1
+                self.stats["completed"] += 1
+                reg.counter("pfx_serving_requests_total").inc()
+                reg.counter("pfx_serving_tokens_out_total").inc(
+                    sum(len(t) for t in entry.results))
         return len(finished)
 

@@ -718,6 +718,19 @@ class PrefixSpillStore:
             self._bytes -= entry["nbytes"]
             self.stats["discards"] += 1
 
+    def tear(self, key) -> bool:
+        """Flip the bits of an entry's first payload byte in place, as a
+        torn host copy would read (the ``spill_corrupt`` drill): the next
+        :meth:`get` fails the checksum and discards it.  False when the
+        key is not resident."""
+        entry = self._entries.get(tuple(int(t) for t in key))
+        if entry is None:
+            return False
+        a = entry["arrays"][sorted(entry["arrays"])[0]]
+        raw = a.reshape(-1).view(torch.uint8) if isinstance(a, torch.Tensor) else a.reshape(-1).view(np.uint8)
+        raw[0] ^= 0xFF
+        return True
+
     def clear(self) -> int:
         """Invalidate EVERYTHING (ArenaReset: spilled copies of a dead
         arena's blocks must never readmit).  Not counted as discards —

@@ -1,8 +1,8 @@
 """Admission-controlled serving request queue: bounded depth, deadlines,
 coalescing and graceful drain.
 
-Single-tenant counterpart of ``paddlefleetx_tpu/core/request_queue.py``
-(tenancy, deep-dive tracing and ``debug_state`` come later):
+Counterpart of ``paddlefleetx_tpu/core/request_queue.py`` (deep-dive
+tracing and ``debug_state`` come later):
 
   - **bounded admission**: ``submit`` raises :class:`QueueFull` at
     capacity (HTTP 429) and :class:`QueueClosed` while draining (HTTP 503);
@@ -14,7 +14,11 @@ Single-tenant counterpart of ``paddlefleetx_tpu/core/request_queue.py``
     batched runner call, up to ``max_coalesce`` prompts; each request's
     rows are trimmed back to its own ``max_new_tokens``;
   - **graceful drain**: ``close`` stops admission while admitted entries
-    still run; ``join`` waits for the scheduler to finish them.
+    still run; ``join`` waits for the scheduler to finish them;
+  - **tenancy**: each entry carries a tenant and a priority; with a
+    ``tenant_config`` the head is picked by a deficit round-robin across
+    tenants (``core/tenancy.py``), FCFS within a tenant, and coalescing
+    never merges two tenants' entries.  One tenant is exactly FCFS.
 
 The runner is ``runner(prompts, max_new_tokens) -> rows`` (one row per
 prompt, in order).  Coordination is plain ``threading``.
@@ -28,7 +32,30 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 
+from paddlefleetx_tpu_torch.core.tenancy import (
+    DEFAULT_TENANT,
+    DeficitRoundRobin,
+    TenantConfig,
+    TenantLabelCap,
+    normalize_tenant,
+)
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
+
+
+# the RequestQueue counters under the JAX queue's registry names; the
+# continuous scheduler exports the same keys plus its own
+QUEUE_METRICS = {
+    "submitted": "pfx_queue_submitted_total",
+    "completed": "pfx_queue_completed_total",
+    "batches": "pfx_queue_batches_total",
+    "coalesced_batches": "pfx_queue_coalesced_batches_total",
+    "coalesced_requests": "pfx_queue_coalesced_requests_total",
+    "shed_deadline": "pfx_queue_shed_deadline_total",
+    "rejected_full": "pfx_queue_rejected_full_total",
+    "rejected_closed": "pfx_queue_rejected_closed_total",
+    "gen_errors": "pfx_queue_gen_errors_total",
+}
 
 
 class QueueFull(RuntimeError):
@@ -84,14 +111,20 @@ class _Entry:
     deadline: Optional[float]  # absolute time.monotonic(); None = none
     future: RequestFuture
     enqueued_at: float
+    # the fair-share queue the entry waits in, and its priority class
+    tenant: str = DEFAULT_TENANT
+    priority: int = 0
 
 
 class RequestQueue:
-    """Bounded FCFS admission queue + one scheduler thread.
+    """Bounded admission queue + one scheduler thread.
 
-    Coalescing pulls later same-key entries forward into the oldest
-    entry's batch; other entries keep their order.  ``coalesce_key=None``
-    opts an entry out.  ``serving_stats`` (optional) supplies what
+    Coalescing pulls later same-key entries of the head's tenant forward
+    into the head's batch; other entries keep their order.
+    ``coalesce_key=None`` opts an entry out.  With a ``tenant_config`` the
+    head is the oldest entry of the tenant a deficit round-robin picks
+    (weights from the config); without one, or with one tenant waiting,
+    the pick is plain FCFS.  ``serving_stats`` (optional) supplies what
     :meth:`serving_stats` reports: the runner's own counters."""
 
     kind = "coalesce"
@@ -104,6 +137,7 @@ class RequestQueue:
         max_coalesce: int = 8,
         name: str = "serve",
         serving_stats: Optional[Callable[[], Dict[str, Any]]] = None,
+        tenant_config: Optional[TenantConfig] = None,
     ) -> None:
         if max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
@@ -114,18 +148,35 @@ class RequestQueue:
         self.max_depth = int(max_depth)
         self.max_coalesce = int(max_coalesce)
         self.name = name
+        self.tenant_config = tenant_config or TenantConfig()
+        self._fair = DeficitRoundRobin(self.tenant_config.weight)
+        self._tenant_labels = TenantLabelCap(seed=self.tenant_config.known_tenants())
         self._entries: deque = deque()
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._closed = False
         self._busy_since: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
-        self.stats = {
-            "submitted": 0, "completed": 0, "batches": 0,
-            "coalesced_batches": 0, "coalesced_requests": 0,
-            "shed_deadline": 0, "rejected_full": 0, "rejected_closed": 0,
-            "gen_errors": 0,
-        }
+        # per-instance counts exported onto the registry; depth, busy
+        # seconds and the per-tenant depth ride along through collect()
+        self.stats = StatsView(QUEUE_METRICS)
+        get_registry().register_collector(self)
+
+    def collect(self):
+        """Registry collector: queue depth, the runner's busy seconds and
+        the waiting entries per tenant label (folded by the label cap)."""
+        per_tenant: Dict[str, int] = {}
+        with self._lock:
+            for e in self._entries:
+                lab = self._tenant_labels.label(e.tenant)
+                per_tenant[lab] = per_tenant.get(lab, 0) + 1
+        rows = [
+            ("pfx_queue_depth", {}, float(self.depth())),
+            ("pfx_queue_busy_seconds", {}, self.busy_seconds()),
+        ]
+        for lab, n in sorted(per_tenant.items()):
+            rows.append(("pfx_tenant_queue_depth", {"tenant": lab}, float(n)))
+        return rows
 
     # -- admission ------------------------------------------------------
     def submit(
@@ -135,9 +186,14 @@ class RequestQueue:
         *,
         coalesce_key: Optional[Hashable] = None,
         deadline_s: Optional[float] = None,
+        tenant: Optional[str] = None,
+        priority: int = 0,
     ) -> RequestFuture:
-        """Admit a request and return its future; raises ``QueueClosed``
-        when draining and ``QueueFull`` at capacity."""
+        """Admit a request into ``tenant``'s queue (normalized; None is the
+        anonymous tenant) and return its future; raises ``QueueClosed``
+        when draining and ``QueueFull`` at capacity.  ``priority`` is
+        carried for the continuous scheduler's surface: this scheduler
+        never preempts a running batch."""
         if not prompts:
             raise ValueError("prompts must be non-empty")
         now = time.monotonic()
@@ -148,6 +204,8 @@ class RequestQueue:
             deadline=now + float(deadline_s) if deadline_s is not None else None,
             future=RequestFuture(),
             enqueued_at=now,
+            tenant=normalize_tenant(tenant),
+            priority=int(priority),
         )
         with self._wake:
             if self._closed:
@@ -227,32 +285,40 @@ class RequestQueue:
         return self.join(timeout)
 
     # -- scheduler ------------------------------------------------------
+    def _shed_locked(self, entry: _Entry, now: float) -> None:
+        self.stats["shed_deadline"] += 1
+        waited = now - entry.enqueued_at
+        logger.warning(f"{self.name}: shed expired request after {waited:.2f}s queued")
+        entry.future.set_exception(DeadlineExceeded(f"deadline exceeded after {waited:.2f}s queued"))
+
     def _take_batch_locked(self) -> Optional[List[_Entry]]:
-        """Shed expired entries, then pop the oldest entry plus every
-        waiting entry with its coalesce key while the prompt count stays
-        within ``max_coalesce``.  None when nothing is waiting."""
+        """Shed expired entries, then pop the oldest entry of the tenant
+        the weighted-fair pick chooses (plain FCFS when one tenant waits)
+        plus every waiting entry of that tenant with its coalesce key
+        while the prompt count stays within ``max_coalesce``.  None when
+        nothing is waiting."""
         now = time.monotonic()
         live = []
         for e in self._entries:
             if e.deadline is not None and now > e.deadline:
-                self.stats["shed_deadline"] += 1
-                waited = now - e.enqueued_at
-                logger.warning(
-                    f"{self.name}: shed expired request after {waited:.2f}s queued"
-                )
-                e.future.set_exception(
-                    DeadlineExceeded(f"deadline exceeded after {waited:.2f}s queued")
-                )
+                self._shed_locked(e, now)
             else:
                 live.append(e)
         if not live:
             self._entries = deque()
             return None
-        head = live.pop(0)
+        backlog: Dict[str, int] = {}
+        for e in live:
+            backlog[e.tenant] = backlog.get(e.tenant, 0) + 1
+        pick = self._fair.pick(backlog)
+        head = next(e for e in live if e.tenant == pick)
+        live.remove(head)
+        self._fair.charge(pick)
         batch, n, keep = [head], len(head.prompts), []
         for e in live:
             if (
                 head.coalesce_key is not None
+                and e.tenant == head.tenant
                 and e.coalesce_key == head.coalesce_key
                 and n + len(e.prompts) <= self.max_coalesce
             ):

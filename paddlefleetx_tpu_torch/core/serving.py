@@ -8,6 +8,9 @@ small LRU pool of KV caches that are reused in place between requests of
 the same shape instead of reallocated.  ``Generation.speculative.draft_k``
 > 0 decodes through the speculative loop (``generate(..., spec=)``), with
 ``draft_k`` slack slots in every cache and the draft counts in ``stats``.
+``stats`` is a ``StatsView``: its counters are the registry's
+``pfx_serving_*`` / ``pfx_spec_*`` series, so ``/metrics`` and ``/healthz``
+read one snapshot.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from paddlefleetx_tpu_torch.models.gpt.generation import (
 from paddlefleetx_tpu_torch.ops.decode_attention import kv_cache_dtype
 from paddlefleetx_tpu_torch.ops.speculative import spec_config_from
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
 
 
 def plan_decode(padded_len: int, max_toks: int, *, context: int):
@@ -86,11 +90,22 @@ class GenerationServer:
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._cache_pool: "OrderedDict" = OrderedDict()
         self._cache_pool_size = int(gen_cfg.get("cache_pool_size", 4))
-        self.stats: Dict = {
-            "requests": 0, "tokens_out": 0, "time_s": 0.0, "gen_errors": 0,
-            "last_latency_s": 0.0, "last_error": "", "spec_proposed": 0,
-            "spec_accepted": 0, "spec_accept_rate": 0.0,
-        }
+        # the numeric keys are exported onto the registry under the JAX
+        # server's names; last_error, warmup_s and the accept rate stay
+        # instance-local
+        self.stats = StatsView(
+            {
+                "requests": "pfx_serving_requests_total",
+                "tokens_out": "pfx_serving_tokens_out_total",
+                "time_s": "pfx_serving_gen_seconds_total",
+                "gen_errors": "pfx_serving_gen_errors_total",
+                "last_latency_s": "pfx_serving_last_latency_seconds",
+                "spec_proposed": "pfx_spec_proposed_total",
+                "spec_accepted": "pfx_spec_accepted_total",
+            },
+            init={"time_s": 0.0, "last_latency_s": 0.0, "last_error": "",
+                  "spec_accept_rate": 0.0},
+        )
 
     @property
     def context(self) -> int:
@@ -161,8 +176,8 @@ class GenerationServer:
         self.stats["time_s"] += dt
         self.stats["last_latency_s"] = round(dt, 4)
         if spec_stats is not None:
-            self.stats["spec_proposed"] += spec_stats[0]
-            self.stats["spec_accepted"] += spec_stats[1]
+            self.stats["spec_proposed"] += int(spec_stats[0])
+            self.stats["spec_accepted"] += int(spec_stats[1])
             self.stats["spec_accept_rate"] = (
                 self.stats["spec_accepted"] / self.stats["spec_proposed"]
                 if self.stats["spec_proposed"] else 0.0)
@@ -207,4 +222,5 @@ class GenerationServer:
                     f"(pad multiple {self.bucket}) ran in {per[key]:.2f}s"
                 )
         self.stats["warmup_s"] = dict(per)
+        get_registry().counter("pfx_serving_warmup_seconds_total").inc(sum(per.values()))
         return per

@@ -241,8 +241,28 @@ def test_engine_refuses_what_is_not_ported(servers):
         with pytest.raises(ValueError) as got:
             PagedDecodeEngine(pserver, **kw)
         assert str(got.value) == str(want.value)
-    # preemption (tenancy) and the KV handoff stay unported
-    for call in (lambda: eng.preempt_row(0), lambda: eng.prefill_export([1, 2], 4),
+    # preemption is ported: preempt_row frees a decode-active row and
+    # returns its committed tokens, as the JAX engine does, and refuses an
+    # empty slot and a row mid-chunked-prefill with the JAX errors
+    preempted = []
+    for make in (JaxEngine, PagedDecodeEngine):
+        pe = make(jserver if make is JaxEngine else pserver, max_batch=2, block=8,
+                  prefill_chunk=8)
+        s0 = pe.admit(PROMPTS[1], MAX_NEW)  # 11 tokens: one chunk runs, one waits
+        errors = []
+        for slot in (s0, 1):
+            with pytest.raises(ValueError) as err:
+                pe.preempt_row(slot)
+            errors.append(str(err.value))
+        while not pe.slots[s0].prefill_done or len(pe.slots[s0].tokens) < 2:
+            pe.step()
+        got = pe.preempt_row(s0)
+        preempted.append((got, errors, all(r is None for r in pe.slots),
+                          pe.cache.stats()["kv_blocks_used"]))
+    assert preempted[1] == preempted[0]
+    assert len(preempted[1][0]) >= 2 and preempted[1][2:] == (True, 0)
+    # the KV handoff stays unported
+    for call in (lambda: eng.prefill_export([1, 2], 4),
                  lambda: eng.adopt({}, {}), lambda: eng.export_hot_prefixes(),
                  lambda: eng.adopt_prefixes({}, {})):
         with pytest.raises(NotImplementedError):

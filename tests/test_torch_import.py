@@ -39,6 +39,10 @@ SPECULATIVE = ("paddlefleetx_tpu_torch.ops.speculative", "paddlefleetx_tpu_torch
                "paddlefleetx_tpu_torch.core.serving",
                "paddlefleetx_tpu_torch.core.continuous_batching",
                "paddlefleetx_tpu_torch.tools.serve")
+# the multi-tenant serving modules (the tenancy vocabulary, the metrics
+# registry, the fault harness), each imported above without JAX
+TENANCY = ("paddlefleetx_tpu_torch.core.tenancy", "paddlefleetx_tpu_torch.utils.telemetry",
+           "paddlefleetx_tpu_torch.utils.resilience", "paddlefleetx_tpu_torch.core.request_queue")
 
 
 def _run(args, **kw):
@@ -56,6 +60,7 @@ def test_port_imports_no_jax():
     assert bad == "[]", out.stdout
     assert set(TRAINING) <= set(listed.split()), listed
     assert set(SPECULATIVE) <= set(listed.split()), listed
+    assert set(TENANCY) <= set(listed.split()), listed
 
 
 def test_serve_without_card_raises():
