@@ -128,7 +128,7 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      their plain versions on the CPU);
   15. K7, K8 and K9 at the speculative verify chunk, t = draft_k + 1 = 5
      (and 8, 16, 17: the last t of the split-K kernels and the first past
-     them, K7/K8's tensor-core prefill, K9's CUDA-core kernel): K7/K8 at
+     them, K7/K8's tensor-core prefill, K9's tensor-core chunk kernel): K7/K8 at
      request D's rows halfway, K9 at phase 7's, against their plain
      versions with CUDA-event times, SDPA's (bf16; the int8 rows carry the
      bf16 kernel's time) and the bound; the stale tail a rewind leaves
@@ -149,13 +149,16 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      accept rate;
   17. K9 at chunk width (a chunked prefill's chunk, a prefix hit's suffix):
      one row, 16 heads, d = 64, block 16, bf16 and int8 pools, t = 256 at
-     slot 0 and at slot 512 (over a 512-token cached prefix), t = 64 and
-     t = 16 at slot 512, against the plain version (bf16 2e-2, int8 1e-4),
-     with CUDA-event times of the kernel, the plain version and SDPA over
-     the gathered keys with the causal-offset mask (bf16), and the bound;
-     t > 16 takes the CUDA-core kernel and counts in ``*_chunk``; NaN in
-     the null block, a spare block and past the last query's bound leaves
-     the output bitwise unchanged, and a repeat call gives the same bits;
+     slot 0 and at slot 512 (over a 512-token cached prefix), t = 128, 64,
+     17 and 16 at slot 512, against the plain version (bf16 2e-2, int8
+     1e-4), with CUDA-event times of the kernel, the CUDA-core kernel on
+     the same inputs, the plain version and SDPA over the gathered keys
+     with the causal-offset mask (bf16), and the bound; t > 16 takes the
+     sm90 route's tensor-core chunk kernel (csrc/paged_attention_sm90.cu),
+     timed at 128, 256, 512 and 1024 keys a split, and counts in
+     ``*_chunk`` and ``*_sm90_chunk``; NaN in the null block, a spare
+     block and past the last query's bound leaves the output bitwise
+     unchanged, and a repeat call gives the same bits;
   18. chunked prefill and prefix reuse served at full width:
      ``tools.serve --scheduler continuous --prefill-chunk 256
      --prefix-cache-blocks 40 --prefix-spill-bytes 256 MiB``, bf16 and
@@ -166,10 +169,11 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      while the seventh request decodes.  /healthz must show prefix hits,
      spills, readmits and chunks, prompt tokens computed below the prompts'
      sum, the long prompt's later chunks each run beside a decode step,
-     every K9 chunk launch (t = 256) on the CUDA-core route and every
-     other K9 launch on the sm90 one, no contiguous prefill and no plain
-     call; every answered token within ``SPEC_ULPS`` bf16 ulps of its
-     prefix's argmax under teacher forcing;
+     every K9 launch on the sm90 route, each chunk launch (t = 256) on its
+     tensor-core chunk kernel (``*_sm90_chunk``) and none on the CUDA-core
+     one, no contiguous prefill and no plain call; every answered token
+     within ``SPEC_ULPS`` bf16 ulps of its prefix's argmax under teacher
+     forcing; the walls and time to first token are printed;
   19. the same engine flags in float32 on the card, at full width cut to
      ``PFX_F32_LAYERS`` layers: families A, A, B, A (a hit, a spill, a
      readmit) and the 900-token prompt streaming in while A decodes (one
@@ -187,7 +191,8 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      resumes as a prefix hit (its suffix a K9 chunk).  /healthz must show
      the preemption, equal to /metrics' ``pfx_tenant_preemptions_total``,
      the admissions per tenant, K9 launches of 24 per engine step and
-     chunk with no plain call; streamed frames carry contiguous indices
+     chunk, all on the sm90 route (the resume's chunk on its chunk kernel),
+     with no plain call; streamed frames carry contiguous indices
      across the preemption; every answer token within ``SPEC_ULPS`` bf16
      ulps of its prefix's argmax.  Then ``PFX_FAULT=preempt_storm`` in
      float32 on the card (``PFX_F32_LAYERS`` layers, the prefix cache on):
@@ -219,6 +224,8 @@ SOURCES = {
     "flash_decode_q8": "paddlefleetx_tpu_torch/csrc/decode_attention_sm90.cu",
     "paged_decode": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
     "paged_decode_q8": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
+    "paged_decode_sm90_chunk": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
+    "paged_decode_q8_sm90_chunk": "paddlefleetx_tpu_torch/csrc/paged_attention_sm90.cu",
     "flash_fwd": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_dq": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_bwd_dkv": "paddlefleetx_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -231,6 +238,8 @@ REPLACES = {
     "flash_decode_q8": "paddlefleetx_tpu/ops/decode_attention.py:295",
     "paged_decode": "paddlefleetx_tpu/ops/decode_attention.py:524",
     "paged_decode_q8": "paddlefleetx_tpu/ops/decode_attention.py:524",
+    "paged_decode_sm90_chunk": "paddlefleetx_tpu/ops/decode_attention.py:524",
+    "paged_decode_q8_sm90_chunk": "paddlefleetx_tpu/ops/decode_attention.py:524",
     "flash_fwd": "paddlefleetx_tpu/ops/flash_attention.py:121",
     "flash_bwd_dq": "paddlefleetx_tpu/ops/flash_attention.py:215",
     "flash_bwd_dkv": "paddlefleetx_tpu/ops/flash_attention.py:249",
@@ -269,15 +278,17 @@ PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
 # phase 6: keys a split of the sm90 paged kernel, timed against each other
 PAGED_SPLIT_KEYS = (128, 256, 512)
 # phases 15-16: speculative decoding, draft_k 4 served (t = 5), the kernels
-# also held at t = 8, 16 and 17 (K7/K8's prefill kernel, K9's CUDA-core one)
+# also held at t = 8, 16 and 17 (K7/K8's prefill kernel, K9's chunk kernel)
 SPEC_K = 4
 VERIFY_TS = (SPEC_K + 1, 8, 16, 17)
 # an answer token's logit under its prefix's argmax, in bf16 ulps of the
 # argmax: ties and near-ties flip with rounding (PERF.md), a wrong token
 # sits far below
 SPEC_ULPS = 4.0
-# phase 17: K9 at chunk width, one row: (t, slot of its first query)
-CHUNK_CASES = ((256, 0), (256, 512), (64, 512), (16, 512))
+# phase 17: K9 at chunk width, one row: (t, slot of its first query), and
+# the keys a split of the chunk kernel, timed against each other
+CHUNK_CASES = ((256, 0), (256, 512), (128, 512), (64, 512), (17, 512), (16, 512))
+CHUNK_SPLIT_KEYS = (128, 256, 512, 1024)
 # phases 18-19: prompt families of a PFX_LEN-token shared prefix, chunks of
 # PFX_CHUNK, an index of PFX_BLOCKS blocks (one family's published blocks,
 # not two), PFX_SPILL bytes of host RAM, and a LONG_PROMPT-token prompt
@@ -885,7 +896,7 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     ``plain_ms`` the plain version with the wrapper's layout work.  On the
     sm90 route, the CUDA-core kernel is held and timed on the same inputs
     too (``cuda_core``), and the sm90 launch at each PAGED_SPLIT_KEYS
-    (``split_ms``)."""
+    (CHUNK_SPLIT_KEYS for the chunk kernel, t > 16: ``split_ms``)."""
     b, n, d, bs = len(positions), 16, 64, KV_BLOCK
     q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
                                                 positions, seed)
@@ -894,7 +905,7 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     route = da.paged_kernel_route(q.dtype, d, t, bs)
     key = "paged_decode_q8" if kind == "int8" else "paged_decode"
 
-    def launch(route=route, split_keys=da.PAGED_SPLIT_KEYS):
+    def launch(route=route, split_keys=None):
         return da._paged_launch(q_t, k, v, tables, pos, scale, ks, vs, route=route,
                                 split_keys=split_keys)
 
@@ -937,7 +948,7 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
         cuda_core = {"max_abs_err": cc_err,
                      "launch_ms": event_ms(torch, lambda: launch("cuda_core"), iters)}
         split_ms = {}
-        for sk in PAGED_SPLIT_KEYS:
+        for sk in CHUNK_SPLIT_KEYS if t > da.SPLIT_MAX_ROWS else PAGED_SPLIT_KEYS:
             split_err = (launch(split_keys=sk) - ref).abs().max().item()
             check(split_err <= TOL[kind], f"paged {kind} t={t} split {sk}: {split_err}")
             split_ms[sk] = event_ms(torch, lambda: launch(split_keys=sk), iters)
@@ -976,9 +987,9 @@ def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
     last block past its bound, positions + t - 1 (int8 pools: NaN scales
     there, the payload at the int8 extremes): the wrapper must give the
     same finite result, on either route (f32: the CUDA-core kernel; bf16,
-    int8: sm90 for t <= 16), at each of ``ts``; the f32 result agrees with
-    the plain version on the clean pools; a repeat call of the sm90 kernel
-    (rows over several splits) gives the same bits."""
+    int8: sm90, split-K or the chunk kernel), at each of ``ts``; the f32
+    result agrees with the plain version on the clean pools; a repeat call
+    of the sm90 kernel (rows over several splits) gives the same bits."""
     b, n, d, bs = len(positions), 16, 64, KV_BLOCK
     for kind in kinds:
         for t in ts:
@@ -1012,8 +1023,8 @@ def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
             got = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
             torch.cuda.synchronize()
             route = da.paged_kernel_route(q.dtype, d, t, bs)
-            check(route == ("cuda_core" if kind == "float32" or t > da.SPLIT_MAX_ROWS
-                            else "sm90"), f"{kind} t={t}: {route}")
+            check(route == ("cuda_core" if kind == "float32" else "sm90"),
+                  f"{kind} t={t}: {route}")
             check(torch.equal(again, clean), f"paged {kind} t={t} ({route}): a repeat call "
                                              "differs")
             check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
@@ -2023,21 +2034,24 @@ def phase_spec_check(torch, plain, spec):
 
 def phase_chunk_kernel(torch, F, da):
     """K9 at :data:`CHUNK_CASES` through the wrapper the engine calls,
-    against its plain version with CUDA-event times, SDPA's over the
-    gathered keys (bf16) and the bound; a launch wider than
-    SPLIT_MAX_ROWS counts in ``*_chunk``; NaN in the null block, a spare
-    block and past the last query's bound leaves the output unchanged, and
-    a repeat call gives the same bits."""
+    against its plain version with CUDA-event times, the CUDA-core
+    kernel's, SDPA's over the gathered keys (bf16) and the bound; a launch
+    wider than SPLIT_MAX_ROWS takes the sm90 route's chunk kernel and
+    counts in ``*_chunk`` and ``*_sm90_chunk`` (the CUDA-core launches
+    made to time it are taken out); NaN in the null block, a spare block
+    and past the last query's bound leaves the output unchanged, and a
+    repeat call gives the same bits."""
     rows = {}
     for name, kind in (("paged_decode", "bfloat16"), ("paged_decode_q8", "int8")):
         rows[name] = []
         for t, pos in CHUNK_CASES:
             before = dict(da.COUNTS)
             row = paged_case(torch, F, da, kind, t, [pos], iters=50)
-            launched = da.COUNTS[name] - before[name]
-            chunked = da.COUNTS[f"{name}_chunk"] - before[f"{name}_chunk"]
-            check(launched > 0 and chunked == launched * (t > da.SPLIT_MAX_ROWS),
-                  f"{name} t={t}: {chunked} of {launched} launches counted as chunks")
+            launched = da.COUNTS[f"{name}_sm90"] - before[f"{name}_sm90"]
+            chunked = da.COUNTS[f"{name}_sm90_chunk"] - before[f"{name}_sm90_chunk"]
+            check(row["route"] == "sm90" and launched > 0
+                  and chunked == launched * (t > da.SPLIT_MAX_ROWS),
+                  f"{name} t={t}: {chunked} of {launched} sm90 launches on the chunk kernel")
             row["pos"] = pos
             rows[name].append(row)
             log_paged(f"{name} chunk at slot {pos}", row)
@@ -2166,8 +2180,9 @@ def serve_prefix(kv_dtype, env):
     check(kernels[f"{key}_chunk"] == N_LAYERS * chunks and kernels[key] == N_LAYERS * (steps + chunks),
           f"{key}: {kernels[key]} launches ({kernels[f'{key}_chunk']} chunk) for {steps} steps "
           f"and {chunks} chunks")
-    check(kernels[f"{key}_sm90"] == kernels[key] - kernels[f"{key}_chunk"],
-          f"{key}: a t = 1 launch off the sm90 route or a chunk on it: {kernels}")
+    check(kernels[f"{key}_sm90"] == kernels[key]
+          and kernels[f"{key}_sm90_chunk"] == kernels[f"{key}_chunk"],
+          f"{key}: a launch off the sm90 route, or a chunk off its chunk kernel: {kernels}")
     info = {"boot_s": boot_s, "traffic_s": wall, "hits": hits,
             "hit_tokens": delta(serving0, serving, "prefix", "hit_tokens"),
             "misses": delta(serving0, serving, "prefix", "misses"),
@@ -2175,14 +2190,16 @@ def serve_prefix(kv_dtype, env):
             "readmits": readmits, "spill_discards": delta(serving0, serving, "spill", "discards"),
             "prefill_chunks": chunks, "prefill_tokens": computed, "prompt_tokens": sent,
             "steps": steps, "long_interleaved_chunks": beside,
+            "ttft_p50_s": health.get("ttft_p50_s"), "ttft_p99_s": health.get("ttft_p99_s"),
             "prefix_cached_blocks": serving["prefix_cached_blocks"],
             "prefix_spill_bytes": serving["prefix_spill_bytes"],
             "answers": [results[i]["completion_ids"] for i in names],
             "prompts": seq + [long_]}
     log(f"  prefix kv={kv_dtype or 'bf16'}: boot {boot_s:.1f}s, {len(names)} requests in "
-        f"{wall:.2f}s; {hits} hits ({info['hit_tokens']} tokens), {spills} spills, {readmits} "
-        f"readmits, {chunks} chunks, {computed} of {sent} prompt tokens computed, {steps} "
-        f"steps, the long prompt's chunks beside decode {beside}; kernels {kernels}")
+        f"{wall:.2f}s (TTFT p50 {info['ttft_p50_s']} s, p99 {info['ttft_p99_s']} s); {hits} "
+        f"hits ({info['hit_tokens']} tokens), {spills} spills, {readmits} readmits, {chunks} "
+        f"chunks, {computed} of {sent} prompt tokens computed, {steps} steps, the long "
+        f"prompt's chunks beside decode {beside}; kernels {kernels}")
     return kernels, info
 
 
@@ -2493,10 +2510,11 @@ def serve_tenants(kv_dtype, env):
           f"plain version ran on the card: {kernels}")
     check(kernels[key] == N_LAYERS * (steps + chunks),
           f"{key}: {kernels[key]} launches for {steps} steps and {chunks} chunks")
-    # a resume's suffix chunk takes the sm90 route at t <= 16, the CUDA-core
-    # one above; every decode step the sm90 route
-    check(kernels[f"{key}_sm90"] + kernels[f"{key}_chunk"] == kernels[key]
-          and kernels[f"{key}_sm90"] >= N_LAYERS * steps,
+    # every launch on the sm90 route: a resume's suffix chunk (t > 16) on its
+    # chunk kernel, every decode step on its split-K kernel
+    check(kernels[f"{key}_sm90"] == kernels[key]
+          and kernels[f"{key}_sm90_chunk"] == kernels[f"{key}_chunk"]
+          and kernels[key] - kernels[f"{key}_chunk"] >= N_LAYERS * steps,
           f"{key}: routes {kernels}")
     info = {"boot_s": boot_s, "traffic_s": wall, "preemptions": queue["preemptions"],
             "prefix_hits": hits, "steps": steps, "resume_chunks": chunks,
@@ -2798,27 +2816,10 @@ def main():
                                    "bound_by", "library_ms") + (("bf16_ms",) if "bf16_ms" in r
                                                                  else ())}
                 for r in verify_rows[name]]}
-        if name in chunk_rows:
-            # a chunked prefill's chunk or a prefix hit's suffix: launches in
-            # phase 18 (t = PFX_CHUNK), the kernel held and timed in phase 17
-            # at t = 256 over a 512-token cached prefix (and the other cases)
-            head = next(r for r in chunk_rows[name] if (r["t"], r["pos"]) == (256, 512))
-            counts = pfx_runs["int8" if name == "paged_decode_q8" else ""][0]
-            entry["chunk"] = {
-                "launches": counts[f"{name}_chunk"], "route": head["route"],
-                "source": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
-                **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")},
-                "shape": {"b": 1, "n": 16, "t": 256, "d": 64, "bs": KV_BLOCK, "positions": [512],
-                          "dtype": head["kind"]},
-                "rows": [{k: r[k] for k in ("t", "pos", "route", "max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by", "library_ms")
-                          + (("bf16_ms",) if "bf16_ms" in r else ())}
-                         for r in chunk_rows[name]]}
         if name in ("flash_decode", "paged_decode", "paged_decode_q8"):
             # phase 20: launches in the multi-tenant run (bf16 KV for K7's
             # monolithic prefills; K9 by pool dtype), a preempted row's
-            # resume chunk in "chunk" (t > 16) or in "sm90" (t <= 16)
+            # resume chunk in "chunk" and "sm90_chunk" (t > 16)
             counts = ten_runs["int8" if name == "paged_decode_q8" else ""][0]
             entry["tenancy"] = {k: counts[k] for k in counts
                                 if (k == name or k.startswith(f"{name}_"))
@@ -2828,6 +2829,35 @@ def main():
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)
+    for name, rows in chunk_rows.items():
+        # K9's chunk kernel (t > 16, a chunked prefill's chunk or a prefix
+        # hit's suffix): launches in phase 18 (t = PFX_CHUNK) and in phase
+        # 20 (a preempted row's resume), the kernel held and timed in phase
+        # 17 at t = 256 over a 512-token cached prefix (and the other cases;
+        # ms: through the engine's wrapper, launch_ms: the bare launch), the
+        # CUDA-core kernel (csrc/paged_attention.cu) on the same inputs beside it
+        head = next(r for r in rows if (r["t"], r["pos"]) == (256, 512))
+        kind = "int8" if name == "paged_decode_q8" else ""
+        counts, ten = pfx_runs[kind][0], ten_runs[kind][0]
+        cc = head["cuda_core"]
+        kernels.append({
+            "name": f"{name}_sm90_chunk", "route": "cuda",
+            "source": SOURCES[f"{name}_sm90_chunk"], "replaces": REPLACES[f"{name}_sm90_chunk"],
+            "launches": counts[f"{name}_sm90_chunk"],
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "launch_ms", "split_ms")},
+            "shape": {"b": 1, "n": 16, "t": 256, "d": 64, "bs": KV_BLOCK, "positions": [512],
+                      "dtype": head["kind"]},
+            "tenancy_launches": ten[f"{name}_sm90_chunk"],
+            "cuda_core": {"source": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
+                          "launches": counts[f"{name}_chunk"] - counts[f"{name}_sm90_chunk"],
+                          "max_abs_err": cc["max_abs_err"], "ms": cc["launch_ms"]},
+            "rows": [{k: r[k] for k in ("t", "pos", "route", "max_abs_err", "ms", "launch_ms",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "split_ms")
+                      + (("bf16_ms",) if "bf16_ms" in r else ())}
+                     | {"cuda_core_ms": r["cuda_core"]["launch_ms"]}
+                     for r in rows]})
     log("phase_seconds " + json.dumps(PHASE_S))
     log(f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

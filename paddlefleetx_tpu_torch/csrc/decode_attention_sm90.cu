@@ -75,8 +75,10 @@
 //    kv_valid_from[b] or past the CTA's last causal column are never loaded.
 //
 // The split-K kernel's geometry, stage compute and merge live in
-// csrc/sm90.cuh (DecGeom, split_stage, split_finish), shared with the paged
-// kernel (csrc/paged_attention_sm90.cu).
+// csrc/sm90.cuh (DecGeom, split_stage, split_finish), and so do the
+// prefill's tile softmax, int8 widening and output rows (tile_softmax,
+// widen_tile, store_tile_rows), shared with the paged kernels
+// (csrc/paged_attention_sm90.cu).
 //
 // Plain C interface (loaded with ctypes); every entry point launches on the
 // given stream and returns a CUDA error code (or kMapFailed) after its
@@ -91,7 +93,6 @@
 
 namespace {
 
-constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
 constexpr int kSplitMaxRows = 16;  // t up to this takes the split-K kernel
 
 // ---------------------------------------------------------------------------
@@ -227,7 +228,6 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
 constexpr int kPreConsumers = 128;               // one warpgroup: 64 query rows
 constexpr int kPreThreads = kPreConsumers + 32;  // + the TMA warp
 constexpr int kPreStages = 2;
-constexpr int kQBox = 64 * 128;  // bytes of a [64 rows, 64 bf16] box
 
 // Key tiles of 128 at d = 64 and of 64 at d = 128: 32 KB of K and V a
 // stage either way, so two CTAs fit on an SM at d = 128 too.
@@ -338,34 +338,7 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (col < valid || col > pos_first + r_in + 8 * ((i >> 1) & 1)) sc[i] = -INFINITY;
       }
     }
-    // online softmax in the log2 domain: a row's values sit in a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h] * scale_log2e);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      neg_m[h] = -m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int h = (i >> 1) & 1;
-      sc[i] = exp2f(fmaf(sc[i], scale_log2e, neg_m[h]));  // masked: exp2(-inf) = 0
-      sum[h] += sc[i];
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
-      sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
-      l[h] = l[h] * alpha[h] + sum[h];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    tile_softmax(sc, o, m, l, scale_log2e);
     // o += P_bf16.V: P from registers, V [keys, d] an MN-major B whose
     // 64-column boxes are kKBox apart
     constexpr int KS = S::kKeys / 16;
@@ -386,25 +359,12 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(pf);
     mbar_arrive(empty + st);
   }
-  // epilogue: out = o / max(l, 1e-30) in float32, rows past t dropped
-  float l_safe[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(l[h], 1e-30f);
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int h = (i >> 1) & 1;
-    const int row = q0 + r_in + 8 * h;
-    if (row < t) {
-      const int col = 8 * (i >> 2) + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(out + (static_cast<size_t>(bn) * t + row) * D + col) =
-          make_float2(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
-    }
-  }
+  store_tile_rows<D>(o, l, out + static_cast<size_t>(bn) * t * D, q0, t, r_in, lane);
 }
 
 // int8 caches: one warpgroup issues its own copies into a 2-stage ring and
 // widens each tile to bf16 before its products
-constexpr int kPq8Threads = 128;
+constexpr int kPq8Threads = kWgThreads;
 constexpr int kPq8Stages = 2;
 
 template <int D>
@@ -424,47 +384,6 @@ struct PreQ8Smem {
   static constexpr int kBar = kCur + 2 * kKeys * 4;
   static constexpr int kBytes = kBar + 8 * (1 + kPq8Stages) + 1024;  // + slack to align to 1024
 };
-
-// int8 rows [KEYS, D] at `raw` (rows at or past `cnt` read as zeros) into
-// bf16 [KEYS, 64] boxes at `dst` in TMA's 128-byte swizzle, the layout the
-// bf16 prefill's wgmma descriptors read; a thread widens 16 values of a row
-template <int D, int KEYS>
-__device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int cnt) {
-  constexpr int kChunks = D / 16;
-  for (int i = threadIdx.x; i < KEYS * kChunks; i += kPq8Threads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
-    if (r < cnt) {
-      float f[16];
-      unpack16_s8(*reinterpret_cast<const uint4*>(raw + r * D + 16 * c), f);
-      a = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                     pack_bf16(f[6], f[7]));
-      b = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
-                     pack_bf16(f[14], f[15]));
-    }
-    uint8_t* box = dst + (16 * c / 64) * KEYS * 128;
-    const int col_byte = 2 * (16 * c % 64);
-    *reinterpret_cast<uint4*>(box + sw128(r, col_byte)) = a;
-    *reinterpret_cast<uint4*>(box + sw128(r, col_byte + 16)) = b;
-  }
-}
-
-// float32 values x (an m64nNk16 accumulator) as the bf16 A fragments of
-// their high parts bf16(x) and of their low parts bf16(x - bf16(x))
-template <int KS>
-__device__ __forceinline__ void to_a_frags_split(const float* x, uint32_t (&hi)[KS][4],
-                                                 uint32_t (&lo)[KS][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = x[8 * kk + 2 * i], b = x[8 * kk + 2 * i + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-      const float2 hf = __bfloat1622float2(h);
-      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[kk][i] = pack_bf16(a - hf.x, b - hf.y);
-    }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kPq8Threads)
@@ -582,34 +501,7 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (col < valid || col > pos_first + r_in + 8 * ((i >> 1) & 1)) sc[i] = -INFINITY;
       }
     }
-    // online softmax in the log2 domain: a row's values sit in a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h] * scale_log2e);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      neg_m[h] = -m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int h = (i >> 1) & 1;
-      sc[i] = exp2f(fmaf(sc[i], scale_log2e, neg_m[h]));  // masked: exp2(-inf) = 0
-      sum[h] += sc[i];
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
-      sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
-      l[h] = l[h] * alpha[h] + sum[h];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    tile_softmax(sc, o, m, l, scale_log2e);
     // o += (P * v_scale).V, P * v_scale as bf16 high + low parts from
     // registers; V [keys, d] an MN-major B whose 64-column boxes are kKBox apart
 #pragma unroll
@@ -635,44 +527,12 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(ph);
     fence_regs(pl);
   }
-  // epilogue: out = o / max(l, 1e-30) in float32, rows past t dropped
-  float l_safe[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(l[h], 1e-30f);
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int h = (i >> 1) & 1;
-    const int row = q0 + r_in + 8 * h;
-    if (row < t) {
-      const int col = 8 * (i >> 2) + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(out + (static_cast<size_t>(bn) * t + row) * D + col) =
-          make_float2(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
-    }
-  }
+  store_tile_rows<D>(o, l, out + static_cast<size_t>(bn) * t * D, q0, t, r_in, lane);
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-
-// a 3-D bf16 map over [bn, rows, d] (innermost first): `rows` rows readable
-// per head (rows past it read as zeros), heads `head_rows` rows apart, with a
-// [box_rows, 64] box and 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* ptr, int bn, int rows, int head_rows, int d,
-              int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bn)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(head_rows) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, int R, bool Q8>
 int launch_split(const void* q, const void* k, const void* v, const float* ks, const float* vs,
@@ -802,9 +662,6 @@ int flash_decode_q8_sm90(const void* q, const void* k, const void* v, const void
                              static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2, st);
 }
 
-const char* flash_decode_sm90_error_string(int code) {
-  if (code == kMapFailed) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_decode_sm90_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

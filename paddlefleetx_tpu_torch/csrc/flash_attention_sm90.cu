@@ -133,7 +133,6 @@ namespace {
 constexpr int kConsumers = 256;    // warpgroups 0 and 1 compute
 constexpr int kThreads = kConsumers + 32;  // warp 8 loads
 constexpr int kStages = 2;
-constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
 
 // ---------------------------------------------------------------------------
 // K3: forward
@@ -996,9 +995,6 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* 
                  : bwd_kv<128, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st);
 }
 
-const char* flash_sm90_error_string(int code) {
-  if (code == kMapFailed) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_sm90_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

@@ -2,9 +2,11 @@
 // shared-memory addresses, mbarriers, TMA loads / stores / reduce-adds and
 // bulk groups, wgmma (bf16 in, float32 accumulators) with its 128-byte
 // swizzled shared-memory descriptors, the accumulator-to-A-fragment
-// packing, the split-K decode pieces (bulk copies, the bf16 and int8
-// widening, a stage's scores and online softmax, the merge of the splits)
-// and the host's route to cuTensorMapEncodeTiled.
+// packing, the pieces of the tensor-core attention tiles (a key tile's
+// online softmax, int8 tiles widened to bf16, the output rows), the
+// split-K decode pieces (bulk copies, the bf16 and int8 widening, a
+// stage's scores and online softmax, the merge of the splits) and the
+// host's route to cuTensorMapEncodeTiled and its tensor maps.
 //
 // Included by csrc/flash_attention_sm90.cu (K3-K6),
 // csrc/decode_attention_sm90.cu (K7, K8) and csrc/paged_attention_sm90.cu
@@ -88,6 +90,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 4-D box (coordinates innermost first)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -306,6 +319,89 @@ __device__ __forceinline__ int key_of(int i, int lane) {
 }
 
 // ---------------------------------------------------------------------------
+// tensor-core attention tiles (K7/K8's prefill, K9's chunks): one warpgroup
+// on a 64-row query tile; thread t holds rows r_in = 16 * warp + lane / 4
+// and r_in + 8 (h = (i >> 1) & 1 of accumulator register i)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;
+constexpr int kQBox = 64 * 128;  // bytes of a [64 rows, 64 bf16] box
+
+// One key tile's online softmax in the log2 domain: sc holds S = Q.K^T of
+// the tile (scale not yet applied, masked scores already -inf); a row's
+// values sit in a quad.  Leaves p = exp2(s * scale_log2e - m) in sc and
+// rescales l and the output accumulator o by the change of m.
+template <int NS, int NO>
+__device__ __forceinline__ void tile_softmax(float (&sc)[NS], float (&o)[NO], float (&m)[2],
+                                             float (&l)[2], float scale_log2e) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2e);
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    neg_m[h] = -m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int h = (i >> 1) & 1;
+    sc[i] = exp2f(fmaf(sc[i], scale_log2e, neg_m[h]));  // masked: exp2(-inf) = 0
+    sum[h] += sc[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
+    sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
+    l[h] = l[h] * alpha[h] + sum[h];
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// out = o / max(l, 1e-30) in float32 for the tile's rows q0 + r of one
+// head's [t, D] output rows, rows at or past t dropped
+template <int D>
+__device__ __forceinline__ void store_tile_rows(const float (&o)[D / 2], const float (&l)[2],
+                                                float* out_head, int q0, int t, int r_in,
+                                                int lane) {
+  float l_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_safe[h] = fmaxf(l[h], 1e-30f);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int row = q0 + r_in + 8 * h;
+    if (row < t) {
+      const int col = 8 * (i >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out_head + static_cast<size_t>(row) * D + col) =
+          make_float2(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
+    }
+  }
+}
+
+// float32 values x (an m64nNk16 accumulator) as the bf16 A fragments of
+// their high parts bf16(x) and of their low parts bf16(x - bf16(x))
+template <int KS>
+__device__ __forceinline__ void to_a_frags_split(const float* x, uint32_t (&hi)[KS][4],
+                                                 uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * kk + 2 * i], b = x[8 * kk + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][i] = pack_bf16(a - hf.x, b - hf.y);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // split-K decode (K7, K8 and K9 at t <= 16): a CTA of four warps streams its
 // share of one (row, head)'s keys through a ring of bulk copies; a lane group
 // takes one key at a time, 16 bytes of its row per lane, and keeps its own
@@ -375,6 +471,31 @@ __device__ __forceinline__ void unpack16_s8(const uint4& u, float (&f)[16]) {
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       f[4 * i + b] = __uint_as_float(__byte_perm(w[i], 0x4b000000u, 0x7540u | b)) - 8388736.0f;
+}
+
+// int8 rows [KEYS, D] at `raw` (rows at or past `cnt` read as zeros) into
+// bf16 [KEYS, 64] boxes at `dst` in TMA's 128-byte swizzle, the layout the
+// wgmma descriptors read; the warpgroup's threads widen 16 values of a row
+// each (exact: int8 values are bf16 values)
+template <int D, int KEYS>
+__device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int cnt) {
+  constexpr int kChunks = D / 16;
+  for (int i = threadIdx.x; i < KEYS * kChunks; i += kWgThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+    if (r < cnt) {
+      float f[16];
+      unpack16_s8(*reinterpret_cast<const uint4*>(raw + r * D + 16 * c), f);
+      a = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                     pack_bf16(f[6], f[7]));
+      b = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
+                     pack_bf16(f[14], f[15]));
+    }
+    uint8_t* box = dst + (16 * c / 64) * KEYS * 128;
+    const int col_byte = 2 * (16 * c % 64);
+    *reinterpret_cast<uint4*>(box + sw128(r, col_byte)) = a;
+    *reinterpret_cast<uint4*>(box + sw128(r, col_byte + 16)) = b;
+  }
 }
 
 // 16 bytes of a key row at p as float32: 8 bf16 or 16 int8
@@ -580,7 +701,7 @@ __device__ __forceinline__ void split_finish(float (&m)[R], float (&l)[R],
 }
 
 // ---------------------------------------------------------------------------
-// host: cuTensorMapEncodeTiled, from libcuda
+// host: cuTensorMapEncodeTiled, from libcuda, and the error strings
 // ---------------------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -606,6 +727,32 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
+
+// a 3-D bf16 map over [bn, rows, d] (innermost first): `rows` rows readable
+// per head (rows past it read as zeros), heads `head_rows` rows apart, with a
+// [box_rows, 64] box and 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* ptr, int bn, int rows, int head_rows, int d,
+              int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bn)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(head_rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+const char* error_string(int code) {
+  if (code == kMapFailed) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace

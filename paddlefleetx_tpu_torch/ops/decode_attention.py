@@ -26,10 +26,11 @@ continuous-batching engine's attention over block tables) has the same
 two spellings behind :func:`paged_decode_attention`: the CUDA kernels
 ``paged_decode`` / ``paged_decode_q8``, on one of two routes by q's dtype
 and the shapes only (:func:`paged_kernel_route`): bf16 q at d = 64 or
-128, t <= 16 and a block size of 8-128 (a power of two) the Hopper
-split-K kernel of ``csrc/paged_attention_sm90.cu`` ("sm90"), anything
-else the CUDA-core kernel of ``csrc/paged_attention.cu`` ("cuda_core");
-and :func:`paged_decode_attention_plain`.
+128 and a block size of 8-128 (a power of two) the Hopper kernels of
+``csrc/paged_attention_sm90.cu`` ("sm90": split-K over the block tables
+for t <= 16, the tensor cores for a wider chunk), anything else the
+CUDA-core kernel of ``csrc/paged_attention.cu`` ("cuda_core"); and
+:func:`paged_decode_attention_plain`.
 
 The routing follows the tensors' device only: a CUDA tensor reaches the
 kernel or raises; nothing falls back.  :data:`COUNTS` counts kernel
@@ -71,8 +72,10 @@ _MAX_HEAD_DIM = 128
 # launches (1 < t <= SPLIT_MAX_ROWS: the speculative verify chunk) on
 # either route and "<kernel>_sm90_multi" those on the sm90 route.
 # "paged_decode_chunk" / "paged_decode_q8_chunk" count the paged launches
-# wider than that (t > SPLIT_MAX_ROWS: a chunked prefill's chunk or a
-# prefix hit's suffix).  Process-wide; reset with reset_counts().
+# wider than that (t > SPLIT_MAX_ROWS: a chunked prefill's chunk, a prefix
+# hit's suffix or a wide verify) on either route, and "<kernel>_sm90_chunk"
+# those that took the sm90 route's tensor-core chunk kernel.
+# Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
     "flash_decode_multi": 0, "flash_decode_sm90_multi": 0,
@@ -81,7 +84,8 @@ COUNTS = {
     "plain": 0, "paged_decode": 0, "paged_decode_sm90": 0, "paged_decode_multi": 0,
     "paged_decode_sm90_multi": 0, "paged_decode_q8": 0, "paged_decode_q8_sm90": 0,
     "paged_decode_q8_multi": 0, "paged_decode_q8_sm90_multi": 0, "paged_decode_chunk": 0,
-    "paged_decode_q8_chunk": 0, "paged_plain": 0,
+    "paged_decode_sm90_chunk": 0, "paged_decode_q8_chunk": 0, "paged_decode_q8_sm90_chunk": 0,
+    "paged_plain": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -99,6 +103,11 @@ SPLIT_MIN_KEYS = 64
 # which take one split each (chip_smoke.py phase 6; PERF.md).
 PAGED_SM90_BLOCKS = (8, 16, 32, 64, 128)
 PAGED_SPLIT_KEYS = 256
+# The same for the chunk kernel (t > SPLIT_MAX_ROWS): the keys of a 64-row
+# query tile one CTA takes, any multiple of 128 (whole key tiles);
+# chip_smoke.py phase 17 times 128 / 256 / 512 / 1024 against each other
+PAGED_CHUNK_SPLIT_KEYS = 256
+CHUNK_ROWS = 64
 
 
 def reset_counts() -> None:
@@ -116,6 +125,8 @@ def _count(name: str, t: int, route: str) -> None:
     if route == "sm90":
         COUNTS[f"{name}_sm90"] += 1
         COUNTS[f"{name}_sm90_multi"] += multi
+        if name.startswith("paged"):
+            COUNTS[f"{name}_sm90_chunk"] += t > SPLIT_MAX_ROWS
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -129,11 +140,12 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
 def paged_kernel_route(dtype: torch.dtype, head_dim: int, t: int, block: int) -> str:
     """The route a CUDA launch of ``paged_decode`` takes for q of ``dtype``
     at ``head_dim`` with ``t`` queries a row over pools of ``block`` slots a
-    block, bf16 or int8 pools alike: "sm90" (``csrc/paged_attention_sm90.cu``)
-    for bfloat16 q at d = 64 or 128, t <= SPLIT_MAX_ROWS and a block size in
-    PAGED_SM90_BLOCKS (each divides the kernel's key stage or is a multiple
-    of it), else "cuda_core" (``csrc/paged_attention.cu``)."""
-    if (dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS and 1 <= t <= SPLIT_MAX_ROWS
+    block, bf16 or int8 pools alike: "sm90" (``csrc/paged_attention_sm90.cu``:
+    split-K for t <= SPLIT_MAX_ROWS, the tensor-core chunk kernel above) for
+    bfloat16 q at d = 64 or 128, t >= 1 and a block size in
+    PAGED_SM90_BLOCKS (each divides the kernels' key stages and tiles or is
+    a multiple of them), else "cuda_core" (``csrc/paged_attention.cu``)."""
+    if (dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS and t >= 1
             and block in PAGED_SM90_BLOCKS):
         return "sm90"
     return "cuda_core"
@@ -152,6 +164,13 @@ def paged_splits(table_width: int, block: int, split_keys: int = PAGED_SPLIT_KEY
 def split_rows(t: int) -> int:
     """Query rows per CTA of the sm90 split-K kernel (t <= SPLIT_MAX_ROWS)."""
     return 1 if t == 1 else SPLIT_ROWS
+
+
+def paged_rows(t: int) -> int:
+    """Query rows per CTA of the sm90 paged route at ``t``: the split-K
+    kernel's (:func:`split_rows`), or the chunk kernel's 64-row tile above
+    SPLIT_MAX_ROWS."""
+    return split_rows(t) if t <= SPLIT_MAX_ROWS else CHUNK_ROWS
 
 
 def decode_splits(ctas: int, keys: int, sms: int) -> int:
@@ -656,11 +675,13 @@ def _paged_sm90_lib() -> ctypes.CDLL:
 def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
                        stream, split_keys):
     """The sm90 route over bf16 pools (``paged_decode_sm90``) or int8 pools
-    with their scales (``paged_decode_q8_sm90``): split-K over the block
-    tables, :func:`paged_splits` CTAs of ``split_keys`` keys a row.  The
-    scratch comes from :func:`_split_scratch` (shared with the contiguous
-    route: launches on one stream run in order).  Bulk copies need 16-byte
-    aligned tensors."""
+    with their scales (``paged_decode_q8_sm90``): the split-K kernel for t
+    <= SPLIT_MAX_ROWS, the tensor-core chunk kernel above (the C entry
+    chooses by t), :func:`paged_splits` CTAs of ``split_keys`` keys for
+    each (row, head, group of :func:`paged_rows` queries).  The scratch
+    comes from :func:`_split_scratch` (shared with the contiguous route:
+    launches on one stream run in order).  TMA and the bulk copies need
+    16-byte aligned tensors."""
     dev = q_t.device
     b, n, t, d = q_t.shape
     nb, _, bs, _ = k_pool.shape
@@ -668,7 +689,9 @@ def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v
     tensors = (q_t, k_pool, v_pool) + (() if k_scale is None else (k_scale, v_scale))
     for x in tensors:
         _paged_require(x.data_ptr() % 16 == 0, "the sm90 route needs 16-byte aligned tensors")
-    rows = split_rows(t)
+    if split_keys is None:
+        split_keys = PAGED_SPLIT_KEYS if t <= SPLIT_MAX_ROWS else PAGED_CHUNK_SPLIT_KEYS
+    rows = paged_rows(t)
     groups = b * n * -(-t // rows)
     splits = paged_splits(M, bs, split_keys)
     part = counters = None
@@ -695,15 +718,15 @@ def _paged_require(cond: bool, msg: str) -> None:
 
 
 def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, route=None,
-                  split_keys=PAGED_SPLIT_KEYS):
+                  split_keys=None):
     """Check the inputs, allocate the float32 output and launch on the
     current stream, on the route :func:`paged_kernel_route` gives.
     ``tables`` and ``positions`` must already be int32 CUDA tensors (the
     engine uploads them once per step).  ``route`` and ``split_keys`` are
     for measurements only (``chip_smoke.py`` times the CUDA-core route at
-    the sm90 route's shapes, ``tools/paged_split_sweep.py`` other split
-    sizes): the wrapper never passes them, and "sm90" where the shapes do
-    not take it raises."""
+    the sm90 route's shapes, and the sm90 kernels at other split sizes than
+    PAGED_SPLIT_KEYS / PAGED_CHUNK_SPLIT_KEYS): the wrapper never passes
+    them, and "sm90" where the shapes do not take it raises."""
     dev = q_t.device
     b, n, t, d = q_t.shape
     nb, _, bs, _ = k_pool.shape
@@ -788,7 +811,7 @@ def paged_decode_attention(
     ``positions`` [b] int32 is the slot of each row's first query (its
     chunk already written): query qi of row i attends over slots
     [0, positions[i] + qi + 1).  t = 1 is the decode step, t > 1 the
-    speculative verify chunk.  int8 pools take float32 ``k_scale`` /
+    speculative verify chunk or a chunked prefill's chunk.  int8 pools take float32 ``k_scale`` /
     ``v_scale`` [num_blocks, n, block] (both or neither).  Returns
     [b, t, n, d] in q's dtype.
 

@@ -226,13 +226,18 @@ def test_generation_on_card_matches_cpu():
     assert torch.equal(card.cpu(), cpu)
 
 
-# (b, n, t, d, bs, M, positions): paged decode / verify over shuffled pool
-# blocks, each row's table null-padded past its last needed block.  bf16 q
-# at d = 64 or 128, t <= 16 and bs 8-128 takes the sm90 route (split-K of
-# 256 keys over bulk copies; key stages of 64 / 32 bf16 keys at d = 64 /
-# 128, 128 / 64 int8 keys), every other case the CUDA-core one.  The skew
-# cases are chip_smoke.py's PAGED_POS (rows of 6 to 1027 keys: 1 to 5
-# splits), "main_path_step" its phase-7 decode step halfway
+# (b, n, t, d, bs, M, positions): paged decode / verify / chunk over
+# shuffled pool blocks, each row's table null-padded past its last needed
+# block.  bf16 q at d = 64 or 128 and bs 8-128 takes the sm90 route: for t
+# <= 16 split-K of 256 keys over bulk copies (key stages of 64 / 32 bf16
+# keys at d = 64 / 128, 128 / 64 int8 keys), above it the tensor-core chunk
+# kernel (64-query tiles, key tiles of 128 / 64 keys at d = 64 / 128
+# assembled block by block, 256 keys a split); every other case the
+# CUDA-core one.  The skew cases are chip_smoke.py's PAGED_POS (rows of 6
+# to 1027 keys: 1 to 5 splits), "main_path_step" its phase-7 decode step
+# halfway.  The chunk cases start mid-block, cross a 64-query tile, take
+# blocks of 8 (16 a key tile), 64 and 128 (a block larger than a d = 128
+# key tile: one copy a tile-sized run) and rows over several splits
 PAGED_POS = [5, 17, 80, 200, 511, 700, 1000, 1023]
 PAGED_SHAPES = {
     "decode_gpt345m_b8": (8, 16, 1, 64, 16, 128, PAGED_POS),
@@ -250,9 +255,15 @@ PAGED_SHAPES = {
     "verify_t16_head_dim_128": (2, 4, 16, 128, 32, 8, [3, 150]),
     "verify_t16_long_rows": (2, 4, 16, 64, 16, 64, [600, 33]),
     "verify_t17": (2, 4, 17, 64, 16, 8, [3, 60]),
+    "chunk_t80_block8_mid_block": (2, 4, 80, 64, 8, 32, [13, 150]),
+    "chunk_t64_head_dim_128_block64": (2, 4, 64, 128, 64, 8, [100, 7]),
+    "chunk_t130_block128": (2, 4, 130, 64, 128, 4, [300, 0]),
+    "chunk_t100_head_dim_128_block128": (2, 4, 100, 128, 128, 4, [200, 37]),
+    "chunk_t17_long_rows": (2, 4, 17, 64, 16, 64, [600, 33]),
+    "chunk_t256_head_dim_128_block8": (1, 4, 256, 128, 8, 128, [517]),
 }
 # the cases whose bf16 q (bf16 and int8 pools) leave the sm90 route
-PAGED_CUDA_CORE = {"block24_head_dim_8", "verify_t17"}
+PAGED_CUDA_CORE = {"block24_head_dim_8"}
 
 
 def _paged_case(name, kv_dtype, dev, seed=0):
@@ -337,11 +348,14 @@ def _poison_past_bounds(k, v, ks, vs, tables, positions, t):
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16, torch.int8],
                          ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("name", ["decode_gpt345m_b8", "block8_boundaries", "verify_t4_gpt345m",
-                                  "verify_t16_mid_block", "block128_head_dim_128"])
+                                  "verify_t16_mid_block", "block128_head_dim_128",
+                                  "chunk_t80_block8_mid_block", "chunk_t100_head_dim_128_block128",
+                                  "chunk_t17_long_rows"])
 def test_paged_kernel_never_reads_past_a_rows_bound(name, kv_dtype):
     """Every pool block a row cannot see, and every slot of a row's last
     block past its bound, is NaN-poisoned: the result must not change, on
-    either route (f32: the CUDA-core kernel, bf16 / int8: sm90)."""
+    either route (f32: the CUDA-core kernel, bf16 / int8: sm90, split-K or
+    the chunk kernel)."""
     dev = _card()
     q, k, v, tables, positions, ks, vs = _paged_case(name, kv_dtype, dev)
     clean = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
@@ -355,7 +369,8 @@ def test_paged_kernel_never_reads_past_a_rows_bound(name, kv_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
 @pytest.mark.parametrize("name", ["decode_gpt345m_b8", "verify_t4_gpt345m", "block8_long_rows",
-                                  "block64_head_dim_128", "verify_t16_long_rows"])
+                                  "block64_head_dim_128", "verify_t16_long_rows",
+                                  "chunk_t17_long_rows", "chunk_t256_head_dim_128_block8"])
 def test_paged_sm90_kernel_is_bitwise_repeatable(name, kv_dtype):
     """Rows over several splits: the last split to arrive merges them in
     split order, so two calls give the same bits."""
@@ -506,7 +521,8 @@ def test_paged_verify_chunk_over_a_stale_tail(kv_dtype, t):
     (positions + t plus draft_k slack, so blocks past the bound are in the
     table); NaN past every query's bound positions + j + 1, in the row's
     last block and in its slack blocks, leaves the output bitwise
-    unchanged.  t <= 16 takes the sm90 route, t = 17 the CUDA-core one."""
+    unchanged.  Every t takes the sm90 route: t <= 16 its split-K kernel,
+    t = 17 its tensor-core chunk kernel."""
     dev = _card()
     b, n, d, bs = 8, 16, 64, 16
     positions = [x + 16 for x in VERIFY_LENS]
@@ -534,13 +550,14 @@ def test_paged_verify_chunk_over_a_stale_tail(kv_dtype, t):
     tables = tables.to(dev)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     route = da.paged_kernel_route(q.dtype, d, t, bs)
-    assert route == ("sm90" if t <= 16 else "cuda_core")
+    assert route == "sm90"
     key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
     before = dict(da.COUNTS)
     clean = da.paged_decode_attention(q, k, v, tables, pos, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    for name, want in _multi_delta(before, key, t, int(route == "sm90")).items():
+    for name, want in _multi_delta(before, key, t, 1).items():
         assert da.COUNTS[name] - before[name] == want, name
+    assert da.COUNTS[f"{key}_sm90_chunk"] - before[f"{key}_sm90_chunk"] == int(t > 16)
     q_t = q.transpose(1, 2).contiguous()
     ref = da.paged_decode_attention_plain(q_t, k, v, tables, pos, 1.0 / d**0.5, ks, vs)
     want = ref.transpose(1, 2).to(q.dtype).float()
@@ -557,8 +574,9 @@ def test_paged_verify_chunk_over_a_stale_tail(kv_dtype, t):
 
 # (t, position): one row, 16 heads, d = 64, block 16.  A 256-token chunk
 # opening a long prompt and one over a 512-token cached prefix, a prefix
-# hit's 64-token suffix bucket over it, and t = 16 (the sm90 route's last)
-CHUNK_CASES = [(256, 0), (256, 512), (64, 512), (16, 512)]
+# hit's 64-token suffix bucket over it, t = 16 (the split-K kernel's last),
+# t = 17 (the chunk kernel's first) and a chunk that starts mid-block
+CHUNK_CASES = [(256, 0), (256, 512), (64, 512), (16, 512), (17, 512), (80, 517)]
 
 
 def _chunk_case(t, pos, kv_dtype, dev, seed=0):
@@ -589,22 +607,25 @@ def _chunk_case(t, pos, kv_dtype, dev, seed=0):
 @pytest.mark.parametrize("t,pos", CHUNK_CASES)
 def test_paged_chunk_over_a_cached_prefix(t, pos, kv_dtype):
     """K9 at chunk width against its plain version (bf16 2e-2, int8 1e-4):
-    t > 16 takes the CUDA-core kernel and counts in ``*_chunk``, t = 16
-    the sm90 one; NaN in the null block, in the spare block and past the
-    last query's bound leaves the output bitwise unchanged, and two calls
-    give the same bits."""
+    every t takes the sm90 route, t > 16 its tensor-core chunk kernel,
+    counted in ``*_chunk`` and ``*_sm90_chunk``, t = 16 its split-K one;
+    NaN in the null block, in the spare block and past the last query's
+    bound leaves the output bitwise unchanged, and two calls give the same
+    bits."""
     dev = _card()
     q, k, v, tables, positions, ks, vs = _chunk_case(t, pos, kv_dtype, dev)
     route = da.paged_kernel_route(q.dtype, 64, t, 16)
-    assert route == ("sm90" if t <= da.SPLIT_MAX_ROWS else "cuda_core")
+    assert route == "sm90"
     key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
     before = dict(da.COUNTS)
     q_t = q.transpose(1, 2).contiguous()
     scale = 1.0 / 8.0
     got = da._paged_launch(q_t, k, v, tables, positions, scale, ks, vs)
     torch.cuda.synchronize()
-    assert da.COUNTS[f"{key}_chunk"] - before[f"{key}_chunk"] == (t > da.SPLIT_MAX_ROWS)
-    assert da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == (route == "sm90")
+    chunk = int(t > da.SPLIT_MAX_ROWS)
+    assert da.COUNTS[f"{key}_chunk"] - before[f"{key}_chunk"] == chunk
+    assert da.COUNTS[f"{key}_sm90_chunk"] - before[f"{key}_sm90_chunk"] == chunk
+    assert da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == 1
     ref = da.paged_decode_attention_plain(q_t, k, v, tables, positions, scale, ks, vs)
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= TOL[kv_dtype]
@@ -614,6 +635,45 @@ def test_paged_chunk_over_a_cached_prefix(t, pos, kv_dtype):
     poisoned = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert torch.equal(again, clean)
+    assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t,pos,n_valid", [(64, 512, 21), (256, 0, 200), (80, 37, 70)])
+def test_paged_padded_chunk_table(t, pos, n_valid, kv_dtype):
+    """A chunk of ``n_valid`` prompt tokens padded to t, as the engine
+    launches it: its table repeats the row's last real block past it (so
+    pad queries never meet the null block), null past that.  The chunk
+    kernel against its plain version on the same table (bf16 2e-2, int8
+    1e-4); NaN in every pool block the table does not name, the null block
+    included, leaves the output bitwise unchanged."""
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _chunk_case(t, pos, kv_dtype, dev)
+    bs = k.shape[2]
+    real = (pos + n_valid - 1) // bs
+    tables[0, real + 1:(pos + t - 1) // bs + 1] = tables[0, real]
+    key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
+    before = dict(da.COUNTS)
+    q_t = q.transpose(1, 2).contiguous()
+    got = da._paged_launch(q_t, k, v, tables, positions, 1.0 / 8.0, ks, vs)
+    torch.cuda.synchronize()
+    assert da.COUNTS[f"{key}_sm90_chunk"] - before[f"{key}_sm90_chunk"] == 1
+    ref = da.paged_decode_attention_plain(q_t, k, v, tables, positions, 1.0 / 8.0, ks, vs)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= TOL[kv_dtype]
+    clean = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    named = set(tables[0, : (pos + t - 1) // bs + 1].tolist())
+    for blk in range(k.shape[0]):
+        if blk not in named:
+            if ks is None:
+                k[blk] = float("nan")
+                v[blk] = float("nan")
+            else:
+                ks[blk] = float("nan")
+                vs[blk] = float("nan")
+    poisoned = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
     assert torch.isfinite(poisoned).all() and torch.equal(poisoned, clean)
 
 
@@ -737,7 +797,7 @@ def test_spec_serving_on_card_matches_plain(scheduler, draft_k):
     SPEC_ULPS (the two agree up to a near-tie of the top two bf16 logits).
     draft_k 4 verifies at t = 5 (K7's split-K kernel, K9's sm90 route);
     draft_k 16 at t = 17, where K7 takes its tensor-core prefill and K9
-    its CUDA-core kernel (csrc/paged_attention.cu)."""
+    its tensor-core chunk kernel."""
     from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
 
     dev = _card()
@@ -771,8 +831,9 @@ def test_spec_serving_on_card_matches_plain(scheduler, draft_k):
             assert got["flash_decode_sm90_prefill"] > 0 and got["flash_decode_multi"] == 0
         else:
             assert got["flash_decode_sm90_multi"] == got["flash_decode_multi"] > 0
-    elif draft_k == 16:  # K9 past the sm90 route's t <= 16: the CUDA-core kernel
-        assert got["paged_decode"] > 0 and got["paged_decode_sm90"] == 0, got
+    elif draft_k == 16:  # K9 past t = 16: the sm90 route's chunk kernel
+        assert got["paged_decode_sm90"] == got["paged_decode"] > 0, got
+        assert got["paged_decode_sm90_chunk"] == got["paged_decode_chunk"] > 0, got
     else:
         assert got["paged_decode_sm90_multi"] == got["paged_decode"] > 0, got
 

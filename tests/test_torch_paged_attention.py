@@ -12,6 +12,11 @@ shapes of the kernels' sm90 route (d = 64 / 128, blocks 8, 16 and 128,
 t = 1, 4 and 16, skewed row lengths) the float32 outputs of both sides
 are held for float32 pools, int8 pools under bf16 q (2e-5) and bf16
 pools (``BF16_P_ROUNDING``); the route and split rules are pinned too.
+At the chunk kernel's widths (t = 17, 64 and 80: past the split-K
+kernel's 16 rows and across a 64-query tile; a first slot of 0, one
+mid-block and one over a cached prefix) the same three kinds are held
+against ``_paged_lax``, and once against ``_paged_pallas`` in interpret
+mode; the launch counts of the chunk route are pinned.
 """
 
 import os
@@ -168,7 +173,7 @@ def _bf16_exact(x):
 
 
 def _sm90_inputs(case, t, kind, seed=0):
-    b, n, d, bs, M, pos = SM90_CASES[case]
+    b, n, d, bs, M, pos = {**SM90_CASES, **CHUNK_CASES}[case]
     rng = np.random.default_rng(seed)
     nb = b * M + 1
     k_pool = rng.normal(size=(nb, n, bs, d)).astype(np.float32)
@@ -235,9 +240,15 @@ def test_plain_matches_pallas_interpret_at_sm90_route_shapes(kind):
     (torch.bfloat16, 64, 4, 128, "sm90"),
     (torch.bfloat16, 64, 1, 32, "sm90"),
     (torch.bfloat16, 128, 1, 64, "sm90"),
+    (torch.bfloat16, 64, 17, 16, "sm90"),  # t past the split-K kernel's 16 rows: chunks
+    (torch.bfloat16, 64, 64, 16, "sm90"),  # a prefix hit's suffix bucket
+    (torch.bfloat16, 64, 256, 16, "sm90"),  # a chunked prefill's chunk
+    (torch.bfloat16, 128, 80, 128, "sm90"),
     (torch.float32, 64, 1, 16, "cuda_core"),  # phase 8's float32 model
-    (torch.bfloat16, 64, 17, 16, "cuda_core"),  # t past the split-K kernel's 16 rows
+    (torch.float32, 64, 256, 16, "cuda_core"),  # phase 19's float32 chunks
     (torch.bfloat16, 32, 1, 16, "cuda_core"),  # head dims other than 64 / 128
+    (torch.bfloat16, 32, 256, 16, "cuda_core"),
+    (torch.bfloat16, 64, 256, 24, "cuda_core"),  # block 24 at chunk width
     (torch.bfloat16, 8, 3, 24, "cuda_core"),
     (torch.bfloat16, 64, 1, 24, "cuda_core"),  # a block neither dividing the stage nor a multiple
     (torch.bfloat16, 64, 1, 256, "cuda_core"),
@@ -265,3 +276,67 @@ def test_paged_split_keys_fit_every_stage_and_block():
     whole number of key stages (32-128 keys) and of blocks (8-128)."""
     assert pt_da.PAGED_SPLIT_KEYS % 128 == 0 and 128 <= pt_da.PAGED_SPLIT_KEYS <= 512
     assert all(pt_da.PAGED_SPLIT_KEYS % bs == 0 for bs in pt_da.PAGED_SM90_BLOCKS)
+
+
+# ---------------------------------------------------------------------------
+# The chunk kernel's widths (t > SPLIT_MAX_ROWS on the sm90 route: 64-query
+# tiles over key tiles assembled from the row's blocks): a chunked
+# prefill's chunk, a prefix hit's suffix, a wide verify
+# ---------------------------------------------------------------------------
+
+# (b, n, d, bs, M, positions): a row's chunk from slot 0, one starting
+# mid-block, one over a cached prefix; tables null-padded past each row's
+# last needed block at the widest t below (M covers positions + 80)
+CHUNK_CASES = {
+    "d64_bs16_slot0_mid_prefix": (3, 2, 64, 16, 16, [0, 37, 128]),
+    "d128_bs8_mid_block": (2, 2, 128, 8, 32, [13, 150]),
+}
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("t", [17, 64, 80])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_plain_matches_jax_lax_at_chunk_widths(case, t, kind):
+    args = _sm90_inputs(case, t, kind)
+    got, want = _both(kind, *args, jax_fn=jax_da._paged_lax)
+    assert got.shape == want.shape == args[0].shape and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=_tol(kind, args[2]), rtol=0)
+
+
+def test_plain_matches_pallas_interpret_at_a_chunk_width():
+    args = _sm90_inputs("d64_bs16_slot0_mid_prefix", 80, "int8")
+    got, want = _both("int8", *args, jax_fn=jax_da._paged_pallas)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name,t,route,chunk,sm90_chunk", [
+    ("paged_decode", 17, "sm90", 1, 1),  # the chunk kernel's first t
+    ("paged_decode_q8", 256, "sm90", 1, 1),
+    ("paged_decode", 16, "sm90", 0, 0),  # the split-K kernel's last t
+    ("paged_decode", 256, "cuda_core", 1, 0),  # f32 q: CUDA cores at any t
+    ("paged_decode_q8", 1, "sm90", 0, 0),
+])
+def test_chunk_launches_are_counted_by_route(monkeypatch, name, t, route, chunk, sm90_chunk):
+    # a synthetic launch, counted in a copy, so no later test in this
+    # process reads it as a real one
+    monkeypatch.setattr(pt_da, "COUNTS", dict(pt_da.COUNTS))
+    before = dict(pt_da.COUNTS)
+    pt_da._count(name, t, route)
+    moved = {key for key in pt_da.COUNTS if pt_da.COUNTS[key] != before[key]}
+    sm90 = route == "sm90"
+    want = {name: 1, f"{name}_sm90": sm90, f"{name}_chunk": chunk,
+            f"{name}_sm90_chunk": sm90_chunk}
+    assert {key: pt_da.COUNTS[key] - before[key] for key in want} == want
+    # besides the multi-query counts of 1 < t <= 16, nothing else moves
+    assert {key for key in moved if not key.endswith("_multi")} == {
+        key for key, n in want.items() if n}
+
+
+def test_chunk_rows_and_splits_come_from_shapes():
+    """The chunk kernel takes 64-query tiles, and its split count, like
+    split-K's, from the table width and block size alone."""
+    assert [pt_da.paged_rows(t) for t in (1, 4, 16, 17, 256)] == [1, 4, 4, 64, 64]
+    assert pt_da.PAGED_CHUNK_SPLIT_KEYS % 128 == 0
+    # phase 18's chunk over a 512-token prefix: a 64-block table of 16
+    assert pt_da.paged_splits(64, 16, pt_da.PAGED_CHUNK_SPLIT_KEYS) == -(
+        -1024 // pt_da.PAGED_CHUNK_SPLIT_KEYS)

@@ -832,9 +832,11 @@ def test_multi_query_launches_are_counted_apart(monkeypatch):
     assert delta["paged_decode"] == 2 and delta["paged_decode_multi"] == 1
     assert delta["paged_decode_sm90_multi"] == 1 and delta["paged_decode_sm90"] == 1
     assert delta["paged_decode_q8_multi"] == 1 and delta["paged_decode_q8_sm90_multi"] == 0
-    # the route rule stays a function of dtype and shape only
-    assert da.paged_kernel_route(torch.bfloat16, 64, 17, 16) == "cuda_core"
+    # the route rule stays a function of dtype and shape only: a verify
+    # chunk past t = 16 takes the sm90 route's chunk kernel
+    assert da.paged_kernel_route(torch.bfloat16, 64, 17, 16) == "sm90"
     assert da.paged_kernel_route(torch.bfloat16, 64, 16, 16) == "sm90"
+    assert da.paged_kernel_route(torch.float32, 64, 17, 16) == "cuda_core"
     assert da.kernel_route(torch.bfloat16, 64) == "sm90" and da.SPLIT_MAX_ROWS == 16
 
 
