@@ -123,7 +123,8 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      launch resumes from step_9 through auto_resume: steps 10-12 read the
      same batches (consumed_samples and token digests) and their losses
      agree within ``RESUME_LOSS_TOL`` (K6's reduce-adds make the card's
-     sums vary from run to run); the checkpoints are deleted;
+     sums vary from run to run); the resumed run's final ``step_12`` is
+     kept for phase 21, the rest deleted;
   14. phase 11 once more with use_fused_ln (K1/K2 on the card against
      their plain versions on the CPU);
   15. K7, K8 and K9 at the speculative verify chunk, t = draft_k + 1 = 5
@@ -196,7 +197,37 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      across the preemption; every answer token within ``SPEC_ULPS`` bf16
      ulps of its prefix's argmax.  Then ``PFX_FAULT=preempt_storm`` in
      float32 on the card (``PFX_F32_LAYERS`` layers, the prefix cache on):
-     the forced preemption's resume gives the undisturbed run's tokens.
+     the forced preemption's resume gives the undisturbed run's tokens;
+  21. a trained and a converted model served with text at full width, with
+     a GPT BPE tokenizer built here (the 256 byte symbols, ``TEXT_MERGES``
+     merges of a short BPE pass over a seeded text, ``<|endoftext|>`` at
+     50256; its C++ merge engine built with g++): (a) phase 13's
+     ``step_12`` through ``-o Engine.save_load.ckpt_dir -o
+     Generation.tokenizer_dir``, greedy, on both schedulers, text prompts:
+     coalescing answers equal ``generate`` run here on the loaded params at
+     the same batch shape (8 and 1), continuous answers (streamed, sent
+     while others decode) within ``SPEC_ULPS`` bf16 ulps of their prefix's
+     argmax; ``decode(encode(prompt)) == prompt``; every SSE frame's
+     ``text`` its tokens decoded, joining to the completion; every K7 and
+     K9 launch on the sm90 route, no plain call; (b) the same checkpoint
+     with ``decode_strategy=beam_search``, ``TEXT_BEAMS`` beams, one request
+     of the 8 prompts (32 rows): 24 K7 launches a forward, all sm90, the
+     tokens those of ``generate`` here; every step's kept beams and
+     finished-pool intake those the plain forward (``attn_impl=xla``, no
+     cache) would choose from the same prefixes up to ``SPEC_ULPS`` bf16
+     ulps; K7 on step ``BEAM_CAPTURE_STEP``'s captured inputs (the cache
+     reordered by parent beam), every layer, against its plain version;
+     each beam's length-normalised float32 score (a plain forward on the
+     card) no lower than greedy's answer's by more than
+     ``BEAM_SCORE_SLACK``; then float32 beam search at ``PFX_F32_LAYERS``
+     layers, card against CPU: identical tokens; (c) an HF GPT-2-medium
+     directory written from a seed (``model.safetensors`` with the hub's
+     bare keys and mask buffers, ``config.json``), converted by
+     ``tools/convert_hf_gpt2.py --pad-vocab-to 50304`` and served greedy
+     and with beam search: tokens equal ``generate`` here, the beams'
+     choices the plain forward's up to ``SPEC_ULPS`` ulps step by step,
+     some answers off greedy's, first-step logits card against CPU at
+     float32 within 1e-3.
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -311,6 +342,19 @@ TENANTS = {"tenants": {"gold": {"weight": 4}, "brz": {"weight": 1}}}
 # phase 20's float32 preempt_storm drill: 4 rows, fired at iteration
 # STORM_ITER, PFX_F32_LAYERS layers
 STORM_ITER, STORM_NEW = 12, 24
+# phase 21: a tokenizer of the 256 byte symbols and TEXT_MERGES learned
+# merges; TEXT_PROMPTS text prompts; beam search with TEXT_BEAMS beams (the
+# server's GenerationConfig default; and
+# TEXT_F32_NEW new tokens in the float32 card-against-CPU run); a beam's
+# float32 score under greedy's by more than BEAM_SCORE_SLACK nats a token
+# fails; the HF GPT-2-medium shape the converter reads
+TEXT_MERGES, TEXT_PROMPTS, TEXT_BEAMS, TEXT_F32_NEW = 200, 8, 4, 16
+BEAM_SCORE_SLACK = 0.0
+# phase 21: the beam step whose K7 inputs (every layer, the cache as
+# reordered by parent beam) are held against the plain version
+BEAM_CAPTURE_STEP = 8
+HF_GPT2_MEDIUM = {"n_embd": 1024, "n_layer": 24, "n_head": 16, "n_positions": 1024,
+                  "vocab_size": 50257}
 # phases 4, 7 and 16: the traffic runs this many times a server, the first
 # round checked, every round timed (tokens/s: the rounds' median)
 TIMED_ROUNDS = 3
@@ -1828,6 +1872,18 @@ def cli_launches_ok(rec, evals_before):
     return k == want, want
 
 
+def keep_dir(prefix):
+    """A temporary directory that outlives its phase (a later phase removes
+    it), removed at exit if the run stops before that."""
+    import atexit
+    import shutil
+    import tempfile
+
+    path = tempfile.mkdtemp(prefix=prefix)
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return path
+
+
 def phase_train_cli(env):
     import shutil
     import tempfile
@@ -1900,7 +1956,10 @@ def phase_train_cli(env):
             "first": first, "resumed": second, "wall_s": wall, "resume_wall_s": wall2,
             "median_tokens_per_sec": tps, "median_step_s": step_s, "median_mfu": mfu,
             "peak_bytes": peak, "resume_loss_rel_diff": diffs}))
-        return launches
+        # the resumed run's final checkpoint is what phase 21 serves
+        keep = keep_dir("smoke_ckpt_")
+        final = shutil.move(os.path.join(out_dir, f"step_{CLI_STEPS}"), keep)
+        return launches, final
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2627,6 +2686,587 @@ def phase_tenant_check(torch, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: a trained and a converted GPT-345M served with text
+# ---------------------------------------------------------------------------
+
+
+def smoke_text(seed, n_words):
+    """Seeded words of a small syllable set, with numbers and punctuation:
+    the BPE pass's training text and the phase's prompts."""
+    import random
+
+    rnd = random.Random(seed)
+    syl = ["th", "e", "an", "in", "er", "on", "re", "at", "st", "ou", "ing", "ch", "s", "a",
+           "l", "o", "d"]
+    words = []
+    for _ in range(n_words):
+        r = rnd.random()
+        if r < 0.1:
+            words.append(str(rnd.randint(0, 999)))
+        elif r < 0.15:
+            words.append(rnd.choice([",", ".", "'s", "!"]))
+        else:
+            words.append("".join(rnd.choice(syl) for _ in range(rnd.randint(1, 3))))
+    return " ".join(words)
+
+
+def write_tokenizer(path):
+    """vocab.json + merges.txt: the 256 byte symbols (id = byte), the
+    TEXT_MERGES merges of a short BPE pass over a seeded text, and
+    <|endoftext|> at 50256, the config's eos_token_id."""
+    from collections import Counter
+
+    from paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer import (
+        bytes_to_unicode,
+        pre_tokenize,
+    )
+
+    b2u = bytes_to_unicode()
+    words = Counter(tuple(b2u[b] for b in w.encode()) for w in pre_tokenize(smoke_text(0, 4000)))
+    merges = []
+    for _ in range(TEXT_MERGES):
+        pairs = Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    symbols = [b2u[b] for b in range(256)] + [a + b for a, b in merges]
+    vocab = {s: i for i, s in enumerate(dict.fromkeys(symbols))}
+    vocab["<|endoftext|>"] = 50256
+    os.makedirs(path)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    return path
+
+
+def write_hf_gpt2_medium(path, seed):
+    """A GPT-2-medium directory as the hub lays it out: config.json and
+    model.safetensors with bare keys (``h.0.attn.c_attn.weight``) and the
+    ``attn.bias`` mask buffers; normal(0.02) weights, LayerNorm scales
+    1 + normal(0.02), biases normal(0.01), all from ``seed``."""
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.tools.convert_hf_gpt2 import write_safetensors
+
+    cfg = dict(HF_GPT2_MEDIUM, activation_function="gelu_new", layer_norm_epsilon=1e-5,
+               n_inner=None, model_type="gpt2")
+    rng = np.random.default_rng(seed)
+    h, P = cfg["n_embd"], cfg["n_positions"]
+
+    def t(*shape, std=0.02, mean=0.0):
+        return (mean + std * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+    sd = {"wte.weight": t(cfg["vocab_size"], h), "wpe.weight": t(P, h, std=0.01),
+          "ln_f.weight": t(h, mean=1.0), "ln_f.bias": t(h, std=0.01)}
+    mask = np.tril(np.ones((P, P), np.float32)).reshape(1, 1, P, P)
+    for i in range(cfg["n_layer"]):
+        p = f"h.{i}."
+        sd.update({p + "ln_1.weight": t(h, mean=1.0), p + "ln_1.bias": t(h, std=0.01),
+                   p + "attn.bias": mask,
+                   p + "attn.c_attn.weight": t(h, 3 * h), p + "attn.c_attn.bias": t(3 * h, std=0.01),
+                   p + "attn.c_proj.weight": t(h, h), p + "attn.c_proj.bias": t(h, std=0.01),
+                   p + "ln_2.weight": t(h, mean=1.0), p + "ln_2.bias": t(h, std=0.01),
+                   p + "mlp.c_fc.weight": t(h, 4 * h), p + "mlp.c_fc.bias": t(4 * h, std=0.01),
+                   p + "mlp.c_proj.weight": t(4 * h, h), p + "mlp.c_proj.bias": t(h, std=0.01)})
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    return path
+
+
+def start_serve(env, tag, args):
+    """``tools.serve`` on the card without warmup, its output drained by a
+    thread; returns the server's handle."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
+           "--port", str(port), "--no-warmup", *args]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    return {"tag": tag, "proc": proc, "port": port, "lines": lines, "reader": reader,
+            "t0": time.time()}
+
+
+def wait_serve(srv, limit=420):
+    """Poll /healthz until the server answers; its kernel counts start at 0."""
+    while True:
+        check(srv["proc"].poll() is None, f"{srv['tag']} server exited "
+              f"{srv['proc'].returncode}: {''.join(srv['lines'])[-3000:]}")
+        check(time.time() - srv["t0"] < limit, f"{srv['tag']} server not up in {limit} s")
+        try:
+            health = http(srv["port"], "/healthz", timeout=5)
+            break
+        except OSError:
+            time.sleep(0.5)
+    check(health["identity"]["device"].startswith("cuda"), f"{srv['tag']}: {health['identity']}")
+    check(all(v == 0 for v in health["kernels"].values()),
+          f"{srv['tag']}: kernel counts not 0 before traffic: {health['kernels']}")
+    srv["boot_s"] = time.time() - srv["t0"]
+    return health
+
+
+def stop_serve(srv):
+    """SIGTERM: the server drains and exits 0."""
+    srv["proc"].send_signal(signal.SIGTERM)
+    rc = srv["proc"].wait(timeout=120)
+    srv["reader"].join(timeout=10)
+    out = "".join(srv["lines"])
+    check(rc == 0 and "drained cleanly" in out, f"{srv['tag']} drain exit {rc}: {out[-3000:]}")
+
+
+def kill_serve(srv):
+    if srv["proc"].poll() is None:
+        srv["proc"].kill()
+        srv["proc"].wait(timeout=30)
+
+
+def load_served_model(torch, ckpt, overrides=(), device="cuda"):
+    """The model the serve CLI builds from ``ckpt``: the config's, with the
+    checkpoint's params cast to its dtype, on ``device``."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt.model import GPTModel
+    from paddlefleetx_tpu_torch.utils.checkpoint import load_params_into, restore_params
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    cfg = get_config(str(REPO / CONFIG), list(overrides))
+    module = GPTModule(cfg)
+    model = load_params_into(GPTModel(module.config), restore_params(ckpt), ckpt)
+    return model.to(device), module.config
+
+
+def in_process_greedy(torch, G, model, batch):
+    """``generate`` at the server's batch shape (rows padded to a power of
+    two with the last prompt, the 64-token bucket), cut as the server cuts."""
+    target = 1
+    while target < len(batch):
+        target *= 2
+    ids, lens = G.pad_prompts(list(batch) + [batch[-1]] * (target - len(batch)), 0, 64,
+                              torch.device("cuda"))
+    gen = G.GenerationConfig(max_dec_len=MAX_NEW, decode_strategy="greedy_search",
+                             eos_token_id=50256, pad_token_id=0)
+    out = G.generate(model, ids, gen, prompt_lens=lens).cpu().tolist()[:len(batch)]
+    return [r[:r.index(50256)] if 50256 in r else r for r in out]
+
+
+def norm_score(torch, pm, model, cfg, prompt, cont, alpha=1.0):
+    """A continuation's length-normalised log-probability under ``model``'s
+    plain forward (the beam's own scoring: an answer the server cut at EOS
+    is scored with its EOS)."""
+    if len(cont) < MAX_NEW:
+        cont = cont + [50256]
+    ids = torch.tensor([prompt + cont], device="cuda")
+    with torch.no_grad():
+        lp = torch.log_softmax(pm.forward(model, ids, cfg)[0].float(), dim=-1)
+    rows = lp[len(prompt) - 1:len(prompt) - 1 + len(cont)]
+    total = rows.gather(-1, torch.tensor(cont, device="cuda")[:, None]).sum().item()
+    return total / len(cont) ** alpha
+
+
+def beam_traced(torch, G, model, ids, gen, device="cuda"):
+    """``generate`` with ``gen``'s beam search over ``ids`` left-padded in
+    the 64-token bucket, as the server runs it, recording each step's three
+    top-k calls (the 2K candidates over [b, K * vocab], the finished pool,
+    the K kept) and every layer's K7 inputs at step ``BEAM_CAPTURE_STEP``
+    (t = 1 over b * K rows, the cache reordered by parent beam).  Returns
+    (answers cut at EOS, the top-k records, the K7 inputs)."""
+    pids, plens = G.pad_prompts(ids, 0, 64, torch.device(device))
+    at = pids.shape[1] + BEAM_CAPTURE_STEP
+    topk, attn = G.top_k_lower_index, G.decode_attention
+    rec, k7 = [], []
+
+    def spy_topk(x, k):
+        out = topk(x, k)
+        rec.append(out)
+        return out
+
+    def spy_attn(q, k_cache, v_cache, pos, **kw):
+        if pos == at:
+            k7.append((q.clone(), k_cache.clone(), v_cache.clone(), pos,
+                       kw["kv_valid_from"].clone()))
+        return attn(q, k_cache, v_cache, pos, **kw)
+
+    G.top_k_lower_index, G.decode_attention = spy_topk, spy_attn
+    try:
+        out = G.generate(model, pids, gen, prompt_lens=plens).cpu().tolist()
+    finally:
+        G.top_k_lower_index, G.decode_attention = topk, attn
+    eos = gen.eos_token_id
+    return [r[:r.index(eos)] if eos in r else r for r in out], rec, k7
+
+
+def beam_deficits(torch, G, pm, model, cfg, ids, gen, rec, device="cuda"):
+    """The greedy runs' deficit rule, a beam step at a time: replay the
+    recorded search with its own prefix scores and choices, each alive
+    beam's next log-probs from ``model``'s plain forward under ``cfg``
+    (prompt + prefix, no cache).  A kept continuation that the plain
+    forward ranks under the Kth best non-EOS candidate, or a top-2K
+    candidate (the finished pool's intake) under the 2Kth best, sits that
+    far under it, in bf16 ulps of the prompt's largest logit; 0 where the
+    plain forward makes the same choices.  Returns (the worst deficit, the
+    (step, prompt) pairs with one, the rows whose parent beam is another
+    row at step ``BEAM_CAPTURE_STEP``)."""
+    import torch.nn.functional as F
+
+    b, K, V, DEC = len(ids), gen.num_beams, cfg.vocab_size, gen.max_dec_len
+    check(gen.num_beam_groups == 1 and len(rec) == 3 * DEC,
+          f"beam replay: {len(rec)} top-k calls for {DEC} steps of one group")
+    dev = torch.device(device)
+    seqs = torch.zeros((b, K, 0), dtype=torch.int64, device=dev)
+    scores = torch.where(torch.arange(K, device=dev) == 0, 0.0, -1e9)[None].repeat(b, 1)
+    rows = torch.arange(b * K, device=dev)
+    worst, near, moved = 0.0, 0, 0
+    for i in range(DEC):
+        (_, top_i), _, (a_s, a_i) = rec[3 * i:3 * i + 3]
+        seq = [ids[p] + seqs[p, k].tolist() for p in range(b) for k in range(K)]
+        width = max(map(len, seq))
+        x = torch.tensor([r + [0] * (width - len(r)) for r in seq], device=dev)
+        last = torch.tensor([len(r) - 1 for r in seq], device=dev)
+        with torch.no_grad():
+            lg = pm.forward(model, x, cfg)[rows, last].float()
+        logp = F.log_softmax(lg, dim=-1)
+        logp = G.apply_min_length(logp, i, gen.min_dec_len, gen.eos_token_id)
+        logp = G.apply_forced_token(logp, i, 0, gen.forced_bos_token_id)
+        logp = G.apply_forced_token(logp, i, DEC - 1, gen.forced_eos_token_id)
+        cand = (scores[:, :, None] + logp.view(b, K, V)).reshape(b, K * V)
+        alive = cand.view(b, K, V).clone()
+        alive[:, :, gen.eos_token_id] = float("-inf")
+        kept = top_i.gather(1, a_i)
+        gap = torch.maximum(
+            (torch.topk(cand, 2 * K).values[:, -1:] - cand.gather(1, top_i)).max(1).values,
+            (torch.topk(alive.view(b, K * V), K).values[:, -1:] - cand.gather(1, kept))
+            .max(1).values).clamp(min=0)
+        top = lg.view(b, K * V).max(1).values
+        for g, t in zip(gap.tolist(), top.tolist()):
+            worst = max(worst, g / bf16_ulp(t))
+            near += g > 0
+        parent, tok = kept // V, kept % V
+        if i == BEAM_CAPTURE_STEP:
+            moved = int((parent != torch.arange(K, device=dev)).sum())
+        seqs = torch.cat([seqs.gather(1, parent[:, :, None].expand(-1, -1, i)), tok[:, :, None]],
+                         dim=2)
+        scores = a_s
+    return worst, near, moved
+
+
+def beam_kernel_case(torch, F, da, k7):
+    """K7 on one beam step's captured inputs (b * K rows, t = 1, the cache
+    reordered by parent beam), every layer, against its plain version at
+    the bf16 tolerance; timed, with its bound and SDPA, on the last
+    layer's."""
+    errs = []
+    for q, k, v, pos, vf in k7:
+        q_t = q.transpose(1, 2).contiguous()
+        b, n, t, d = q_t.shape
+        limit, scale = pos + t, 1.0 / d**0.5
+        check(da.kernel_route(q_t.dtype, d) == "sm90", f"beam K7 inputs off the sm90 route: {q_t.dtype}")
+        got = da.flash_decode(q_t, k, v, limit, vf, scale)
+        ref = da.decode_attention_plain(q_t, k, v, limit, vf, da.decode_block(k.shape[2]), scale,
+                                        None, None)
+        check(bool(torch.isfinite(got).all()), "beam K7 output not finite")
+        errs.append((got.float() - ref.float()).abs().max().item())
+    err = max(errs)
+    check(len(errs) == N_LAYERS and err <= TOL["bfloat16"],
+          f"beam K7 vs plain over {len(errs)} layers: max |err| {err} > {TOL['bfloat16']}")
+    ms = event_ms(torch, lambda: da.flash_decode(q_t, k, v, limit, vf, scale), 20)
+    plain_ms = event_ms(torch, lambda: da.decode_attention_plain(
+        q_t, k, v, limit, vf, da.decode_block(k.shape[2]), scale, None, None), 5)
+    mask = torch.arange(limit, device="cuda")[None, None, None, :] >= vf[:, None, None, None]
+    kk, vv = k[:, :, :limit], v[:, :, :limit]
+    library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q_t, kk, vv, attn_mask=mask), 20)
+    bound_ms, bound_by = bound("bfloat16", b, n, t, d, limit, vf.tolist())
+    return {"b": b, "n": n, "t": t, "d": d, "L": k.shape[2], "limit": limit, "layers": len(errs),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_text(torch, env, ckpt):
+    """Phase 21: (a) phase 13's checkpoint served with text on both
+    schedulers, (b) with beam search, (c) a converted HF GPT-2-medium."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.models.gpt import model as pm
+    from paddlefleetx_tpu_torch.ops import decode_attention as da
+    from paddlefleetx_tpu_torch.utils.checkpoint import restore_params
+
+    tmp = tempfile.mkdtemp(prefix="smoke_text_")
+    servers = []
+    report = {}
+    try:
+        t0 = time.time()
+        tok_dir = write_tokenizer(os.path.join(tmp, "tok"))
+        tok = GPTTokenizer.from_pretrained(tok_dir)
+        texts = [smoke_text(100 + i, 6 + 3 * i) for i in range(TEXT_PROMPTS)]
+        ids = [tok.encode(t) for t in texts]
+        check(all(tok.decode(i) == t for i, t in zip(ids, texts)), "decode(encode(text)) != text")
+        check(all(0 < len(i) <= 64 for i in ids), f"prompt lengths {[len(i) for i in ids]}")
+        hf_dir = write_hf_gpt2_medium(os.path.join(tmp, "hf"), seed=21)
+        log(f"  tokenizer ({len(tok.bpe_ranks)} merges, prompts of {[len(i) for i in ids]} "
+            f"tokens) and the HF directory written in {time.time() - t0:.1f}s")
+        conv_dir = os.path.join(tmp, "conv")
+        conv = subprocess.Popen(
+            [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.convert_hf_gpt2", "--model",
+             hf_dir, "-o", conv_dir, "--pad-vocab-to", "50304"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        base = ["-o", f"Engine.save_load.ckpt_dir={ckpt}", "-o", f"Generation.tokenizer_dir={tok_dir}",
+                "-o", f"Generation.max_dec_len={MAX_NEW}"]
+        greedy = ["-o", "Generation.decode_strategy=greedy_search"]
+        coal = start_serve(env, "text coalesce", base + greedy)
+        cont = start_serve(env, "text continuous", base + greedy + ["--scheduler", "continuous"])
+        beam = start_serve(env, "text beam", base + ["-o", "Generation.decode_strategy=beam_search"])
+        servers += [coal, cont, beam]
+        model, mcfg = load_served_model(torch, ckpt)
+        conv_out, _ = conv.communicate(timeout=600)
+        check(conv.returncode == 0, f"convert_hf_gpt2 exit {conv.returncode}: {conv_out[-3000:]}")
+        conv_args = ["-o", f"Engine.save_load.ckpt_dir={conv_dir}",
+                     "-o", f"Generation.max_dec_len={MAX_NEW}"]
+        conv_srv = start_serve(env, "converted", conv_args + greedy)
+        conv_beam = start_serve(env, "converted beam",
+                                conv_args + ["-o", "Generation.decode_strategy=beam_search"])
+        servers += [conv_srv, conv_beam]
+
+        # (a) coalescing: text in, text out, tokens equal in-process generate
+        wait_serve(coal)
+        batch = http(coal["port"], "/generate", {"prompts": texts, "max_tokens": MAX_NEW})
+        singles = [http(coal["port"], "/generate", {"prompt": t, "max_tokens": MAX_NEW})
+                   for t in texts[:2]]
+        frames = post_stream(coal["port"], {"prompt": texts[2], "max_tokens": MAX_NEW}, {})
+        k_coal = http(coal["port"], "/healthz")["kernels"]
+        want8 = in_process_greedy(torch, G, model, ids)
+        want1 = [in_process_greedy(torch, G, model, [i])[0] for i in ids[:3]]
+        check(batch["completions"] == [tok.decode(r) for r in want8],
+              "coalescing: served text differs from in-process generate at batch 8")
+        check([s["completion"] for s in singles] == [tok.decode(r) for r in want1[:2]],
+              "coalescing: served text differs from in-process generate at batch 1")
+        toks = stream_answer(frames, "coalescing stream")
+        check(toks == want1[2] and all(d["text"] == tok.decode(d["tokens"])
+                                       for e, d in frames if e == "token")
+              and "".join(d["text"] for e, d in frames if e == "token") == tok.decode(want1[2]),
+              f"coalescing stream: {frames[:3]}")
+        check(k_coal["plain"] == 0 and k_coal["flash_decode"] > 0
+              and k_coal["flash_decode_sm90"] == k_coal["flash_decode"],
+              f"coalescing: K7 off the sm90 route or plain: {k_coal}")
+
+        # (a) continuous: streamed text requests arriving while others
+        # decode; every token within SPEC_ULPS bf16 ulps of its prefix's argmax
+        wait_serve(cont)
+        streams = {}
+
+        def post_cont(i):
+            streams[i] = post_stream(cont["port"], {"prompt": texts[i], "max_tokens": MAX_NEW}, {})
+
+        threads = [threading.Thread(target=post_cont, args=(i,)) for i in range(len(texts))]
+        for th in threads:
+            th.start()
+            time.sleep(0.05)
+        for th in threads:
+            th.join(timeout=600)
+        check(len(streams) == len(texts), f"continuous: {len(streams)} answers")
+        answers = []
+        for i in range(len(texts)):
+            toks = stream_answer(streams[i], f"continuous stream {i}")
+            frames = [d for e, d in streams[i] if e == "token"]
+            check(all(d["text"] == tok.decode(d["tokens"]) for d in frames)
+                  and "".join(d["text"] for d in frames) == tok.decode(toks),
+                  f"continuous stream {i}: text fields {frames[:3]}")
+            answers.append(toks)
+        again = http(cont["port"], "/generate", {"prompt": texts[0], "max_tokens": MAX_NEW})
+        check(again["completion"] == tok.decode(answers[0]),
+              f"continuous: {again['completion']!r} vs the stream's {tok.decode(answers[0])!r}")
+        k_cont = http(cont["port"], "/healthz")["kernels"]
+        worst = max([0.0] + [d for i in range(len(texts)) if answers[i]
+                             for d in greedy_deficits(torch, G, model, mcfg, ids[i], answers[i], "")])
+        check(worst <= SPEC_ULPS, f"continuous: a token sits {worst:.1f} bf16 ulps under its "
+                                  f"prefix's argmax (gate {SPEC_ULPS})")
+        check(k_cont["plain"] == 0 and k_cont["paged_plain"] == 0 and k_cont["paged_decode"] > 0
+              and k_cont["paged_decode_sm90"] == k_cont["paged_decode"]
+              and k_cont["flash_decode_sm90"] == k_cont["flash_decode"] > 0,
+              f"continuous: K7/K9 off the sm90 route or plain: {k_cont}")
+        report["a"] = {"coalesce_kernels": k_coal, "continuous_kernels": k_cont,
+                       "continuous_worst_deficit_ulps": worst,
+                       "boot_s": [round(coal["boot_s"], 1), round(cont["boot_s"], 1)]}
+        log(f"  (a) text served: coalescing answers equal in-process generate (batch 8 and 1), "
+            f"continuous within {worst:.2f} bf16 ulps; streams join to their completions; "
+            f"K7 coalescing {k_coal['flash_decode']}, continuous K9 {k_cont['paged_decode']} + "
+            f"K7 prefills {k_cont['flash_decode']}, all sm90, 0 plain")
+        stop_serve(coal)
+        stop_serve(cont)
+
+        # (b) beam search over the 8 prompts, b * num_beams = 32 rows: every K7
+        # launch on the sm90 route, 24 a forward; every step's choices those
+        # of the plain forward up to SPEC_ULPS bf16 ulps; K7 on one step's
+        # reordered cache against its plain version; each beam re-scored by
+        # a float32 plain forward no lower than greedy's answer
+        wait_serve(beam)
+        served = http(beam["port"], "/generate", {"prompts_ids": ids, "max_tokens": MAX_NEW})
+        k_beam = http(beam["port"], "/healthz")["kernels"]
+        want = N_LAYERS * MAX_NEW  # the prefill and MAX_NEW - 1 steps, a launch a layer
+        check(k_beam["flash_decode"] == k_beam["flash_decode_sm90"] == want
+              and k_beam["flash_decode_sm90_prefill"] == N_LAYERS and k_beam["plain"] == 0,
+              f"beam: K7 launches {k_beam}, expected {want}, all sm90")
+        stop_serve(beam)
+        beams = served["completions_ids"]
+        gen_b = G.GenerationConfig(max_dec_len=MAX_NEW, decode_strategy="beam_search",
+                                   num_beams=TEXT_BEAMS, eos_token_id=50256, pad_token_id=0)
+        inproc, rec, k7 = beam_traced(torch, G, model, ids, gen_b)
+        check(beams == inproc, "beam: served tokens differ from in-process beam search at batch 8")
+        held = beam_kernel_case(torch, F, da, k7)
+        del k7
+        c16 = dataclasses.replace(mcfg, attn_impl="xla")
+        replay = dict(zip(("worst_ulps", "near_ties", "reordered_rows"),
+                          beam_deficits(torch, G, pm, model, c16, ids, gen_b, rec)))
+        del rec
+        check(replay["worst_ulps"] <= SPEC_ULPS,
+              f"beam: a kept continuation sits {replay['worst_ulps']:.1f} bf16 ulps under the "
+              f"plain forward's choice (gate {SPEC_ULPS}): {replay}")
+        greedy8 = want8
+        # the same margins under the served bf16 model's own plain forward
+        margins_bf16 = [norm_score(torch, pm, model, c16, ids[i], beams[i])
+                        - norm_score(torch, pm, model, c16, ids[i], greedy8[i])
+                        for i in range(len(ids))]
+        del model
+        m32, c32 = load_served_model(torch, ckpt, ["Model.dtype=float32", "Model.attn_impl=xla"])
+        margins = [norm_score(torch, pm, m32, c32, ids[i], beams[i])
+                   - norm_score(torch, pm, m32, c32, ids[i], greedy8[i]) for i in range(len(ids))]
+        del m32
+        check(min(margins) >= -BEAM_SCORE_SLACK,
+              f"beam: a beam's float32 score is under greedy's by {-min(margins):.3e} nats a "
+              f"token (slack {BEAM_SCORE_SLACK}): margins {margins}")
+        same = sum(b == g for b, g in zip(beams, greedy8))
+        # float32 beam at PFX_F32_LAYERS layers: the card (K7's CUDA-core
+        # route) against the CPU (plain)
+        from paddlefleetx_tpu_torch.core.module import GPTModule
+        from paddlefleetx_tpu_torch.utils.config import get_config
+
+        cfg4 = get_config(str(REPO / CONFIG), ["Model.dtype=float32",
+                                               f"Model.num_layers={PFX_F32_LAYERS}"])
+        mod4 = GPTModule(cfg4)
+        gen4 = G.GenerationConfig(max_dec_len=TEXT_F32_NEW, decode_strategy="beam_search",
+                                  num_beams=TEXT_BEAMS, eos_token_id=50256, pad_token_id=0)
+        f32_beams = {}
+        for dev in ("cuda", "cpu"):
+            m4 = mod4.init_model(cfg4.Global.seed, dev)
+            ids4, lens4 = G.pad_prompts(ids, 0, 64, torch.device(dev))
+            f32_beams[dev] = G.generate(m4, ids4, gen4, prompt_lens=lens4).cpu()
+            del m4
+        check(torch.equal(f32_beams["cuda"], f32_beams["cpu"]),
+              "float32 beam search: card and CPU tokens differ")
+        report["b"] = {"kernels": k_beam, "rows": len(ids) * TEXT_BEAMS, "steps": MAX_NEW - 1,
+                       "margins": margins, "margins_bf16": margins_bf16,
+                       "identical_to_greedy": same, "replay": replay, "held": held,
+                       "boot_s": round(beam["boot_s"], 1)}
+        log(f"  (b) beam search, {TEXT_BEAMS} beams x {len(ids)} prompts: served tokens equal "
+            f"in-process beam search, K7 {k_beam['flash_decode']} launches ({N_LAYERS} x {MAX_NEW}) "
+            f"all sm90, 0 plain; every step's choices the plain forward's within "
+            f"{replay['worst_ulps']:.2f} bf16 ulps ({replay['near_ties']} near ties); K7 on step "
+            f"{BEAM_CAPTURE_STEP}'s cache ({replay['reordered_rows']} rows moved) vs plain over "
+            f"{held['layers']} layers max |err| {held['max_abs_err']:.3e}, {held['ms']:.4f} ms; "
+            f"float32 re-scored margin over greedy min {min(margins):.4e} "
+            f"max {max(margins):.4e} nats/token ({same} of {len(ids)} equal to greedy); "
+            f"float32 beam at {PFX_F32_LAYERS} layers card == CPU")
+
+        # (c) the converted HF GPT-2-medium: first-step logits card against
+        # CPU at float32, served greedy tokens against in-process generate
+        wait_serve(conv_srv)
+        cids = prompts(21, [30, 40])
+        c_batch = http(conv_srv["port"], "/generate", {"prompts_ids": cids, "max_tokens": MAX_NEW})
+        c_one = http(conv_srv["port"], "/generate", {"prompt_ids": cids[0], "max_tokens": MAX_NEW})
+        k_conv = http(conv_srv["port"], "/healthz")["kernels"]
+        stop_serve(conv_srv)
+        # and its beam search over the text prompts, where beams part from
+        # greedy: served tokens those of beam search here, every step's
+        # choices the plain forward's up to SPEC_ULPS bf16 ulps
+        wait_serve(conv_beam)
+        c_beams = http(conv_beam["port"], "/generate",
+                       {"prompts_ids": ids, "max_tokens": MAX_NEW})["completions_ids"]
+        k_cbeam = http(conv_beam["port"], "/healthz")["kernels"]
+        stop_serve(conv_beam)
+        cmodel, ccfg = load_served_model(torch, conv_dir)
+        check(c_batch["completions_ids"] == in_process_greedy(torch, G, cmodel, cids)
+              and c_one["completion_ids"] == in_process_greedy(torch, G, cmodel, cids[:1])[0],
+              "converted: served tokens differ from in-process generate")
+        check(k_conv["plain"] == 0 and k_conv["flash_decode_sm90"] == k_conv["flash_decode"] > 0,
+              f"converted: K7 off the sm90 route or plain: {k_conv}")
+        check(k_cbeam["flash_decode"] == k_cbeam["flash_decode_sm90"] == want
+              and k_cbeam["plain"] == 0, f"converted beam: K7 launches {k_cbeam}, expected {want}")
+        c_in, c_rec, _ = beam_traced(torch, G, cmodel, ids, gen_b)
+        check(c_beams == c_in, "converted beam: served tokens differ from in-process beam search")
+        cx = dataclasses.replace(ccfg, attn_impl="xla")
+        c_replay = dict(zip(("worst_ulps", "near_ties", "reordered_rows"),
+                            beam_deficits(torch, G, pm, cmodel, cx, ids, gen_b, c_rec)))
+        del c_rec
+        check(c_replay["worst_ulps"] <= SPEC_ULPS,
+              f"converted beam: a kept continuation sits {c_replay['worst_ulps']:.1f} bf16 ulps "
+              f"under the plain forward's choice (gate {SPEC_ULPS}): {c_replay}")
+        c_greedy = in_process_greedy(torch, G, cmodel, ids)
+        c_differ = sum(b != g for b, g in zip(c_beams, c_greedy))
+        c_margins = [norm_score(torch, pm, cmodel, cx, ids[i], c_beams[i])
+                     - norm_score(torch, pm, cmodel, cx, ids[i], c_greedy[i])
+                     for i in range(len(ids))]
+        del cmodel
+        check(c_differ > 0, "converted beam: every beam equals greedy's answer, so no "
+                            "served choice off the greedy path was replayed")
+        params = restore_params(conv_dir)
+        check(tuple(params["embeddings.word"].shape) == (50304, HF_GPT2_MEDIUM["n_embd"])
+              and not params["embeddings.word"][50257:].any(), "converted: vocab padding")
+        firsts = {}
+        cpids, cplens = G.pad_prompts(cids, 0, 64)
+        for dev in ("cuda", "cpu"):
+            m, c = load_served_model(torch, conv_dir, ["Model.dtype=float32"], dev)
+            with torch.inference_mode():
+                cache = G.init_cache(c, 2, 64 + 1, torch.device(dev))
+                pad_len, pos_ids = G._left_pad_prefill(64, cplens.to(dev))
+                lg = G.forward_cached(m, cpids.to(dev), cache, 0, position_ids=pos_ids,
+                                      kv_valid_from=pad_len)
+            firsts[dev] = lg[:, -1].float().cpu()
+            del m
+        err = (firsts["cuda"] - firsts["cpu"]).abs().max().item()
+        check(err <= 1e-3, f"converted: first-step logits card vs cpu max |err| {err} > 1e-3")
+        report["c"] = {"kernels": k_conv, "first_step_err": err,
+                       "boot_s": [round(conv_srv["boot_s"], 1), round(conv_beam["boot_s"], 1)],
+                       "beam": {"kernels": k_cbeam, "replay": c_replay,
+                                "differ_from_greedy": c_differ, "margins_bf16": c_margins}}
+        log(f"  (c) converted GPT-2-medium (vocab 50257 padded to 50304): served tokens equal "
+            f"in-process generate, K7 {k_conv['flash_decode']} launches all sm90, first-step "
+            f"logits card vs cpu at float32 max |err| {err:.3e}; beam search: served equals "
+            f"in-process, {c_differ} of {len(ids)} answers differ from greedy, every step's "
+            f"choices the plain forward's within {c_replay['worst_ulps']:.2f} bf16 ulps "
+            f"({c_replay['near_ties']} near ties), bf16 margin over greedy min "
+            f"{min(c_margins):.4e} max {max(c_margins):.4e}, K7 {k_cbeam['flash_decode']} all sm90")
+        log("text_serving " + json.dumps(report))
+        return report
+    finally:
+        for srv in servers:
+            kill_serve(srv)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -2676,7 +3316,7 @@ def main():
     begin("12", "fused LayerNorm kernels against their plain versions")
     ln_rows = phase_layernorm(torch, F, fl)
     begin("13", "the train CLI, GPT-345M at full width, and its resume")
-    cli = phase_train_cli(env)
+    cli, trained_ckpt = phase_train_cli(env)
     begin("14", "training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
     begin("15", f"K7, K8 and K9 at the verify chunk, t = {VERIFY_TS}")
@@ -2729,6 +3369,9 @@ def main():
                                         for kv, run in ten_runs.items()}))
     storm = phase_storm_f32(torch)
     log("preempt_storm_f32 " + json.dumps(storm))
+    begin("21", "a trained and a converted GPT-345M served with text: both schedulers, beam "
+          "search, the HF GPT-2 converter")
+    text = phase_text(torch, env, trained_ckpt)
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -2826,6 +3469,27 @@ def main():
                                 and ("_q8" in k) == ("_q8" in name)}
             entry["tenancy"]["preemptions"] = ten_runs[
                 "int8" if name == "paged_decode_q8" else ""][1]["preemptions"]
+        if name == "flash_decode":
+            # phase 21: beam search over b * num_beams rows (its prefill and
+            # MAX_NEW - 1 steps), and the text-serving runs' K7 launches
+            kb = text["b"]["kernels"]
+            entry["beam"] = {"launches": kb["flash_decode"], "sm90": kb["flash_decode_sm90"],
+                             "sm90_prefill": kb["flash_decode_sm90_prefill"],
+                             "plain": kb["plain"], "rows": text["b"]["rows"],
+                             "steps": text["b"]["steps"],
+                             "converted_launches": text["c"]["beam"]["kernels"]["flash_decode"],
+                             # one step's captured inputs (the reordered cache)
+                             "held": text["b"]["held"]}
+            entry["text_serving"] = {
+                run: {k: text["a"][f"{run}_kernels"][k] for k in
+                      ("flash_decode", "flash_decode_sm90", "flash_decode_sm90_prefill", "plain")}
+                for run in ("coalesce", "continuous")}
+            entry["text_serving"]["converted"] = {
+                k: text["c"]["kernels"][k] for k in ("flash_decode", "flash_decode_sm90", "plain")}
+        if name == "paged_decode":
+            kc = text["a"]["continuous_kernels"]
+            entry["text_serving"] = {k: kc[k] for k in ("paged_decode", "paged_decode_sm90",
+                                                        "paged_plain")}
         if name == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
         kernels.append(entry)

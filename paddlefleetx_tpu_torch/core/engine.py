@@ -51,9 +51,15 @@ Refused with ``NotImplementedError``: fp16 loss scaling,
 optimizer offload, any parallel degree above 1 (``utils/config.py``),
 model statistics (``Engine.logging.model_stats_every``), the
 ``Profiler`` block, ``consistency_check_freq``, asynchronous saves
-(``save_load.async_save``), warm starts from ``save_load.pretrained_params``,
-fault injection (``PFX_FAULT``) and the tracing and flight-recorder
-observability (``PFX_TRACE_SAMPLE``, ``PFX_FLIGHT_RECORDER``).
+(``save_load.async_save``), fault injection (``PFX_FAULT``) and the
+tracing and flight-recorder observability (``PFX_TRACE_SAMPLE``,
+``PFX_FLIGHT_RECORDER``).
+
+``save_load.pretrained_params`` warm-starts the params from a params-only
+directory (``tools/convert_hf_gpt2.py``'s output) or a step directory
+(JAX ``core/engine.py:663-700``): the optimizer state stays fresh, and the
+restore is skipped when ``ckpt_dir`` is also set (its load replaces the
+params wholesale; ``tools/train.py`` skips it on an auto-resume too).
 """
 
 import hashlib
@@ -79,6 +85,8 @@ from paddlefleetx_tpu_torch.utils.checkpoint import (
     PAYLOAD,
     CorruptCheckpoint,
     gc_checkpoints,
+    load_params_into,
+    restore_params,
 )
 from paddlefleetx_tpu_torch.utils.device import resolve_device
 from paddlefleetx_tpu_torch.utils.log import logger
@@ -145,11 +153,6 @@ def _check_unported(cfg) -> None:
         raise NotImplementedError(
             "save_load.async_save is not ported yet; the port saves synchronously"
         )
-    if save_load.get("pretrained_params"):
-        raise NotImplementedError(
-            "save_load.pretrained_params: warm starts from a params checkpoint (the JAX "
-            "package's orbax format) are not ported yet"
-        )
     for var, what in (("PFX_FAULT", "fault injection"),
                       ("PFX_TRACE_SAMPLE", "sampled tracing"),
                       ("PFX_FLIGHT_RECORDER", "the flight recorder")):
@@ -182,6 +185,7 @@ class Engine:
         elif not model.trainable:
             raise ValueError("Engine needs a trainable model (GPTModel(cfg, trainable=True))")
         self.model = model.to(self.device)
+        self._warm_start(eng.get("save_load") or {})
         self.params: Dict[str, torch.Tensor] = dict(self.model.named_parameters())
         # use_increments schedules count samples: scaled inside build_optimizer
         self.tx, self.schedule = build_optimizer(
@@ -220,6 +224,19 @@ class Engine:
         self._compile_emitted = False
         self._placement_s = 0.0
         self.preempted = False
+
+    def _warm_start(self, save_load) -> None:
+        """``save_load.pretrained_params``: copy a params checkpoint into the
+        fresh model (the optimizer state, built after, stays fresh)."""
+        pretrained = save_load.get("pretrained_params")
+        if pretrained and save_load.get("ckpt_dir"):
+            # the ckpt_dir load replaces the params wholesale: skip the
+            # redundant (possibly multi-GB) restore
+            logger.info("pretrained_params skipped: ckpt_dir load takes over")
+        elif pretrained:
+            load_params_into(self.model, restore_params(pretrained),
+                             f"pretrained_params {pretrained}")
+            logger.info(f"pretrained params loaded from {pretrained}")
 
     def _device_batch(self, host_batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)

@@ -10,7 +10,12 @@ the same shape instead of reallocated.  ``Generation.speculative.draft_k``
 ``draft_k`` slack slots in every cache and the draft counts in ``stats``.
 ``stats`` is a ``StatsView``: its counters are the registry's
 ``pfx_serving_*`` / ``pfx_spec_*`` series, so ``/metrics`` and ``/healthz``
-read one snapshot.
+read one snapshot.  ``decode_strategy: beam_search`` decodes each batch
+with :func:`~paddlefleetx_tpu_torch.models.gpt.generation.beam_search`
+at ``GenerationConfig``'s beam settings (4 beams, length penalty 1.0,
+one group), which builds and reorders its own cache (no pool, no
+speculation), as the JAX server does.  A ``tokenizer``
+(``Generation.tokenizer_dir``) adds :meth:`GenerationServer.generate_text`.
 """
 
 from __future__ import annotations
@@ -51,22 +56,19 @@ def plan_decode(padded_len: int, max_toks: int, *, context: int):
 
 
 class GenerationServer:
-    """Holds the model on its device and serves token-id prompts.
+    """Holds the model on its device and serves token-id prompts, and text
+    prompts when it has a ``tokenizer``.
 
     Only the scheduler thread calls :meth:`generate_ids` once traffic
     starts (it mutates the cache pool, the generator and ``stats``)."""
 
-    def __init__(self, cfg, module, model, device: torch.device):
+    def __init__(self, cfg, module, model, device: torch.device, tokenizer=None):
         gen_cfg = cfg.get("Generation", {}) or {}
-        if gen_cfg.get("tokenizer_dir"):
-            raise NotImplementedError(
-                "Generation.tokenizer_dir: tokenizer loading is not ported yet; "
-                "send prompt_ids / prompts_ids"
-            )
         self.cfg = cfg
         self.module = module
         self.model = model
         self.device = device
+        self.tokenizer = tokenizer
         self.bucket = int(gen_cfg.get("pad_to_multiple", 64))
         self.gen = GenerationConfig(
             max_dec_len=int(gen_cfg.get("max_dec_len", 64)),
@@ -136,24 +138,30 @@ class GenerationServer:
         if run_len != gen.max_dec_len:
             gen = dataclasses.replace(gen, max_dec_len=run_len)
         t0 = time.time()
+        # beam search reorders the cache by parent each step and builds its
+        # own: no pool, no speculation
+        beam = gen.decode_strategy == "beam_search"
+        spec = None if beam else self.spec
         key = (gen, target, P)
-        cache = self._cache_pool.pop(key, None)
-        if cache is None:
-            # speculation needs draft_k slack slots for the verify chunk's
-            # rejected tail
-            slack = self.spec.draft_k if self.spec is not None else 0
-            cache = init_cache(
-                self.module.config, target, P + run_len + slack, self.device,
-                kv_dtype=self.kv_dtype,
-            )
+        cache = None
+        if not beam:
+            cache = self._cache_pool.pop(key, None)
+            if cache is None:
+                # speculation needs draft_k slack slots for the verify
+                # chunk's rejected tail
+                slack = spec.draft_k if spec is not None else 0
+                cache = init_cache(
+                    self.module.config, target, P + run_len + slack, self.device,
+                    kv_dtype=self.kv_dtype,
+                )
         spec_stats = None
         try:
             out = generate(
                 self.model, ids, gen, generator=self.generator,
-                prompt_lens=lens, cache=cache, spec=self.spec,
-                return_spec_stats=self.spec is not None,
+                prompt_lens=lens, cache=cache, spec=spec,
+                return_spec_stats=spec is not None,
             )
-            if self.spec is not None:
+            if spec is not None:
                 out, spec_stats = out
             out = out[:n_req].cpu().tolist()
         except Exception as exc:
@@ -161,9 +169,10 @@ class GenerationServer:
             self.stats["gen_errors"] += 1
             self.stats["last_error"] = f"{type(exc).__name__}: {exc}"
             raise
-        self._cache_pool[key] = cache
-        while len(self._cache_pool) > self._cache_pool_size:
-            self._cache_pool.popitem(last=False)  # evict the least recently used
+        if cache is not None:
+            self._cache_pool[key] = cache
+            while len(self._cache_pool) > self._cache_pool_size:
+                self._cache_pool.popitem(last=False)  # evict the least recently used
         dt = time.time() - t0
         outs: List[List[int]] = []
         for row in out:
@@ -182,6 +191,16 @@ class GenerationServer:
                 self.stats["spec_accepted"] / self.stats["spec_proposed"]
                 if self.stats["spec_proposed"] else 0.0)
         return outs
+
+    def generate_text(self, prompts: Sequence[str],
+                      max_dec_len: Optional[int] = None) -> List[str]:
+        """Completions of text prompts: encoded, decoded as
+        :meth:`generate_ids`, decoded back to text."""
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer configured (Generation.tokenizer_dir)")
+        ids = [self.tokenizer.encode(p) for p in prompts]
+        outs = self.generate_ids(ids, max_dec_len=max_dec_len)
+        return [self.tokenizer.decode(o) for o in outs]
 
     def warmup(
         self, prompt_lens: Sequence[int] = (8,), batch_sizes: Sequence[int] = (1,)

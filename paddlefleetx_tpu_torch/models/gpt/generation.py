@@ -41,8 +41,13 @@ straight into a row's blocks (pad slots null-routed by ``n_valid``),
 and :func:`gather_kv_blocks` / :func:`scatter_kv_blocks` move whole
 blocks between the arena and host RAM for the prefix spill tier.
 
-Beam search is a later slice of the port; it raises where it is asked
-for.
+Beam search (:func:`beam_search`, ``decode_strategy="beam_search"``)
+prefills once per prompt, repeats the cache and the last logits
+``num_beams``-fold, and reorders the cache rows by parent beam every step
+(``index_select``); its cache is always in the model dtype.  Its top-k
+breaks ties by the lower index, as ``jax.lax.top_k`` does
+(:func:`top_k_lower_index`), so tied logits choose the JAX package's
+beams.
 """
 
 from __future__ import annotations
@@ -242,6 +247,23 @@ def apply_forced_token(logits, step: int, force_at_step: int, token_id: int):
     return forced
 
 
+def apply_hamming_diversity(logits, current_tokens, group_start: int, penalty: float):
+    """Penalize tokens already chosen by EARLIER beam groups at this step
+    (JAX ``apply_hamming_diversity``, batched): ``logits`` [b, Kg, v];
+    ``current_tokens`` [b, K] holds this step's choices of the groups
+    processed so far (entries >= ``group_start`` are not yet decided and
+    count for nothing)."""
+    if penalty == 0.0:
+        return logits
+    decided = torch.arange(current_tokens.shape[1], device=logits.device) < group_start
+    decided = decided[None, :].expand_as(current_tokens)
+    idx = torch.where(decided, current_tokens, torch.zeros_like(current_tokens)).long()
+    counts = torch.zeros((logits.shape[0], logits.shape[-1]), dtype=logits.dtype,
+                         device=logits.device)
+    counts.scatter_add_(1, idx, decided.to(logits.dtype))
+    return logits - penalty * counts[:, None, :]
+
+
 # ---------------------------------------------------------------------------
 # Generation loop
 # ---------------------------------------------------------------------------
@@ -249,32 +271,32 @@ def apply_forced_token(logits, step: int, force_at_step: int, token_id: int):
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    """Decode settings (the JAX ``GenerationConfig`` minus beam search,
-    which is not ported yet)."""
+    """Decode settings (the JAX ``GenerationConfig``)."""
 
     max_dec_len: int = 64
     min_dec_len: int = 1
-    decode_strategy: str = "sampling"  # sampling | greedy_search
+    decode_strategy: str = "sampling"  # sampling | greedy_search | beam_search
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
     repetition_penalty: float = 1.0
     eos_token_id: int = 50256
     pad_token_id: int = 0
+    # beam search
+    num_beams: int = 4
+    length_penalty: float = 1.0
+    # diverse (group) beam search: the Hamming diversity penalty
+    num_beam_groups: int = 1
+    diversity_penalty: float = 0.0
     # ForcedBOS/ForcedEOS processors (-1 = disabled)
     forced_bos_token_id: int = -1
     forced_eos_token_id: int = -1
 
     def __post_init__(self):
-        if self.decode_strategy == "beam_search":
-            raise NotImplementedError(
-                "beam_search is not ported yet (a later slice of the PyTorch "
-                "port); use greedy_search or sampling"
-            )
-        if self.decode_strategy not in ("sampling", "greedy_search"):
+        if self.decode_strategy not in ("sampling", "greedy_search", "beam_search"):
             raise ValueError(
                 f"bad decode_strategy {self.decode_strategy!r}; "
-                "valid: sampling, greedy_search"
+                "valid: sampling, greedy_search, beam_search"
             )
 
 
@@ -354,7 +376,11 @@ def generate(
     loop.  The cache then needs ``spec.draft_k`` slack slots past
     ``P + max_dec_len`` for the last chunk's rejected tail.
     ``return_spec_stats`` appends ``(proposed, accepted)`` draft counts
-    to the returned tuple."""
+    to the returned tuple.
+
+    ``decode_strategy="beam_search"`` runs :func:`beam_search`: no
+    ``cache``, ``return_cache`` or ``spec`` (the beam loop reorders its
+    own cache)."""
     if return_spec_stats and spec is None:
         raise ValueError("return_spec_stats needs a SpecConfig")
     if spec is not None and decode_loop_mode() == "scan":
@@ -374,6 +400,18 @@ def generate(
                 f"prompt_len {prompt_len} + max_dec_len {gen.max_dec_len} exceeds "
                 f"max_position_embeddings {cfg.max_position_embeddings}"
             )
+    if gen.decode_strategy == "beam_search":
+        if cache is not None or return_cache:
+            raise ValueError(
+                "cache reuse/return is not supported for beam_search (the beam loop "
+                "reorders the cache by parent each step)"
+            )
+        if spec is not None:
+            raise ValueError(
+                "speculative decoding is not supported for beam_search (the beam loop "
+                "reorders the cache by parent each step)"
+            )
+        return beam_search(model, input_ids, gen, prompt_lens=prompt_lens)
     dev = input_ids.device
     pad_len, prefill_pos_ids = _left_pad_prefill(prompt_len, prompt_lens)
     want = (cfg.num_layers, b, cfg.num_attention_heads, cache_len, cfg.head_dim)
@@ -437,6 +475,141 @@ def generate(
         )
         last = new_logits[:, -1, :].float()
     return (tokens, cache) if return_cache else tokens
+
+
+# ---------------------------------------------------------------------------
+# Beam search (JAX generation.py:1362-1558): K alive beams per prompt and a
+# K-slot finished pool; diverse groups through the Hamming penalty
+# ---------------------------------------------------------------------------
+
+
+def _length_penalty(length: int, alpha: float, device) -> torch.Tensor:
+    return torch.tensor(float(length), dtype=torch.float32, device=device).pow(alpha)
+
+
+def top_k_lower_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last dim and their indices in
+    ``jax.lax.top_k``'s order: descending, ties by the lower index (a
+    stable sort; ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.inference_mode()
+def beam_search(
+    model: GPTModel,
+    input_ids: torch.Tensor,
+    gen: GenerationConfig,
+    prompt_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Beam search: input_ids [b, P] -> int64 [b, max_dec_len].
+
+    K = ``num_beams`` alive beams per prompt plus a K-slot finished pool.
+    Each step takes the top 2*Kg candidates of each beam group (Kg = K /
+    ``num_beam_groups``) over [b, Kg * vocab] cumulative log-probs, moves
+    EOS continuations into the finished pool scored with the length
+    penalty (pool [b, K] + [b, 2Kg] -> top K), keeps the best Kg non-EOS
+    continuations alive and reorders the cache by parent beam.
+    ``diversity_penalty`` applies the Hamming penalty against earlier
+    groups' choices at the same step.  No repetition penalty on the beam
+    path, as in the JAX package.  At the end the alive beams, scored at
+    full length, join the pool and each prompt's best sequence wins
+    (the first maximum).  The forward after the last step is skipped: its
+    logits would feed nothing."""
+    cfg = model.config
+    b, prompt_len = input_ids.shape
+    K, G = gen.num_beams, gen.num_beam_groups
+    if K % G:
+        raise ValueError(f"num_beams {K} not divisible by num_beam_groups {G}")
+    Kg = K // G
+    vocab = cfg.vocab_size
+    DEC = gen.max_dec_len
+    dev = input_ids.device
+    alpha = gen.length_penalty
+    NEG = -1e9
+
+    # prefill ONCE per prompt, then repeat the cache and logits K-fold; the
+    # cache is in the model dtype whatever PFX_KV_DTYPE says (int8 covers
+    # the sampling / greedy paths, not beam)
+    pad_len, prefill_pos_ids = _left_pad_prefill(prompt_len, prompt_lens)
+    cache = init_cache(cfg, b, prompt_len + DEC, dev, kv_dtype="bf16")
+    logits = forward_cached(model, input_ids, cache, 0, position_ids=prefill_pos_ids,
+                            kv_valid_from=pad_len)
+    cache = KVCache(cache.k.repeat_interleave(K, dim=1), cache.v.repeat_interleave(K, dim=1))
+    last = logits[:, -1, :].float().repeat_interleave(K, dim=0)  # [b*K, v]
+    pad_flat = pad_len.repeat_interleave(K) if pad_len is not None else None
+    lens_flat = prompt_lens.repeat_interleave(K) if prompt_lens is not None else None
+
+    # only each group's first beam is live at step 0 (no duplicates)
+    beam = torch.arange(K, device=dev)
+    scores = torch.where(beam % Kg == 0, 0.0, NEG).to(torch.float32)[None].repeat(b, 1)
+    seqs = torch.full((b, K, DEC), gen.pad_token_id, dtype=torch.int64, device=dev)
+    fin_scores = torch.full((b, K), NEG, dtype=torch.float32, device=dev)
+    fin_seqs = seqs.clone()
+    bidx = torch.arange(b, device=dev)[:, None]
+    for i in range(DEC):
+        logp = F.log_softmax(last, dim=-1)
+        logp = apply_min_length(logp, i, gen.min_dec_len, gen.eos_token_id)
+        logp = apply_forced_token(logp, i, 0, gen.forced_bos_token_id)
+        logp = apply_forced_token(logp, i, DEC - 1, gen.forced_eos_token_id)
+        logp = logp.view(b, K, vocab)
+
+        new_scores = scores.clone()
+        chosen_tok = torch.zeros((b, K), dtype=torch.int64, device=dev)
+        chosen_parent = torch.zeros((b, K), dtype=torch.int64, device=dev)
+        step_tokens = torch.full((b, K), -1, dtype=torch.int64, device=dev)
+        for g in range(G):
+            sl = slice(g * Kg, (g + 1) * Kg)
+            glogp = logp[:, sl]
+            if gen.diversity_penalty > 0.0 and g > 0:
+                glogp = apply_hamming_diversity(glogp, step_tokens, g * Kg,
+                                                gen.diversity_penalty)
+            cand = (scores[:, sl, None] + glogp).reshape(b, Kg * vocab)
+            top_s, top_i = top_k_lower_index(cand, 2 * Kg)
+            tok = top_i % vocab
+            parent = top_i // vocab + g * Kg
+            is_eos = tok == gen.eos_token_id
+
+            # the finished pool: EOS continuations, length-penalized
+            f_cand = torch.where(is_eos, top_s / _length_penalty(i + 1, alpha, dev),
+                                 torch.full_like(top_s, NEG))
+            f_seqs = seqs[bidx, parent]
+            f_seqs[:, :, i] = tok
+            all_f_scores = torch.cat([fin_scores, f_cand], dim=1)
+            all_f_seqs = torch.cat([fin_seqs, f_seqs], dim=1)
+            fin_scores, keep_i = top_k_lower_index(all_f_scores, K)
+            fin_seqs = all_f_seqs[bidx, keep_i]
+
+            # alive: the best Kg non-EOS continuations
+            alive_s = torch.where(is_eos, torch.full_like(top_s, NEG), top_s)
+            a_s, a_i = top_k_lower_index(alive_s, Kg)
+            a_tok = tok.gather(1, a_i)
+            new_scores[:, sl] = a_s
+            chosen_tok[:, sl] = a_tok
+            chosen_parent[:, sl] = parent.gather(1, a_i)
+            step_tokens[:, sl] = a_tok
+
+        # reorder the sequences and the cache by parent beam, then append
+        seqs = seqs[bidx, chosen_parent]
+        seqs[:, :, i] = chosen_tok
+        scores = new_scores
+        if i == DEC - 1:
+            break
+        flat_parent = (bidx * K + chosen_parent).reshape(-1)
+        cache = KVCache(cache.k.index_select(1, flat_parent),
+                        cache.v.index_select(1, flat_parent))
+        step_pos_ids = (lens_flat + i)[:, None] if lens_flat is not None else None
+        new_logits = forward_cached(model, chosen_tok.reshape(b * K, 1), cache,
+                                    prompt_len + i, position_ids=step_pos_ids,
+                                    kv_valid_from=pad_flat)
+        last = new_logits[:, -1, :].float()
+
+    # the still-alive beams join the pool, scored at full length
+    alive_final = scores / _length_penalty(DEC, alpha, dev)
+    all_scores = torch.cat([fin_scores, alive_final], dim=1)
+    all_seqs = torch.cat([fin_seqs, seqs], dim=1)
+    best = torch.argmax(all_scores, dim=1)
+    return all_seqs[torch.arange(b, device=dev), best]
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,13 @@ Counterpart of ``tools/serve.py`` with its two schedulers:
 
     POST /generate  {"prompt_ids": [...], "max_tokens": 32, "deadline_s": 30}
                     -> {"completion_ids": [...]}
-                    ("prompts_ids": [[...], ...] -> {"completions_ids": [...]})
+                    ("prompts_ids": [[...], ...] -> {"completions_ids": [...]};
+                    with a tokenizer, "prompt": "..." -> {"completion": "..."}
+                    and "prompts": [...] -> {"completions": [...]})
                     POST /generate?stream=1 (or Accept: text/event-stream)
                     -> server-sent events: "token" frames {"row", "index",
-                    "tokens"} with per-row contiguous indices, then one
+                    "tokens"} with per-row contiguous indices (text prompts:
+                    also "text", the frame's tokens decoded), then one
                     "summary" frame (or an "error" frame on a failure
                     mid-stream)
     GET  /healthz   state, queue and serving stats (with speculation:
@@ -70,8 +73,17 @@ torn); a value that does not parse, or any other site, fails the boot.
 
 The model runs on the card (``--device cuda``, the default) and the
 command fails without one; ``--device cpu`` runs the plain PyTorch path.
-Weights are random, drawn from ``Global.seed``.  Not ported yet, and
-refused where asked for: beam search, checkpoint and tokenizer loading,
+Weights come from ``Engine.save_load.ckpt_dir`` when it is set: a
+training step directory of the train CLI (``step_<N>``) or a params-only
+directory of ``tools/convert_hf_gpt2.py`` (``utils/checkpoint.py``), cast
+to the serving dtype; a checkpoint of another Model config fails the
+boot naming the first mismatched parameter.  Without it they are random,
+drawn from ``Global.seed``.  ``Generation.tokenizer_dir`` (a directory
+with ``vocab.json`` and ``merges.txt``) loads the GPT BPE tokenizer, for
+text prompts.  ``Generation.decode_strategy: beam_search`` decodes with
+beam search on the coalescing scheduler; the continuous scheduler treats
+it as sampling, as the JAX CLI's does (its paged step argmaxes only
+``greedy_search``).  Not ported yet, and refused where asked for:
 ``/debug/*`` and ``/admin/*`` (KV handoff and prefix migration among
 them), SLO objectives and their burn rates.
 """
@@ -112,8 +124,11 @@ from paddlefleetx_tpu_torch.core.tenancy import (
     normalize_tenant,
     parse_priority,
 )
+from paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
 from paddlefleetx_tpu_torch.models.gpt.generation import bucket_len
+from paddlefleetx_tpu_torch.models.gpt.model import GPTModel
 from paddlefleetx_tpu_torch.ops import decode_attention
+from paddlefleetx_tpu_torch.utils.checkpoint import load_params_into, load_pretrained_params
 from paddlefleetx_tpu_torch.utils.config import get_config
 from paddlefleetx_tpu_torch.utils.device import resolve_device
 from paddlefleetx_tpu_torch.utils.log import log_server_error, logger
@@ -122,19 +137,28 @@ from paddlefleetx_tpu_torch.utils.telemetry import get_registry
 
 
 def build_server(config: str, overrides, device=None) -> GenerationServer:
-    """Config -> seeded model on ``device`` (the card unless "cpu") ->
-    ``GenerationServer``.  Raises without a card unless ``device`` is
-    "cpu"."""
+    """Config -> model on ``device`` (the card unless "cpu"): the params of
+    ``Engine.save_load.ckpt_dir`` when set, else seeded random weights ->
+    ``GenerationServer``, with the tokenizer of
+    ``Generation.tokenizer_dir`` when set.  Raises without a card unless
+    ``device`` is "cpu"."""
     dev = resolve_device(device)
     cfg = get_config(config, overrides=overrides)
-    if cfg.get("Engine", {}).get("save_load", {}).get("ckpt_dir"):
-        raise NotImplementedError(
-            "Engine.save_load.ckpt_dir: checkpoint loading is not ported yet; "
-            "the port serves random weights drawn from Global.seed"
-        )
     module = GPTModule(cfg)
-    model = module.init_model(int(cfg.Global.seed), dev)
-    return GenerationServer(cfg, module, model, dev)
+    params = load_pretrained_params(cfg)
+    if params is None:
+        model = module.init_model(int(cfg.Global.seed), dev)
+    else:
+        ckpt_dir = cfg.Engine.save_load.ckpt_dir
+        model = load_params_into(GPTModel(module.config), params, f"ckpt_dir {ckpt_dir}")
+        model = model.to(dev)
+        del params
+        logger.info(f"serving the params of {ckpt_dir}")
+    tok = None
+    tokenizer_dir = (cfg.get("Generation", {}) or {}).get("tokenizer_dir")
+    if tokenizer_dir:
+        tok = GPTTokenizer.from_pretrained(tokenizer_dir)
+    return GenerationServer(cfg, module, model, dev, tokenizer=tok)
 
 
 def clamp_max_tokens(requested, default: int, cap: int) -> int:
@@ -322,15 +346,25 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 in_flight.add(-1)
 
         def _parse(self, req):
+            """(prompts_ids, mode) from a /generate body; raises ValueError
+            with a client-facing message (HTTP 400)."""
             if "prompt" in req or "prompts" in req:
-                raise ValueError("no tokenizer in the PyTorch port yet; send "
-                                 "prompt_ids / prompts_ids")
-            if "prompt_ids" in req:
+                if server.tokenizer is None:
+                    raise ValueError("no tokenizer configured (Generation.tokenizer_dir); "
+                                     "send prompt_ids/prompts_ids")
+                if "prompt" in req:
+                    texts, mode = [req["prompt"]], "prompt"
+                else:
+                    texts, mode = list(req["prompts"]), "prompts"
+                if not texts or not all(isinstance(t, str) and t for t in texts):
+                    raise ValueError("prompts must be non-empty strings")
+                ids = [server.tokenizer.encode(t) for t in texts]
+            elif "prompt_ids" in req:
                 ids, mode = [req["prompt_ids"]], "prompt_ids"
             elif "prompts_ids" in req:
                 ids, mode = list(req["prompts_ids"]), "prompts_ids"
             else:
-                raise ValueError("need prompt_ids or prompts_ids")
+                raise ValueError("need prompt(s) or prompt(s)_ids")
             if not ids or any(not p for p in ids):
                 raise ValueError("prompts must be a non-empty list of non-empty id lists")
             if len(ids) > max_coalesce:
@@ -382,7 +416,7 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             kw = {"coalesce_key": key, "deadline_s": deadline_s, "tenant": tenant,
                   "priority": priority}
             if self._wants_stream(parts):
-                return self._generate_stream(prompts, trim, kw, deadline_s, t0, tenant)
+                return self._generate_stream(prompts, trim, kw, deadline_s, t0, tenant, mode)
             fut = self._submit(prompts, trim, kw)
             if fut is None:
                 return
@@ -399,11 +433,16 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             # non-streamed: the first token reaches the client with the rest
             observe_ttft(tenant, time.monotonic() - t0)
             latency_hist.observe(time.monotonic() - t0)
-            payload = ({"completion_ids": rows[0]} if mode == "prompt_ids"
-                       else {"completions_ids": rows})
+            if mode in ("prompt", "prompts"):
+                texts = [server.tokenizer.decode(r) for r in rows]
+                payload = ({"completion": texts[0]} if mode == "prompt"
+                           else {"completions": texts})
+            else:
+                payload = ({"completion_ids": rows[0]} if mode == "prompt_ids"
+                           else {"completions_ids": rows})
             self._json(200, payload)
 
-        def _generate_stream(self, prompts, trim, kw, deadline_s, t0, tenant):
+        def _generate_stream(self, prompts, trim, kw, deadline_s, t0, tenant, mode):
             """Server-sent events: ``event: token`` frames ``{"row",
             "index", "tokens"}`` as the engine commits them (per-row
             contiguous indices), then ``event: summary`` with the usage.
@@ -454,7 +493,10 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 st["last"] = now
                 st["flushes"] += 1
                 st["sent"] += len(toks)
-                return emit("token", {"row": row, "index": start, "tokens": toks})
+                obj = {"row": row, "index": start, "tokens": toks}
+                if mode in ("prompt", "prompts"):
+                    obj["text"] = server.tokenizer.decode(toks)
+                return emit("token", obj)
 
             code, err, rows = 200, None, None
             hard_deadline = t0 + deadline_s + shed_slack_s

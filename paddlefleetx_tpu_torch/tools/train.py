@@ -50,6 +50,10 @@ def main(argv=None) -> int:
     auto_resume = not ckpt_dir and bool(save_load.get("auto_resume"))
     # side-effect-free peek: does a resume have something to restore?
     resuming = auto_resume and latest_checkpoint(output_dir, quarantine=False) is not None
+    if resuming and save_load.get("pretrained_params"):
+        # the resume load replaces the params wholesale: skip the warm start
+        logger.info("pretrained_params skipped: resume checkpoint takes over")
+        cfg.Engine.save_load.pretrained_params = None
 
     engine = Engine(cfg, module, device=device)
     if args.exit_after_save:

@@ -18,22 +18,43 @@ Validity has two tiers, as in the JAX package: **structural**
 payload) and **restorability** (only a load proves the bytes: the
 engine's ``load`` raises :class:`CorruptCheckpoint` on a payload it
 cannot read, and :func:`resume_with_fallback` quarantines that directory
-and falls back to the previous one).  Reading the JAX package's orbax
-checkpoints is not ported.
+and falls back to the previous one).
+
+Params for serving and warm starts (JAX ``restore_params`` :288,
+``load_pretrained_params`` :345, ``save_params_checkpoint`` :353) come
+from either of the port's layouts: a step directory above (only its
+``"params"`` are read: the file is memory-mapped, so the optimizer
+moments, about twice the param bytes, never land in memory) or a
+params-only directory, the contract of the JAX HF import tools::
+
+    <dir>/params.pt     the named float32 params (torch.save)
+    <dir>/meta.json     {"format": "params-only", "source": ...}
+    <dir>/model.yaml    the matching Model config block
+
+:func:`load_params_into` copies them into a model, cast to each
+parameter's dtype as ``models/gpt/bridge.py`` casts, after checking every
+name and shape.  Differences from JAX: an unreadable payload raises
+:class:`CorruptCheckpoint` naming the directory and leaves it where it is
+(no quarantine rename of a directory a server was pointed at); reading
+the JAX package's orbax checkpoints is not ported.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from paddlefleetx_tpu_torch.utils.log import logger
 
 CORRUPT_SUFFIX = ".corrupt"
 PAYLOAD = "state.pt"
 META = "meta.json"
+PARAMS = "params.pt"
 
 
 class CorruptCheckpoint(ValueError):
@@ -195,3 +216,92 @@ def resume_with_fallback(engine, output_dir: str, max_quarantines: int = 3) -> O
             logger.error(f"auto_resume: checkpoint {path} failed to load ({e}); "
                          "quarantining and falling back")
             budget.spend(path, str(e), output_dir)
+
+
+def restore_params(ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The named float32 params (CPU tensors) of a step directory
+    (``state.pt``'s ``"params"``, memory-mapped) or of a params-only
+    directory (``params.pt``).  Unreadable bytes raise
+    :class:`CorruptCheckpoint`; a directory with neither file raises
+    ``FileNotFoundError``."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    params_only = os.path.join(ckpt_dir, PARAMS)
+    payload = os.path.join(ckpt_dir, PAYLOAD)
+    path = params_only if os.path.isfile(params_only) else payload
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{ckpt_dir}: neither {PARAMS} (params-only) nor {PAYLOAD} "
+                                "(a training step) found")
+    try:
+        loaded = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+        params = loaded if path == params_only else loaded["params"]
+    except (RuntimeError, EOFError, pickle.UnpicklingError, ValueError, KeyError,
+            TypeError) as e:
+        raise CorruptCheckpoint(f"checkpoint {ckpt_dir} unreadable: {e}") from e
+    if not isinstance(params, dict) or not all(
+            isinstance(k, str) and isinstance(v, torch.Tensor) for k, v in params.items()):
+        raise CorruptCheckpoint(f"checkpoint {ckpt_dir}: {os.path.basename(path)} holds no "
+                                "named params")
+    return params
+
+
+def load_pretrained_params(cfg) -> Optional[Dict[str, torch.Tensor]]:
+    """Params from ``Engine.save_load.ckpt_dir`` (None when unset)."""
+    save_load = (cfg.get("Engine", {}) or {}).get("save_load", {}) or {}
+    ckpt_dir = save_load.get("ckpt_dir")
+    if not ckpt_dir:
+        return None
+    return restore_params(ckpt_dir)
+
+
+@torch.no_grad()
+def load_params_into(model: torch.nn.Module, params: Dict[str, torch.Tensor],
+                     source: str) -> torch.nn.Module:
+    """Copy ``params`` into ``model``'s parameters of the same names, each
+    cast to the parameter's dtype (bf16 serving weights round as the
+    bridge rounds them; LayerNorm affines stay float32).  A checkpoint of
+    another config raises ``ValueError`` naming the first mismatched
+    parameter, before anything is copied."""
+    own = dict(model.named_parameters())
+    for name, p in own.items():
+        if name not in params:
+            raise ValueError(f"{source}: the model's parameter {name} is missing from the "
+                             "checkpoint (a different Model config?)")
+        if tuple(params[name].shape) != tuple(p.shape):
+            raise ValueError(f"{source}: {name}: model {tuple(p.shape)} vs checkpoint "
+                             f"{tuple(params[name].shape)} (hint: --pad-vocab-to in "
+                             "tools/convert_hf_gpt2.py must match Model.vocab_size)")
+    extra = [n for n in params if n not in own]
+    if extra:
+        raise ValueError(f"{source}: the checkpoint's parameter {extra[0]} is not in the "
+                         f"model ({len(extra)} extra; a different Model config?)")
+    for name, p in own.items():
+        p.copy_(params[name])
+    return model
+
+
+def save_params_checkpoint(out_dir: str, params: Dict[str, torch.Tensor], source: str,
+                           model_fields: dict) -> str:
+    """Write the params-only directory: ``params.pt`` (the named params as
+    float32 CPU tensors, written to a temporary name and renamed into
+    place), ``meta.json`` (format and source) and ``model.yaml`` (the
+    matching Model config block).  Returns the directory."""
+    out = os.path.abspath(out_dir)
+    os.makedirs(out, exist_ok=True)
+    tensors = {n: t.detach().to("cpu", torch.float32).contiguous() for n, t in params.items()}
+    tmp = os.path.join(out, f"{PARAMS}.tmp{os.getpid()}")
+    torch.save(tensors, tmp)
+    os.replace(tmp, os.path.join(out, PARAMS))
+    with open(os.path.join(out, META), "w") as f:
+        json.dump({"format": "params-only", "source": source}, f)
+    with open(os.path.join(out, "model.yaml"), "w") as f:
+        f.write("Model:\n")
+        for k, v in model_fields.items():
+            if isinstance(v, float):
+                # YAML 1.1 reads "1e-12" as a STRING; force a float form
+                text = repr(v)
+                if "e" in text and "." not in text.split("e")[0]:
+                    mant, exp = text.split("e")
+                    text = f"{mant}.0e{exp}"
+                v = text
+            f.write(f"  {k}: {v}\n")
+    return out

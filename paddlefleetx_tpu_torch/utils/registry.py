@@ -1,6 +1,7 @@
 """Typed name registries (counterpart of ``paddlefleetx_tpu/utils/registry.py``):
 the config's ``name:`` keys resolve through these instead of ``eval()``.
-The port registers its datasets in ``DATASETS``."""
+The port registers its datasets in ``DATASETS`` and its tokenizers in
+``TOKENIZERS``."""
 
 from __future__ import annotations
 
@@ -37,3 +38,4 @@ class Registry:
 
 
 DATASETS = Registry("dataset")
+TOKENIZERS = Registry("tokenizer")

@@ -369,15 +369,27 @@ REFUSED = {
     "profiler": ({"Profiler": {"enable": True}}, {}),
     "consistency_check": ({"Engine": {"consistency_check_freq": 5}}, {}),
     "async_save": ({"Engine": {"save_load": {"async_save": True}}}, {}),
-    "pretrained_params": ({"Engine": {"save_load": {"pretrained_params": "/ckpt"}}}, {}),
     "fault_injection": ({}, {"PFX_FAULT": "nan_grads:3"}),
     "tracing": ({}, {"PFX_TRACE_SAMPLE": "1"}),
     "flight_recorder": ({}, {"PFX_FLIGHT_RECORDER": "flight.jsonl"}),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + ["worker_loader"])
+@pytest.mark.parametrize("name", sorted(REFUSED) + ["pretrained_params", "worker_loader"])
 def test_fit_refuses_what_is_not_ported(name, tmp_path, monkeypatch, data_dir):
+    if name == "pretrained_params":
+        # ported: a warm start from a saved step's params, optimizer state
+        # fresh (the JAX engine's params-only restore)
+        donor = _port_engine(_raw(tmp_path / "donor", Global={"seed": 11}))
+        path = donor.save(str(tmp_path / "donor" / "step_0"))
+        engine = _port_engine(_raw(tmp_path, Engine={"save_load": {"pretrained_params": path}}))
+        seeded = _port_engine(_raw(tmp_path))
+        assert any(not torch.equal(p, seeded.params[n]) for n, p in donor.params.items())
+        for n, p in engine.params.items():
+            assert torch.equal(p, donor.params[n]), n
+        assert engine.step == 0 and engine.opt_state[1]["count"] == 0
+        assert all(not m.any() for m in engine.opt_state[1]["mu"].values())
+        return
     if name == "worker_loader":
         from paddlefleetx_tpu_torch.data.builders import build_dataloader
         from paddlefleetx_tpu_torch.utils.config import get_config

@@ -154,9 +154,91 @@ def test_scan_mode_matches_early_exit(models, monkeypatch):
     np.testing.assert_array_equal(early.numpy(), full.numpy())
 
 
-def test_beam_search_is_refused():
-    with pytest.raises(NotImplementedError):
-        pt_gen.GenerationConfig(decode_strategy="beam_search")
+BEAM = dict(max_dec_len=10, decode_strategy="beam_search", eos_token_id=EOS, pad_token_id=0)
+BEAM_CASES = {
+    "beams1": dict(padded=True, gen=dict(num_beams=1)),
+    "beams4": dict(padded=True, gen=dict(num_beams=4)),
+    "beams4_unpadded": dict(padded=False, gen=dict(num_beams=4)),
+    "groups2_diversity": dict(padded=True, gen=dict(num_beams=4, num_beam_groups=2,
+                                                    diversity_penalty=0.5)),
+    "length_penalty_0.6": dict(padded=True, gen=dict(num_beams=4, length_penalty=0.6)),
+    "length_penalty_1.0": dict(padded=True, gen=dict(num_beams=3, length_penalty=1.0)),
+    "min_len_forced": dict(padded=True, gen=dict(num_beams=4, min_dec_len=4,
+                                                 forced_bos_token_id=7,
+                                                 forced_eos_token_id=EOS)),
+    "tied_logits": dict(padded=True, gen=dict(num_beams=4), tie=True),
+}
+
+
+def _beam_pair(models, spec):
+    """(JAX beam tokens, port beam tokens) on the same weights and prompts."""
+    jcfg, jparams, model = models
+    if spec.get("tie"):
+        # tokens 9..30 share one embedding row, so their logits tie exactly at
+        # every step (the LM head is tied): the beams must pick the lower index
+        tree = jax.tree.map(np.asarray, jparams)
+        word = tree["embeddings"]["word"].copy()
+        word[10:31] = word[9]
+        tree["embeddings"]["word"] = word
+        jparams = jax.tree.map(jnp.asarray, tree)
+        model = params_from_jax(model.config, tree)
+    gen = jax_gen.GenerationConfig(**BEAM, **spec["gen"])
+    if spec["padded"]:
+        ids, lens = jax_gen.pad_prompts(_prompts(), 0, multiple=8)
+    else:
+        ids, lens = jnp.asarray(np.array([p[:5] for p in _prompts()])), None
+    ref = np.asarray(jax_gen.generate(jparams, ids, jcfg, gen, prompt_lens=lens))
+    pgen = pt_gen.GenerationConfig(**BEAM, **spec["gen"])
+    got = pt_gen.generate(
+        model, torch.from_numpy(np.array(ids)).long(), pgen,
+        prompt_lens=None if lens is None else torch.from_numpy(np.array(lens)))
+    return ref, got.numpy()
+
+
+def test_beam_search_is_refused(models):
+    """Beam search is served (tokens identical to JAX ``beam_search``);
+    what it refuses is what the JAX ``generate`` refuses: a caller's cache
+    and speculation (the beam loop reorders its own cache by parent)."""
+    ref, got = _beam_pair(models, BEAM_CASES["beams4"])
+    np.testing.assert_array_equal(got, ref)
+    _, _, model = models
+    gen = pt_gen.GenerationConfig(**BEAM)
+    ids = torch.tensor([[3, 4, 5]])
+    cache = pt_gen.init_cache(model.config, 1, 3 + gen.max_dec_len, torch.device("cpu"))
+    for kw in ({"cache": cache}, {"return_cache": True},
+               {"spec": pt_gen.SpecConfig(draft_k=2)}):
+        with pytest.raises(ValueError, match="beam_search"):
+            pt_gen.generate(model, ids, gen, **kw)
+    with pytest.raises(ValueError, match="not divisible"):
+        pt_gen.generate(model, ids, pt_gen.GenerationConfig(**BEAM, num_beam_groups=3))
+
+
+@pytest.mark.parametrize("case", sorted(BEAM_CASES))
+def test_beam_search_matches_jax(models, case):
+    ref, got = _beam_pair(models, BEAM_CASES[case])
+    np.testing.assert_array_equal(got, ref)
+    if case == "tied_logits":
+        assert np.isin(got, np.arange(9, 31)).any()  # the tie was in play
+
+
+def test_top_k_breaks_ties_by_the_lower_index():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, -1e9, -1e9]])
+    vals, idx = pt_gen.top_k_lower_index(x, 5)
+    jv, ji = jax.lax.top_k(jnp.asarray(x.numpy()), 5)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    assert idx.tolist() == [[1, 2, 4, 3, 0]]
+
+
+def test_hamming_diversity_matches_jax():
+    rng = np.random.default_rng(8)
+    logits = rng.normal(size=(2, 2, 96)).astype(np.float32)
+    cur = np.array([[5, 7, -1, -1], [5, 5, -1, -1]], np.int32)
+    got = pt_gen.apply_hamming_diversity(torch.from_numpy(logits), torch.from_numpy(cur).long(),
+                                         2, 0.5)
+    for b in range(2):
+        want = jax_gen.apply_hamming_diversity(jnp.asarray(logits[b]), jnp.asarray(cur[b]), 2, 0.5)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 0, 0.8), (0.7, 10, 0.9),

@@ -1,6 +1,7 @@
-"""PyTorch port: every module imports without JAX and without the JAX
-package, and the serve entry point refuses to start without a card
-unless the CPU is asked for."""
+"""PyTorch port: every module imports without JAX, without the JAX
+package and without ``regex``, ``transformers`` or ``safetensors``, and
+the serve entry point refuses to start without a card unless the CPU is
+asked for."""
 
 import os
 import subprocess
@@ -17,6 +18,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "paddlefleetx_tpu.")))
 bad += [m for m in sys.modules if m == "paddlefleetx_tpu"]
+bad += sorted(m for m in sys.modules if m.split(".")[0] in ("regex", "transformers", "safetensors"))
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -43,6 +45,18 @@ SPECULATIVE = ("paddlefleetx_tpu_torch.ops.speculative", "paddlefleetx_tpu_torch
 # registry, the fault harness), each imported above without JAX
 TENANCY = ("paddlefleetx_tpu_torch.core.tenancy", "paddlefleetx_tpu_torch.utils.telemetry",
            "paddlefleetx_tpu_torch.utils.resilience", "paddlefleetx_tpu_torch.core.request_queue")
+# serving a trained or converted model with text: the tokenizer and its
+# code-point table, the converters and their CLI, preprocessing, params
+# loading; each imported above without JAX and without regex,
+# transformers or safetensors
+TEXT_SERVING = ("paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer",
+                "paddlefleetx_tpu_torch.data.tokenizers.unicode_classes",
+                "paddlefleetx_tpu_torch.models.convert_common",
+                "paddlefleetx_tpu_torch.models.gpt.convert",
+                "paddlefleetx_tpu_torch.tools.convert_hf_gpt2",
+                "paddlefleetx_tpu_torch.tools.preprocess_data",
+                "paddlefleetx_tpu_torch.tools.gen_unicode_classes",
+                "paddlefleetx_tpu_torch.utils.checkpoint")
 
 
 def _run(args, **kw):
@@ -61,6 +75,7 @@ def test_port_imports_no_jax():
     assert set(TRAINING) <= set(listed.split()), listed
     assert set(SPECULATIVE) <= set(listed.split()), listed
     assert set(TENANCY) <= set(listed.split()), listed
+    assert set(TEXT_SERVING) <= set(listed.split()), listed
 
 
 def test_serve_without_card_raises():

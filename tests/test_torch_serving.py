@@ -53,13 +53,13 @@ TINY = {
 }
 
 
-def _server(overrides=None):
+def _server(overrides=None, tokenizer=None):
     cfg = process_configs(AttrDict.from_nested(copy.deepcopy(TINY)))
     for key, val in (overrides or {}).items():
         cfg.Generation[key] = val
     module = GPTModule(cfg)
     model = module.init_model(cfg.Global.seed, "cpu")
-    return GenerationServer(cfg, module, model, torch.device("cpu"))
+    return GenerationServer(cfg, module, model, torch.device("cpu"), tokenizer=tokenizer)
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +67,17 @@ def server():
     return _server()
 
 
-def _jax_serve(server, prompts, max_dec_len):
+class _ByteTokenizer:
+    """Ids 0-95 as one character each (the TINY vocab), for the text API."""
+
+    def encode(self, text):
+        return [ord(c) for c in text]
+
+    def decode(self, ids):
+        return "".join(chr(i) for i in ids)
+
+
+def _jax_serve(server, prompts, max_dec_len, strategy="greedy_search"):
     """What the JAX GenerationServer returns for these prompts: pow2 batch
     padding, prompt buckets, 32-token decode buckets, trim, EOS cut."""
     cfg = JaxGPTConfig(**{k: v for k, v in TINY["Model"].items() if k != "module"})
@@ -81,7 +91,7 @@ def _jax_serve(server, prompts, max_dec_len):
         trim = run = server.gen.max_dec_len
     else:
         trim, run = plan_decode(ids.shape[1], max_dec_len, context=128)
-    gen = jax_gen.GenerationConfig(max_dec_len=run, decode_strategy="greedy_search",
+    gen = jax_gen.GenerationConfig(max_dec_len=run, decode_strategy=strategy,
                                    eos_token_id=95, pad_token_id=0)
     out = np.asarray(jax_gen.generate(params, ids, cfg, gen, prompt_lens=lens))
     rows = []
@@ -133,10 +143,23 @@ def test_unported_features_fail_loudly():
     assert spec.stats["spec_proposed"] > 0
     with pytest.raises(ValueError):  # an unknown drafter stays loud
         _server({"speculative": {"draft_k": 4, "drafter": "medusa"}})
-    with pytest.raises(NotImplementedError):
-        _server({"decode_strategy": "beam_search"})
-    with pytest.raises(NotImplementedError):
-        _server({"tokenizer_dir": "/nonexistent"})
+    # beam search is ported: the coalescing server decodes with it, beam for
+    # beam the JAX server's answer (no cache pool, no speculation)
+    beam = _server({"decode_strategy": "beam_search", "speculative": {"draft_k": 2}})
+    prompts = [[4, 5, 6, 7, 8, 9, 10, 11, 12], [9, 10], [30, 31, 32]]
+    assert beam.gen.num_beams == 4 and beam.spec.draft_k == 2
+    got = beam.generate_ids(prompts, max_dec_len=5)
+    assert got == _jax_serve(beam, prompts, 5, strategy="beam_search")
+    assert not beam._cache_pool and beam.stats["spec_proposed"] == 0
+    # the tokenizer is ported: a server given one answers text prompts
+    # (build_server loads it from Generation.tokenizer_dir)
+    with pytest.raises(ValueError, match="no tokenizer configured"):
+        _server().generate_text(["hi"])
+    tok = _ByteTokenizer()
+    texts = _server(tokenizer=tok).generate_text(["\x04\x05\x06", "\x09\x0a"],
+                                                       max_dec_len=5)
+    want = _server().generate_ids([[4, 5, 6], [9, 10]], max_dec_len=5)
+    assert texts == [tok.decode(r) for r in want]
 
 
 def test_plan_request_and_clamp():
