@@ -227,7 +227,35 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      and with beam search: tokens equal ``generate`` here, the beams'
      choices the plain forward's up to ``SPEC_ULPS`` ulps step by step,
      some answers off greedy's, first-step logits card against CPU at
-     float32 within 1e-3.
+     float32 within 1e-3;
+  22. K1-K6 in float16 (the tensor-core route of K3-K6, K1/K2's register
+     path) against their plain versions at phase 10's shapes (b*h = 8 x 16,
+     s = 1024, d = 64) and 8192 x 1024 LayerNorm rows, bf16's gates with
+     float16's ulp (``ROW_SCALE``, ``DIFFER_SCALE``), CUDA-event times beside the bf16
+     kernel's, the library's (SDPA and its backward, F.layer_norm in
+     float16) and the bound;
+  23. the train CLI at 345M in float16 (``F16_CLI``: Model.dtype and
+     mix_precision.dtype float16, scale 2**15 growing every 4 finite steps,
+     use_fused_ln, the fused backward, ``loader.num_workers=2``,
+     ``async_save``) on phase 13's corpus for 12 steps: finite, falling
+     losses, the records' loss_scale the scaler's rule on their found_inf,
+     every K1/K2/K3/K6 launch as phase 13 counts them and on the sm90
+     route, no plain call, each step's tokens_digest phase 13's (the
+     worker loader serves the inline loader's batches), the async
+     checkpoints' meta with the loss scale, and a resume from step_9 that
+     restores it; then a bare float16 step at scale 2**31 with the split
+     backward (K4 and K5 in float16): skipped, the scale halved, the params
+     bitwise unchanged; and a float16 step at 4 layers of the full width,
+     ``F16_CPU_SEQ`` tokens, card against CPU, loss within ``F16_CPU_TOL``;
+  24. the memory levers at 345M, ``LEVER_STEPS`` steps each beside the
+     default: main_grad=False (bf16 grads), bf16 first moments,
+     multi_precision=False (bf16 params and moments), chunked
+     cross-entropy (its first loss within ``CHUNKED_CE_TOL`` of the plain
+     CE's); peak device memory printed;
+  25. ``python -m paddlefleetx_tpu_torch.tools.eval`` with GPTEvalModule
+     over phase 13's ``step_12`` and the Eval split of its corpus: the loss
+     equals Engine.evaluate here on the same params, ppl and acc printed,
+     K3 24 and K1 49 launches a batch on the card's routes, no plain call.
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -294,11 +322,19 @@ BF16_ROW_TOL = dict.fromkeys(FLASH_KERNELS, 2.0**-6)
 BF16_DIFFER_TOL = {"flash_fwd": 5e-4, "flash_bwd_dq": 1.5e-3, "flash_bwd_dkv": 1.5e-3,
                    "flash_bwd_fused": 1.5e-3}
 # SDPA against the plain forward (another kernel's rounding order)
-SDPA_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
+SDPA_TOL = {"float32": 1e-2, "bfloat16": 5e-2, "float16": 1e-2}
+# float16 K1-K6 take bfloat16's rules with float16's ulp (2**-10 of a value
+# against bf16's 2**-7): the row limits 8x tighter; the share of elements
+# that differ 16x wider (a float32 sum of another order straddles one of the
+# type's rounding boundaries 8x as often when they lie 8x as close, and p
+# and ds, rounded to the type before their products, flip 8x as often too:
+# K4 read 13x bf16's share at phase 10's shape)
+ROW_SCALE = {"bfloat16": 1.0, "float16": 2.0**-3}
+DIFFER_SCALE = {"bfloat16": 1.0, "float16": 16.0}
 # phase 10: micro-batch 8 of the global 16 at seq 1024; 16 heads of 64
 TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 10
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
 MAX_NEW = 32
 # request D: eight prompts in the 64-token bucket, mixed left pads
@@ -363,7 +399,7 @@ N_LAYERS = 24
 # only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
 # plain version's; dscale/dbias (float32 sums over the rows) 1e-4 of the
 # largest.  (abs, rel) for y and dx.
-LN_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2.0**-7)}
+LN_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2.0**-7), "float16": (1e-5, 2.0**-10)}
 LN_SUM_TOL = 1e-4
 # phase 13: the train CLI, a checkpoint at step CLI_SAVE (and the final
 # one) that the resume starts from (the step count stays: the data order
@@ -1352,7 +1388,7 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0, pair=False):
     path runs them.  Returns (rows, the K4 + K5 pair's row if ``pair``
     else None)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    dt = getattr(torch, kind)
     q, k, v, do = (torch.randn(b * n, s, d, generator=g, device="cuda").to(dt)
                    for _ in range(4))
     scale, ladder = 1.0 / d**0.5, fa._block_sizes(s)
@@ -1370,7 +1406,8 @@ def flash_case(torch, F, fa, kind, b, n, s, d, iters=10, seed=0, pair=False):
             tol = FLASH_TOL[kind][0 if name == "flash_fwd" else 1]
             ok = errs[0 if name == "flash_fwd" else 1] <= tol
         else:
-            ok = errs[2] <= BF16_ROW_TOL[name] and errs[3] <= BF16_DIFFER_TOL[name]
+            ok = (errs[2] <= BF16_ROW_TOL[name] * ROW_SCALE[kind]
+                  and errs[3] <= BF16_DIFFER_TOL[name] * DIFFER_SCALE[kind])
         check(finite and ok, f"{name} {kind} s={s}: errors (abs, of max, row, differ) {errs}")
         return errs
 
@@ -1724,7 +1761,7 @@ def ln_case(torch, F, fl, kind, rows, n, residual, iters=20, seed=0):
     F.layer_norm with the affine in x's type (over x + res when there is a
     residual), forward for K1 and its autograd backward for K2."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    dt = getattr(torch, kind)
     x = torch.randn(rows, n, generator=g, device="cuda").to(dt)
     res = torch.randn(rows, n, generator=g, device="cuda").to(dt) if residual else None
     scale = torch.randn(n, generator=g, device="cuda")
@@ -1956,10 +1993,13 @@ def phase_train_cli(env):
             "first": first, "resumed": second, "wall_s": wall, "resume_wall_s": wall2,
             "median_tokens_per_sec": tps, "median_step_s": step_s, "median_mfu": mfu,
             "peak_bytes": peak, "resume_loss_rel_diff": diffs}))
-        # the resumed run's final checkpoint is what phase 21 serves
+        # the resumed run's final checkpoint is what phases 21 and 25 read;
+        # the corpus and the inline loader's token digests are phase 23's
         keep = keep_dir("smoke_ckpt_")
         final = shutil.move(os.path.join(out_dir, f"step_{CLI_STEPS}"), keep)
-        return launches, final
+        corpus = shutil.move(data_dir, keep)
+        return launches, final, {"data_dir": corpus,
+                                 "digests": [r["tokens_digest"] for r in first]}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3263,10 +3303,324 @@ def phase_text(torch, env, ckpt):
         for srv in servers:
             kill_serve(srv)
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phases 22-25: the rest of GPT training (float16 and its loss scaling,
+# the memory levers, chunked CE, the worker loader, async saves, eval)
+# ---------------------------------------------------------------------------
+
+
+def phase_f16_kernels(torch, F, fa, fl, flash_rows, ln_rows):
+    """K1-K6 in float16 against their plain versions at phase 10's shapes
+    (b*h = 8 x 16, s = 1024, d = 64) and 8192 x 1024 LayerNorm rows, with
+    and without a residual; the bf16 kernel's time at the same shape
+    beside each float16 time."""
+    rows, split = flash_case(torch, F, fa, "float16", TRAIN_MICRO, 16, TRAIN_SEQ, 64, pair=True)
+    ln = ln_case(torch, F, fl, "float16", 8192, 1024, False)
+    ln_res = ln_case(torch, F, fl, "float16", 8192, 1024, True)
+    out = {}
+    for name, row in {**rows, **ln}.items():
+        check(row.get("route", "sm90") == "sm90", f"{name} float16 route {row.get('route')}")
+        bf16 = (flash_rows if name.startswith("flash") else ln_rows)[name]
+        out[f"{name}_f16"] = dict(row, bf16_ms=bf16["ms"])
+        log(f"  {name:16s} float16 s/rows {row.get('s', row.get('rows'))}: err "
+            f"{row['max_abs_err']:.2e} (row {row.get('row_err', 0.0):.2e}, differ "
+            f"{row.get('differ', 0.0):.2e}) kernel {row['ms']:.4f} ms (bf16 {bf16['ms']:.4f}) "
+            f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    for name, row in ln_res.items():
+        log(f"  {name:16s} float16 8192x1024 res=True: err {row['max_abs_err']:.2e} kernel "
+            f"{row['ms']:.4f} ms library {row['library_ms']:.4f}")
+    log(f"  K4 + K5 float16: {split['ms']:.4f} ms, SDPA backward {split['library_ms']:.4f} ms")
+    log("f16_kernels " + json.dumps({"rows": out, "split_pair": split,
+                                      "ln_residual": ln_res}))
+    return out
+
+
+# phase 23: the float16 train CLI (scale 2**15 growing every 4 finite steps)
+F16_CLI = ("Model.dtype=float16", "Engine.mix_precision.dtype=float16",
+           'Engine.mix_precision.scale_loss={"init": 32768.0, "incr_every_n_steps": 4}',
+           "Data.Train.loader.num_workers=2", "Engine.save_load.async_save=True")
+F16_INIT, F16_INCR = 32768.0, 4
+# phase 23: float16 card against the CPU at 4 layers of the full width and
+# F16_CPU_SEQ tokens (the CPU's float16 products are slow), loss
+F16_CPU_TOL, F16_CPU_SEQ = 1e-3, 32
+
+
+def scale_trajectory(records):
+    """The loss scale each step should end with, from the records' own
+    found_inf (the engine's rule: grow x2 after F16_INCR finite steps in a
+    row, halve on an overflow, never below 1)."""
+    scale, good, out = F16_INIT, 0, []
+    for r in records:
+        if r["found_inf"]:
+            scale, good = max(scale / 2, 1.0), 0
+        else:
+            good += 1
+            if good >= F16_INCR:
+                scale, good = scale * 2, 0
+        out.append(scale)
+    return out
+
+
+def phase_f16_train(torch, fa, fl, env, cli_data):
+    """The float16 train CLI at 345M with the worker loader and async
+    saves against phase 13's inline-loader run, its resume from the async
+    checkpoint, a bare overflowing step, and the step card against CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    tmp = tempfile.mkdtemp(prefix="smoke_f16_")
+    try:
+        out_dir = os.path.join(tmp, "out")
+        first, wall, out = train_cli(env, cli_data["data_dir"], out_dir, F16_CLI)
+        check([r["step"] for r in first] == list(range(1, CLI_STEPS + 1)),
+              f"float16 CLI records: {[r.get('step') for r in first]}")
+        want_scale = scale_trajectory(first)
+        for r, digest, scale in zip(first, cli_data["digests"], want_scale):
+            evals = CLI_EVAL_ITERS if r["step"] > 1 and (r["step"] - 1) % CLI_EVAL_FREQ == 0 else 0
+            ok, want = cli_launches_ok(r, evals)
+            check(ok, f"float16 step {r['step']} launches {r['kernels']}, expected {want}")
+            check(r["tokens_digest"] == digest, f"float16 step {r['step']}: the worker "
+                  f"loader's batch differs from phase 13's inline loader's")
+            check(r["loss_scale"] == scale, f"float16 step {r['step']}: loss_scale "
+                  f"{r['loss_scale']}, the rule gives {scale}")
+        losses = [r["loss"] for r in first]
+        check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]),
+              f"float16 CLI loss did not fall: {losses}")
+        check(sum(r["found_inf"] for r in first) <= 2, f"float16 CLI overflows: {first}")
+        for step in (CLI_SAVE, CLI_STEPS):
+            with open(os.path.join(out_dir, f"step_{step}", "meta.json")) as f:
+                meta = json.load(f)
+            check(meta["loss_scale"] == first[step - 1]["loss_scale"]
+                  and meta["consumed_samples"] == TRAIN_GLOBAL * step,
+                  f"async checkpoint step_{step}: {meta}")
+        check("saved checkpoint (async)" in out, "no async save in the float16 CLI run")
+        launches = {k: sum(r["kernels"][k] for r in first)
+                    for k in ("fused_ln_fwd", "fused_ln_bwd", "flash_fwd", "flash_bwd_fused")}
+        log(f"  float16 train CLI: {CLI_STEPS} steps in {wall:.1f}s wall, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, loss_scale {[r['loss_scale'] for r in first]}, "
+            f"found_inf {[r['found_inf'] for r in first]}, median step "
+            f"{sorted(r['step_s'] for r in first[1:])[(len(first) - 1) // 2] * 1e3:.1f} ms, "
+            f"peak {max(r['mem']['device_peak_bytes'] for r in first) / 2**30:.2f} GiB, "
+            f"batches equal phase 13's, launches {launches}")
+        shutil.rmtree(os.path.join(out_dir, f"step_{CLI_STEPS}"))
+        os.rename(os.path.join(out_dir, "metrics.jsonl"), os.path.join(tmp, "first.jsonl"))
+        second, wall2, out2 = train_cli(env, cli_data["data_dir"], out_dir,
+                                        (*F16_CLI, "Engine.save_load.auto_resume=True"))
+        check(f"loaded checkpoint: {os.path.join(out_dir, f'step_{CLI_SAVE}')}" in out2,
+              f"float16 resume did not load step_{CLI_SAVE}: {out2[-3000:]}")
+        diffs = []
+        for a, b in zip(first[CLI_SAVE:], second):
+            check(a["tokens_digest"] == b["tokens_digest"] and a["loss_scale"] == b["loss_scale"],
+                  f"float16 resumed step {b['step']}: {a} vs {b}")
+            diffs.append(abs(a["loss"] - b["loss"]) / abs(a["loss"]))
+        check(len(second) == CLI_STEPS - CLI_SAVE and max(diffs) <= RESUME_LOSS_TOL,
+              f"float16 resumed losses differ by {diffs} > {RESUME_LOSS_TOL}")
+        log(f"  float16 resume from the async step_{CLI_SAVE}: loss_scale restored "
+            f"({second[0]['loss_scale']}), same batches, losses within {max(diffs):.2e}")
+
+        # a bare step at scale 2**31 overflows: skipped, scale halved, params bitwise
+        # unchanged; the split schedule, so K4 and K5 run in float16 too
+        batch = host_batch(np, TRAIN_GLOBAL, TRAIN_SEQ, seed=3)
+        cfg = train_config(get_config, ["Model.dtype=float16", "Engine.mix_precision.dtype=float16",
+                                        "Engine.mix_precision.scale_loss=2147483648.0",
+                                        "Model.flash_bwd=split", "Model.use_fused_ln=True"])
+        engine = Engine(cfg, GPTModule(cfg))
+        before = {n: p.detach().clone() for n, p in engine.params.items()}
+        fa.reset_counts()
+        fl.reset_counts()
+        m = engine.train_step(batch)
+        bare = {**fa.COUNTS, **fl.COUNTS}
+        same = all(torch.equal(p, before[n]) for n, p in engine.params.items())
+        check(m["found_inf"] == 1.0 and m["loss_scale"] == 2.0**30 and same
+              and engine.opt_state[1]["count"] == 0,
+              f"float16 step at scale 2**31: {m}, params unchanged {same}")
+        per_step = 2 * N_LAYERS
+        check(bare["flash_fwd"] == bare["flash_bwd_dq"] == bare["flash_bwd_dkv"] == per_step
+              and bare["flash_bwd_fused"] == 0
+              and all(bare[f"{k}_sm90"] == bare[k] for k in fa.KERNELS)
+              and bare["fused_ln_fwd"] == 2 * (4 * N_LAYERS + 1)
+              and bare["fused_ln_bwd"] == 2 * (2 * N_LAYERS + 1)
+              and bare["flash_plain"] == bare["fused_ln_fwd_plain"] == 0,
+              f"float16 split step launches {bare}")
+        del engine, before
+        torch.cuda.empty_cache()
+        log(f"  float16 step at scale 2**31: found_inf 1, loss_scale {m['loss_scale']:.0f}, params "
+            f"bitwise unchanged; launches {bare}")
+
+        # the float16 step, card against CPU: 4 layers of the full width
+        cfg4 = get_config(str(REPO / CONFIG), [
+            "Global.global_batch_size=1", "Global.local_batch_size=1",
+            "Global.micro_batch_size=1", "Model.num_layers=4", "Model.dtype=float16",
+            "Engine.mix_precision.dtype=float16", "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.0", "Model.attn_impl=flash",
+            "Model.flash_bwd=fused", "Model.use_fused_ln=True",
+            'Optimizer.lr={"name": "Constant", "learning_rate": 1.0e-4}'])
+        batch4 = host_batch(np, 1, F16_CPU_SEQ, seed=4)
+        t0 = time.time()
+        res = {dev: Engine(cfg4, GPTModule(cfg4), device=dev).train_step(batch4)
+               for dev in ("cpu", "cuda")}
+        cpu_s = time.time() - t0
+        err = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(res["cpu"]["loss"])
+        check(err <= F16_CPU_TOL and res["cuda"]["found_inf"] == res["cpu"]["found_inf"] == 0.0
+              and res["cuda"]["loss_scale"] == res["cpu"]["loss_scale"],
+              f"float16 step card vs cpu: {res} ({err} relative)")
+        log(f"  float16 step card vs cpu, 4 layers, seq {F16_CPU_SEQ} ({cpu_s:.1f}s): loss "
+            f"{res['cuda']['loss']:.6f} vs "
+            f"{res['cpu']['loss']:.6f} (rel {err:.2e}), grad_norm {res['cuda']['grad_norm']:.4f} "
+            f"vs {res['cpu']['grad_norm']:.4f}")
+        report = {"first": first, "resumed": second, "wall_s": wall, "resume_wall_s": wall2,
+                  "resume_loss_rel_diff": diffs, "bare_split_launches": bare,
+                  "card_vs_cpu_rel": err, "launches": launches}
+        log("f16_train " + json.dumps(report))
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 24: the memory levers, each a few steps at 345M beside the default
+LEVERS = {"default": (), "main_grad_off": ("Engine.mix_precision.main_grad=False",),
+          "bf16_moments": ("Optimizer.moment_dtype=bfloat16",),
+          "multi_precision_off": ("Optimizer.multi_precision=False",),
+          "chunked_ce": ("Model.use_chunked_ce=True",)}
+LEVER_STEPS = 2
+CHUNKED_CE_TOL = 1e-3
+
+
+def phase_levers(torch, fa, fl):
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    batch = host_batch(np, TRAIN_GLOBAL, TRAIN_SEQ, seed=5)
+    out = {}
+    for name, extra in LEVERS.items():
+        cfg = train_config(get_config, ["Model.flash_bwd=fused", "Model.use_fused_ln=True",
+                                        *extra])
+        engine = Engine(cfg, GPTModule(cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        fl.reset_counts()
+        losses, step_s = [], []
+        for _ in range(LEVER_STEPS):
+            t0 = time.perf_counter()
+            m = engine.train_step(batch)
+            step_s.append(time.perf_counter() - t0)
+            check(m["found_inf"] == 0.0 and np.isfinite(m["loss"]), f"{name}: {m}")
+            losses.append(m["loss"])
+        used = {**fa.COUNTS, **fl.COUNTS}
+        check(used["flash_plain"] == used["fused_ln_fwd_plain"] == 0
+              and used["flash_bwd_fused_sm90"] == LEVER_STEPS * 2 * N_LAYERS,
+              f"{name}: launches {used}")
+        params = {str(p.dtype) for p in engine.params.values()}
+        mu = {str(t.dtype) for t in engine.opt_state[1]["mu"].values()}
+        grads = ({str(p.dtype) for p in engine._grad_model.parameters()}
+                 if engine._grad_model is not None else set())
+        want = {"main_grad_off": grads == {"torch.bfloat16"},
+                "bf16_moments": mu == {"torch.bfloat16"} and params == {"torch.float32"},
+                "multi_precision_off": params == mu == {"torch.bfloat16"}}.get(name, True)
+        check(want, f"{name}: params {params}, mu {mu}, grad copies {grads}")
+        out[name] = {"losses": losses, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "step_ms": [x * 1e3 for x in step_s], "params": sorted(params),
+                     "mu": sorted(mu)}
+        del engine
+        torch.cuda.empty_cache()
+    base = out["default"]
+    err = abs(out["chunked_ce"]["losses"][0] - base["losses"][0]) / base["losses"][0]
+    check(err <= CHUNKED_CE_TOL, f"chunked CE first-step loss {out['chunked_ce']['losses'][0]} vs "
+                                 f"plain CE {base['losses'][0]} ({err} relative)")
+    check(out["multi_precision_off"]["peak_bytes"] < base["peak_bytes"],
+          f"multi_precision=False did not lower the peak: {out}")
+    for name, row in out.items():
+        log(f"  {name:20s}: peak {row['peak_bytes'] / 2**30:.2f} GiB (default "
+            f"{base['peak_bytes'] / 2**30:.2f}), losses {[round(x, 4) for x in row['losses']]}, "
+            f"steps {[round(x, 1) for x in row['step_ms']]} ms, params {row['params']}, "
+            f"mu {row['mu']}")
+    log(f"  chunked CE first-step loss {out['chunked_ce']['losses'][0]:.6f} vs plain CE "
+        f"{base['losses'][0]:.6f} (rel {err:.2e})")
+    log("memory_levers " + json.dumps(dict(out, chunked_ce_rel=err)))
+    return out
+
+
+# phase 25: the eval CLI over phase 13's step_12
+EVAL_ITERS = 2
+
+
+def eval_overrides(ckpt, data_dir):
+    return [f"Global.global_batch_size={TRAIN_GLOBAL}", f"Global.local_batch_size={TRAIN_GLOBAL}",
+            f"Global.micro_batch_size={TRAIN_MICRO}", "Model.module=GPTEvalModule",
+            "Model.attn_impl=flash", "Model.use_fused_ln=True",
+            f"Engine.save_load.ckpt_dir={ckpt}", f"Data.Eval.dataset.input_dir={data_dir}",
+            f"Engine.eval_iters={EVAL_ITERS}"]
+
+
+def phase_eval(torch, fa, fl, ckpt, cli_data):
+    """tools/eval.py on the card over phase 13's final checkpoint and the
+    Eval split of its corpus, against Engine.evaluate run here on the same
+    params: the same loss, ppl = exp(loss) (every token counts), K3 24 and
+    K1 49 launches a batch, all on the card's routes, no plain call."""
+    import shutil
+
+    import numpy as np
+
+    from paddlefleetx_tpu_torch.core.engine import Engine
+    from paddlefleetx_tpu_torch.core.module import build_module
+    from paddlefleetx_tpu_torch.data.builders import build_dataloader
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    try:
+        overrides = eval_overrides(ckpt, cli_data["data_dir"])
+        cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.eval", "-c", CONFIG]
+        for o in overrides:
+            cmd += ["-o", o]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"eval CLI exit {proc.returncode}: "
+                                    f"{(proc.stdout + proc.stderr)[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        cfg = get_config(str(REPO / CONFIG), overrides)
+        engine = Engine(cfg, build_module(cfg))
+        engine.load(ckpt)
+        fa.reset_counts()
+        fl.reset_counts()
+        loss = engine.evaluate(build_dataloader(cfg, "Eval"), iters=EVAL_ITERS)
+        used = {**fa.COUNTS, **fl.COUNTS}
+        metric = engine.last_metric.accumulate()
+        check(abs(res["eval_loss"] - loss) <= 1e-6 * abs(loss),
+              f"eval CLI loss {res['eval_loss']} vs in-process evaluate {loss}")
+        check(abs(res["metric"]["ppl"] - metric["ppl"]) <= 1e-5 * metric["ppl"]
+              and abs(metric["ppl"] - float(np.exp(loss))) <= 1e-4 * metric["ppl"]
+              and 0.0 <= res["metric"]["acc"] <= 1.0, f"eval metric {res} vs {metric}")
+        want = dict.fromkeys(used, 0)
+        want.update(flash_fwd=N_LAYERS * EVAL_ITERS, flash_fwd_sm90=N_LAYERS * EVAL_ITERS,
+                    fused_ln_fwd=(2 * N_LAYERS + 1) * EVAL_ITERS)
+        check(used == want, f"eval launches {used}, expected {want}")
+        log(f"  eval CLI over step_{CLI_STEPS}: loss {res['eval_loss']:.6f} (in-process "
+            f"{loss:.6f}), ppl {res['metric']['ppl']:.2f}, acc {res['metric']['acc']:.4f}, "
+            f"{EVAL_ITERS} batches of {TRAIN_GLOBAL}, {wall:.1f}s wall; launches {used}")
+        report = {"cli": res, "in_process_loss": loss, "wall_s": wall, "launches": used}
+        log("eval_cli " + json.dumps(report))
+        return report
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+
+
 
 
 def main():
@@ -3316,7 +3670,7 @@ def main():
     begin("12", "fused LayerNorm kernels against their plain versions")
     ln_rows = phase_layernorm(torch, F, fl)
     begin("13", "the train CLI, GPT-345M at full width, and its resume")
-    cli, trained_ckpt = phase_train_cli(env)
+    cli, trained_ckpt, cli_data = phase_train_cli(env)
     begin("14", "training step, card against cpu, float32, use_fused_ln")
     phase_train_card_vs_cpu(torch, fa, fused_ln=True)
     begin("15", f"K7, K8 and K9 at the verify chunk, t = {VERIFY_TS}")
@@ -3372,6 +3726,16 @@ def main():
     begin("21", "a trained and a converted GPT-345M served with text: both schedulers, beam "
           "search, the HF GPT-2 converter")
     text = phase_text(torch, env, trained_ckpt)
+    begin("22", "K1-K6 in float16 against their plain versions")
+    f16_rows = phase_f16_kernels(torch, F, fa, fl, flash_rows, ln_rows)
+    begin("23", "the float16 train CLI at 345M: dynamic loss scaling, the worker loader, "
+          "async saves and their resume")
+    f16 = phase_f16_train(torch, fa, fl, env, cli_data)
+    begin("24", "memory levers at 345M: main_grad=False, bf16 moments, "
+          "multi_precision=False, chunked cross-entropy")
+    phase_levers(torch, fa, fl)
+    begin("25", "the eval CLI over phase 13's checkpoint")
+    evald = phase_eval(torch, fa, fl, trained_ckpt, cli_data)
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -3388,9 +3752,18 @@ def main():
                 "flash_bwd_dq": train["split"]["launches"]["flash_bwd_dq"],
                 "flash_bwd_dkv": train["split"]["launches"]["flash_bwd_dkv"],
                 "flash_bwd_fused": train["fused"]["launches"]["flash_bwd_fused"],
-                "fused_ln_fwd": cli["fused_ln_fwd"], "fused_ln_bwd": cli["fused_ln_bwd"]}
+                "fused_ln_fwd": cli["fused_ln_fwd"], "fused_ln_bwd": cli["fused_ln_bwd"],
+                # phase 23: the float16 CLI run (K1, K2, K3, K6) and the bare
+                # split step at scale 2**31 (K4, K5)
+                "fused_ln_fwd_f16": f16["launches"]["fused_ln_fwd"],
+                "fused_ln_bwd_f16": f16["launches"]["fused_ln_bwd"],
+                "flash_fwd_f16": f16["launches"]["flash_fwd"],
+                "flash_bwd_fused_f16": f16["launches"]["flash_bwd_fused"],
+                "flash_bwd_dq_f16": f16["bare_split_launches"]["flash_bwd_dq"],
+                "flash_bwd_dkv_f16": f16["bare_split_launches"]["flash_bwd_dkv"]}
     kernels = []
-    for name, row in {**main_rows, **paged_rows, **flash_rows, **ln_rows}.items():
+    for name, row in {**main_rows, **paged_rows, **flash_rows, **ln_rows, **f16_rows}.items():
+        base = name[:-4] if name.endswith("_f16") else name
         if name.startswith("fused_ln"):
             shape = {"rows": row["rows"], "n": row["n"], "dtype": row["kind"],
                      "residual": row["residual"]}
@@ -3404,8 +3777,8 @@ def main():
             shape = {"b": row["b"], "n": row["n"], "t": row["t"], "d": row["d"],
                      "L": row["L"], "limit": row["limit"], "dtype": row["kind"]}
         entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
@@ -3490,8 +3863,13 @@ def main():
             kc = text["a"]["continuous_kernels"]
             entry["text_serving"] = {k: kc[k] for k in ("paged_decode", "paged_decode_sm90",
                                                         "paged_plain")}
-        if name == "fused_ln_fwd":
+        if base == "fused_ln_fwd":
             entry["kernel_route"] = row["path"]
+        if name.endswith("_f16"):
+            entry["bf16_ms"] = row["bf16_ms"]
+        if name in ("flash_fwd", "fused_ln_fwd"):
+            # phase 25: the eval CLI's forwards (bf16), checked in-process
+            entry["eval_launches"] = evald["launches"][name]
         kernels.append(entry)
     for name, rows in chunk_rows.items():
         # K9's chunk kernel (t > 16, a chunked prefill's chunk or a prefix

@@ -12,7 +12,16 @@ One call of :meth:`Engine.train_step` takes a host batch (numpy
 
   - splits it into ``Engine.accumulate_steps`` micro-batches, runs forward
     and backward on each and takes the mean of the grads and the losses
-    (float32 grads: the parameters are float32 masters);
+    (float32 grads of the float32 masters; with
+    ``mix_precision.main_grad: False`` the grads of compute-type copies of
+    the float32 leaves, accumulated in that type; with
+    ``Optimizer.multi_precision: False`` the bfloat16 params' own);
+  - under float16 compute, dynamic loss scaling (JAX ``:257-273``,
+    ``:755-770``, ``:862-890``): the loss is multiplied by the scale before
+    the backward, the grads are unscaled in float32 and stay float32, and
+    the scale grows by ``incr_ratio`` after ``incr_every_n_steps`` finite
+    steps in a row and shrinks by ``decr_ratio`` (never below 1) on an
+    overflow, which skips the step;
   - takes the float32 global grad norm; when it is not finite the step is
     skipped: the parameters and the optimizer state (its step counts
     included) stay as they were, so the learning rate and Adam's bias
@@ -20,8 +29,13 @@ One call of :meth:`Engine.train_step` takes a host batch (numpy
     follows the engine step, as in the JAX engine;
   - otherwise applies the optimizer update (clip, AdamW, schedule).
 
-It returns ``loss``, ``grad_norm``, ``lr`` and ``found_inf`` as floats.
+It returns ``loss``, ``grad_norm``, ``lr`` and ``found_inf`` as floats
+(and ``loss_scale``, the scale after the step, under loss scaling).
 Reading ``found_inf`` on the host is the step's one synchronisation.
+The mixed-precision checks are the JAX engine's (``:275-345``):
+``Model.dtype`` contradicting ``mix_precision.dtype``, ``main_grad: False``
+with ``enable: False`` and ``multi_precision: False`` with float16 compute
+raise ``ValueError``.
 
 :meth:`Engine.fit` runs steps up to ``Engine.max_steps`` over a loader,
 writes a metrics record every ``logging_freq`` steps (JSON lines to
@@ -32,7 +46,9 @@ writes a metrics record every ``logging_freq`` steps (JSON lines to
 stats, a ``mem`` block with the card's peak memory, and the port's own
 ``tokens_digest`` of the logged step's tokens and ``kernels``, the
 window's kernel launches and plain-version calls), evaluates every
-``eval_freq`` steps, saves every ``save_load.save_steps`` steps (keeping
+``eval_freq`` steps (a module with ``predict_fn`` and ``build_metric``,
+``models/gpt/evaluation.GPTEvalModule``, also streams its per-sequence
+rows into its metric), saves every ``save_load.save_steps`` steps (keeping
 ``keep_last_n``), rolls back to the last checkpoint when the anomaly
 guard (``Engine.resilience``) trips, and on SIGTERM/SIGINT finishes the
 step, saves with a ``preempted`` marker and returns with
@@ -44,16 +60,19 @@ first use and the card's lazy set-up), kept out of the throughput window.
 The checkpoint is the port's own format (``utils/checkpoint.py``):
 ``step_N/state.pt`` (params and optimizer state, ``torch.save``) written
 first, then an atomic ``meta.json`` with the JAX engine's keys (``step``,
-``consumed_samples``, ``loader``, ``preempted``).
+``consumed_samples``, ``loader``, ``preempted``, and ``loss_scale`` /
+``scaler_good_steps`` under loss scaling).  ``save_load.async_save``
+(JAX ``:161-168``, ``:1897-1960``) copies the state to host memory on the
+calling thread and writes it on a non-daemon thread, the meta last; the
+next save, a load and interpreter exit (an ``atexit`` hook over a weakref)
+join it, and a write error surfaces there (:meth:`Engine.wait_for_save`).
 
-Refused with ``NotImplementedError``: fp16 loss scaling,
-``mix_precision.main_grad: False``, QAT (``Compress.Quantization``),
+Refused with ``NotImplementedError``: QAT (``Compress.Quantization``),
 optimizer offload, any parallel degree above 1 (``utils/config.py``),
 model statistics (``Engine.logging.model_stats_every``), the
-``Profiler`` block, ``consistency_check_freq``, asynchronous saves
-(``save_load.async_save``), fault injection (``PFX_FAULT``) and the
-tracing and flight-recorder observability (``PFX_TRACE_SAMPLE``,
-``PFX_FLIGHT_RECORDER``).
+``Profiler`` block, ``consistency_check_freq``, fault injection
+(``PFX_FAULT``) and the tracing and flight-recorder observability
+(``PFX_TRACE_SAMPLE``, ``PFX_FLIGHT_RECORDER``).
 
 ``save_load.pretrained_params`` warm-starts the params from a params-only
 directory (``tools/convert_hf_gpt2.py``'s output) or a step directory
@@ -62,18 +81,24 @@ restore is skipped when ``ckpt_dir`` is also set (its load replaces the
 params wholesale; ``tools/train.py`` skips it on an auto-resume too).
 """
 
+import atexit
+import copy
+import dataclasses
 import hashlib
 import json
 import os
 import pickle
+import threading
 import time
+import weakref
 from typing import Any, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
 
 from paddlefleetx_tpu_torch.models.common import fold_in
-from paddlefleetx_tpu_torch.models.gpt.model import GPTModel, check_trainable
+from paddlefleetx_tpu_torch.models.gpt.model import DTYPES, GPTModel, check_trainable
+from paddlefleetx_tpu_torch.models.metrics import format_metric
 from paddlefleetx_tpu_torch.ops import flash_attention, fused_layernorm
 from paddlefleetx_tpu_torch.optims.optimizer import (
     apply_updates,
@@ -93,34 +118,79 @@ from paddlefleetx_tpu_torch.utils.log import logger
 from paddlefleetx_tpu_torch.utils.resilience import AnomalyGuard, PreemptionGuard
 from paddlefleetx_tpu_torch.utils.telemetry import model_flops_per_token, peak_flops
 
-def _check_precision(cfg, model_dtype: str) -> None:
-    """The JAX engine's mixed-precision checks (``:296-313``), and the
-    refusals of what the port does not have."""
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """The step's mixed-precision settings (JAX ``Engine.__init__:255-345``)."""
+
+    compute: str                  # the model's compute type
+    loss_scaling: bool            # float16 compute: dynamic loss scaling
+    scale_init: float
+    incr_every: int
+    incr_ratio: float
+    decr_ratio: float
+    main_grad: bool               # False: grads of compute-type copies
+    param_dtype: Optional[torch.dtype]  # multi_precision=False: the params' type
+
+
+def resolve_precision(cfg, model_dtype: str) -> Precision:
+    """``Engine.mix_precision`` and ``Optimizer.multi_precision`` against the
+    model's dtype, with the JAX engine's checks."""
     mix = cfg.get("Engine", {}).get("mix_precision", {}) or {}
     enable = bool(mix.get("enable", True))
-    if (enable and str(mix.get("dtype", "bfloat16")) in ("float16", "fp16")) or \
-            model_dtype in ("float16", "fp16"):
-        raise NotImplementedError(
-            "float16 training with dynamic loss scaling is not ported yet; use "
-            "mix_precision.dtype=bfloat16"
-        )
+    mix_dtype = str(mix.get("dtype", "bfloat16"))
+    fp16 = ("float16", "fp16")
+    loss_scaling = (enable and mix_dtype in fp16) or model_dtype in fp16
+    scale_loss = mix.get("scale_loss", 32768.0)
+    scale_cfg = dict(scale_loss) if isinstance(scale_loss, dict) else {"init": scale_loss}
     main_grad = bool(mix.get("main_grad", True))
-    if not enable and not main_grad and "main_grad" in mix:
-        raise ValueError(
-            "mix_precision.main_grad=False requires mix_precision.enable=True "
-            "(main_grad only controls the AMP gradient dtype)"
-        )
-    if enable and "dtype" in mix and model_dtype and model_dtype != str(mix["dtype"]):
+    if not enable:
+        if not main_grad and "main_grad" in mix:
+            raise ValueError(
+                "mix_precision.main_grad=False requires mix_precision.enable=True "
+                "(main_grad only controls the AMP gradient dtype)"
+            )
+        main_grad = True
+    if enable and "dtype" in mix and model_dtype and model_dtype != mix_dtype:
         raise ValueError(
             f"Model.dtype={model_dtype} contradicts mix_precision.dtype="
             f"{mix['dtype']}: pin one or make them agree (the model dtype wins, "
             "so the AMP request would be silently ignored)"
         )
-    if enable and not main_grad:
-        raise NotImplementedError(
-            "mix_precision.main_grad=False (low-precision grads) is not ported "
-            "yet; the port keeps float32 grads"
-        )
+    compute = model_dtype or mix_dtype
+    param_dtype = None
+    multi_precision = bool((cfg.get("Optimizer") or {}).get("multi_precision", True))
+    if not multi_precision and compute not in ("", "float32"):
+        if compute in fp16:
+            raise ValueError(
+                "Optimizer.multi_precision=False requires bfloat16 compute (fp16 Adam "
+                "moments underflow); use mix_precision.dtype=bfloat16 or "
+                "multi_precision=True"
+            )
+        param_dtype = DTYPES[compute]
+    return Precision(
+        compute=compute, loss_scaling=loss_scaling,
+        scale_init=float(scale_cfg.get("init", 32768.0)),
+        incr_every=int(scale_cfg.get("incr_every_n_steps", 1000)),
+        incr_ratio=float(scale_cfg.get("incr_ratio", 2.0)),
+        decr_ratio=float(scale_cfg.get("decr_ratio", 0.5)),
+        main_grad=main_grad, param_dtype=param_dtype,
+    )
+
+
+def next_loss_scale(scaler: Dict[str, Any], finite: bool, prec: Precision) -> Dict[str, Any]:
+    """The scaler after a step (JAX ``:862-877``, float32 arithmetic): grow
+    by ``incr_ratio`` after ``incr_every`` finite steps in a row, shrink by
+    ``decr_ratio`` on an overflow, never below 1."""
+    f32 = np.float32
+    good = scaler["good_steps"] + 1 if finite else 0
+    grow = good >= prec.incr_every
+    if not finite:
+        scale = max(f32(scaler["scale"]) * f32(prec.decr_ratio), f32(1.0))
+    elif grow:
+        scale = f32(scaler["scale"]) * f32(prec.incr_ratio)
+    else:
+        scale = f32(scaler["scale"])
+    return {"scale": float(scale), "good_steps": 0 if grow else int(good)}
 
 
 def _check_unported(cfg) -> None:
@@ -148,11 +218,6 @@ def _check_unported(cfg) -> None:
             "consistency_check_freq > 0: cross-replica checks come with the parallel "
             "layouts; the port trains on one device"
         )
-    save_load = eng.get("save_load") or {}
-    if bool(save_load.get("async_save", False)):
-        raise NotImplementedError(
-            "save_load.async_save is not ported yet; the port saves synchronously"
-        )
     for var, what in (("PFX_FAULT", "fault injection"),
                       ("PFX_TRACE_SAMPLE", "sampled tracing"),
                       ("PFX_FLIGHT_RECORDER", "the flight recorder")):
@@ -171,7 +236,7 @@ class Engine:
         self.cfg = cfg
         self.module = module
         check_trainable(module.config)
-        _check_precision(cfg, str(module.config.dtype))
+        self.precision = resolve_precision(cfg, str(module.config.dtype))
         _check_unported(cfg)
         eng = cfg.Engine
         self.accumulate_steps = int(eng.get("accumulate_steps", 1))
@@ -186,7 +251,23 @@ class Engine:
             raise ValueError("Engine needs a trainable model (GPTModel(cfg, trainable=True))")
         self.model = model.to(self.device)
         self._warm_start(eng.get("save_load") or {})
+        prec = self.precision
+        if prec.param_dtype is not None:
+            # multi_precision=False: the params (and the moments built from
+            # them) live in the compute type, no float32 masters
+            self.model.to(prec.param_dtype)
+            logger.info(f"multi_precision=False: {prec.compute} params, no fp32 masters")
         self.params: Dict[str, torch.Tensor] = dict(self.model.named_parameters())
+        # main_grad=False: the step differentiates compute-type copies of the
+        # float32 leaves (refreshed from the masters each step), so the grads
+        # and their micro-batch sums live in that type
+        self._grad_model: Optional[GPTModel] = None
+        if not prec.main_grad and prec.compute != "float32" and any(
+                p.dtype == torch.float32 for p in self.params.values()):
+            self._grad_model = copy.deepcopy(self.model).to(DTYPES[prec.compute])
+            logger.info(f"AMP main_grad=False: {prec.compute} gradients")
+        self.scaler: Optional[Dict[str, Any]] = (
+            {"scale": prec.scale_init, "good_steps": 0} if prec.loss_scaling else None)
         # use_increments schedules count samples: scaled inside build_optimizer
         self.tx, self.schedule = build_optimizer(
             cfg.Optimizer, count_scale=self.global_batch_size
@@ -201,6 +282,10 @@ class Engine:
         self.logging_freq = int(eng.get("logging_freq", 10))
         save_load = eng.get("save_load") or {}
         self.save_steps = int(save_load.get("save_steps", 0) or 0)
+        self.async_save = bool(save_load.get("async_save", False))
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
+        self._atexit_registered = False
         self.output_dir = save_load.get("output_dir") or "./output"
         self.keep_last_n = int(save_load.get("keep_last_n", 0) or 0)
         self.exit_after_save = bool(eng.get("exit_after_save", False))
@@ -224,6 +309,7 @@ class Engine:
         self._compile_emitted = False
         self._placement_s = 0.0
         self.preempted = False
+        self.last_metric = None  # the metric of the last evaluate, when the module has one
 
     def _warm_start(self, save_load) -> None:
         """``save_load.pretrained_params``: copy a params checkpoint into the
@@ -255,22 +341,33 @@ class Engine:
         # per-step dropout stream, the same for every micro-batch (as the
         # JAX engine's step key)
         step_seed = fold_in(self.seed, self.step)
-        for p in self.params.values():
+        model = self._grad_model or self.model
+        leaves = dict(model.named_parameters())
+        if self._grad_model is not None:
+            with torch.no_grad():
+                for n, p in leaves.items():
+                    p.copy_(self.params[n])
+        for p in leaves.values():
             p.grad = None
+        scale = self.scaler["scale"] if self.scaler is not None else None
         loss_sum = None
         for i in range(accum):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss = self.module.loss_fn(self.model, micro, dropout_seed=step_seed, train=True)
-            loss.backward()
+            loss = self.module.loss_fn(model, micro, dropout_seed=step_seed, train=True)
+            (loss if scale is None else loss * scale).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        grads = {n: p.grad if accum == 1 else p.grad / accum for n, p in self.params.items()}
+        grads = {n: p.grad if accum == 1 else p.grad / accum for n, p in leaves.items()}
+        if scale is not None:
+            # unscaled in float32, and kept float32: a small grad was only
+            # representable scaled
+            grads = {n: g.float() / scale for n, g in grads.items()}
         loss = loss_sum if accum == 1 else loss_sum / accum
         gnorm = global_norm_f32(grads)
         finite = bool(torch.isfinite(gnorm))
         if finite:
             updates, self.opt_state = self.tx.update(grads, self.opt_state, self.params)
             apply_updates(self.params, updates)
-        for p in self.params.values():
+        for p in leaves.values():
             p.grad = None
         metrics = {
             "loss": float(loss),
@@ -278,6 +375,9 @@ class Engine:
             "lr": float(self.schedule(self.step)),
             "found_inf": 0.0 if finite else 1.0,
         }
+        if self.scaler is not None:
+            self.scaler = next_loss_scale(self.scaler, finite, self.precision)
+            metrics["loss_scale"] = self.scaler["scale"]
         self.step += 1
         return metrics
 
@@ -303,12 +403,25 @@ class Engine:
             raise ValueError(f"on_empty={on_empty!r}: use 'raise' or 'event'")
         iters = iters if iters is not None else self.eval_iters
         losses = []
+        # a module with predict_fn and build_metric (GPTEvalModule) streams
+        # its per-sequence rows into its metric (JAX :1737-1790)
+        metric = None
+        if hasattr(self.module, "build_metric") and hasattr(self.module, "predict_fn"):
+            metric = self.module.build_metric()
+        self.last_metric = metric
         it = iter(loader)
         try:
             for i, batch in enumerate(it):
                 if i >= iters:
                     break
-                losses.append(self.eval_step(batch, i))
+                if metric is None:
+                    losses.append(self.eval_step(batch, i))
+                else:
+                    # the loss and the rows from one forward
+                    loss, rows = self.module.loss_and_predict(self.model,
+                                                              self._device_batch(batch))
+                    losses.append(float(loss))
+                    metric.update(rows.cpu().numpy(), np.asarray(batch["labels"]))
         finally:
             # a stream made here from a loader is ours to close; the
             # caller's long-lived iterator (iter(it) is it) stays live
@@ -325,7 +438,11 @@ class Engine:
             self._write_metrics({"event": "eval_empty", "step": self.step, "iters": iters})
             return float("nan")
         avg = float(np.mean(losses))
-        logger.info(f"eval loss: {avg:.5f} (ppl {np.exp(min(avg, 20.0)):.2f})")
+        if metric is not None:
+            vals = " ".join(f"{k}: {v:.4f}" for k, v in format_metric(metric).items())
+            logger.info(f"eval loss: {avg:.5f} {vals}")
+        else:
+            logger.info(f"eval loss: {avg:.5f} (ppl {np.exp(min(avg, 20.0)):.2f})")
         return avg
 
     # ------------------------------------------------------------------
@@ -470,13 +587,16 @@ class Engine:
                 )
                 record = {
                     "step": step, "loss": metrics["loss"], "lr": metrics["lr"],
-                    "grad_norm": metrics["grad_norm"], "ips": round(ips, 1),
+                    "grad_norm": metrics["grad_norm"], "found_inf": metrics["found_inf"],
+                    "ips": round(ips, 1),
                     "consumed_samples": self._consumed_samples,
                     "tokens_per_sec": round(ips, 1),
                     "data_wait_s": round(data_wait_total, 3),
                     "host_s": round(host_total, 3),
                     "step_s": round(dt / max(1, steps_in_window), 4),
                 }
+                if "loss_scale" in metrics:
+                    record["loss_scale"] = metrics["loss_scale"]
                 if not self._compile_emitted:
                     record["compile_s"] = round(self._compile_s, 3)
                     self._compile_emitted = True
@@ -577,6 +697,7 @@ class Engine:
         only its meta is re-stamped."""
         logger.warning(f"{cause} at step {step}: writing final checkpoint, then exiting "
                        "cleanly for auto-resume")
+        self.wait_for_save()
         expected = self.checkpoint_path()
         if self._last_good_ckpt == expected:
             with open(os.path.join(expected, META)) as f:
@@ -611,7 +732,10 @@ class Engine:
         ``path`` (default ``output_dir/step_<step>``); returns the path.
         The payload is written and renamed into place before the meta, and
         a stale meta is removed first, so a crash mid-save never leaves a
-        directory that looks complete."""
+        directory that looks complete.  With ``save_load.async_save`` the
+        state is copied to host memory here and written on a background
+        thread (:meth:`wait_for_save` joins it)."""
+        self.wait_for_save()  # one save in flight at a time
         step = self.step
         path = os.path.abspath(path or self.checkpoint_path())
         os.makedirs(path, exist_ok=True)
@@ -620,9 +744,6 @@ class Engine:
             os.remove(meta_path)
         payload = {"params": {n: p.detach() for n, p in self.params.items()},
                    "opt_state": self.opt_state}
-        tmp = os.path.join(path, f"{PAYLOAD}.tmp{os.getpid()}")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, PAYLOAD))
         meta: Dict[str, Any] = {"step": step, "consumed_samples": self._consumed_samples}
         loader = self._train_loader
         if loader is not None and hasattr(loader, "state_dict"):
@@ -638,15 +759,72 @@ class Engine:
             meta["loader"] = loader_state
         if preempted:
             meta["preempted"] = True
+        if self.scaler is not None:
+            meta["loss_scale"] = float(self.scaler["scale"])
+            meta["scaler_good_steps"] = int(self.scaler["good_steps"])
+        if not self.async_save:
+            self._write_state(path, payload, meta)
+            return path
+        if not self._atexit_registered:
+            # interpreter exit joins the write (a meta-less directory is never
+            # left behind by a clean exit); over a weakref, so the hook does
+            # not keep the engine and its state alive
+            ref = weakref.ref(self)
+
+            def _join_at_exit(ref=ref):
+                engine = ref()
+                if engine is not None:
+                    engine._atexit_join()
+
+            atexit.register(_join_at_exit)
+            self._atexit_registered = True
+        # the snapshot, on this thread: the next step may update the live
+        # tensors in place as soon as save returns
+        host = _to_host(payload)
+
+        def write():
+            try:
+                self._write_state(path, host, meta)
+            except BaseException as e:  # noqa: BLE001 - surfaced by wait_for_save
+                self._save_error = e
+
+        # non-daemon: the interpreter joins it, so a last save completes
+        self._save_thread = threading.Thread(target=write, name="pfx-async-save", daemon=False)
+        self._save_thread.start()
+        return path
+
+    def _write_state(self, path: str, payload, meta: Dict[str, Any]) -> None:
+        """``state.pt`` renamed into place, then the meta, then the
+        bookkeeping: the rollback target and the retention GC."""
+        tmp = os.path.join(path, f"{PAYLOAD}.tmp{os.getpid()}")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, PAYLOAD))
         self._write_meta(path, meta)
-        logger.info(f"saved checkpoint: {path}")
+        logger.info(f"saved checkpoint{' (async)' if self.async_save else ''}: {path}")
         self._last_good_ckpt = path
         if self.keep_last_n:
             try:
                 gc_checkpoints(self.output_dir, self.keep_last_n, protect=path)
             except OSError as e:
                 logger.warning(f"checkpoint retention GC failed: {e}")
-        return path
+
+    def wait_for_save(self) -> None:
+        """Join an asynchronous save in flight (none: a no-op) and re-raise
+        the error its write hit: a lost checkpoint must not go unnoticed."""
+        thread, self._save_thread = self._save_thread, None
+        if thread is not None:
+            thread.join()
+            err, self._save_error = self._save_error, None
+            if err is not None:
+                raise err
+
+    def _atexit_join(self) -> None:
+        """At interpreter exit: join the write in flight; its error is
+        logged (atexit swallows exceptions)."""
+        try:
+            self.wait_for_save()
+        except BaseException as e:  # noqa: BLE001 - last-chance reporting
+            logger.error(f"async checkpoint write failed during exit: {e}")
 
     def load(self, path: str) -> None:
         """Restore a checkpoint written by :meth:`save`: params (copied into
@@ -654,6 +832,7 @@ class Engine:
         the loader state (applied at the next fit).  Unreadable bytes raise
         :class:`~paddlefleetx_tpu_torch.utils.checkpoint.CorruptCheckpoint`;
         a checkpoint of another model or optimizer raises ``ValueError``."""
+        self.wait_for_save()  # never restore over a save in flight
         path = os.path.abspath(path)
         try:
             with open(os.path.join(path, META)) as f:
@@ -677,6 +856,9 @@ class Engine:
             for n, p in self.params.items():
                 p.copy_(params[n])
         self.opt_state = payload["opt_state"]
+        if self.scaler is not None:
+            self.scaler = {"scale": float(meta.get("loss_scale", self.precision.scale_init)),
+                           "good_steps": int(meta.get("scaler_good_steps", 0))}
         self.step = int(meta["step"])
         self._consumed_samples = int(meta.get("consumed_samples", 0))
         self._loader_state = meta.get("loader")
@@ -689,6 +871,17 @@ def _kernel_counts() -> Dict[str, int]:
     """Launches of the training kernels and calls of their plain versions
     so far (``ops/flash_attention.COUNTS``, ``ops/fused_layernorm.COUNTS``)."""
     return {**flash_attention.COUNTS, **fused_layernorm.COUNTS}
+
+
+def _to_host(tree) -> Any:
+    """A copy of a state tree with every tensor in host memory."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
 
 
 def _structure(tree) -> Any:

@@ -1,8 +1,10 @@
 """Model module: binds a config to a model family (GPT only so far).
 
 Counterpart of ``paddlefleetx_tpu/core/module.py:19-100``: the config,
-initialization (serving and trainable models) and the training loss.
-Metrics and export come with later slices of the port.
+initialization (serving and trainable models) and the training loss;
+:func:`build_module` picks the class by ``Model.module`` (``GPTModule``,
+or ``GPTEvalModule`` of ``models/gpt/evaluation.py`` with its metric).
+Export comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from paddlefleetx_tpu_torch.utils.device import resolve_device
 
 def resolve_model_dtype(cfg, model_cfg: Dict[str, Any]) -> None:
     """Fill ``model_cfg['dtype']`` from ``Engine.mix_precision`` unless the
-    Model section pins it (mix disabled = float32)."""
+    Model section pins it (mix disabled = float32; "float16" trains under
+    the engine's dynamic loss scaling)."""
     if "dtype" not in model_cfg:
         mix = cfg.get("Engine", {}).get("mix_precision", {})
         model_cfg["dtype"] = (
@@ -31,13 +34,16 @@ class GPTModule:
     """GPT: the config from the ``Model`` section, seeded serving and
     trainable models, and the training loss."""
 
+    # the Model.module names this class takes
+    module_names = ("GPTModule",)
+
     def __init__(self, cfg):
         model_cfg = dict(cfg.Model)
         name = model_cfg.pop("module", "GPTModule")
-        if name != "GPTModule":
+        if name not in self.module_names:
             raise NotImplementedError(
-                f"Model.module {name!r} is not ported yet; the PyTorch port "
-                "serves GPTModule"
+                f"Model.module {name!r} is not ported yet (or not this class's); the "
+                "PyTorch port has GPTModule and GPTEvalModule"
             )
         model_cfg.pop("name", None)
         resolve_model_dtype(cfg, model_cfg)
@@ -75,3 +81,12 @@ class GPTModule:
         """The masked-mean token cross-entropy (``models/gpt/model.loss_fn``)."""
         return gpt.loss_fn(model, batch, self.config, dropout_seed=dropout_seed,
                            train=train)
+
+
+def build_module(cfg) -> GPTModule:
+    """The module ``Model.module`` names: ``GPTModule`` (the default) or
+    ``GPTEvalModule``; any other raises ``NotImplementedError``."""
+    from paddlefleetx_tpu_torch.models.gpt.evaluation import GPTEvalModule
+
+    name = (cfg.get("Model") or {}).get("module", "GPTModule")
+    return (GPTEvalModule if name == "GPTEvalModule" else GPTModule)(cfg)

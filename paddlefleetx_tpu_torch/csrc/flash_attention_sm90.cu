@@ -1,8 +1,8 @@
 // Causal flash attention on Hopper's tensor cores (sm_90a): every bfloat16
-// kernel of the family, the forward (K3), the split backward (K4 dq, K5
-// dk/dv) and the fused backward (K6), head dim 64 or 128.
+// and float16 kernel of the family, the forward (K3), the split backward
+// (K4 dq, K5 dk/dv) and the fused backward (K6), head dim 64 or 128.
 //
-// Replaces, for bfloat16 inputs, the TPU kernels of
+// Replaces, for bfloat16 and float16 inputs, the TPU kernels of
 // paddlefleetx_tpu/ops/flash_attention.py:
 //   _fwd_kernel       (:121, launched by _flash_fwd :179)        -> flash_fwd_sm90       (K3)
 //   _dq_kernel        (:215, launched by _flash_bwd :400)        -> flash_bwd_dq_sm90    (K4)
@@ -11,24 +11,35 @@
 // csrc/flash_attention.cu keeps the float32 K3-K6 (full FP32 on CUDA
 // cores: tensor cores would make them TF32).
 //
-// Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous bfloat16;
-// lse and delta float32 [bh, s]; dq32 a zeroed float32 [bh, s, d] slab.
-// Causal: query row r sees keys col <= r.
+// Layout: q, k, v, out, do, dq, dk, dv are [bh, s, d] contiguous, all of
+// one element type T (bfloat16 or float16); lse and delta float32 [bh, s];
+// dq32 a zeroed float32 [bh, s, d] slab.  Causal: query row r sees keys
+// col <= r.
+//
+// The element type: every kernel is a template on T.  Both types are 2
+// bytes, so the TMA boxes, swizzles, descriptors and shared-memory layouts
+// are the same; what changes is the wgmma instruction (.bf16 / .f16), the
+// roundings to T (p, ds and the outputs, as the TPU kernels round p to
+// v.dtype and ds to q.dtype), the tensor maps' data type and K3's parity
+// window (near_boundary: f16 keeps 3 more mantissa bits, so its rounding
+// boundaries are 8x denser, and below 2^-14 a subnormal's fixed step).
+// Float16 roundings are to nearest and overflow to inf: under a loss scale
+// a ds past 65504 must reach the grads as inf, so the step is skipped.
 //
 // The math is the TPU kernels' (and the plain versions' in
 // ops/flash_attention.py), only the blocking is Hopper's:
-//  K3: s = scale * q.k (float32 sums of exact bf16 products), masked to
+//  K3: s = scale * q.k (float32 sums of exact products), masked to
 //      -1e30; online softmax per 128-key tile with float32 (m, l, acc):
 //      m_new = max(m, rowmax), p = exp(s - m_new), alpha = exp(m -
-//      m_new), l = l * alpha + sum p, acc = acc * alpha + p_bf16 @ v;
-//      out = acc / max(l, 1e-30) in bf16, lse = m + log(max(l, 1e-30))
+//      m_new), l = l * alpha + sum p, acc = acc * alpha + p_T @ v;
+//      out = acc / max(l, 1e-30) in T, lse = m + log(max(l, 1e-30))
 //      in float32 (natural log: the backward kernels read it back).
 //  K4: per 128-row query tile, over the 64-key tiles up to the diagonal:
 //      p = exp(scale * q.k - lse) left in float32 (0 where masked), ds =
-//      p * (do.v - delta) * scale rounded to bf16, dq += ds @ k in float32
-//      registers for the whole sweep, written once in bf16.
+//      p * (do.v - delta) * scale rounded to T, dq += ds @ k in float32
+//      registers for the whole sweep, written once in T.
 //  K5: per 128-key tile, over the 64-row query tiles from the diagonal
-//      on: the same p and ds, both rounded to bf16; dv += p^T @ do, dk +=
+//      on: the same p and ds, both rounded to T; dv += p^T @ do, dk +=
 //      ds^T @ q in float32 registers for the whole sweep.
 //  K6: K5, and dq += ds @ k added to the float32 slab by TMA
 //      reduce-adds.  The TPU kernel could read-modify-write its dq block
@@ -94,13 +105,19 @@
 //    memory), stages it in shared memory and adds it to the slab with one
 //    TMA reduce-add per 32-column box: 16 KB per (key tile, query tile)
 //    pair instead of 4096 scalar atomics per 64 x 64 pair.  Query row 0
-//    sees key 0 alone, so its dp - delta is an exact cancellation that the
-//    plain version, summing dp and delta in one order, leaves at 0; that
-//    one dot product is summed in index order too.
+//    sees key 0 alone, so out[0] = v[0] exactly and dp - delta there is 0
+//    in exact arithmetic; summed in two orders it leaves rounding noise
+//    that would be all of dq's row 0.  bf16: the plain version's product
+//    and a sum in index order give the same dp (bf16 products are 16-bit),
+//    so that one dot product is summed in index order here (dp = delta
+//    would cost K4 15%: ptxas schedules it worse without the loop).
+//    float16 products carry 22 bits and no order agrees with the
+//    plain version's; there the kernels and the plain versions take dp =
+//    delta at (0, 0), so ds[0, 0] is exactly 0.
 //  * K5 is K6's kernel with the dq half compiled out (kDq = false): no
 //    dS^T staging, no barrier between the warpgroups, no dQ product and no
 //    reduce-adds, so each warpgroup's sweep runs on its own.  The row-0
-//    dot product stays, since ds[0, 0] feeds dk[0].
+//    rule stays, since ds[0, 0] feeds dk[0].
 //  * K4: a CTA takes 128 query rows of one head (64 per warpgroup).  Q
 //    and dO [128, d] are loaded once; K and V tiles of 64 keys stream
 //    through a 3-stage ring, up to the diagonal (warpgroup 0 skips the
@@ -110,7 +127,7 @@
 //    (32 + 32 + d / 2 floats) within the 168 registers a thread has.  dQ
 //    leaves once, in bf16, through the Q tile's shared memory and a TMA
 //    store: no slab, no atomics, the same result every run.  Query row 0
-//    gets K6's index-order dot product; p is not rounded (the TPU's
+//    gets K6's rule; p is not rounded (the TPU's
 //    _dq_kernel leaves it in float32), and it is computed as the plain
 //    version rounds it, scale * s then - lse, unfused.
 //  * Work per CTA grows along the causal triangle, so the grid starts
@@ -138,7 +155,7 @@ constexpr int kStages = 2;
 // K3: forward
 // ---------------------------------------------------------------------------
 
-constexpr int kBox = 128 * 128;  // bytes of a [128 rows, 64 bf16] box
+constexpr int kBox = 128 * 128;  // bytes of a [128 rows, 64 T] box
 
 template <int D>
 struct FwdSmem {
@@ -153,22 +170,32 @@ struct FwdSmem {
 };
 
 // K3's roundings (see the header): a p whose float32 bits lie within
-// kBoundaryUlps of a bf16 rounding boundary is computed again from scores
+// kBoundaryUlps of a rounding boundary of T is computed again from scores
 // summed in index order.  The window covers the tensor cores' summation
 // order, the exp2 of the bulk and the running max taken from tensor-core
 // scores: a few ulps to a few tens of ulps each.
 constexpr int kBoundaryUlps = 96;
 
-__device__ __forceinline__ bool near_bf16_boundary(float p) {
-  // the low 16 bits within kBoundaryUlps of 0x8000, where bf16 rounding flips
-  return ((__float_as_uint(p) + (0x8000u + kBoundaryUlps)) & 0xffffu) <= 2u * kBoundaryUlps;
+template <typename T>
+__device__ __forceinline__ bool near_boundary(float p) {
+  if constexpr (kIsF16<T>) {
+    // the midpoint of the two float16 values around p (exact in float32;
+    // p itself when it is one), within kBoundaryUlps float32 ulps of p
+    const float lo = __half2float(__float2half_rd(p)), hi = __half2float(__float2half_ru(p));
+    const int dist = static_cast<int>(__float_as_uint(p)) -
+                     static_cast<int>(__float_as_uint(0.5f * (lo + hi)));
+    return lo != hi && dist <= kBoundaryUlps && dist >= -kBoundaryUlps;
+  } else {
+    // the low 16 bits within kBoundaryUlps of 0x8000, where bf16 rounding flips
+    return ((__float_as_uint(p) + (0x8000u + kBoundaryUlps)) & 0xffffu) <= 2u * kBoundaryUlps;
+  }
 }
 
 // q.k of row qr of a Q tile in shared memory (D / 64 swizzled 64-column
 // boxes kBox apart) and a K row in global memory, summed in index order
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ float dot_in_order(const uint8_t* qt, int qr,
-                                              const __nv_bfloat16* __restrict__ krow) {
+                                              const T* __restrict__ krow) {
   float acc = 0.f;
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) {
@@ -176,9 +203,10 @@ __device__ __forceinline__ float dot_in_order(const uint8_t* qt, int qr,
     const uint4 b = __ldg(reinterpret_cast<const uint4*>(krow) + c);
     const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {  // bf16 pairs: the low half is the lower index
-      acc = fmaf(__uint_as_float(av[w] << 16), __uint_as_float(bv[w] << 16), acc);
-      acc = fmaf(__uint_as_float(av[w] & 0xffff0000u), __uint_as_float(bv[w] & 0xffff0000u), acc);
+    for (int w = 0; w < 4; ++w) {  // pairs: the low half is the lower index
+      const float2 x = unpack2<T>(av[w]), y = unpack2<T>(bv[w]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
     }
   }
   return acc;
@@ -191,10 +219,10 @@ __device__ __forceinline__ float dot_in_order(const uint8_t* qt, int qr,
 // (two per flag) are spread over its 32 lanes through a mailbox in shared
 // memory, so a batch of 32 costs one dot product's latency however the
 // flags fall.
-template <int D, typename F>
+template <int D, typename T, typename F>
 __device__ __forceinline__ void redo_p_in_order(uint64_t redo, uint32_t* box,
                                                 const uint8_t* q_rows, int r_in,
-                                                const __nv_bfloat16* __restrict__ k_head,
+                                                const T* __restrict__ k_head,
                                                 int k0, const int (&mkey)[2], int lane,
                                                 float scale, F apply) {
   const int cnt = 2 * __popcll(redo);
@@ -221,7 +249,7 @@ __device__ __forceinline__ void redo_p_in_order(uint64_t redo, uint32_t* box,
     __syncwarp();
     if (b0 + lane < total) {
       const uint32_t req = box[lane];
-      res[lane] = dot_in_order<D>(q_rows, req & 63, k_head + static_cast<size_t>(req >> 6) * D);
+      res[lane] = dot_in_order<D, T>(q_rows, req & 63, k_head + static_cast<size_t>(req >> 6) * D);
     }
     __syncwarp();
     left = redo;
@@ -235,11 +263,11 @@ __device__ __forceinline__ void redo_p_in_order(uint64_t redo, uint32_t* box,
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-           const __nv_bfloat16* __restrict__ k, float* __restrict__ lse, int bh, int s,
+           const T* __restrict__ k, float* __restrict__ lse, int bh, int s,
            float scale) {
   using L = FwdSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -289,7 +317,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     int mkey[2] = {0, 0};  // the key of each row's running max
-    const __nv_bfloat16* k_head = k + static_cast<size_t>(b) * s * D;
+    const T* k_head = k + static_cast<size_t>(b) * s * D;
     const uint8_t* q_rows = smem + L::kQ + 64 * 128 * half;
     uint32_t* mail = reinterpret_cast<uint32_t*>(smem + L::kMail + 256 * (threadIdx.x / 32));
     const uint32_t q_half = smem_u32(q_rows);
@@ -307,7 +335,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-        wgmma_ss_n128<0, 0>(sc, sw128_desc(q_half + off, 16, 1024),
+        wgmma_ss_n128<0, 0, T>(sc, sw128_desc(q_half + off, 16, 1024),
                             sw128_desc(k_s + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -355,15 +383,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
         neg_mlog[h] = -m_new * kLog2e;
       }
       // p = exp(scale * s - m) by exp2, and as the plain version computes
-      // it next to a bf16 rounding boundary
+      // it next to a rounding boundary of T
       const float scale_log2e = scale * kLog2e;
       uint64_t redo = 0;
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         sc[i] = exp2f(fmaf(sc[i], scale_log2e, neg_mlog[(i >> 1) & 1]));
-        if (near_bf16_boundary(sc[i])) redo |= 1ull << i;
+        if (near_boundary<T>(sc[i])) redo |= 1ull << i;
       }
-      redo_p_in_order<D>(redo, mail, q_rows, r_in, k_head, k0, mkey, lane, scale,
+      redo_p_in_order<D, T>(redo, mail, q_rows, r_in, k_head, k0, mkey, lane, scale,
                          [&](int at, float p) {
 #pragma unroll
                            for (int i = 0; i < 64; ++i)
@@ -377,10 +405,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
         sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
         l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), sum[h]);
       }
-      // pv = P_bf16.V on this tile: P from registers, V [keys, d] an MN-major
+      // pv = P_T.V on this tile: P from registers, V [keys, d] an MN-major
       // B; then o = o * alpha + pv, rounded as the plain version rounds
       uint32_t pf[8][4];
-      to_a_frags<8>(sc, pf);
+      to_a_frags<8, T>(sc, pf);
       float pv[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
@@ -389,9 +417,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       for (int kk = 0; kk < 8; ++kk) {
         const uint64_t bv = sw128_desc(v_s + kk * 16 * 128, kBox, 1024);
         if constexpr (D == 64)
-          wgmma_rs_n64<1>(pv, pf[kk], bv, kk > 0);
+          wgmma_rs_n64<1, T>(pv, pf[kk], bv, kk > 0);
         else
-          wgmma_rs_n128<1>(pv, pf[kk], bv, kk > 0);
+          wgmma_rs_n128<1, T>(pv, pf[kk], bv, kk > 0);
       }
       wgmma_commit();
       wgmma_wait();
@@ -411,7 +439,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
       const int h = (i >> 1) & 1;
       const int col = 8 * (i >> 2) + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(ob + (col / 64) * kBox + sw128(r_in + 8 * h, (col % 64) * 2)) =
-          pack_bf16(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
+          pack2<T>(o[i] / l_safe[h], o[i + 1] / l_safe[h]);
     }
     if ((lane & 3) == 0) {
 #pragma unroll
@@ -438,10 +466,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 template <int D, bool kDq>
 struct BwdSmem {
   static constexpr int kBoxes = D / 64;
-  static constexpr int kKV = kBoxes * kBox;      // [128 keys, D] bf16
-  static constexpr int kQBox = 64 * 128;         // [64 rows, 64 bf16]
-  static constexpr int kQT = kBoxes * kQBox;     // [64 queries, D] bf16
-  static constexpr int kDSBuf = 128 * 128;       // dS^T [128 keys, 64 queries] bf16
+  static constexpr int kKV = kBoxes * kBox;      // [128 keys, D] T
+  static constexpr int kQBox = 64 * 128;         // [64 rows, 64 T]
+  static constexpr int kQT = kBoxes * kQBox;     // [64 queries, D] T
+  static constexpr int kDSBuf = 128 * 128;       // dS^T [128 keys, 64 queries] T
   static constexpr int kDQBox = 64 * 128;        // [64 rows, 32 float32]
   static constexpr int kDQ = (D / 64) * kDQBox;  // a warpgroup's [64, D / 2] float32
   static constexpr int kK = 0;
@@ -455,14 +483,14 @@ struct BwdSmem {
   static constexpr int kBytes = kBar + 64 + 1024;
 };
 
-template <int D, bool kDq>
+template <int D, bool kDq, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-           const __grid_constant__ CUtensorMap tm_dq, const __nv_bfloat16* __restrict__ v,
-           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-           __nv_bfloat16* __restrict__ dv, int bh, int s, float scale) {
+           const __grid_constant__ CUtensorMap tm_dq, const T* __restrict__ v,
+           const T* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, T* __restrict__ dk,
+           T* __restrict__ dv, int bh, int s, float scale) {
   using L = BwdSmem<D, kDq>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -547,14 +575,14 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
         const uint32_t offq = (kk / 4) * L::kQBox + (kk % 4) * 32;
-        wgmma_ss_n64<0, 0>(sT, sw128_desc(k_half + off, 16, 1024),
+        wgmma_ss_n64<0, 0, T>(sT, sw128_desc(k_half + off, 16, 1024),
                            sw128_desc(q_s + offq, 16, 1024), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
         const uint32_t offq = (kk / 4) * L::kQBox + (kk % 4) * 32;
-        wgmma_ss_n64<0, 0>(dpT, sw128_desc(v_half + off, 16, 1024),
+        wgmma_ss_n64<0, 0, T>(dpT, sw128_desc(v_half + off, 16, 1024),
                            sw128_desc(do_s + offq, 16, 1024), kk > 0);
       }
       wgmma_commit();
@@ -562,16 +590,19 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
       fence_regs(sT);
       fence_regs(dpT);
       // Query row 0 sees key 0 alone, so out[0] = v[0] and dp - delta there
-      // is an exact cancellation.  The plain version sums dp and delta in the
-      // same (index) order and gets exactly 0; the tensor cores sum in
-      // another order and would leave rounding noise that is all of dq's
-      // row 0.  That one dot product is summed in index order on a CUDA core.
+      // is 0 in exact arithmetic (the header's row-0 rule): bf16 sums that
+      // one dot product in index order, as the plain version's product
+      // comes out; float16 takes dp = delta, as its plain version does.
       if (q0 == 0 && key0 == 0 && lane == 0) {  // holds (key 0, query 0): register 0
-        const size_t at = static_cast<size_t>(b) * s * D;
-        float acc = 0.f;
-        for (int c = 0; c < D; ++c)
-          acc = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(v[at + c]), acc);
-        dpT[0] = acc;
+        if constexpr (kIsF16<T>) {
+          dpT[0] = sl[64];
+        } else {
+          const size_t at = static_cast<size_t>(b) * s * D;
+          float acc = 0.f;
+          for (int c = 0; c < D; ++c)
+            acc = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(v[at + c]), acc);
+          dpT[0] = acc;
+        }
       }
       // P^T = exp(scale * S^T - lse) (0 where masked), dS^T = P^T (dP^T - delta) scale
 #pragma unroll
@@ -584,29 +615,29 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
         sT[i] = p;
       }
       uint32_t pf[4][4], df[4][4];
-      to_a_frags<4>(sT, pf);
-      to_a_frags<4>(dpT, df);
+      to_a_frags<4, T>(sT, pf);
+      to_a_frags<4, T>(dpT, df);
       // dV += P^T.dO and dK += dS^T.Q: A from registers, B [queries, d] MN-major
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t bd = sw128_desc(do_s + kk * 16 * 128, L::kQBox, 1024);
         if constexpr (D == 64)
-          wgmma_rs_n64<1>(dv_acc, pf[kk], bd, 1);
+          wgmma_rs_n64<1, T>(dv_acc, pf[kk], bd, 1);
         else
-          wgmma_rs_n128<1>(dv_acc, pf[kk], bd, 1);
+          wgmma_rs_n128<1, T>(dv_acc, pf[kk], bd, 1);
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t bq = sw128_desc(q_s + kk * 16 * 128, L::kQBox, 1024);
         if constexpr (D == 64)
-          wgmma_rs_n64<1>(dk_acc, df[kk], bq, 1);
+          wgmma_rs_n64<1, T>(dk_acc, df[kk], bq, 1);
         else
-          wgmma_rs_n128<1>(dk_acc, df[kk], bq, 1);
+          wgmma_rs_n128<1, T>(dk_acc, df[kk], bq, 1);
       }
       wgmma_commit();
       if constexpr (kDq) {
-        // dS^T (bf16) to shared memory, [128 keys, 64 queries] with queries
+        // dS^T (in T) to shared memory, [128 keys, 64 queries] with queries
         // contiguous: the MN-major A of dQ = dS.K
         uint8_t* ds_s = smem + L::kDS + (it & 1) * L::kDSBuf;
 #pragma unroll
@@ -631,9 +662,9 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
           const uint64_t da = sw128_desc(ds_a + kk * 16 * 128, kBox, 1024);
           const uint64_t db = sw128_desc(k_cols + kk * 16 * 128, kBox, 1024);
           if constexpr (D == 64)
-            wgmma_ss_n32<1, 1>(dq, da, db, kk > 0);
+            wgmma_ss_n32<1, 1, T>(dq, da, db, kk > 0);
           else
-            wgmma_ss_n64<1, 1>(dq, da, db, kk > 0);
+            wgmma_ss_n64<1, 1, T>(dq, da, db, kk > 0);
         }
         wgmma_commit();
         wgmma_wait();
@@ -678,8 +709,8 @@ flash_bwd_kv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
       const int key = key0 + 8 * ((i >> 1) & 1);
       if (key >= s) continue;
       const size_t at = (static_cast<size_t>(b) * s + key) * D + 8 * (i >> 2) + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dk_acc[i], dk_acc[i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at) = pack2<T>(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at) = pack2<T>(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
@@ -693,9 +724,9 @@ constexpr int kDqStages = 3;  // 64-key tiles are small: one more in flight
 template <int D>
 struct DqSmem {
   static constexpr int kBoxes = D / 64;
-  static constexpr int kTile = kBoxes * kBox;   // [128 rows, D] bf16
-  static constexpr int kKBox = 64 * 128;        // [64 keys, 64 bf16]
-  static constexpr int kKT = kBoxes * kKBox;    // [64 keys, D] bf16
+  static constexpr int kTile = kBoxes * kBox;   // [128 rows, D] T
+  static constexpr int kKBox = 64 * 128;        // [64 keys, 64 T]
+  static constexpr int kKT = kBoxes * kKBox;    // [64 keys, D] T
   static constexpr int kQ = 0;
   static constexpr int kDO = kQ + kTile;
   static constexpr int kK = kDO + kTile;        // kDqStages tiles
@@ -704,12 +735,12 @@ struct DqSmem {
   static constexpr int kBytes = kBar + 64 + 1024;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-           const __grid_constant__ CUtensorMap tm_dq, const __nv_bfloat16* __restrict__ v,
-           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+           const __grid_constant__ CUtensorMap tm_dq, const T* __restrict__ v,
+           const T* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, int bh, int s, float scale) {
   using L = DqSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -786,29 +817,32 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t offq = (kk / 4) * kBox + (kk % 4) * 32;
           const uint32_t offk = (kk / 4) * L::kKBox + (kk % 4) * 32;
-          wgmma_ss_n64<0, 0>(sc, sw128_desc(q_half + offq, 16, 1024),
+          wgmma_ss_n64<0, 0, T>(sc, sw128_desc(q_half + offq, 16, 1024),
                              sw128_desc(k_s + offk, 16, 1024), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t offq = (kk / 4) * kBox + (kk % 4) * 32;
           const uint32_t offk = (kk / 4) * L::kKBox + (kk % 4) * 32;
-          wgmma_ss_n64<0, 0>(dp, sw128_desc(do_half + offq, 16, 1024),
+          wgmma_ss_n64<0, 0, T>(dp, sw128_desc(do_half + offq, 16, 1024),
                              sw128_desc(v_s + offk, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait();
         fence_regs(sc);
         fence_regs(dp);
-        // query row 0 sees key 0 alone: its dp - delta is the exact
-        // cancellation of K6's row 0, summed in index order the same way
+        // query row 0 sees key 0 alone: K6's row-0 rule
         if (q0 == 0 && half == 0 && j == 0 && t == 0) {  // holds (row 0, key 0): register 0
-          const size_t at = static_cast<size_t>(b) * s * D;
-          float acc = 0.f;
+          if constexpr (kIsF16<T>) {
+            dp[0] = delta_r[0];
+          } else {
+            const size_t at = static_cast<size_t>(b) * s * D;
+            float acc = 0.f;
 #pragma unroll 1
-          for (int c = 0; c < D; ++c)
-            acc = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(v[at + c]), acc);
-          dp[0] = acc;
+            for (int c = 0; c < D; ++c)
+              acc = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(v[at + c]), acc);
+            dp[0] = acc;
+          }
         }
         // P = exp(scale * S - lse), left in float32 (0 where masked; only the
         // diagonal tile and one crossing s are), dS = P (dP - delta) scale
@@ -824,16 +858,16 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
           sc[i] = p * (dp[i] - delta_r[h]) * scale;
         }
         uint32_t df[4][4];
-        to_a_frags<4>(sc, df);
+        to_a_frags<4, T>(sc, df);
         // dQ += dS.K: A from registers, B = K [keys, d] MN-major
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint64_t bk = sw128_desc(k_s + kk * 16 * 128, L::kKBox, 1024);
           if constexpr (D == 64)
-            wgmma_rs_n64<1>(dq, df[kk], bk, 1);
+            wgmma_rs_n64<1, T>(dq, df[kk], bk, 1);
           else
-            wgmma_rs_n128<1>(dq, df[kk], bk, 1);
+            wgmma_rs_n128<1, T>(dq, df[kk], bk, 1);
         }
         wgmma_commit();
         wgmma_wait();
@@ -842,7 +876,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
       }
       mbar_arrive(empty + st);
     }
-    // epilogue: dq in bf16 through this half's rows of the Q tile, then a
+    // epilogue: dq in T through this half's rows of the Q tile, then a
     // TMA store (rows past s are clipped)
     uint8_t* ob = smem + L::kQ + 64 * 128 * half;
 #pragma unroll
@@ -850,7 +884,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
       const int h = (i >> 1) & 1;
       const int col = 8 * (i >> 2) + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(ob + (col / 64) * kBox + sw128(r_in + 8 * h, (col % 64) * 2)) =
-          pack_bf16(dq[i], dq[i + 1]);
+          pack2<T>(dq[i], dq[i + 1]);
     }
     fence_proxy_async();
     named_bar_sync(1 + half, 128);
@@ -866,21 +900,28 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
 // launchers
 // ---------------------------------------------------------------------------
 
-// a 3-D map over [bh, s, d] (innermost first) with a [rows, cols] box and
-// 128-byte swizzle; rows past s read as zeros and are not written
-bool make_map(CUtensorMap* map, const void* ptr, bool f32, int bh, int s, int d, int rows,
-              int cols) {
+// the tensor-map data type of an element type
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    std::is_same<T, float>::value
+        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+        : (kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+
+// a 3-D map over [bh, s, d] of T (innermost first) with a [rows, cols] box
+// and 128-byte swizzle; rows past s read as zeros and are not written
+template <typename T>
+bool flash_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, int rows, int cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t elt = f32 ? 4 : 2;
+  const cuuint64_t elt = sizeof(T);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {d * elt, static_cast<cuuint64_t>(s) * d * elt};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, kMapType<T>, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -889,110 +930,132 @@ bool bad_shape(int bh, int s, int d) {
          static_cast<long long>(bh) * ((s + 63) / 64) > 0x7fffffffLL;
 }
 
-template <int D>
+template <int D, typename T>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int s,
         float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, false, bh, s, D, 128, 64) || !make_map(&tk, k, false, bh, s, D, 128, 64) ||
-      !make_map(&tv, v, false, bh, s, D, 128, 64) || !make_map(&to, out, false, bh, s, D, 64, 64))
+  if (!flash_map<T>(&tq, q, bh, s, D, 128, 64) || !flash_map<T>(&tk, k, bh, s, D, 128, 64) ||
+      !flash_map<T>(&tv, v, bh, s, D, 128, 64) || !flash_map<T>(&to, out, bh, s, D, 64, 64))
     return kMapFailed;
-  auto kern = flash_fwd_sm90_kernel<D>;
+  auto kern = flash_fwd_sm90_kernel<D, T>;
   const int smem = FwdSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<bh * ((s + 127) / 128), kThreads, smem, st>>>(
-      tq, tk, tv, to, static_cast<const __nv_bfloat16*>(k), static_cast<float*>(lse), bh, s, scale);
+      tq, tk, tv, to, static_cast<const T*>(k), static_cast<float*>(lse), bh, s, scale);
   return cudaGetLastError();
 }
 
 // K6 (kDq: dq32 a zeroed float32 slab) or K5 (dq32 unused)
-template <int D, bool kDq>
+template <int D, bool kDq, typename T>
 int bwd_kv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq32, void* dk, void* dv, int bh, int s, float scale,
            cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!make_map(&tq, q, false, bh, s, D, 64, 64) || !make_map(&tk, k, false, bh, s, D, 128, 64) ||
-      !make_map(&tv, v, false, bh, s, D, 128, 64) ||
-      !make_map(&tdo, dout, false, bh, s, D, 64, 64))
+  if (!flash_map<T>(&tq, q, bh, s, D, 64, 64) || !flash_map<T>(&tk, k, bh, s, D, 128, 64) ||
+      !flash_map<T>(&tv, v, bh, s, D, 128, 64) || !flash_map<T>(&tdo, dout, bh, s, D, 64, 64))
     return kMapFailed;
   if (!kDq)
     tdq = tq;  // not read
-  else if (!make_map(&tdq, dq32, true, bh, s, D, 64, 32))
+  else if (!flash_map<float>(&tdq, dq32, bh, s, D, 64, 32))
     return kMapFailed;
-  auto kern = flash_bwd_kv_sm90_kernel<D, kDq>;
+  auto kern = flash_bwd_kv_sm90_kernel<D, kDq, T>;
   const int smem = BwdSmem<D, kDq>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<bh * ((s + 127) / 128), kThreads, smem, st>>>(
-      tq, tk, tv, tdo, tdq, static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh, s, scale);
+      tq, tk, tv, tdo, tdq, static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), bh, s, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int bh, int s, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!make_map(&tq, q, false, bh, s, D, 128, 64) || !make_map(&tk, k, false, bh, s, D, 64, 64) ||
-      !make_map(&tv, v, false, bh, s, D, 64, 64) ||
-      !make_map(&tdo, dout, false, bh, s, D, 128, 64) ||
-      !make_map(&tdq, dq, false, bh, s, D, 64, 64))
+  if (!flash_map<T>(&tq, q, bh, s, D, 128, 64) || !flash_map<T>(&tk, k, bh, s, D, 64, 64) ||
+      !flash_map<T>(&tv, v, bh, s, D, 64, 64) || !flash_map<T>(&tdo, dout, bh, s, D, 128, 64) ||
+      !flash_map<T>(&tdq, dq, bh, s, D, 64, 64))
     return kMapFailed;
-  auto kern = flash_bwd_dq_sm90_kernel<D>;
+  auto kern = flash_bwd_dq_sm90_kernel<D, T>;
   const int smem = DqSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<bh * ((s + 127) / 128), kThreads, smem, st>>>(
-      tq, tk, tv, tdo, tdq, static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), bh, s, scale);
+      tq, tk, tv, tdo, tdq, static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), bh, s, scale);
   return cudaGetLastError();
+}
+
+// the element type of a dtype code (1 bfloat16, 2 float16), as a tag
+template <typename F>
+int by_dtype(int dtype, F&& f) {
+  if (dtype == 1) return f(__nv_bfloat16{});
+  if (dtype == 2) return f(__half{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bfloat16 q, k, v -> out [bh, s, d] in bfloat16, lse float32 [bh, s]
+// Every entry point takes q, k, v (and do, dq, dk, dv) of one element type,
+// `dtype` 1 bfloat16 or 2 float16; lse, delta float32 [bh, s].
+
+// q, k, v -> out [bh, s, d] in their type, lse float32 [bh, s]
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
-                   int s, int d, float scale, void* stream) {
+                   int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? fwd<64>(q, k, v, out, lse, bh, s, scale, st)
-                 : fwd<128>(q, k, v, out, lse, bh, s, scale, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return d == 64 ? fwd<64, T>(q, k, v, out, lse, bh, s, scale, st)
+                   : fwd<128, T>(q, k, v, out, lse, bh, s, scale, st);
+  });
 }
 
 // dq32 float32 [bh, s, d], zeroed by the caller and accumulated with
-// TMA reduce-adds; dk, dv [bh, s, d] in bfloat16
+// TMA reduce-adds; dk, dv [bh, s, d] in the input type
 int flash_bwd_fused_sm90(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq32, void* dk, void* dv,
-                         int bh, int s, int d, float scale, void* stream) {
+                         int bh, int s, int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? bwd_kv<64, true>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st)
-                 : bwd_kv<128, true>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return d == 64
+               ? bwd_kv<64, true, T>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st)
+               : bwd_kv<128, true, T>(q, k, v, dout, lse, delta, dq32, dk, dv, bh, s, scale, st);
+  });
 }
 
-// dq [bh, s, d] in bfloat16
+// dq [bh, s, d] in the input type
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int d,
-                      float scale, void* stream) {
+                      float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? bwd_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, scale, st)
-                 : bwd_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, scale, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return d == 64 ? bwd_dq<64, T>(q, k, v, dout, lse, delta, dq, bh, s, scale, st)
+                   : bwd_dq<128, T>(q, k, v, dout, lse, delta, dq, bh, s, scale, st);
+  });
 }
 
-// dk, dv [bh, s, d] in bfloat16
+// dk, dv [bh, s, d] in the input type
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
-                       int d, float scale, void* stream) {
+                       int d, float scale, int dtype, void* stream) {
   if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? bwd_kv<64, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st)
-                 : bwd_kv<128, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return d == 64
+               ? bwd_kv<64, false, T>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale, st)
+               : bwd_kv<128, false, T>(q, k, v, dout, lse, delta, nullptr, dk, dv, bh, s, scale,
+                                       st);
+  });
 }
 
 const char* flash_sm90_error_string(int code) { return error_string(code); }

@@ -1,5 +1,5 @@
 // Fused LayerNorm (+ optional residual add) for Hopper (sm_90a): forward
-// and backward, bf16 and f32 inputs, float32 statistics and affine.
+// and backward, bf16, f16 and f32 inputs, float32 statistics and affine.
 //
 // Replaces the TPU kernels of paddlefleetx_tpu/ops/fused_layernorm.py:
 //   _fwd_kernel (:45, launched by _run_fwd :114)       -> fused_ln_fwd (K1)
@@ -17,6 +17,9 @@
 //      m1 = sum(gs) / n, m2 = sum(gs * xhat) / n,
 //      dx = rstd * (gs - m1 - xhat * m2) in T (dres is dx);
 //      dscale = sum over rows of g * xhat, dbias = sum over rows of g.
+//  Stores round to nearest (f16: __float2half_rn), so a value past the
+//  type's range becomes inf, never the largest finite value: a float16
+//  step under a loss scale must see its overflow to skip.
 //
 // dscale/dbias: the TPU kernel adds each row block's column sums into one
 // output block because its grid runs in order (:77-85, initialised at
@@ -34,8 +37,8 @@
 //    (reg_vecs; exported as fused_ln_register_vecs for the wrapper's
 //    labels): the register path where n is a multiple of the 16-byte
 //    vector, every row start, scale and bias (and the outputs) are 16-byte
-//    aligned and n is at most 32 * kMaxVecs vectors (2048 bf16, 1024
-//    float32); the strided path for any other n or alignment.
+//    aligned and n is at most 32 * kMaxVecs vectors (2048 bf16 or f16,
+//    1024 float32); the strided path for any other n or alignment.
 //  * K1, register path: one warp per row, 8 rows per CTA.  Each lane issues
 //    all of its 16-byte loads of x (and res) at once (n = 1024 bf16: four
 //    per tensor, 2 KB per warp in flight) and holds the row in float32
@@ -68,10 +71,12 @@
 // the given stream and returns cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -86,6 +91,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -94,6 +100,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -146,39 +156,46 @@ fused_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
-// 16-byte vectors: 8 bf16 or 4 float32
+// 16-byte vectors: 8 bf16 or f16, or 4 float32
 template <typename T>
 struct Vec {
   static constexpr int kN = 16 / static_cast<int>(sizeof(T));
 };
 
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+// a 16-byte vector of T as float32 (pairs: the low half is the lower index)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[Vec<T>::kN]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 pairs: the low half is the lower index
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      const float2 p = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   }
 }
 
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+// float32 values as a 16-byte vector of T, rounded to nearest
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float (&f)[Vec<T>::kN]) {
   uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<uint32_t*>(&h);
+    if constexpr (std::is_same<T, float>::value) {
+      w[i] = __float_as_uint(f[i]);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      __half2 h = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<uint32_t*>(&h);
+    } else {
+      __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<uint32_t*>(&h);
+    }
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
@@ -229,10 +246,10 @@ fused_ln_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ res,
 #pragma unroll
   for (int u = 0; u < VPL; ++u) {
     if (lane + 32 * u < nvec) {
-      unpack(xu[u], v[u]);
+      unpack<T>(xu[u], v[u]);
       if (res != nullptr) {
         float rf[E];
-        unpack(ru[u], rf);
+        unpack<T>(ru[u], rf);
 #pragma unroll
         for (int e = 0; e < E; ++e) v[u][e] += rf[e];
       }
@@ -263,7 +280,7 @@ fused_ln_fwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ res,
       load_scale<E>(bias, vi * E, bi);
 #pragma unroll
       for (int e = 0; e < E; ++e) o[e] = (v[u][e] - mean) * rstd * sc[e] + bi[e];
-      yr[vi] = pack(o);
+      yr[vi] = pack<T>(o);
     }
   }
   if (lane == 0) {
@@ -324,10 +341,10 @@ fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
         if (vi < nvec) {
           const uint4 xu = xr[vi];
           gv[u] = gr[vi];
-          unpack(xu, v[u]);
+          unpack<T>(xu, v[u]);
           if (res != nullptr) {
             float rf[E];
-            unpack(rr[vi], rf);
+            unpack<T>(rr[vi], rf);
 #pragma unroll
             for (int e = 0; e < E; ++e) v[u][e] += rf[e];
           }
@@ -340,7 +357,7 @@ fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
         const int vi = lane + 32 * u;
         if (vi < nvec) {
           float gf[E], sc[E];
-          unpack(gv[u], gf);
+          unpack<T>(gv[u], gf);
           load_scale<E>(scale, vi * E, sc);
 #pragma unroll
           for (int e = 0; e < E; ++e) {
@@ -359,7 +376,7 @@ fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
         const int vi = lane + 32 * u;
         if (vi < nvec) {
           float gf[E], sc[E], d[E], xg[E];
-          unpack(gv[u], gf);
+          unpack<T>(gv[u], gf);
           load_scale<E>(scale, vi * E, sc);
 #pragma unroll
           for (int e = 0; e < E; ++e) {
@@ -367,7 +384,7 @@ fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
             d[e] = rs * (gf[e] * sc[e] - m1 - xhat * m2);
             xg[e] = gf[e] * xhat;
           }
-          dr[vi] = pack(d);
+          dr[vi] = pack<T>(d);
 #pragma unroll
           for (int e4 = 0; e4 < E / 4; ++e4) {
             const int at = (u * (E / 4) + e4) * 32 + lane;
@@ -599,13 +616,14 @@ extern "C" {
 int64_t fused_ln_bwd_bands(int64_t rows) { return (rows + kBand - 1) / kBand; }
 
 // 16-byte vectors per lane that K1 and K2 take for rows of n elements
-// (dtype 0 float32, 1 bfloat16) over tensors whose addresses OR to `addr`:
+// (dtype 0 float32, 1 bfloat16, 2 float16) over tensors whose addresses OR to `addr`:
 // the register path's VPL, or 0 for the strided path; -1 for another
 // dtype.  The entry points below choose their path by this rule; the
 // wrapper asks it only to label a launch.
 int fused_ln_register_vecs(int dtype, int n, uintptr_t addr) {
   if (dtype == 0) return reg_vecs<float>(addr, n);
   if (dtype == 1) return reg_vecs<__nv_bfloat16>(addr, n);
+  if (dtype == 2) return reg_vecs<__half>(addr, n);
   return -1;
 }
 
@@ -622,6 +640,8 @@ int fused_ln_fwd(const void* x, const void* res, const void* scale, const void* 
   if (dtype == 1)
     return static_cast<int>(
         fwd<__nv_bfloat16>(x, res, scale, bias, y, mean, rstd, rows, n, eps, vpl, st));
+  if (dtype == 2)
+    return static_cast<int>(fwd<__half>(x, res, scale, bias, y, mean, rstd, rows, n, eps, vpl, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -640,6 +660,9 @@ int fused_ln_bwd(const void* x, const void* res, const void* scale, const void* 
   if (dtype == 1)
     return static_cast<int>(bwd<__nv_bfloat16>(x, res, scale, mean, rstd, g, dx, part_scale,
                                                part_bias, dscale, dbias, rows, n, vpl, st));
+  if (dtype == 2)
+    return static_cast<int>(bwd<__half>(x, res, scale, mean, rstd, g, dx, part_scale, part_bias,
+                                        dscale, dbias, rows, n, vpl, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

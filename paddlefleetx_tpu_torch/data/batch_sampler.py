@@ -2,7 +2,7 @@
 
 Counterpart of ``paddlefleetx_tpu/data/batch_sampler.py``
 (``DistributedBatchSampler:36``, ``collate_stack:99``, ``DataLoader:106``,
-``PrefetchLoader:465``).  On one device the sampler yields global batches
+``WorkerLoader:250``, ``PrefetchLoader:465``).  On one device the sampler yields global batches
 of dataset indices; resume is a sample counter (``consumed_samples``),
 the contract the checkpoint meta carries.
 
@@ -15,8 +15,7 @@ position is read at ``iter()`` time: callers re-``iter()`` after a
 rewind, and ``PrefetchLoader.rewind`` stops its thread first so its
 lookahead cannot leak into the replay.
 
-Not ported: ``WorkerLoader`` (``num_workers > 0``, refused by
-``data/builders.py``) and the fault-injection sites inside the fetch.
+Not ported: the fault-injection sites inside the fetch.
 """
 
 from __future__ import annotations
@@ -190,6 +189,79 @@ class DataLoader:
         return {"skips": self.skips}
 
 
+class WorkerLoader:
+    """Sampler indices -> collated batches, the samples fetched by a pool
+    of ``num_workers`` processes (``Data.<mode>.loader.num_workers``).
+
+    The workers start with ``spawn`` (a fresh interpreter: the training
+    process holds CUDA and threads, which a fork would copy) and get the
+    dataset pickled once, at pool start; afterwards only indices and
+    samples cross the pipes.  ``pool.map`` keeps the sampler's order, so
+    the batches are the inline loader's, and resume and rewind reposition
+    the sampler as there (the pool is torn down first, so no stale
+    lookahead leaks).  The pool lives for one iteration of the loader.
+    A sample whose fetch raises fails the batch loudly: the corrupt-sample
+    skip budget (``max_skips``) is the inline loader's.  The JAX loader's
+    per-sample visit counters (for augmenting datasets) have no user here:
+    no dataset of the port draws per visit."""
+
+    def __init__(self, dataset, sampler: DistributedBatchSampler, collate_fn=collate_stack,
+                 num_workers: int = 2):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.collate_fn = collate_fn
+        self.num_workers = max(1, int(num_workers))
+        self._gen = None
+
+    def _iterate(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        with ctx.Pool(self.num_workers, initializer=_worker_init,
+                      initargs=(self.dataset,)) as pool:
+            for batch_idx in self.sampler:
+                items = pool.map(_worker_get, [int(i) for i in batch_idx],
+                                 chunksize=max(1, len(batch_idx) // self.num_workers))
+                yield self.collate_fn(items)
+
+    def __iter__(self):
+        self.close()  # at most one live pool per loader
+        self._gen = self._iterate()
+        return self._gen
+
+    def state_dict(self) -> Dict[str, int]:
+        return self.sampler.state_dict()
+
+    def load_state(self, state: Dict[str, int]) -> None:
+        self.close()
+        self.sampler.load_state(state)
+
+    def rewind(self, consumed_samples: int) -> None:
+        self.close()
+        self.sampler.rewind(consumed_samples)
+
+    def close(self) -> None:
+        """Terminate the pool (closing the generator unwinds its ``with``)."""
+        gen, self._gen = self._gen, None
+        if gen is not None:
+            gen.close()
+
+    def stats(self) -> Dict[str, float]:
+        return {}
+
+
+_WORKER_DATASET = None
+
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_get(idx: int):
+    return _WORKER_DATASET[idx]
+
+
 class _PrefetchIterator:
     """One live prefetch stream: a thread fills a bounded queue from the
     wrapped loader; the consumer pops with starvation accounting."""
@@ -305,7 +377,8 @@ class PrefetchLoader:
         self.loader.close()
 
     def skips_at(self, consumed_samples: int):
-        return self.loader.skips_at(consumed_samples)
+        inner = getattr(self.loader, "skips_at", None)
+        return inner(consumed_samples) if callable(inner) else None
 
     def stats(self) -> Dict[str, float]:
         out: Dict[str, float] = dict(self.loader.stats())
@@ -327,8 +400,8 @@ class PrefetchLoader:
 
     @property
     def skips(self) -> int:
-        return self.loader.skips
+        return getattr(self.loader, "skips", 0)
 
     @property
     def skip_events(self) -> List[Dict]:
-        return self.loader.skip_events
+        return getattr(self.loader, "skip_events", [])

@@ -18,9 +18,11 @@ from paddlefleetx_tpu_torch.data.batch_sampler import (
     DataLoader,
     DistributedBatchSampler,
     PrefetchLoader,
+    WorkerLoader,
     collate_stack,
 )
 from paddlefleetx_tpu_torch.models.common import fold_in
+from paddlefleetx_tpu_torch.utils.log import logger
 from paddlefleetx_tpu_torch.utils.registry import DATASETS
 
 # the JAX SeedTracker's id of the data stream (parallel/seed.py _STREAM_IDS)
@@ -46,16 +48,12 @@ def build_dataloader(cfg, mode: str, dataset=None, consumed_samples: int = 0):
     """Dataset, sampler and loader for a config mode (Train/Eval/Test).
     The Train dataset holds ``max_steps x global_batch_size`` samples;
     ``consumed_samples`` (from a restored checkpoint's meta) resumes the
-    data order mid-epoch.  ``loader.num_workers > 0`` (``WorkerLoader``)
-    is refused; ``loader.prefetch > 0`` wraps the loader in a
-    ``PrefetchLoader``."""
+    data order mid-epoch.  ``loader.num_workers > 0`` fetches the samples
+    in worker processes (``WorkerLoader``); ``loader.prefetch > 0`` wraps
+    the loader in a ``PrefetchLoader``."""
     loader_cfg = cfg.Data[mode].get("loader", {}) or {}
-    if int(loader_cfg.get("num_workers", 0) or 0) > 0:
-        raise NotImplementedError(
-            f"Data.{mode}.loader.num_workers > 0: the worker-process loader (WorkerLoader) "
-            "is not ported yet; set num_workers to 0 (loader.prefetch > 0 overlaps host "
-            "assembly with the device step in a thread)"
-        )
+    num_workers = int(loader_cfg.get("num_workers", 0) or 0)
+    max_skips = int(loader_cfg.get("max_skips", 0) or 0)
     if dataset is None:
         extra = {}
         if mode == "Train":
@@ -70,8 +68,16 @@ def build_dataloader(cfg, mode: str, dataset=None, consumed_samples: int = 0):
         drop_last=bool(sampler_cfg.get("drop_last", True)),
         seed=data_seed(cfg.Global.get("seed", 1024)), consumed_samples=consumed_samples,
     )
-    loader = DataLoader(dataset, sampler, collate_stack,
-                        max_skips=int(loader_cfg.get("max_skips", 0) or 0))
+    if num_workers > 0:
+        if max_skips:
+            logger.warning(
+                "Data.%s.loader.max_skips is an inline-loader feature; "
+                "WorkerLoader (num_workers>0) propagates sample errors "
+                "loudly instead of substituting", mode
+            )
+        loader = WorkerLoader(dataset, sampler, collate_stack, num_workers)
+    else:
+        loader = DataLoader(dataset, sampler, collate_stack, max_skips=max_skips)
     prefetch = int(loader_cfg.get("prefetch", 0) or 0)
     if prefetch > 0:
         loader = PrefetchLoader(loader, depth=prefetch,

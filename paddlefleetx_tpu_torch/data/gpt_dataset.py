@@ -18,8 +18,9 @@ the cache key is the JAX package's, so both packages read each other's
 caches.  The same corpus, split, seed and seq_len give the JAX package's
 samples bit for bit.
 
-``LM_Eval_Dataset`` and ``Lambada_Eval_Dataset`` come with the eval
-module (not ported).
+``LM_Eval_Dataset`` (``LMEvalDataset:327``) and ``Lambada_Eval_Dataset``
+(``LambadaEvalDataset:364``) are the zero-shot evaluation sets of
+``models/gpt/evaluation.py``.
 """
 
 from __future__ import annotations
@@ -154,6 +155,17 @@ class GPTDataset:
     def __len__(self) -> int:
         return self.num_samples
 
+    def __getstate__(self):
+        # the token file travels as its path (a worker process maps it
+        # again), never as a copy of its bytes
+        state = dict(self.__dict__)
+        state["tokens"] = None
+        return state
+
+    def __setstate__(self, state) -> None:
+        self.__dict__.update(state)
+        self.tokens = np.load(self.prefix + "_ids.npy", mmap_mode="r")
+
     def _doc_tokens(self, doc: int, start: int, end: Optional[int] = None) -> np.ndarray:
         g = self.doc_lo + doc
         a = self.doc_offsets[g] + start
@@ -238,6 +250,64 @@ class BlendedGPTDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         i = idx % self.num_samples
         return self.children[int(self.ds_index[i])][int(self.ds_sample[i])]
+
+
+@DATASETS.register("LM_Eval_Dataset")
+class LMEvalDataset:
+    """Overlapping-window LM perplexity eval: windows of ``seq_len`` at a
+    stride of ``overlapping_eval``; only a window's new tokens count in
+    its loss mask."""
+
+    def __init__(self, tokens: np.ndarray, seq_len: int = 1024, overlapping_eval: int = 32,
+                 **_):
+        self.tokens = np.asarray(tokens, dtype=np.int64)
+        self.seq_len = seq_len
+        self.stride = overlapping_eval
+        total = len(self.tokens)
+        self.num = max(1, 1 + max(0, (total - seq_len - 1 + self.stride - 1) // self.stride))
+
+    def __len__(self):
+        return self.num
+
+    def __getitem__(self, i: int):
+        start = i * self.stride
+        seq = self.tokens[start:start + self.seq_len + 1]
+        pad = self.seq_len + 1 - len(seq)
+        if pad:
+            seq = np.concatenate([seq, np.zeros(pad, np.int64)])
+        mask = np.ones(self.seq_len, np.float32)
+        if pad:
+            mask[-pad:] = 0.0
+        if i > 0:  # only the non-overlapping tail counts
+            mask[:self.seq_len - self.stride] = 0.0
+        return {"tokens": seq[:-1], "labels": seq[1:], "loss_mask": mask,
+                "position_ids": np.arange(self.seq_len, dtype=np.int64)}
+
+
+@DATASETS.register("Lambada_Eval_Dataset")
+class LambadaEvalDataset:
+    """LAMBADA-style last-word accuracy: ``examples`` are (context ids,
+    target ids) pairs; the loss mask covers only the target's tokens."""
+
+    def __init__(self, examples, seq_len: int = 1024, **_):
+        self.examples = examples
+        self.seq_len = seq_len
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i: int):
+        ctx, tgt = self.examples[i]
+        seq = np.concatenate([ctx, tgt]).astype(np.int64)[:self.seq_len + 1]
+        pad = self.seq_len + 1 - len(seq)
+        if pad:
+            seq = np.concatenate([seq, np.zeros(pad, np.int64)])
+        mask = np.zeros(self.seq_len, np.float32)
+        lo = max(len(ctx) - 1, 0)
+        hi = min(len(ctx) - 1 + len(tgt), self.seq_len)
+        mask[lo:hi] = 1.0
+        return {"tokens": seq[:-1], "labels": seq[1:], "loss_mask": mask,
+                "position_ids": np.arange(self.seq_len, dtype=np.int64)}
 
 
 def write_synthetic_corpus(prefix: str, vocab_size: int = 50304, num_docs: int = 64,

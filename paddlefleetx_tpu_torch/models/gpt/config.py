@@ -39,7 +39,7 @@ class GPTConfig:
     # training LayerNorms through the fused kernels K1/K2 (ops/fused_layernorm);
     # serving keeps the plain LayerNorm
     use_fused_ln: bool = False
-    # chunked softmax-CE: not ported yet, refused in training
+    # chunked softmax-CE (ops/chunked_ce.py): the logits never materialize
     use_chunked_ce: bool = False
     ce_chunk_size: int = 4096
     # attention: "xla" (plain PyTorch) | "flash" (ops/flash_attention.py);
@@ -58,7 +58,9 @@ class GPTConfig:
     sequence_parallel: bool = False
     # compute dtype for activations (serving stores weights in it; the
     # training model keeps float32 masters and casts per use).  LayerNorm
-    # params stay float32 either way.
+    # params stay float32 either way.  float16 trains (under the engine's
+    # dynamic loss scaling) and is refused by the servers: K7-K9 take no
+    # float16.
     dtype: str = "bfloat16"
     # MoE is not ported yet: > 1 raises
     num_experts: int = 0
@@ -93,8 +95,8 @@ class GPTConfig:
                 f"flash_bwd {self.flash_bwd!r}; valid: '' (auto), split, fused"
             )
         object.__setattr__(self, "recompute_names", ",".join(names))
-        if self.dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"dtype {self.dtype!r}; valid: float32, bfloat16")
+        if self.dtype not in ("float32", "bfloat16", "float16"):
+            raise ValueError(f"dtype {self.dtype!r}; valid: float32, bfloat16, float16")
         if self.num_experts > 1:
             raise NotImplementedError(
                 "MoE GPT is not ported yet (a later slice of the port)"

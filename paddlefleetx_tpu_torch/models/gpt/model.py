@@ -6,7 +6,7 @@ Counterpart of ``paddlefleetx_tpu/models/gpt/model.py`` (parameters
 :180, ``_mlp_block`` :251, ``_decoder_layer`` :274, the non-pipelined
 ``transformer_stack`` :303-367, ``_embed`` :370 (here ``embed``),
 ``forward_hidden`` :391, ``forward`` :423, ``cross_entropy`` :450,
-``loss_fn`` :581).
+``loss_fn`` :581, with ``ops/chunked_ce.py`` under ``use_chunked_ce``).
 Architecture: learned word + position embeddings, pre-LayerNorm decoder
 blocks (fused-qkv attention, tanh-GELU MLP), final LayerNorm, LM head
 tied to the word embedding.
@@ -43,12 +43,13 @@ from torch.utils.checkpoint import (
 from paddlefleetx_tpu_torch.models.common import checkpoint_name, dropout, fold_in, split
 from paddlefleetx_tpu_torch.models.gpt.config import GPTConfig
 from paddlefleetx_tpu_torch.ops.attention import attention
+from paddlefleetx_tpu_torch.ops.chunked_ce import chunked_cross_entropy
 from paddlefleetx_tpu_torch.ops.fused_layernorm import fused_layer_norm
 
 # (shape, initializer) with initializer in {"normal", "ones", "zeros"}
 Spec = Tuple[Tuple[int, ...], str]
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _layer_specs(cfg: GPTConfig) -> Dict[str, Dict[str, Spec]]:
@@ -167,9 +168,11 @@ def layer_norm(
     and ``bias`` are float32), cast back to ``x.dtype`` at the end —
     ``paddlefleetx_tpu/models/gpt/model.py:138-150``.  ``fused``
     (``Model.use_fused_ln``) takes the fused kernels K1/K2
-    (``ops/fused_layernorm``), the same math."""
+    (``ops/fused_layernorm``), the same math, with the affine in float32
+    whatever the parameters' type (``Optimizer.multi_precision: False``
+    keeps them in bfloat16)."""
     if fused:
-        return fused_layer_norm(x, scale, bias, eps=eps)
+        return fused_layer_norm(x, scale.float(), bias.float(), eps=eps)
     dtype = x.dtype
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
@@ -362,11 +365,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def check_trainable(cfg: GPTConfig) -> None:
     """Refuse, loudly, the training features the port does not have yet."""
-    if cfg.use_chunked_ce:
-        raise NotImplementedError(
-            "use_chunked_ce: chunked cross-entropy is not ported yet (a later "
-            "slice of the PyTorch port); set Model.use_chunked_ce=False"
-        )
     if cfg.attn_impl == "ring":
         raise NotImplementedError(
             "attn_impl=ring: context parallelism comes with the parallel layouts "
@@ -382,10 +380,16 @@ def check_trainable(cfg: GPTConfig) -> None:
 def loss_fn(model: GPTModel, batch: Dict[str, torch.Tensor], cfg: GPTConfig, *,
             dropout_seed: Optional[int] = None, train: bool = True) -> torch.Tensor:
     """batch: tokens [b, s], labels [b, s], loss_mask [b, s] and
-    position_ids (optional) -> the masked-mean loss, float32 scalar."""
+    position_ids (optional) -> the masked-mean loss, float32 scalar.
+    ``use_chunked_ce`` streams the vocabulary through
+    ``ops/chunked_ce.chunked_cross_entropy`` (``ce_chunk_size`` rows a
+    chunk) instead of materializing the logits."""
     check_trainable(cfg)
     hidden = forward_hidden(model, batch["tokens"], cfg,
                             position_ids=batch.get("position_ids"),
                             dropout_seed=dropout_seed, train=train)
+    if cfg.use_chunked_ce:
+        return chunked_cross_entropy(hidden, model.embeddings.word, batch["labels"],
+                                     batch.get("loss_mask"), chunk=cfg.ce_chunk_size)
     logits = logits_from_hidden(model, hidden)
     return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))

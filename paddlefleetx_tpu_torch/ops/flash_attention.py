@@ -21,9 +21,10 @@ Two spellings of every kernel, chosen by the tensors' device only:
     are held against.
 
 On the card the route is chosen by the input type and nothing else
-(:func:`kernel_route`): bfloat16 K3-K6 take the tensor-core kernels of
-``csrc/flash_attention_sm90.cu`` (``wgmma`` on TMA-fed shared-memory
-rings; route ``sm90``); float32 K3-K6 take the CUDA-core kernels of
+(:func:`kernel_route`): bfloat16 and float16 K3-K6 take the tensor-core
+kernels of ``csrc/flash_attention_sm90.cu`` (``wgmma`` on TMA-fed
+shared-memory rings, one template per element type; route ``sm90``);
+float32 K3-K6 take the CUDA-core kernels of
 ``csrc/flash_attention.cu`` (route ``cuda_core``; float32 stays in full
 FP32 there, where tensor cores would make it TF32).  Anything neither
 route takes raises in :func:`_check_inputs`.  A CUDA tensor reaches a
@@ -58,6 +59,8 @@ import torch
 from torch import Tensor
 
 NEG_INF = -1e30
+# the element types of the tensor-core route
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 # (query, key) tile of each kernel per route: the block at which the plain
@@ -86,9 +89,9 @@ COUNTS = {
 def kernel_route(name: str, dtype: torch.dtype) -> str:
     """The route a CUDA launch of kernel ``name`` takes for inputs of
     ``dtype``: "sm90" (``csrc/flash_attention_sm90.cu``, tensor cores) for
-    bfloat16, else "cuda_core" (``csrc/flash_attention.cu``).  Every
-    kernel has both."""
-    return "sm90" if dtype == torch.bfloat16 else "cuda_core"
+    bfloat16 and float16, else "cuda_core" (``csrc/flash_attention.cu``).
+    Every kernel has both."""
+    return "sm90" if dtype in _SM90_DTYPES else "cuda_core"
 
 
 def kernel_tile(name: str, dtype: torch.dtype) -> Tuple[int, int]:
@@ -231,13 +234,21 @@ def flash_forward(q: Tensor, k: Tensor, v: Tensor, scale: float,
     return out, lse
 
 
-def _bwd_tile(qb, kb, vb, dob, lse_b, delta_b, mask, scale, dtype):
+def _bwd_tile(qb, kb, vb, dob, lse_b, delta_b, mask, scale, dtype, origin=False):
     """The shared tile math of ``_bwd_tile`` (float32 blocks in): p from
     the saved lse, ds = p * (do.v - delta) * scale.  Returns (p, ds), both
-    rounded to the input type ``dtype`` and back to float32."""
+    rounded to the input type ``dtype`` and back to float32.  ``origin``:
+    the tile holds (query 0, key 0).  Query 0 sees key 0 alone, so out[0]
+    is v[0] and do.v - delta is 0 in exact arithmetic; two summation
+    orders leave rounding noise there that is all of dq's row 0.  In
+    float16 (22-bit products, no order agrees) do.v is taken as delta at
+    (0, 0), as the tensor-core kernels take it; bfloat16's product and the
+    kernels' index-order sum agree (16-bit products)."""
     sc = scale * torch.bmm(qb, kb.transpose(1, 2))
     p = torch.where(mask, torch.exp(sc - lse_b[..., None]), torch.zeros_like(sc))
     dov = torch.bmm(dob, vb.transpose(1, 2))
+    if origin and dtype == torch.float16:
+        dov[:, 0, 0] = delta_b[:, 0]
     ds = p * (dov - delta_b[..., None]) * scale
     return p.to(dtype).float(), ds.to(dtype).float()
 
@@ -260,7 +271,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, block):
             vb = v[:, j * bk:(j + 1) * bk].float()
             mask = _mask(rows, j * bk + torch.arange(kb.shape[1], device=dev))
             _, ds = _bwd_tile(qb, kb, vb, dob, lse[:, r0:r0 + nq], delta[:, r0:r0 + nq],
-                              mask, scale, k.dtype)
+                              mask, scale, k.dtype, origin=qi == 0 and j == 0)
             acc = acc + torch.bmm(ds, kb)
         dq[:, r0:r0 + nq] = acc.to(q.dtype)
     return dq
@@ -299,7 +310,7 @@ def _dkv_sweep(q, k, v, do, lse, delta, scale, block, with_dq):
             nq = qb.shape[1]
             mask = _mask(r0 + torch.arange(nq, device=dev), cols)
             p_lo, ds = _bwd_tile(qb, kb, vb, dob, lse[:, r0:r0 + nq], delta[:, r0:r0 + nq],
-                                 mask, scale, q.dtype)
+                                 mask, scale, q.dtype, origin=kj == 0 and i == 0)
             dv_acc = dv_acc + torch.bmm(p_lo.transpose(1, 2), dob)
             dk_acc = dk_acc + torch.bmm(ds.transpose(1, 2), qb)
             if with_dq:
@@ -323,7 +334,9 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale, block):
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_SM90: Optional[ctypes.CDLL] = None
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# element-type codes of the entry points (csrc/flash_attention.cu takes 0
+# and 1, csrc/flash_attention_sm90.cu 1 and 2)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -353,7 +366,7 @@ def _lib_sm90() -> ctypes.CDLL:
 
         lib = _build.load("flash_attention_sm90")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [i32, i32, i32, f32, ptr]  # bh, s, d, scale, stream
+        tail = [i32, i32, i32, f32, i32, ptr]  # bh, s, d, scale, dtype, stream
         lib.flash_fwd_sm90.argtypes = [ptr] * 5 + tail
         lib.flash_bwd_dq_sm90.argtypes = [ptr] * 7 + tail
         lib.flash_bwd_dkv_sm90.argtypes = [ptr] * 8 + tail
@@ -369,14 +382,14 @@ def _lib_sm90() -> ctypes.CDLL:
 
 def _check_inputs(name: str, tensors, stats=()) -> None:
     """What the kernels take: [bh, s, d] contiguous CUDA tensors of one
-    type (float32 or bfloat16) on one device, d in 64 or 128; ``stats``
+    type (float32, bfloat16 or float16) on one device, d in 64 or 128; ``stats``
     (lse, delta) float32 [bh, s] contiguous on the same device."""
     q = tensors[0]
     if q.dim() != 3:
         raise ValueError(f"{name}: inputs must be [bh, s, d], got {tuple(q.shape)}")
     bh, s, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {q.dtype}; valid: float32, bfloat16")
+        raise ValueError(f"{name}: dtype {q.dtype}; valid: float32, bfloat16, float16")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d}; the kernel takes {_HEAD_DIMS}")
     for x in tensors:
@@ -400,7 +413,7 @@ def _call(name: str, q: Tensor, scale: float, *ptrs: int) -> None:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if kernel_route(name, q.dtype) == "sm90":
         lib, fn = _lib_sm90(), f"{name}_sm90"
-        rc = getattr(lib, fn)(*ptrs, bh, s, d, float(scale), stream)
+        rc = getattr(lib, fn)(*ptrs, bh, s, d, float(scale), _DTYPE_CODES[q.dtype], stream)
         err = lib.flash_sm90_error_string
     else:
         lib, fn = _lib(), name
@@ -446,8 +459,8 @@ def launch_bwd_split(q, k, v, do, lse, delta, scale):
 
 
 def launch_bwd_fused(q, k, v, do, lse, delta, scale):
-    """K6 on the card: dq accumulated in a zeroed float32 slab (bf16: TMA
-    reduce-adds of whole tiles; float32: atomics; either way the order of
+    """K6 on the card: dq accumulated in a zeroed float32 slab (bf16, f16:
+    TMA reduce-adds of whole tiles; float32: atomics; either way the order of
     the adds varies from run to run), then cast to q's type; (dq, dk,
     dv)."""
     _check_inputs("flash_bwd_fused", (q, k, v, do), (lse, delta))

@@ -49,10 +49,10 @@ COUNTS = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_ln_fwd_plain": 0,
 
 # The register paths of K1 and K2 (csrc/fused_layernorm.cu, up to 8 16-byte
 # vectors per lane and tensor) take rows up to this n, where n is a multiple
-# of the vector (8 bf16, 4 float32) and the tensors are 16-byte aligned;
+# of the vector (8 bf16 or float16, 4 float32) and the tensors are 16-byte aligned;
 # other rows take the strided paths.  Both are held against the plain
 # version.  The kernels choose the path themselves (register_vecs asks them).
-REGISTER_MAX_N = {torch.float32: 1024, torch.bfloat16: 2048}
+REGISTER_MAX_N = {torch.float32: 1024, torch.bfloat16: 2048, torch.float16: 2048}
 
 
 def reset_counts() -> None:
@@ -102,7 +102,7 @@ def layer_norm_bwd_plain(x2: Tensor, res2: Optional[Tensor], scale: Tensor, mean
 # ---------------------------------------------------------------------------
 
 _LIB: Optional[ctypes.CDLL] = None
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,14 +140,14 @@ def register_vecs(dtype: torch.dtype, n: int, *ptrs: Optional[int]) -> int:
 
 def _check_inputs(name: str, rows_tensors, vecs, stats=()) -> None:
     """What the kernels take: [rows, n] contiguous CUDA tensors of one
-    type (float32 or bfloat16) on one device; ``vecs`` (scale, bias)
+    type (float32, bfloat16 or float16) on one device; ``vecs`` (scale, bias)
     float32 [n]; ``stats`` (mean, rstd) float32 [rows]; all contiguous."""
     x = rows_tensors[0]
     if x.dim() != 2:
         raise ValueError(f"{name}: inputs must be [rows, n], got {tuple(x.shape)}")
     rows, n = x.shape
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {x.dtype}; valid: float32, bfloat16")
+        raise ValueError(f"{name}: dtype {x.dtype}; valid: float32, bfloat16, float16")
     for t in rows_tensors:
         if tuple(t.shape) != (rows, n) or t.dtype != x.dtype:
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} vs x {x.dtype} "

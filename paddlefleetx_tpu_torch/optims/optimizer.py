@@ -18,8 +18,14 @@ decoder-layer leaf is decayed, its LayerNorm and 1-D biases included,
 and of the top-level leaves only ``final_ln``'s scale and bias are not.
 :func:`decay_mask` computes that from the port's parameter names.
 
-``moment_dtype: bfloat16`` and ``multi_precision: False`` are refused:
-the port keeps float32 masters and float32 moments.
+Low-precision state, as optax keeps it (JAX ``adamw:82-105``):
+``moment_dtype: bfloat16`` stores Adam's first moment in bfloat16 (optax
+``mu_dtype``): the update is built from the float32 moment, and only the
+stored moment is rounded.  With ``Optimizer.multi_precision: False`` the
+engine keeps the parameters themselves in the compute type, and every
+moment follows them (``zeros_like``).  Where a leaf is low precision, each
+step's float32 constants round to its type first (the bias corrections,
+the learning rate), as optax casts them to the leaf's dtype.
 """
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -84,21 +90,36 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(1 - torch.tensor(decay, dtype=torch.float32) ** count)
 
 
-def scale_by_adam(b1: float, b2: float, eps: float) -> GradientTransformation:
+def _as(value: float, dtype: torch.dtype) -> float:
+    """A float32 constant rounded to ``dtype`` (optax's cast of a step's
+    constant to the leaf's dtype; a no-op for float32)."""
+    return value if dtype == torch.float32 else float(torch.tensor(value).to(dtype))
+
+
+def scale_by_adam(b1: float, b2: float, eps: float,
+                  mu_dtype: Optional[torch.dtype] = None) -> GradientTransformation:
     """optax.scale_by_adam: moments, then bias correction by 1 - b**t with
-    t the count after this step."""
+    t the count after this step.  ``mu_dtype``: the stored first moment's
+    type (None: the parameter's), rounded to after the update is built."""
 
     def init(params):
         return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "mu": {n: torch.zeros_like(p, dtype=mu_dtype) for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def update(updates, state, params):
-        mu = {n: (1 - b1) * g + b1 * state["mu"][n] for n, g in updates.items()}
-        nu = {n: (1 - b2) * (g * g) + b2 * state["nu"][n] for n, g in updates.items()}
+        mu, nu = {}, {}
+        for n, g in updates.items():
+            m, v = state["mu"][n], state["nu"][n]
+            mu[n] = _as(1 - b1, g.dtype) * g + _as(b1, m.dtype) * m
+            nu[n] = _as(1 - b2, g.dtype) * (g * g) + _as(b2, v.dtype) * v
         count = state["count"] + 1
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        out = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps) for n in updates}
+        out = {n: (mu[n] / _as(c1, mu[n].dtype))
+               / (torch.sqrt(nu[n] / _as(c2, nu[n].dtype)) + _as(eps, nu[n].dtype))
+               for n in updates}
+        if mu_dtype is not None:
+            mu = {n: m.to(mu_dtype) for n, m in mu.items()}
         return out, {"count": count, "mu": mu, "nu": nu}
 
     return GradientTransformation(init, update)
@@ -109,7 +130,7 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
 
     def update(updates, state, params):
         use = decay_mask(params)
-        return {n: (u + weight_decay * params[n]) if use[n] else u
+        return {n: (u + _as(weight_decay, params[n].dtype) * params[n]) if use[n] else u
                 for n, u in updates.items()}, state
 
     return GradientTransformation(lambda params: (), update)
@@ -121,7 +142,8 @@ def scale_by_schedule(step_size: Callable[[int], Tensor]) -> GradientTransformat
 
     def update(updates, state, params):
         s = float(step_size(state["count"]))
-        return {n: s * u for n, u in updates.items()}, {"count": state["count"] + 1}
+        return ({n: _as(s, u.dtype) * u for n, u in updates.items()},
+                {"count": state["count"] + 1})
 
     return GradientTransformation(lambda params: {"count": 0}, update)
 
@@ -164,19 +186,13 @@ def adamw(
     moment_dtype: Optional[str] = None,
     **_unused,
 ) -> GradientTransformation:
-    if moment_dtype not in (None, "", "float32"):
-        raise NotImplementedError(
-            f"Optimizer.moment_dtype={moment_dtype!r}: the PyTorch port keeps "
-            "float32 moments (low-precision moments are not ported yet)"
-        )
-    if not multi_precision:
-        raise NotImplementedError(
-            "Optimizer.multi_precision=False: the PyTorch port keeps float32 "
-            "master weights (low-precision params are not ported yet)"
-        )
+    """``moment_dtype`` (e.g. "bfloat16"): the stored first moment's type.
+    ``multi_precision`` is the engine's (it keeps the params, and so the
+    moments, in the compute type when False)."""
+    mu_dtype = getattr(torch, str(moment_dtype)) if moment_dtype else None
     return chain(
         *_clip(grad_clip),
-        scale_by_adam(beta1, beta2, epsilon),
+        scale_by_adam(beta1, beta2, epsilon, mu_dtype),
         add_decayed_weights(weight_decay),
         scale_by_learning_rate(schedule),
     )

@@ -74,6 +74,7 @@ def main(argv=None) -> int:
     if "Eval" in (cfg.get("Data") or {}) and engine.eval_freq:
         eval_loader = build_dataloader(cfg, "Eval")
     engine.fit(train_loader, eval_loader)
+    engine.wait_for_save()  # an asynchronous save's write error fails the run here
 
     skips = int(getattr(train_loader, "skips", 0) or 0)
     if skips:
@@ -87,6 +88,7 @@ def main(argv=None) -> int:
         return 0
     if engine.save_steps and engine._last_good_ckpt != engine.checkpoint_path():
         engine.save()
+        engine.wait_for_save()
     return 0
 
 

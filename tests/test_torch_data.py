@@ -269,5 +269,12 @@ def test_build_dataloader(corpora, tmp_path):
     pre = build_dataloader(_cfg(str(tmp_path), prefetch=2), "Train")
     assert isinstance(pre, bs.PrefetchLoader)
     pre.close()
-    with pytest.raises(NotImplementedError, match="WorkerLoader"):
-        build_dataloader(_cfg(str(tmp_path), num_workers=2), "Train")
+    # num_workers > 0 (refused until the worker loader was ported): sample
+    # fetches in worker processes, the inline loader's batches
+    workers = build_dataloader(_cfg(str(tmp_path), num_workers=2), "Train")
+    assert isinstance(workers, bs.WorkerLoader) and workers.num_workers == 2
+    try:
+        got, want = next(iter(workers)), next(iter(build_dataloader(cfg, "Train")))
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+    finally:
+        workers.close()

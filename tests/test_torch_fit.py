@@ -368,15 +368,33 @@ def test_train_cli_without_card_raises(data_dir, tmp_path):
 REFUSED = {
     "profiler": ({"Profiler": {"enable": True}}, {}),
     "consistency_check": ({"Engine": {"consistency_check_freq": 5}}, {}),
-    "async_save": ({"Engine": {"save_load": {"async_save": True}}}, {}),
     "fault_injection": ({}, {"PFX_FAULT": "nan_grads:3"}),
     "tracing": ({}, {"PFX_TRACE_SAMPLE": "1"}),
     "flight_recorder": ({}, {"PFX_FLIGHT_RECORDER": "flight.jsonl"}),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + ["pretrained_params", "worker_loader"])
-def test_fit_refuses_what_is_not_ported(name, tmp_path, monkeypatch, data_dir):
+# refused until their port landed, each case now holds the ported feature:
+# "async_save", "pretrained_params", "worker_loader"
+@pytest.mark.parametrize("name", sorted(REFUSED) + ["async_save", "pretrained_params",
+                                                    "worker_loader"])
+def test_fit_refuses_what_is_not_ported(name, tmp_path, monkeypatch, data_dir, corpus):
+    if name == "async_save":
+        # a fit saving asynchronously writes the synchronous fit's checkpoints
+        paths = {}
+        for mode in (False, True):
+            raw = _raw(tmp_path / str(mode), Engine={
+                "max_steps": 4, "save_load": {"save_steps": 2, "async_save": mode}})
+            engine = _port_engine(raw)
+            engine.fit(_loader(gd, bs, corpus, "Train", 16))
+            engine.wait_for_save()
+            paths[mode] = latest_checkpoint(str(tmp_path / str(mode) / "out"))
+        assert os.path.basename(paths[True]) == "step_4" and engine.async_save
+        a, b = (torch.load(os.path.join(paths[m], "state.pt"), weights_only=True)
+                for m in (False, True))
+        for n, p in a["params"].items():
+            assert torch.equal(p, b["params"][n]), n
+        return
     if name == "pretrained_params":
         # ported: a warm start from a saved step's params, optimizer state
         # fresh (the JAX engine's params-only restore)
@@ -391,13 +409,22 @@ def test_fit_refuses_what_is_not_ported(name, tmp_path, monkeypatch, data_dir):
         assert all(not m.any() for m in engine.opt_state[1]["mu"].values())
         return
     if name == "worker_loader":
+        # num_workers > 0: the worker-process loader, serving the inline
+        # loader's batches
         from paddlefleetx_tpu_torch.data.builders import build_dataloader
         from paddlefleetx_tpu_torch.utils.config import get_config
 
-        cfg = get_config(CONFIG, _cli_args(data_dir, tmp_path, 2)[3::2]
-                         + ["Data.Train.loader.num_workers=2"])
-        with pytest.raises(NotImplementedError, match="WorkerLoader"):
-            build_dataloader(cfg, "Train")
+        overrides = _cli_args(data_dir, tmp_path, 2)[3::2]
+        loaders = [build_dataloader(get_config(CONFIG, overrides + [f"Data.Train.loader."
+                                                                    f"num_workers={n}"]),
+                                    "Train") for n in (2, 0)]
+        assert isinstance(loaders[0], bs.WorkerLoader)
+        try:
+            got, want = ([next(it) for _ in range(2)] for it in map(iter, loaders))
+            for x, y in zip(got, want):
+                assert all(np.array_equal(x[k], y[k]) for k in y)
+        finally:
+            loaders[0].close()
         return
     sections, env = REFUSED[name]
     for key, val in env.items():

@@ -58,6 +58,12 @@ TEXT_SERVING = ("paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer",
                 "paddlefleetx_tpu_torch.tools.gen_unicode_classes",
                 "paddlefleetx_tpu_torch.utils.checkpoint")
 
+# the rest of the training surface: chunked CE, evaluation (metrics, the
+# eval module, the eval CLI); each imported above without JAX
+TRAINING_REST = ("paddlefleetx_tpu_torch.ops.chunked_ce", "paddlefleetx_tpu_torch.models.metrics",
+                 "paddlefleetx_tpu_torch.models.gpt.evaluation",
+                 "paddlefleetx_tpu_torch.tools.eval")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -76,6 +82,14 @@ def test_port_imports_no_jax():
     assert set(SPECULATIVE) <= set(listed.split()), listed
     assert set(TENANCY) <= set(listed.split()), listed
     assert set(TEXT_SERVING) <= set(listed.split()), listed
+    assert set(TRAINING_REST) <= set(listed.split()), listed
+
+
+def test_eval_without_card_raises():
+    cfg = os.path.join(REPO, "configs", "gpt", "pretrain_gpt_345M_single.yaml")
+    out = _run(["-m", "paddlefleetx_tpu_torch.tools.eval", "-c", cfg])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
 
 
 def test_serve_without_card_raises():

@@ -849,10 +849,17 @@ def test_spec_serving_on_card_matches_plain(scheduler, draft_k):
 # largest error of a row over that row's largest value, and the share of
 # elements that differ at all: set at 2-4x the CUDA-core kernels' readings;
 # the tensor-core K4-K6 read up to 0.93 of the share's limit at head dim
-# 128 (PERF.md).
+# 128 (PERF.md).  float16 takes bfloat16's rules with its own ulp (2**-10
+# of a value, 2**-7 for bf16): the row limit 8x tighter (two ulps either
+# way), the share 16x wider (a float32 sum of another order straddles one of
+# the type's rounding boundaries 8x as often when they lie 8x as close, and
+# p and ds, rounded to the type before their products, flip 8x as often
+# too: chip_smoke.py's ROW_SCALE and DIFFER_SCALE).
 FLASH_TOL = {torch.float32: (1e-4, 2e-4)}
 BF16_ROW_TOL = {"fwd": 2.0**-6, "split": 2.0**-6, "fused": 2.0**-6}
 BF16_DIFFER_TOL = {"fwd": 5e-4, "split": 1.5e-3, "fused": 1.5e-3}
+ROW_SCALE = {torch.bfloat16: 1.0, torch.float16: 2.0**-3}
+DIFFER_SCALE = {torch.bfloat16: 1.0, torch.float16: 16.0}
 
 
 def flash_blocks(fa, dtype):
@@ -891,15 +898,16 @@ def _hold(kernel, got, ref, record):
         key = "abs" if kernel == "fwd" else "of_max"
         assert readings[key] <= FLASH_TOL[dtype][kernel != "fwd"], (kernel, readings)
     else:
-        assert readings["row"] <= BF16_ROW_TOL[kernel], (kernel, readings)
-        assert readings["differ"] <= BF16_DIFFER_TOL[kernel], (kernel, readings)
+        assert readings["row"] <= BF16_ROW_TOL[kernel] * ROW_SCALE[dtype], (kernel, readings)
+        assert readings["differ"] <= BF16_DIFFER_TOL[kernel] * DIFFER_SCALE[dtype], (kernel,
+                                                                                      readings)
 
 
 def _match_plain(dtype, d, s, bh, record_property):
     """K3's out and lse, then K4's dq, K5's dk/dv and K6's dq/dk/dv from
     the same lse, against the plain versions at each kernel's own tile, so
-    both round alike; bf16 by the tensor-core route, f32 by the CUDA-core
-    one (the *_sm90 counts rise for bf16 only).  K6 adds dq with
+    both round alike; bf16 and f16 by the tensor-core route, f32 by the
+    CUDA-core one (the *_sm90 counts rise for bf16 and f16 only).  K6 adds dq with
     reductions in a varying order: a tolerance, not bitwise.  The readings
     go to the junit XML (``record_property``)."""
     dev = _card()
@@ -932,7 +940,7 @@ def _match_plain(dtype, d, s, bh, record_property):
             assert a.dtype == dtype and torch.isfinite(a).all(), (mode, name)
             _hold(mode, a, b, lambda r: record_property(f"{mode}_{name}", r))
     used = {key: fa.COUNTS[key] - before[key] for key in fa.COUNTS}
-    sm90 = int(dtype == torch.bfloat16)
+    sm90 = int(dtype != torch.float32)
     assert used == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                     "flash_bwd_fused": 1, "flash_fwd_sm90": sm90,
                     "flash_bwd_dq_sm90": sm90, "flash_bwd_dkv_sm90": sm90,
@@ -942,17 +950,43 @@ def _match_plain(dtype, d, s, bh, record_property):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [40, 200, 1024])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_flash_kernels_match_plain(dtype, d, s, record_property):
     _match_plain(dtype, d, s, 6, record_property)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_kernels_match_plain_with_more_ctas_than_sms(d, record_property):
+def test_flash_kernels_match_plain_with_more_ctas_than_sms(d, dtype, record_property):
     """b*h = 256 at seq 1024: 2048 CTAs for each of K3-K6, many waves of
-    the 132 SMs (bf16, the tensor-core route)."""
-    _match_plain(torch.bfloat16, d, 1024, 256, record_property)
+    the 132 SMs (bf16 and f16, the tensor-core route)."""
+    _match_plain(dtype, d, 1024, 256, record_property)
+
+
+@pytest.mark.cuda
+def test_flash_f16_overflow_becomes_inf():
+    """Under a float16 loss scale a gradient past 65504 must reach the grads
+    as inf (so the step is skipped), never as the largest finite value:
+    dO scaled by 2**15 overflows ds, dq, dk and dv in the plain version and
+    in K4-K6 alike, and no output holds a saturated +-65504."""
+    dev = _card()
+    from paddlefleetx_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(torch.float16, 64, 256, dev, bh=2)
+    do = (do.float() * 2.0**15).half()
+    scale, blocks = 0.125, flash_blocks(fa, torch.float16)
+    out, lse = fa.launch_fwd(q, k, v, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale)
+    for got, ref in ((fa.launch_bwd_split(*args), fa.flash_bwd_split(*args, blocks["flash_bwd_dq"])),
+                     (fa.launch_bwd_fused(*args),
+                      fa.flash_bwd_fused(*args, blocks["flash_bwd_fused"]))):
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert not torch.isfinite(b).all() and not torch.isfinite(a).all()
+            assert not ((a.abs() == 65504) & ~torch.isfinite(b)).any()
 
 
 @pytest.mark.cuda
@@ -1020,7 +1054,7 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         fa.launch_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
                       v[..., :32].contiguous(), 0.1)  # head dim 32
     with pytest.raises(ValueError):
-        fa.launch_fwd(q.half(), k.half(), v.half(), 0.1)  # float16
+        fa.launch_fwd(q.double(), k.double(), v.double(), 0.1)  # float64
     with pytest.raises(ValueError):
         fa.launch_fwd(q, k.float(), v, 0.1)  # mixed types
     with pytest.raises(ValueError):
@@ -1029,7 +1063,7 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         fa.launch_fwd(q, k.cpu(), v, 0.1)  # device mismatch
     with pytest.raises(ValueError):
         fa.launch_fwd(q[None], k[None], v[None], 0.1)  # not [bh, s, d]
-    # the tensor-core route (bf16 K3-K6): a misaligned tensor, and float16
+    # the tensor-core route (bf16 K3-K6): a misaligned tensor, and mixed types
     odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
     odd.copy_(q)
     assert odd.is_contiguous() and odd.data_ptr() % 16
@@ -1039,15 +1073,15 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         fa.launch_bwd_fused(q, k, odd, q, lse, lse, 0.1)
     with pytest.raises(ValueError):
-        fa.launch_bwd_fused(q.half(), k.half(), v.half(), q.half(), lse, lse, 0.1)
+        fa.launch_bwd_fused(q.half(), k, v, q, lse, lse, 0.1)
     with pytest.raises(ValueError):
         fa.launch_bwd_dq(q, k, odd, q, lse, lse, 0.1)
     with pytest.raises(ValueError):
         fa.launch_bwd_dkv(odd, k, v, q, lse, lse, 0.1)
     with pytest.raises(ValueError):
-        fa.launch_bwd_dq(q.half(), k.half(), v.half(), q.half(), lse, lse, 0.1)
+        fa.launch_bwd_dq(q, k.half(), v, q, lse, lse, 0.1)
     with pytest.raises(ValueError):
-        fa.launch_bwd_dkv(q.half(), k.half(), v.half(), q.half(), lse, lse, 0.1)
+        fa.launch_bwd_dkv(q, k, v, q.half(), lse, lse, 0.1)
 
 
 @pytest.mark.cuda
@@ -1106,11 +1140,14 @@ def _leaves(tree):
 LN_SHAPES = {"gpt345m": (8192, 1024), "odd": (8191, 1000), "tiny": (5, 7), "one_row": (1, 64),
              "wide": (300, 4097), "above_cap": (300, 4096), "at_cap": (300, 2048),
              "past_cap": (300, 2056)}
-# float32: summation order only; bfloat16: outputs within one bf16 ulp
-# (2**-7 of the value) of the plain version's, the float32 sums of the
-# two differing in order; dscale/dbias (float32 sums over the rows) 1e-4
-# of the largest
-LN_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0**-7)}
+# float32: summation order only; bfloat16 and float16: outputs within one
+# ulp of their type (2**-7, 2**-10 of the value) of the plain version's, the
+# float32 sums of the two differing in order; dscale/dbias (float32 sums
+# over the rows) 1e-4 of the largest
+LN_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2.0**-7),
+          torch.float16: (1e-5, 2.0**-10)}
+LN_DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
+                 ids=["f32", "bf16", "f16"])
 
 
 def _ln_case(rows, n, dtype, with_res, dev, seed=0):
@@ -1126,7 +1163,7 @@ def _ln_case(rows, n, dtype, with_res, dev, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_res", [False, True], ids=["plain", "residual"])
 @pytest.mark.parametrize("name", sorted(LN_SHAPES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **LN_DTYPES)
 def test_fused_ln_kernels_match_plain(dtype, name, with_res, record_property):
     from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
 
@@ -1155,7 +1192,7 @@ def test_fused_ln_kernels_match_plain(dtype, name, with_res, record_property):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gpt345m", "odd", "above_cap"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **LN_DTYPES)
 def test_fused_ln_bwd_is_bitwise_repeatable(dtype, name):
     """K2's sums run in a fixed order on both of its paths: the same inputs
     give the same dx, dscale and dbias bits on every call."""
@@ -1173,7 +1210,7 @@ def test_fused_ln_bwd_is_bitwise_repeatable(dtype, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gpt345m", "odd", "at_cap", "past_cap", "tiny"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", **LN_DTYPES)
 def test_fused_ln_fwd_is_bitwise_repeatable(dtype, name):
     """K1 sums each row in a fixed order on both of its paths: the same
     inputs give the same y, mean and rstd bits on every call."""
@@ -1189,13 +1226,33 @@ def test_fused_ln_fwd_is_bitwise_repeatable(dtype, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gpt345m", "tiny"])
+def test_fused_ln_f16_overflow_becomes_inf(name):
+    """float16 stores round to nearest: an output past 65504 is inf in K1's
+    y and K2's dx, as in the plain version, never a saturated value (the
+    register path at "gpt345m", the strided one at "tiny")."""
+    from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
+
+    dev = _card()
+    x, res, scale, bias, gy = _ln_case(*LN_SHAPES[name], torch.float16, True, dev)
+    scale = scale * 2.0**16
+    y, mean, rstd = fl.launch_fwd(x, res, scale, bias, 1e-5)
+    dx, _, _ = fl.launch_bwd(x, res, scale, mean, rstd, gy)
+    ref_y, ref_mean, ref_rstd = fl.layer_norm_fwd_plain(x, res, scale, bias, 1e-5)
+    ref_dx, _, _ = fl.layer_norm_bwd_plain(x, res, scale, ref_mean, ref_rstd, gy)
+    torch.cuda.synchronize()
+    for got, ref in ((y, ref_y), (dx, ref_dx)):
+        assert torch.equal(torch.isinf(got), torch.isinf(ref)) and torch.isinf(ref).any()
+
+
+@pytest.mark.cuda
 def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
     from paddlefleetx_tpu_torch.ops import fused_layernorm as fl
 
     dev = _card()
     x, res, scale, bias, gy = _ln_case(16, 64, torch.bfloat16, True, dev)
     with pytest.raises(ValueError):
-        fl.launch_fwd(x.half(), None, scale, bias, 1e-5)  # float16
+        fl.launch_fwd(x.double(), None, scale, bias, 1e-5)  # float64
     with pytest.raises(ValueError):
         fl.launch_fwd(x, None, scale.bfloat16(), bias, 1e-5)  # bf16 scale
     with pytest.raises(ValueError):
@@ -1205,11 +1262,11 @@ def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         fl.launch_fwd(x, None, scale.cpu(), bias, 1e-5)  # device mismatch
     with pytest.raises(ValueError):
-        fl.fused_ln_fwd(x.half(), None, scale, bias, 1e-5)  # the op: no fallback either
+        fl.fused_ln_fwd(x.double(), None, scale, bias, 1e-5)  # the op: no fallback either
     # a dtype code no kernel takes is refused by the entry point itself
     with pytest.raises(RuntimeError):
         fl._call("fused_ln_fwd", x.data_ptr(), None, scale.data_ptr(), bias.data_ptr(),
-                 x.data_ptr(), x.data_ptr(), x.data_ptr(), 16, 64, 1e-5, 2,
+                 x.data_ptr(), x.data_ptr(), x.data_ptr(), 16, 64, 1e-5, 3,
                  torch.cuda.current_stream().cuda_stream)
 
 
@@ -1220,6 +1277,8 @@ def test_fused_ln_wrapper_rejects_what_the_kernel_does_not_take():
     (torch.bfloat16, 2056, 0), (torch.bfloat16, 1001, 0), (torch.bfloat16, 1004, 0),
     (torch.float32, 1024, 8), (torch.float32, 1028, 0), (torch.float32, 1000, 8),
     (torch.float32, 128, 1), (torch.float32, 1022, 0), (torch.float32, 7, 0),
+    (torch.float16, 1024, 4), (torch.float16, 2048, 8), (torch.float16, 2056, 0),
+    (torch.float16, 1001, 0),
 ])
 def test_register_path_follows_dtype_width_and_alignment(dtype, n, vpl):
     """The path K1 and K2 take, as their library chooses it: 16-byte

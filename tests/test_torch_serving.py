@@ -160,6 +160,14 @@ def test_unported_features_fail_loudly():
                                                        max_dec_len=5)
     want = _server().generate_ids([[4, 5, 6], [9, 10]], max_dec_len=5)
     assert texts == [tok.decode(r) for r in want]
+    # float16 trains (dynamic loss scaling) but is not served: the decode
+    # kernels K7-K9 have no float16 route
+    raw = copy.deepcopy(TINY)
+    raw["Model"]["dtype"] = "float16"
+    cfg = process_configs(AttrDict.from_nested(raw))
+    module = GPTModule(cfg)
+    with pytest.raises(NotImplementedError, match="float16"):
+        GenerationServer(cfg, module, module.init_model(7, "cpu"), torch.device("cpu"))
 
 
 def test_plan_request_and_clamp():

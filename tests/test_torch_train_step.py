@@ -224,9 +224,46 @@ def test_optimizer_matches_optax(name):
 
 
 def test_optimizer_refuses_low_precision_state():
-    for extra in ({"moment_dtype": "bfloat16"}, {"multi_precision": False}):
-        with pytest.raises(NotImplementedError):
-            opt.build_optimizer(dict(OPTIMIZERS["adamw_clip_increments"], **extra))
+    """Low-precision optimizer state is ported: ``moment_dtype: bfloat16``
+    stores mu in bf16 (the update built from the float32 mu first, as optax
+    does) and ``multi_precision: False`` builds (the engine keeps the params
+    in bf16, and every moment follows them); both against optax over 5
+    steps: bf16 params within one bf16 ulp of each leaf's largest value
+    (equal bit for bit when read), bf16 moments over float32 params within
+    2**-10 of it (XLA may contract mu's float32 sum into one fused
+    multiply-add, so a stored bf16 moment can round the other way: 3.3e-5
+    read)."""
+    cfg = GPTConfig(**MODEL)
+    tree = _tree()
+    rng = np.random.default_rng(6)
+    grads = [jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32), tree)
+             for _ in range(5)]
+    for extra, dtype, tol in (({"moment_dtype": "bfloat16"}, torch.float32, 2.0**-10),
+                              ({"multi_precision": False}, torch.bfloat16, 2.0**-8)):
+        spec = dict(OPTIMIZERS["adamw_clip_increments"], **extra)
+        jtx, _ = jax_opt.build_optimizer(copy.deepcopy(spec), count_scale=4)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        jparams = jax.tree.map(lambda x: jnp.asarray(x, jdt), tree)
+        jstate = jtx.init(jparams)
+        tx, _ = opt.build_optimizer(copy.deepcopy(spec), count_scale=4)
+        model = params_from_jax(cfg, tree, trainable=True).to(dtype)
+        params = dict(model.named_parameters())
+        state = tx.init(params)
+        assert {m.dtype for m in state[1]["mu"].values()} == {torch.bfloat16}
+        assert {m.dtype for m in state[1]["nu"].values()} == {dtype}
+        for g in grads:
+            updates, jstate = jtx.update(jax.tree.map(lambda x: jnp.asarray(x, jdt), g),
+                                         jstate, jparams)
+            jparams = optax.apply_updates(jparams, updates)
+            named = {n: t.to(dtype) for n, t in _port_named(g, cfg).items()}
+            updates, state = tx.update(named, state, params)
+            opt.apply_updates(params, updates)
+        assert {p.dtype for p in params.values()} == {dtype}
+        for (path, got), want in zip(jax.tree_util.tree_leaves_with_path(params_to_jax(model)),
+                                     jax.tree.leaves(jparams)):
+            want = np.asarray(want, np.float32)
+            assert np.abs(got - want).max() <= tol * np.abs(want).max(), (
+                extra, jax.tree_util.keystr(path))
 
 
 # ---------------------------------------------------------------------------
@@ -296,37 +333,52 @@ def test_engine_train_step_matches_jax(jax_engine):
 
 
 REFUSED = {
-    "chunked_ce": {"Model": {"use_chunked_ce": True}},
     "ring_attention": {"Model": {"attn_impl": "ring"}},
     "sequence_parallel": {"Distributed": {"sequence_parallel": True}},
-    "fp16_loss_scaling": {"Engine": {"mix_precision": {"enable": True, "dtype": "float16"}},
-                          "Model": {"dtype": "bfloat16"}},
-    "main_grad_off": {"Engine": {"mix_precision": {"enable": True, "dtype": "bfloat16",
-                                                   "main_grad": False}},
-                      "Model": {"dtype": "bfloat16"}},
     "qat": {"Compress": {"Quantization": {"enable": True}}},
     "offload": {"Distributed": {"sharding": {"sharding_degree": 1, "offload": True}}},
     "model_stats": {"Engine": {"logging": {"model_stats_every": 5}}},
-    "bf16_moments": {"Optimizer": {"moment_dtype": "bfloat16"}},
     "parallel_degree": {"Distributed": {"mp_degree": 2}},
 }
 
+_BF16 = {"Engine": {"mix_precision": {"enable": True, "dtype": "bfloat16"}},
+         "Model": {"dtype": "bfloat16"}}
+# refused until its port landed; each case now holds the step against the
+# step without it (overrides, baseline): the same math, so the loss and
+# the grad norm agree to float32 rounding, except main_grad=False's norm,
+# taken over bfloat16 grads (one bf16 rounding of each grad)
+PORTED = {
+    "fused_ln": ({"Model": {"use_fused_ln": True}}, {}),
+    "chunked_ce": ({"Model": {"use_chunked_ce": True, "ce_chunk_size": 40}}, {}),
+    "bf16_moments": ({"Optimizer": {"moment_dtype": "bfloat16"}}, {}),
+    "main_grad_off": ({"Engine": {"mix_precision": {"enable": True, "dtype": "bfloat16",
+                                                    "main_grad": False}},
+                       "Model": {"dtype": "bfloat16"}}, _BF16),
+}
+# float16 loss scaling is ported; this case pins Model.dtype=bfloat16 against
+# mix_precision.dtype=float16, which the JAX engine refuses with ValueError
+CONTRADICTS = {"fp16_loss_scaling": {"Engine": {"mix_precision": {"enable": True,
+                                                                  "dtype": "float16"}},
+                                     "Model": {"dtype": "bfloat16"}}}
 
-# refused until its port landed; its case now holds the step against the
-# unfused one (the same math: equal on the CPU to float32 rounding)
-PORTED = {"fused_ln": {"Model": {"use_fused_ln": True}}}
 
-
-@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(PORTED))
+@pytest.mark.parametrize("name", sorted(REFUSED) + sorted(PORTED) + sorted(CONTRADICTS))
 def test_training_refuses_what_is_not_ported(name):
     if name in PORTED:
         metrics = []
-        for overrides in ({}, PORTED[name]):
+        for overrides in reversed(PORTED[name]):
             cfg = _port_cfg(**overrides)
             engine = Engine(cfg, GPTModule(cfg), device="cpu")
             metrics.append(engine.train_step(_batch(4)))
-        for key in ("loss", "grad_norm"):
-            assert metrics[1][key] == pytest.approx(metrics[0][key], rel=1e-6), key
+        assert metrics[1]["found_inf"] == 0.0
+        assert metrics[1]["loss"] == pytest.approx(metrics[0]["loss"], rel=1e-6)
+        rel = 1e-2 if name == "main_grad_off" else 1e-6
+        assert metrics[1]["grad_norm"] == pytest.approx(metrics[0]["grad_norm"], rel=rel)
+        return
+    if name in CONTRADICTS:
+        with pytest.raises(ValueError, match="contradicts"):
+            cfg = _port_cfg(**CONTRADICTS[name])
+            Engine(cfg, GPTModule(cfg), device="cpu")
         return
     with pytest.raises(NotImplementedError):
         cfg = _port_cfg(**REFUSED[name])
