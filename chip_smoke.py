@@ -243,7 +243,8 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      route, no plain call, each step's tokens_digest phase 13's (the
      worker loader serves the inline loader's batches), the async
      checkpoints' meta with the loss scale, and a resume from step_9 that
-     restores it; then a bare float16 step at scale 2**31 with the split
+     restores it (the resumed run's step_12 is kept for phase 27); then a
+     bare float16 step at scale 2**31 with the split
      backward (K4 and K5 in float16): skipped, the scale halved, the params
      bitwise unchanged; and a float16 step at 4 layers of the full width,
      ``F16_CPU_SEQ`` tokens, card against CPU, loss within ``F16_CPU_TOL``;
@@ -255,7 +256,30 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
   25. ``python -m paddlefleetx_tpu_torch.tools.eval`` with GPTEvalModule
      over phase 13's ``step_12`` and the Eval split of its corpus: the loss
      equals Engine.evaluate here on the same params, ppl and acc printed,
-     K3 24 and K1 49 launches a batch on the card's routes, no plain call.
+     K3 24 and K1 49 launches a batch on the card's routes, no plain call;
+  26. K7, K8 and K9 under float16 q against their plain versions at the
+     bf16 rows' shapes (request D's decode step, its prefill and the verify
+     chunk at t = 5 and 17 for K7 over float16 caches and K8 over int8
+     caches; phase 7's decode step, its verify chunk and a 256-token chunk
+     over a 512-token prefix for K9 over float16 and int8 pools), every
+     launch on the sm90 route, with CUDA-event times beside the bf16
+     kernel's of the same run, SDPA's in float16 (int8: none) and the
+     bound; NaN past the limit, in the null block and past each row's
+     bound leaves every output bitwise unchanged, a repeat call gives the
+     same bits;
+  27. phase 23's float16 step_12 served at full width with phase 21's
+     tokenizer: the coalescing serve CLI on float16 caches with
+     ``--draft-k 4`` (K7: prefill and verify), the continuous serve CLI on
+     int8 pools with ``--prefill-chunk``, the prefix cache and its spill
+     tier over phase 18's families (K9's split-K and chunk kernels; hits,
+     spills, readmits), ``generate`` with an int8 cache (K8) and a
+     PagedDecodeEngine on float16 pools with chunked prefill and the prefix
+     cache (K9) in-process, and beam search in-process (K7 over the
+     reordered float16 cache, replayed step by step under the plain
+     forward); every launch on the float16 sm90 routes (``*_f16``), 0
+     CUDA-core, 0 plain; every answered token within ``F16_ULPS`` float16
+     ulps of its prefix's argmax under the plain forward (``attn_impl=xla``,
+     float16; the int8 runs under the cached forward with an int8 cache).
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -335,7 +359,12 @@ DIFFER_SCALE = {"bfloat16": 1.0, "float16": 16.0}
 TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 1024, 10
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "int8": 1979e12}
-TOL = {"float32": 1e-4, "bfloat16": 2e-2, "int8": 1e-4}
+# K7-K9 against their plain versions.  float16 (phase 26): bf16's limit
+# scaled by the ratio of the two types' ulps (2**-10 against 2**-7), one
+# rounding of p before P.V placed differently by the kernel and the plain
+# version; int8 caches under float16 q keep int8's (float32 math both sides)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2 / 8, "int8": 1e-4}
+QDT = {"float32": "float32", "bfloat16": "bfloat16", "float16": "float16", "int8": "bfloat16"}
 MAX_NEW = 32
 # request D: eight prompts in the 64-token bucket, mixed left pads
 D_LENS = [12, 20, 28, 36, 44, 52, 60, 64]
@@ -392,8 +421,9 @@ BEAM_CAPTURE_STEP = 8
 HF_GPT2_MEDIUM = {"n_embd": 1024, "n_layer": 24, "n_head": 16, "n_positions": 1024,
                   "vocab_size": 50257}
 # phases 4, 7 and 16: the traffic runs this many times a server, the first
-# round checked, every round timed (tokens/s: the rounds' median)
-TIMED_ROUNDS = 3
+# round checked, every round timed (tokens/s: the rounds' median; two rounds
+# keep the script inside its time limit)
+TIMED_ROUNDS = 2
 N_LAYERS = 24
 # phase 12: K1/K2 against their plain versions.  float32: summation order
 # only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
@@ -490,9 +520,9 @@ def ptxas_kernel(mangled):
 
 
 def make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, seed, q_kind=None):
-    """q in ``q_kind`` (by default float32 for float32 caches, else bf16)."""
+    """q in ``q_kind`` (by default the caches' type; bf16 over int8 caches)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qdt = torch.float32 if (q_kind or kind) == "float32" else torch.bfloat16
+    qdt = getattr(torch, QDT[q_kind or kind])
     q = torch.randn(b, n, t, d, generator=g, device="cuda").to(qdt)
     k = torch.randn(b, n, L, d, generator=g, device="cuda")
     v = torch.randn(b, n, L, d, generator=g, device="cuda")
@@ -530,7 +560,7 @@ def bound(kind, b, n, t, d, limit, vf, q_kind=None):
     """Least time for the work these inputs need: each needed byte moved
     once (q, the visible K/V and scales, the f32 output) against the
     unmasked (query, key) pairs' 4*d operations per head."""
-    elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kind]
+    elt = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1}[kind]
     q_elt = 4 if (q_kind or kind) == "float32" else 2
     keys = sum(max(0, limit - v) for v in vf)
     nbytes = b * n * t * d * (q_elt + 4) + 2 * n * keys * d * elt + 4 * b
@@ -557,6 +587,7 @@ def kernel_case(torch, F, da, kind, b, n, t, d, L, limit, vf, seed=0, iters=20, 
     sm90 = int(route == "sm90")
     multi = int(1 < t <= da.SPLIT_MAX_ROWS)
     check(da.COUNTS[key] - before[key] == 1
+          and da.COUNTS[f"{key}_f16"] - before[f"{key}_f16"] == int(q.dtype == torch.float16)
           and da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == sm90
           and da.COUNTS[f"{key}_sm90_prefill"] - before[f"{key}_sm90_prefill"]
           == sm90 * int(t > da.SPLIT_MAX_ROWS)
@@ -637,16 +668,18 @@ def main_prefill_shape():
     return (8, 16, 64, 64, 64 + MAX_NEW, 64, [64 - n for n in D_LENS])
 
 
-def decode_poison(torch, da, shapes=None):
+def decode_poison(torch, da, shapes=None, kinds=(("bfloat16", None, "K7"), ("int8", None, "K8"))):
     """K7 and K8 on the sm90 route: NaN in every cache slot at or past
     ``limit`` (int8: in every scale there, the slots at the int8 extremes)
     leaves the output unchanged, at t = 1 (split-K, several splits) and at
     t = 64 (the tensor-core prefills, whose copies end at ``limit``), or at
-    ``shapes``; and a repeat call gives the same bits."""
+    ``shapes``; and a repeat call gives the same bits.  ``kinds``: (cache
+    kind, q kind or None, label)."""
     shapes = shapes or ((2, 16, 1, 64, 1024, 700, [0, 37]), main_prefill_shape())
-    for kind, name in (("bfloat16", "K7"), ("int8", "K8")):
+    for kind, q_kind, name in kinds:
         for b, n, t, d, L, limit, vf in shapes:
-            q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, 3)
+            q, k, v, vft, ks, vs = make_inputs(torch, da, kind, b, n, t, d, L, limit, vf, 3,
+                                               q_kind)
             scale = 1.0 / d**0.5
             clean = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
             again = da.flash_decode(q, k, v, limit, vft, scale, ks, vs)
@@ -917,11 +950,12 @@ def phase_card_vs_cpu(torch, bc):
 # ---------------------------------------------------------------------------
 
 
-def paged_inputs(torch, da, kind, b, n, t, d, bs, positions, seed, slack=0):
+def paged_inputs(torch, da, kind, b, n, t, d, bs, positions, seed, slack=0, q_kind=None):
     """Pools [nb, n, bs, d] holding each row's blocks at shuffled pool
     ids, tables [b, M] null-padded past each row's last needed block, or
     past ``slack`` slots more (a speculative row's reservation; M a power
-    of two, as the engine's width bucket), q [b, t, n, d]."""
+    of two, as the engine's width bucket), q [b, t, n, d] in ``q_kind``
+    (by default the pools' type; bf16 over int8 pools)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     need = [(p + t - 1 + slack) // bs + 1 for p in positions]
     M = 1
@@ -934,7 +968,7 @@ def paged_inputs(torch, da, kind, b, n, t, d, bs, positions, seed, slack=0):
     for i, k in enumerate(need):
         tables[i, :k] = torch.tensor(ids[at:at + k], dtype=torch.int32)
         at += k
-    qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    qdt = getattr(torch, QDT[q_kind or kind])
     q = torch.randn(b, t, n, d, generator=g, device="cuda").to(qdt)
     k = torch.randn(nb, n, bs, d, generator=g, device="cuda")
     v = torch.randn(nb, n, bs, d, generator=g, device="cuda")
@@ -952,7 +986,7 @@ def paged_bound(kind, b, n, t, d, positions, M):
     """Least time for the work these inputs need: q, each row's visible
     K/V (and scales) and its table read once, the f32 output written once,
     against the 4*d operations per head of every unmasked (query, key)."""
-    elt = {"float32": 4, "bfloat16": 2, "int8": 1}[kind]
+    elt = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1}[kind]
     q_elt = 4 if kind == "float32" else 2
     keys = sum(p + t for p in positions)
     nbytes = b * n * t * d * (q_elt + 4) + 2 * n * keys * d * elt + 4 * b * (M + 1)
@@ -964,7 +998,25 @@ def paged_bound(kind, b, n, t, d, positions, M):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
+def f16_ulp(x):
+    """One float16 ulp at |x| (11 significant bits; subnormals' below 2**-14)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-14))) - 10)
+
+
+def wrapper_tol(out_kind, ref):
+    """The wrapper's output (the kernel's float32 cast to q's type) against
+    the plain output given the same cast: the output type's kernel limit;
+    float16 adds one ulp of the largest value, where the two float32
+    values straddle one of its rounding boundaries (8x as dense as bf16's,
+    whose 2e-2 already covers it)."""
+    if out_kind != "float16":
+        return TOL[out_kind]
+    return TOL["float16"] + f16_ulp(ref.abs().max().item())
+
+
+def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20, q_kind=None, sweep=True):
     """Two checks against the plain version on the same inputs: the
     kernel's own float32 output [b, n, t, d] (``max_abs_err``, at the
     input type's tolerance), and the wrapper the engine calls
@@ -976,10 +1028,12 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     ``plain_ms`` the plain version with the wrapper's layout work.  On the
     sm90 route, the CUDA-core kernel is held and timed on the same inputs
     too (``cuda_core``), and the sm90 launch at each PAGED_SPLIT_KEYS
-    (CHUNK_SPLIT_KEYS for the chunk kernel, t > 16: ``split_ms``)."""
+    (CHUNK_SPLIT_KEYS for the chunk kernel, t > 16: ``split_ms``), unless
+    ``sweep`` is False.  q in ``q_kind`` (by default as
+    :func:`paged_inputs`)."""
     b, n, d, bs = len(positions), 16, 64, KV_BLOCK
     q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
-                                                positions, seed)
+                                                positions, seed, q_kind=q_kind)
     q_t = q.transpose(1, 2).contiguous()
     scale = 1.0 / d**0.5
     route = da.paged_kernel_route(q.dtype, d, t, bs)
@@ -1002,6 +1056,7 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     got = kernel()
     torch.cuda.synchronize()
     check(da.COUNTS[key] - before[key] == 2
+          and da.COUNTS[f"{key}_f16"] - before[f"{key}_f16"] == 2 * (q.dtype == torch.float16)
           and da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == 2 * (route == "sm90"),
           f"paged {kind} t={t}: launches off their route {route}")
     check(got.shape == q.shape and got.dtype == q.dtype,
@@ -1012,15 +1067,16 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
     err = (raw - ref).abs().max().item()
     check(err <= TOL[kind], f"paged {kind} t={t} kernel ({route}) vs plain: max |err| {err} > "
                             f"{TOL[kind]}")
-    out_kind = "float32" if q.dtype == torch.float32 else "bfloat16"
+    out_kind = str(q.dtype).split(".")[1]
     wrapper_err = (got.float() - ref.transpose(1, 2).to(q.dtype).float()).abs().max().item()
-    check(wrapper_err <= TOL[out_kind], f"paged {kind} t={t} wrapper vs plain: max |err| "
-                                        f"{wrapper_err} > {TOL[out_kind]}")
+    w_tol = wrapper_tol(out_kind, ref)
+    check(wrapper_err <= w_tol, f"paged {kind} t={t} wrapper vs plain: max |err| "
+                                f"{wrapper_err} > {w_tol}")
     ms = event_ms(torch, kernel, iters)
     launch_ms = event_ms(torch, launch, iters)
     plain_ms = event_ms(torch, plain, max(3, iters // 4))
     cuda_core = split_ms = None
-    if route == "sm90":
+    if route == "sm90" and sweep:
         cc = launch("cuda_core")
         torch.cuda.synchronize()
         cc_err = (cc - ref).abs().max().item()
@@ -1052,15 +1108,15 @@ def paged_case(torch, F, da, kind, t, positions, seed=0, iters=20):
         library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
             q_t, kd, vd, attn_mask=mask), iters)
     bound_ms, bound_by = paged_bound(kind, b, n, t, d, positions, tables.shape[1])
-    return {"kind": kind, "b": b, "t": t, "bs": bs, "positions": positions, "route": route,
-            "max_abs_err": err, "tol": TOL[kind], "wrapper_err": wrapper_err,
-            "wrapper_tol": TOL[out_kind], "ms": ms, "launch_ms": launch_ms,
+    return {"kind": kind, "q": out_kind, "b": b, "t": t, "bs": bs, "positions": positions,
+            "route": route, "max_abs_err": err, "tol": TOL[kind], "wrapper_err": wrapper_err,
+            "wrapper_tol": w_tol, "ms": ms, "launch_ms": launch_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "cuda_core": cuda_core, "split_ms": split_ms}
 
 
 def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
-                 kinds=("float32", "bfloat16", "int8"), slack=0):
+                 kinds=("float32", "bfloat16", "int8"), slack=0, q_kind=None):
     """NaN in every pool block no row can see (the null block that pads
     the tables included, a row's reserved ``slack`` blocks past its bound,
     and one spare block past the rows' own) and in the slots of each row's
@@ -1074,7 +1130,7 @@ def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
     for kind in kinds:
         for t in ts:
             q, k, v, tables, pos, ks, vs = paged_inputs(torch, da, kind, b, n, t, d, bs,
-                                                        positions, 5, slack)
+                                                        positions, 5, slack, q_kind)
             k = torch.cat([k, k[:1]])
             v = torch.cat([v, v[:1]])
             if ks is not None:
@@ -1112,9 +1168,9 @@ def paged_poison(torch, da, positions=PAGED_POS, ts=(1, 4),
             if ref is not None:
                 err = (got - ref).abs().max().item()
                 check(err <= TOL["float32"], f"paged NaN poison vs plain on clean pools: {err}")
-            log(f"  paged {kind:8s} t={t} {route:9s}: NaN in {len(unseen)} unseen pool blocks and "
-                f"in {b} last blocks past the bound leaves the output unchanged; a repeat call "
-                f"is bitwise equal")
+            log(f"  paged {kind:8s} q {str(q.dtype)[6:]} t={t} {route:9s}: NaN in {len(unseen)} "
+                f"unseen pool blocks and in {b} last blocks past the bound leaves the output "
+                f"unchanged; a repeat call is bitwise equal")
 
 
 def paged_main_positions():
@@ -1131,7 +1187,7 @@ def log_paged(what, row):
         splits = " ".join(f"{k}:{v:.4f}" for k, v in row["split_ms"].items())
         extra = (f"; cuda_core launch {cc['launch_ms']:.4f} (err {cc['max_abs_err']:.2e}); "
                  f"split keys {splits}")
-    log(f"  {what} {row['kind']:8s} {row['route']:9s} t={row['t']}: err "
+    log(f"  {what} {row['kind']:8s} q {row['q']:8s} {row['route']:9s} t={row['t']}: err "
         f"{row['max_abs_err']:.2e} (wrapper {row['wrapper_err']:.2e}) wrapper {row['ms']:.4f} "
         f"ms (launch {row['launch_ms']:.4f}) plain {row['plain_ms']:.4f} library {lib} bound "
         f"{row['bound_ms']:.5f} ({row['bound_by']}){extra}")
@@ -2059,11 +2115,12 @@ def bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
 
 
-def greedy_deficits(torch, G, model, cfg, prompt, answer, kv_dtype):
+def greedy_deficits(torch, G, model, cfg, prompt, answer, kv_dtype, ulp=None):
     """Teacher-force ``prompt + answer`` through the cached forward on the
     card (one prefill, a cache of ``kv_dtype``): for each answer token,
-    how far its logit sits under the largest, in bf16 ulps of the largest.
-    0 where the token is the argmax."""
+    how far its logit sits under the largest, in ``ulp``s (bf16's by
+    default) of the largest.  0 where the token is the argmax."""
+    ulp = ulp or bf16_ulp
     ids = torch.tensor([prompt + answer], device="cuda")
     with torch.inference_mode():
         cache = G.init_cache(cfg, 1, ids.shape[1], torch.device("cuda"),
@@ -2072,7 +2129,7 @@ def greedy_deficits(torch, G, model, cfg, prompt, answer, kv_dtype):
     lg = lg[len(prompt) - 1: len(prompt) - 1 + len(answer)]
     top = lg.max(dim=-1).values
     chosen = lg.gather(-1, torch.tensor(answer, device="cuda")[:, None])[:, 0]
-    return [(a - c) / bf16_ulp(a) for a, c in zip(top.tolist(), chosen.tolist())]
+    return [(a - c) / ulp(a) for a, c in zip(top.tolist(), chosen.tolist())]
 
 
 def phase_spec_check(torch, plain, spec):
@@ -2952,19 +3009,20 @@ def beam_traced(torch, G, model, ids, gen, device="cuda"):
     return [r[:r.index(eos)] if eos in r else r for r in out], rec, k7
 
 
-def beam_deficits(torch, G, pm, model, cfg, ids, gen, rec, device="cuda"):
+def beam_deficits(torch, G, pm, model, cfg, ids, gen, rec, device="cuda", ulp=None):
     """The greedy runs' deficit rule, a beam step at a time: replay the
     recorded search with its own prefix scores and choices, each alive
     beam's next log-probs from ``model``'s plain forward under ``cfg``
     (prompt + prefix, no cache).  A kept continuation that the plain
     forward ranks under the Kth best non-EOS candidate, or a top-2K
     candidate (the finished pool's intake) under the 2Kth best, sits that
-    far under it, in bf16 ulps of the prompt's largest logit; 0 where the
-    plain forward makes the same choices.  Returns (the worst deficit, the
+    far under it, in ``ulp``s (bf16's by default) of the prompt's largest
+    logit; 0 where the plain forward makes the same choices.  Returns (the worst deficit, the
     (step, prompt) pairs with one, the rows whose parent beam is another
     row at step ``BEAM_CAPTURE_STEP``)."""
     import torch.nn.functional as F
 
+    ulp = ulp or bf16_ulp
     b, K, V, DEC = len(ids), gen.num_beams, cfg.vocab_size, gen.max_dec_len
     check(gen.num_beam_groups == 1 and len(rec) == 3 * DEC,
           f"beam replay: {len(rec)} top-k calls for {DEC} steps of one group")
@@ -2995,7 +3053,7 @@ def beam_deficits(torch, G, pm, model, cfg, ids, gen, rec, device="cuda"):
             .max(1).values).clamp(min=0)
         top = lg.view(b, K * V).max(1).values
         for g, t in zip(gap.tolist(), top.tolist()):
-            worst = max(worst, g / bf16_ulp(t))
+            worst = max(worst, g / ulp(t))
             near += g > 0
         parent, tok = kept // V, kept % V
         if i == BEAM_CAPTURE_STEP:
@@ -3009,8 +3067,8 @@ def beam_deficits(torch, G, pm, model, cfg, ids, gen, rec, device="cuda"):
 def beam_kernel_case(torch, F, da, k7):
     """K7 on one beam step's captured inputs (b * K rows, t = 1, the cache
     reordered by parent beam), every layer, against its plain version at
-    the bf16 tolerance; timed, with its bound and SDPA, on the last
-    layer's."""
+    the tolerance of the model's type; timed, with its bound and SDPA, on
+    the last layer's."""
     errs = []
     for q, k, v, pos, vf in k7:
         q_t = q.transpose(1, 2).contiguous()
@@ -3023,8 +3081,9 @@ def beam_kernel_case(torch, F, da, k7):
         check(bool(torch.isfinite(got).all()), "beam K7 output not finite")
         errs.append((got.float() - ref.float()).abs().max().item())
     err = max(errs)
-    check(len(errs) == N_LAYERS and err <= TOL["bfloat16"],
-          f"beam K7 vs plain over {len(errs)} layers: max |err| {err} > {TOL['bfloat16']}")
+    kind = str(q_t.dtype).split(".")[1]
+    check(len(errs) == N_LAYERS and err <= TOL[kind],
+          f"beam K7 {kind} vs plain over {len(errs)} layers: max |err| {err} > {TOL[kind]}")
     ms = event_ms(torch, lambda: da.flash_decode(q_t, k, v, limit, vf, scale), 20)
     plain_ms = event_ms(torch, lambda: da.decode_attention_plain(
         q_t, k, v, limit, vf, da.decode_block(k.shape[2]), scale, None, None), 5)
@@ -3032,8 +3091,9 @@ def beam_kernel_case(torch, F, da, k7):
     kk, vv = k[:, :, :limit], v[:, :, :limit]
     library_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
         q_t, kk, vv, attn_mask=mask), 20)
-    bound_ms, bound_by = bound("bfloat16", b, n, t, d, limit, vf.tolist())
-    return {"b": b, "n": n, "t": t, "d": d, "L": k.shape[2], "limit": limit, "layers": len(errs),
+    bound_ms, bound_by = bound(kind, b, n, t, d, limit, vf.tolist())
+    return {"kind": kind, "b": b, "n": n, "t": t, "d": d, "L": k.shape[2], "limit": limit,
+            "layers": len(errs),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -3480,9 +3540,11 @@ def phase_f16_train(torch, fa, fl, env, cli_data):
             f"{res['cuda']['loss']:.6f} vs "
             f"{res['cpu']['loss']:.6f} (rel {err:.2e}), grad_norm {res['cuda']['grad_norm']:.4f} "
             f"vs {res['cpu']['grad_norm']:.4f}")
+        # the resumed run's final float16 checkpoint is what phase 27 serves
+        ckpt = shutil.move(os.path.join(out_dir, f"step_{CLI_STEPS}"), keep_dir("smoke_f16_ckpt_"))
         report = {"first": first, "resumed": second, "wall_s": wall, "resume_wall_s": wall2,
                   "resume_loss_rel_diff": diffs, "bare_split_launches": bare,
-                  "card_vs_cpu_rel": err, "launches": launches}
+                  "card_vs_cpu_rel": err, "launches": launches, "ckpt": ckpt}
         log("f16_train " + json.dumps(report))
         return report
     finally:
@@ -3622,6 +3684,318 @@ def phase_eval(torch, fa, fl, ckpt, cli_data):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: serving a float16 model (K7, K8 and K9 on their float16
+# routes)
+# ---------------------------------------------------------------------------
+
+# phase 26: (entry, cache kind, q kind): K7 over float16 caches, K8 over
+# int8 caches under float16 q; K9 over float16 and over int8 pools
+F16_DECODE = (("flash_decode_f16", "float16", None), ("flash_decode_q8_f16", "int8", "float16"))
+F16_PAGED = (("paged_decode_f16", "float16", None), ("paged_decode_q8_f16", "int8", "float16"))
+# phase 27: an answer token's logit under its prefix's argmax, in float16
+# ulps of the argmax (8x finer than bf16's at the same magnitude: SPEC_ULPS'
+# 4 bf16 ulps would be 32 here).  The first run read 0.0 for every served
+# token and 0.002 for beam search's one near tie (PERF.md): float16 moves
+# the logits 8x less than bf16 does, so a flip at a near tie costs a few
+# float16 ulps at most, and a wrong token sits far below; the gate is one
+# bf16 ulp
+F16_ULPS = 8.0
+
+
+def log_f16(row, paged=False):
+    if paged:
+        log_paged("float16", row)
+    else:
+        log_case(row)
+    log(f"    the bf16 kernel at this shape in this run: {row['bf16_ms']:.4f} ms")
+
+
+def phase_f16_decode_kernels(torch, F, da, main_rows, paged_rows, verify_rows, chunk_rows):
+    """K7, K8 and K9 under float16 q against their plain versions at the
+    bf16 rows' shapes, each with the bf16 kernel's time of the same run
+    beside it: K7 (float16 caches) and K8 (int8 caches) at request D's
+    decode step, its prefill (t = 64) and the verify chunk (t = 5 and 17);
+    K9 (float16 and int8 pools) at phase 7's decode step, its verify chunk
+    (t = 5) and a chunk of t = 256 over a 512-token cached prefix.  Every
+    launch on the sm90 route and counted in ``*_f16``; NaN past the limit
+    (and in the null block and past each row's bound) leaves each output
+    bitwise unchanged, and a repeat call gives the same bits."""
+    out = {}
+    for name, kind, q_kind in F16_DECODE:
+        base = name[:-4]
+        row = kernel_case(torch, F, da, kind, *main_path_shape(), iters=50, q_kind=q_kind)
+        row["bf16_ms"] = main_rows[base]["ms"]
+        pre = kernel_case(torch, F, da, kind, *main_prefill_shape(), iters=50, q_kind=q_kind)
+        pre["bf16_ms"] = main_rows[base]["prefill"]["ms"]
+        row["prefill"], row["verify"] = pre, []
+        for t in (SPEC_K + 1, 17):
+            v = kernel_case(torch, F, da, kind, *verify_shape(t), iters=50, q_kind=q_kind)
+            v["bf16_ms"] = next(r["ms"] for r in verify_rows[base] if r["t"] == t)
+            row["verify"].append(v)
+        for r in (row, pre, *row["verify"]):
+            check(r["route"] == "sm90" and r["q"] == "float16", f"{name}: {r['route']} {r['q']}")
+            log_f16(r)
+        out[name] = row
+    decode_poison(torch, da, shapes=(main_path_shape(), main_prefill_shape(),
+                                     verify_shape(SPEC_K + 1), verify_shape(17)),
+                  kinds=(("float16", None, "K7 f16"), ("int8", "float16", "K8 f16 q")))
+    for name, kind, q_kind in F16_PAGED:
+        base = name[:-4]
+        row = paged_case(torch, F, da, kind, 1, paged_main_positions(), iters=50,
+                         q_kind=q_kind, sweep=False)
+        row["bf16_ms"] = paged_rows[base]["ms"]
+        v = paged_case(torch, F, da, kind, SPEC_K + 1, paged_main_positions(), iters=50,
+                       q_kind=q_kind, sweep=False)
+        v["bf16_ms"] = next(r["ms"] for r in verify_rows[base] if r["t"] == SPEC_K + 1)
+        row["verify"] = [v]
+        c = paged_case(torch, F, da, kind, 256, [512], iters=50, q_kind=q_kind, sweep=False)
+        c["pos"] = 512
+        c["bf16_ms"] = next(r["ms"] for r in chunk_rows[base] if (r["t"], r["pos"]) == (256, 512))
+        for r in (row, v, c):
+            check(r["route"] == "sm90" and r["q"] == "float16", f"{name}: {r['route']} {r['q']}")
+            log_f16(r, paged=True)
+        out[name] = row
+        out[f"{base}_sm90_chunk_f16"] = c
+        paged_poison(torch, da, positions=paged_main_positions(), ts=(1, SPEC_K + 1),
+                     kinds=(kind,), slack=SPEC_K, q_kind="float16")
+        paged_poison(torch, da, positions=[512], ts=(256,), kinds=(kind,), q_kind="float16")
+    log("f16_decode_cases " + json.dumps(out))
+    return out
+
+
+def plain_deficits(torch, pm, model, cfg, prompt, answer):
+    """Each answer token's logit under its prefix's argmax, in float16
+    ulps of the argmax, under the plain forward of ``cfg`` (no cache) over
+    ``prompt + answer``; 0 where the token is the argmax."""
+    if not answer:
+        return []
+    ids = torch.tensor([prompt + answer], device="cuda")
+    with torch.no_grad():
+        lg = pm.forward(model, ids, cfg)[0].float()
+    lg = lg[len(prompt) - 1: len(prompt) - 1 + len(answer)]
+    top = lg.max(dim=-1).values
+    chosen = lg.gather(-1, torch.tensor(answer, device="cuda")[:, None])[:, 0]
+    return [(a - c) / f16_ulp(a) for a, c in zip(top.tolist(), chosen.tolist())]
+
+
+def engine_serve(eng, prompt):
+    """One prompt through a PagedDecodeEngine to its end (its chunks, then
+    its decode steps); returns its tokens cut at EOS."""
+    slot = eng.admit(prompt, MAX_NEW)
+    row = eng.slots[slot]
+    for _ in range(4 * MAX_NEW + 64):
+        if row.prefill_done and not eng.active[slot]:
+            break
+        eng.step()
+    check(row.prefill_done and not eng.active[slot], "an engine row never finished")
+    toks = [int(x) for x in row.tokens]
+    eng.release(slot)
+    return toks[:toks.index(50256)] if 50256 in toks else toks
+
+
+def phase_f16_serving(torch, env, ckpt):
+    """Phase 27: phase 23's float16 step_12 served at full width with phase
+    21's tokenizer, every pairing on its float16 sm90 route: (a) the
+    coalescing serve CLI with float16 caches and --draft-k (K7: prefill
+    and verify chunks); (b) the continuous serve CLI with int8 pools,
+    --prefill-chunk and the prefix cache over phase 18's prompt families
+    (K9 on int8 pools: decode steps and its chunk kernel; hits, spills,
+    readmits); (c) ``generate`` with an int8 cache (K8) and a
+    PagedDecodeEngine with float16 pools, chunked prefill and the prefix
+    cache (K9 on float16 pools, its chunk kernel) in-process; (d) beam
+    search in-process (K7 over the reordered float16 cache), replayed step
+    by step under the plain forward.  0 CUDA-core and 0 plain launches;
+    every served token within ``F16_ULPS`` float16 ulps of its prefix's
+    argmax under the plain forward (``attn_impl=xla``, float16; the int8
+    runs under the cached forward with an int8 cache)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.models.gpt import model as pm
+    from paddlefleetx_tpu_torch.models.gpt.model import GPTModel
+    from paddlefleetx_tpu_torch.ops import decode_attention as da
+    from paddlefleetx_tpu_torch.utils.checkpoint import load_params_into, restore_params
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    tmp = tempfile.mkdtemp(prefix="smoke_f16_serve_")
+    servers = []
+    report = {}
+    try:
+        tok_dir = write_tokenizer(os.path.join(tmp, "tok"))
+        tok = GPTTokenizer.from_pretrained(tok_dir)
+        ids = [tok.encode(smoke_text(100 + i, 6 + 3 * i)) for i in range(TEXT_PROMPTS)]
+        seq, _ = prefix_prompts()
+        model_gen = ["Model.dtype=float16", f"Generation.max_dec_len={MAX_NEW}",
+                     "Generation.decode_strategy=greedy_search"]
+        overrides = model_gen + [f"Engine.save_load.ckpt_dir={ckpt}",
+                                 f"Generation.tokenizer_dir={tok_dir}"]
+        flags = [x for o in overrides for x in ("-o", o)]
+        coal = start_serve(env, "f16 coalesce", flags + ["--draft-k", str(SPEC_K)])
+        cont = start_serve(env, "f16 continuous", flags + [
+            "--scheduler", "continuous", "--cb-batch", "8", "--kv-dtype", "int8",
+            "--prefill-chunk", str(PFX_CHUNK), "--prefix-cache-blocks", str(PFX_BLOCKS),
+            "--prefix-spill-bytes", str(PFX_SPILL)])
+        servers += [coal, cont]
+        cfg = get_config(str(REPO / CONFIG), model_gen)
+        module = GPTModule(cfg)
+        mcfg = module.config
+        model = load_params_into(GPTModel(mcfg), restore_params(ckpt), ckpt).to("cuda")
+        check(mcfg.dtype == "float16" and model.embeddings.word.dtype == torch.float16,
+              f"served model dtype {mcfg.dtype} / {model.embeddings.word.dtype}")
+        cx = dataclasses.replace(mcfg, attn_impl="xla")
+        deficits = {}
+
+        # (c) K8: generate with an int8 cache, float16 q
+        gen = G.GenerationConfig(max_dec_len=MAX_NEW, decode_strategy="greedy_search",
+                                 eos_token_id=50256, pad_token_id=0)
+        pids, plens = G.pad_prompts(ids, 0, 64, torch.device("cuda"))
+        cache = G.init_cache(mcfg, len(ids), pids.shape[1] + MAX_NEW, torch.device("cuda"),
+                             kv_dtype="int8")
+        da.reset_counts()
+        q8_out = G.generate(model, pids, gen, prompt_lens=plens, cache=cache).cpu().tolist()
+        k_q8 = dict(da.COUNTS)
+        del cache
+        check(k_q8["flash_decode_q8"] > 0
+              and k_q8["flash_decode_q8_f16"] == k_q8["flash_decode_q8_sm90"] == k_q8["flash_decode_q8"]
+              and k_q8["flash_decode"] == k_q8["plain"] == 0,
+              f"generate, int8 cache: K8 off its float16 sm90 route: {k_q8}")
+        q8_answers = [r[:r.index(50256)] if 50256 in r else r for r in q8_out]
+        deficits["generate_int8"] = max([0.0] + [
+            d for p, a in zip(ids, q8_answers)
+            for d in greedy_deficits(torch, G, model, mcfg, p, a, "int8", f16_ulp)])
+
+        # (c) K9 on float16 pools: the engine with chunked prefill and the
+        # prefix cache over phase 18's families, one request at a time
+        server = GenerationServer(cfg, module, model, torch.device("cuda"))
+        eng = PagedDecodeEngine(server, max_batch=8, block=KV_BLOCK, kv_dtype="bf16",
+                                prefill_chunk=PFX_CHUNK, prefix_cache_blocks=PFX_BLOCKS,
+                                prefix_spill_bytes=PFX_SPILL)
+        check(eng.pools.k.dtype == torch.float16, f"engine pools {eng.pools.k.dtype}")
+        da.reset_counts()
+        eng_answers = [engine_serve(eng, p) for p in seq]
+        k_eng = dict(da.COUNTS)
+        acct = {"prefix": dict(eng.cache.prefix.stats), "spill": dict(eng.cache.spill.stats),
+                "prefill_chunks": eng.stats["prefill_chunks"]}
+        del eng, server
+        check(k_eng["paged_decode"] > 0
+              and k_eng["paged_decode_f16"] == k_eng["paged_decode_sm90"] == k_eng["paged_decode"]
+              and k_eng["paged_decode_sm90_chunk"] == k_eng["paged_decode_chunk"] > 0
+              and k_eng["flash_decode"] == k_eng["plain"] == k_eng["paged_plain"] == 0,
+              f"engine, float16 pools: K9 off its float16 sm90 route: {k_eng}")
+        check(acct["prefix"]["hits"] > 0 and acct["spill"]["spills"] > 0
+              and acct["spill"]["readmits"] > 0, f"engine, float16 pools: no reuse: {acct}")
+        deficits["engine_f16"] = max([0.0] + [d for p, a in zip(seq, eng_answers)
+                                              for d in plain_deficits(torch, pm, model, cx, p, a)])
+
+        # (d) beam search over the text prompts: K7 over the float16 cache
+        # reordered by parent beam, replayed under the plain forward
+        gen_b = G.GenerationConfig(max_dec_len=MAX_NEW, decode_strategy="beam_search",
+                                   num_beams=TEXT_BEAMS, eos_token_id=50256, pad_token_id=0)
+        da.reset_counts()
+        beams, rec, k7 = beam_traced(torch, G, model, ids, gen_b)
+        k_beam = dict(da.COUNTS)
+        check_rows(beams, "float16 beam search")
+        want = N_LAYERS * MAX_NEW  # the prefill and MAX_NEW - 1 steps, a launch a layer
+        check(k_beam["flash_decode"] == k_beam["flash_decode_sm90"] == k_beam["flash_decode_f16"]
+              == want and k_beam["flash_decode_sm90_prefill"] == N_LAYERS
+              and k_beam["plain"] == 0, f"beam, float16: K7 launches {k_beam}, expected {want}")
+        held = beam_kernel_case(torch, F, da, k7)
+        del k7
+        replay = dict(zip(("worst_ulps", "near_ties", "reordered_rows"),
+                          beam_deficits(torch, G, pm, model, cx, ids, gen_b, rec, ulp=f16_ulp)))
+        del rec
+        deficits["beam"] = replay["worst_ulps"]
+
+        # (a) the coalescing CLI: float16 caches, --draft-k
+        wait_serve(coal)
+        h0 = http(coal["port"], "/healthz")["serving"]
+        batch = http(coal["port"], "/generate", {"prompts_ids": ids, "max_tokens": MAX_NEW})
+        single = http(coal["port"], "/generate", {"prompt_ids": ids[0], "max_tokens": MAX_NEW})
+        health = http(coal["port"], "/healthz")
+        stop_serve(coal)
+        k_coal = health["kernels"]
+        coal_answers = batch["completions_ids"] + [single["completion_ids"]]
+        check_rows(coal_answers, "float16 coalescing")
+        proposed = health["serving"]["spec_proposed"] - h0["spec_proposed"]
+        check(proposed > 0, f"float16 coalescing: no drafts proposed: {health['serving']}")
+        check(k_coal["plain"] == 0 and k_coal["flash_decode"] > 0
+              and k_coal["flash_decode_f16"] == k_coal["flash_decode_sm90"] == k_coal["flash_decode"]
+              and k_coal["flash_decode_sm90_multi"] == k_coal["flash_decode_multi"] > 0
+              and k_coal["flash_decode"] == k_coal["flash_decode_multi"]
+              + k_coal["flash_decode_sm90_prefill"] and k_coal["flash_decode_q8"] == 0,
+              f"float16 coalescing: K7 off its float16 sm90 route: {k_coal}")
+        deficits["coalesce_f16"] = max([0.0] + [
+            d for p, a in zip(ids + ids[:1], coal_answers)
+            for d in plain_deficits(torch, pm, model, cx, p, a)])
+
+        # (b) the continuous CLI: int8 pools, chunked prefill, prefix cache
+        wait_serve(cont)
+        h0 = http(cont["port"], "/healthz")["serving"]
+        cont_answers = [http(cont["port"], "/generate", {"prompt_ids": p, "max_tokens": MAX_NEW})
+                        ["completion_ids"] for p in seq]
+        health = http(cont["port"], "/healthz")
+        stop_serve(cont)
+        check_rows(cont_answers, "float16 continuous")
+        k_cont, sv = health["kernels"], health["serving"]
+        reuse = {"hits": sv["prefix"]["hits"] - h0["prefix"]["hits"],
+                 "spills": sv["spill"]["spills"] - h0["spill"]["spills"],
+                 "readmits": sv["spill"]["readmits"] - h0["spill"]["readmits"],
+                 "chunks": sv["prefill_chunks"] - h0["prefill_chunks"]}
+        check(reuse["hits"] > 0 and reuse["spills"] > 0 and reuse["readmits"] > 0
+              and reuse["chunks"] > 0, f"float16 continuous: no reuse: {reuse}")
+        check(k_cont["plain"] == k_cont["paged_plain"] == 0 and k_cont["paged_decode_q8"] > 0
+              and k_cont["paged_decode_q8_f16"] == k_cont["paged_decode_q8_sm90"]
+              == k_cont["paged_decode_q8"]
+              and k_cont["paged_decode_q8_sm90_chunk"] == k_cont["paged_decode_q8_chunk"] > 0
+              and k_cont["flash_decode"] == k_cont["flash_decode_q8"] == 0,
+              f"float16 continuous: K9 off its float16 sm90 route: {k_cont}")
+        deficits["continuous_int8"] = max([0.0] + [
+            d for p, a in zip(seq, cont_answers)
+            for d in greedy_deficits(torch, G, model, mcfg, p, a, "int8", f16_ulp)])
+        del model
+        worst = max(deficits.values())
+        check(worst <= F16_ULPS, f"float16 serving: a token sits {worst:.1f} float16 ulps under "
+                                 f"its prefix's argmax (gate {F16_ULPS}): {deficits}")
+        report = {"coalesce": {"kernels": k_coal, "spec_proposed": proposed,
+                               "boot_s": round(coal["boot_s"], 1)},
+                  "continuous": {"kernels": k_cont, "reuse": reuse,
+                                 "boot_s": round(cont["boot_s"], 1)},
+                  "generate_int8": {"kernels": k_q8}, "engine_f16": {"kernels": k_eng, **acct},
+                  "beam": {"kernels": k_beam, "replay": replay, "held": held,
+                           "rows": len(ids) * TEXT_BEAMS},
+                  "deficits_f16_ulps": deficits}
+        log(f"  (a) coalescing CLI, float16 caches, --draft-k {SPEC_K}: {proposed} drafts, K7 "
+            f"{k_coal['flash_decode']} launches ({k_coal['flash_decode_multi']} verify, "
+            f"{k_coal['flash_decode_sm90_prefill']} prefill) all float16 sm90")
+        log(f"  (b) continuous CLI, int8 pools: {reuse}, K9 {k_cont['paged_decode_q8']} launches "
+            f"({k_cont['paged_decode_q8_sm90_chunk']} on the chunk kernel) all float16 sm90")
+        log(f"  (c) generate, int8 cache: K8 {k_q8['flash_decode_q8']} launches; engine, float16 "
+            f"pools: K9 {k_eng['paged_decode']} ({k_eng['paged_decode_sm90_chunk']} chunk), "
+            f"{acct}")
+        log(f"  (d) beam search: K7 {k_beam['flash_decode']} launches, replay {replay}, K7 on "
+            f"step {BEAM_CAPTURE_STEP}'s cache err {held['max_abs_err']:.3e} "
+            f"{held['ms']:.4f} ms")
+        log(f"  every served token within {worst:.2f} float16 ulps of its prefix's argmax (gate "
+            f"{F16_ULPS}): {deficits}")
+        log("f16_serving " + json.dumps(report))
+        return report
+    finally:
+        for srv in servers:
+            kill_serve(srv)
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+
+
+
 
 def main():
     import torch
@@ -3736,6 +4110,12 @@ def main():
     phase_levers(torch, fa, fl)
     begin("25", "the eval CLI over phase 13's checkpoint")
     evald = phase_eval(torch, fa, fl, trained_ckpt, cli_data)
+    begin("26", "K7, K8 and K9 in float16 against their plain versions")
+    f16_decode = phase_f16_decode_kernels(torch, F, da, main_rows, paged_rows, verify_rows,
+                                          chunk_rows)
+    begin("27", "phase 23's float16 step_12 served at full width: both schedulers, native and "
+          "int8 KV, speculation, chunked prefill and the prefix cache, beam search")
+    f16_serve = phase_f16_serving(torch, env, f16["ckpt"])
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -3900,6 +4280,42 @@ def main():
                       + (("bf16_ms",) if "bf16_ms" in r else ())}
                      | {"cuda_core_ms": r["cuda_core"]["launch_ms"]}
                      for r in rows]})
+    # phase 26's float16 rows with phase 27's launches: K7 on the coalescing
+    # CLI's float16 caches, K8 in generate's int8 cache, K9 on the
+    # in-process engine's float16 pools and the continuous CLI's int8 pools
+    # (the chunk entries: those runs' chunk-kernel launches)
+    fk = {run: f16_serve[run]["kernels"] for run in ("coalesce", "continuous", "generate_int8",
+                                                      "engine_f16", "beam")}
+    f16_launches = {"flash_decode_f16": fk["coalesce"]["flash_decode_f16"],
+                    "flash_decode_q8_f16": fk["generate_int8"]["flash_decode_q8_f16"],
+                    "paged_decode_f16": fk["engine_f16"]["paged_decode_f16"],
+                    "paged_decode_q8_f16": fk["continuous"]["paged_decode_q8_f16"],
+                    "paged_decode_sm90_chunk_f16": fk["engine_f16"]["paged_decode_sm90_chunk"],
+                    "paged_decode_q8_sm90_chunk_f16":
+                        fk["continuous"]["paged_decode_q8_sm90_chunk"]}
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_ms")
+    for name, row in f16_decode.items():
+        base = name[:-4]
+        if base.startswith("paged"):
+            shape = {"b": row["b"], "n": 16, "t": row["t"], "d": 64, "bs": row["bs"],
+                     "positions": row["positions"], "dtype": row["kind"], "q": row["q"]}
+        else:
+            shape = {"b": row["b"], "n": row["n"], "t": row["t"], "d": row["d"], "L": row["L"],
+                     "limit": row["limit"], "dtype": row["kind"], "q": row["q"]}
+        entry = {"name": name, "route": "cuda", "source": SOURCES[base],
+                 "replaces": REPLACES[base], "launches": f16_launches[name],
+                 "kernel_route": row["route"], **{k: row[k] for k in timed}, "shape": shape}
+        if "launch_ms" in row:
+            entry["launch_ms"] = row["launch_ms"]
+        if "prefill" in row:
+            entry["prefill"] = {k: row["prefill"][k] for k in ("t",) + timed}
+        if "verify" in row:
+            entry["verify"] = {"rows": [{k: r[k] for k in ("t",) + timed} for r in row["verify"]]}
+        if name == "flash_decode_f16":
+            # phase 27's in-process beam search over b * num_beams rows
+            entry["beam"] = {"launches": fk["beam"]["flash_decode_f16"],
+                             "held": f16_serve["beam"]["held"]}
+        kernels.append(entry)
     log("phase_seconds " + json.dumps(PHASE_S))
     log(f"total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -587,8 +587,9 @@ def _contiguous(a):
 
 
 def _raw_bytes(a) -> bytes:
-    """The raw bytes of a contiguous numpy array or CPU tensor (a
-    bfloat16 tensor, which numpy cannot hold, is read as bytes)."""
+    """The raw bytes of a contiguous numpy array or CPU tensor of any
+    dtype (bfloat16, which numpy cannot hold, and float16 blocks alike are
+    read as bytes, so the CRC sees every bit)."""
     if isinstance(a, torch.Tensor):
         return a.reshape(-1).view(torch.uint8).numpy().tobytes()
     return a.tobytes()

@@ -63,12 +63,6 @@ class GenerationServer:
     starts (it mutates the cache pool, the generator and ``stats``)."""
 
     def __init__(self, cfg, module, model, device: torch.device, tokenizer=None):
-        if module.config.dtype == "float16":
-            raise NotImplementedError(
-                "serving a float16 model is not ported yet (the decode kernels K7-K9 "
-                "have no float16 route); serve it in bfloat16 or float32 "
-                "(-o Model.dtype=bfloat16)"
-            )
         gen_cfg = cfg.get("Generation", {}) or {}
         self.cfg = cfg
         self.module = module

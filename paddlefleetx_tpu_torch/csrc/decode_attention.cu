@@ -1,4 +1,4 @@
-// Contiguous flash-decode attention for Hopper (sm_90a), bf16/f32 and int8 KV.
+// Contiguous flash-decode attention for Hopper (sm_90a), f32/bf16/f16 and int8 KV.
 //
 // Replaces the TPU kernels of paddlefleetx_tpu/ops/decode_attention.py:
 //   _decode_kernel    (:256, launched by _decode_pallas :374)  -> flash_decode
@@ -12,7 +12,7 @@
 // as an online softmax with float32 state (running max m, denominator l,
 // accumulator acc), output float32 [b, n, t, d] = acc / max(l, 1e-30): a
 // row with no visible key (a left-pad row during prefill) is 0, not NaN.
-// bf16/f32 caches: s = scale * (q . k) accumulated in f32, and the
+// f32/bf16/f16 caches: s = scale * (q . k) accumulated in f32, and the
 // probabilities are rounded to the cache dtype before p @ v (the Pallas
 // kernel's p.astype(v.dtype)).  int8 caches: s = scale * (q . k) * k_scale[col]
 // and p * v_scale[col] multiplies the values, so no dequantized cache is
@@ -48,6 +48,7 @@
 // cudaGetLastError() after its launch and launches on the given stream.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,12 +64,16 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 // p rounded to the cache dtype before the p @ v product
 __device__ __forceinline__ float round_to(float p, const float*) { return p; }
 __device__ __forceinline__ float round_to(float p, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(p));
+}
+__device__ __forceinline__ float round_to(float p, const __half*) {
+  return __half2float(__float2half_rn(p));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -320,7 +325,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both caches share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and both caches share it).
 // valid_from may be null (no left padding).  out: float32 [b, n, t, d].
 int flash_decode(const void* q, const void* k, const void* v, const void* valid_from,
                  void* out, int b, int n, int t, int L, int d, int limit, float scale,
@@ -334,11 +339,15 @@ int flash_decode(const void* q, const void* k, const void* v, const void* valid_
                                                        valid_from, out, b, n, t, L, d,
                                                        limit, scale, stream);
   }
+  if (dtype == 2) {
+    return launch<__half, __half, false>(q, k, v, nullptr, nullptr, valid_from, out, b, n, t,
+                                         L, d, limit, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // int8 caches with float32 per-(slot, head) scales [b, n, L];
-// q_dtype: 0 = float32, 1 = bfloat16.
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 int flash_decode_q8(const void* q, const void* k, const void* v, const void* k_scale,
                     const void* v_scale, const void* valid_from, void* out, int b, int n,
                     int t, int L, int d, int limit, float scale, int q_dtype,
@@ -350,6 +359,10 @@ int flash_decode_q8(const void* q, const void* k, const void* v, const void* k_s
   if (q_dtype == 1) {
     return launch<__nv_bfloat16, int8_t, true>(q, k, v, k_scale, v_scale, valid_from,
                                                out, b, n, t, L, d, limit, scale, stream);
+  }
+  if (q_dtype == 2) {
+    return launch<__half, int8_t, true>(q, k, v, k_scale, v_scale, valid_from, out, b, n, t,
+                                        L, d, limit, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,10 @@
 // Contiguous flash-decode attention at head dim 64 or 128 on Hopper
-// (sm_90a), for bfloat16 q over bfloat16 caches (the bf16 route of K7) or
-// over int8 caches with per-key scales (the bf16 route of K8).
+// (sm_90a), for bfloat16 or float16 q over caches of q's type (the sm90
+// route of K7) or over int8 caches with per-key scales (the sm90 route of
+// K8).  One template per element type E (the entries' `dtype` argument: 1
+// bfloat16, 2 float16); the two types share every tile, swizzle and copy.
 //
-// Replaces, for bfloat16 q at d in {64, 128}, the TPU kernels of
+// Replaces, for bfloat16 and float16 q at d in {64, 128}, the TPU kernels of
 // paddlefleetx_tpu/ops/decode_attention.py:
 //   _decode_kernel    (:256, launched by _decode_pallas :374) -> flash_decode_sm90
 //   _decode_kernel_q8 (:295, launched by _decode_pallas :358) -> flash_decode_q8_sm90
@@ -13,9 +15,9 @@
 // limit - t + r, attention over the cache keys col with
 //     kv_valid_from[b] <= col <= limit - t + r
 // as an online softmax with float32 state; output float32 [b, n, t, d] =
-// acc / max(l, 1e-30), so a row with no visible key is 0, not NaN.  bf16
-// caches: the probabilities are rounded to bf16 before p @ v (the Pallas
-// kernel's p.astype(v.dtype)).  int8 caches: s = scale * (q . k) *
+// acc / max(l, 1e-30), so a row with no visible key is 0, not NaN.  bf16 /
+// f16 caches: the probabilities are rounded to the cache's type before p @ v
+// (the Pallas kernel's p.astype(v.dtype)).  int8 caches: s = scale * (q . k) *
 // k_scale[col] with k taken as float32, and acc += (p * v_scale[col]) @ v
 // with p * v_scale kept in float32 (the TPU's q8 kernel rounds nothing).  No
 // key, and no scale, at or past `limit` is ever read.
@@ -40,8 +42,8 @@
 //    completing on mbarriers; the cache stays in its own type there.  Each
 //    CTA streams its keys on its own, so the ring's depth, not the split
 //    count, hides the copies' latency.  A lane group takes one key at a time,
-//    16 bytes of its row per lane (bf16: d / 8 lanes, 8 values; int8: d / 16
-//    lanes, 16 values widened to float32 by a byte permute into 2^23's
+//    16 bytes of its row per lane (bf16 / f16: d / 8 lanes, 8 values; int8:
+//    d / 16 lanes, 16 values widened to float32 by a byte permute into 2^23's
 //    mantissa, which is exact), sums q.k with shuffles and keeps its own
 //    (m, l, acc) in registers; the groups' states merge by butterflies and
 //    then in warp order.  int8: a stage's k_scale / v_scale slices travel in
@@ -55,10 +57,10 @@
 //    all partials in split order and resets the counter for the next call:
 //    one launch per call, no memset, and the same bits on every call.
 //  * t > 16 (prefill): the tensor cores, on K3's skeleton
-//    (csrc/flash_attention_sm90.cu).  bf16: a CTA is one warpgroup on a
+//    (csrc/flash_attention_sm90.cu).  bf16 / f16: a CTA is one warpgroup on a
 //    64-row query tile plus one TMA warp; K/V tiles (128 keys at d = 64, 64
 //    at d = 128: 32 KB a stage) arrive through a 2-stage mbarrier ring;
-//    S = Q.K^T is wgmma from shared memory, and P, rounded to bf16, feeds
+//    S = Q.K^T is wgmma from shared memory, and P, rounded to the type, feeds
 //    P.V as the register A operand.  The K/V tensor maps declare `limit`
 //    keys, not L, so TMA zero-fills keys at or past `limit`: a NaN there
 //    cannot reach P.V through 0 x NaN.  int8: one warpgroup that issues its
@@ -70,8 +72,14 @@
 //    P.V with p * v_scale split into a bf16 high part and a bf16 low part
 //    (hi = bf16(x), lo = bf16(x - hi)): two wgmmas into one float32
 //    accumulator keep p * v_scale to ~2^-17 of itself, where one bf16
-//    rounding (2^-9) would miss the int8 gate of 1e-4.  Both: the causal
-//    mask carries the row offset limit - t; tiles wholly before
+//    rounding (2^-9) would miss the int8 gate of 1e-4.  Under float16 q the
+//    K tile is widened to f16 (S = Q.K^T takes both operands in one type),
+//    and the V tile still to bf16, so P.V keeps its two bf16 parts: the
+//    parts of p * v_scale (v_scale = amax / 127, p down to 2^-126) need
+//    bf16's float32-sized exponent; as f16 parts they would fall under
+//    f16's smallest normal (6.1e-5) wherever p is small and lose the bits
+//    the int8 gate holds.  int8 values are exact in either type.  Both: the
+//    causal mask carries the row offset limit - t; tiles wholly before
 //    kv_valid_from[b] or past the CTA's last causal column are never loaded.
 //
 // The split-K kernel's geometry, stage compute and merge live in
@@ -115,12 +123,12 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 }
 
 // R: query rows per CTA (1 at t = 1, else 4; grid.z covers t).  Q8: int8
-// caches, with k_scale / v_scale [b, n, L] (else bf16 caches, scales null).
-// Scores and the running max are kept in the log2 domain (scale * log2(e)
-// folded in).
-template <int D, int R, bool Q8>
+// caches, with k_scale / v_scale [b, n, L] (else caches of E, scales null).
+// E: q's element type, bf16 or f16.  Scores and the running max are kept in
+// the log2 domain (scale * log2(e) folded in).
+template <int D, int R, bool Q8, typename E>
 __global__ void __launch_bounds__(kDecThreads)
-flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
+flash_decode_split_kernel(const E* __restrict__ q, const uint8_t* __restrict__ k,
                           const uint8_t* __restrict__ v, const float* __restrict__ k_scale,
                           const float* __restrict__ v_scale, const int* __restrict__ valid_from,
                           float* __restrict__ out, float* __restrict__ part,
@@ -188,7 +196,7 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
   }
 
   float qf[R][P];
-  split_load_q<D, R, Q8>(q + (static_cast<size_t>(bn) * t + r0) * D, nrows, sub, qf);
+  split_load_q<D, R, Q8, E>(q + (static_cast<size_t>(bn) * t + r0) * D, nrows, sub, qf);
   float m[R], l[R], acc[R][P];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -202,10 +210,10 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
     const int st = s % kDecStages;
     mbar_wait(full + st, (s / kDecStages) & 1);
     const int c0 = lo + s * G::kKeys;
-    split_stage<D, R, Q8>(smem + G::kK + st * G::kTile, smem + G::kV + st * G::kTile,
+    split_stage<D, R, Q8, E>(smem + G::kK + st * G::kTile, smem + G::kV + st * G::kTile,
                           reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys,
-                          stream, sub, c0, min(G::kKeys, hi - c0), pos0, nrows, scale_log2e, qf,
-                          m, l, acc);
+                             stream, sub, c0, min(G::kKeys, hi - c0), pos0, nrows, scale_log2e,
+                             qf, m, l, acc);
     __syncthreads();  // the stage is read: refill it
     if (s + kDecStages < nstages) {
       if constexpr (Q8) issue_scales(s + kDecStages);
@@ -235,16 +243,17 @@ template <int D>
 struct PreSmem {
   static constexpr int kBoxes = D / 64;
   static constexpr int kKeys = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr int kKBox = kKeys * 128;         // bytes of a [kKeys, 64 bf16] box
-  static constexpr int kTile = kBoxes * kKBox;      // [kKeys, D] bf16
-  static constexpr int kQ = 0;                      // [64 rows, D] bf16
+  static constexpr int kKBox = kKeys * 128;         // bytes of a [kKeys, 64 E] box
+  static constexpr int kTile = kBoxes * kKBox;      // [kKeys, D] E
+  static constexpr int kQ = 0;                      // [64 rows, D] E
   static constexpr int kK = kQ + kBoxes * kQBox;
   static constexpr int kV = kK + kPreStages * kTile;
   static constexpr int kBar = kV + kPreStages * kTile;
   static constexpr int kBytes = kBar + 64 + 1024;  // + slack to align the base to 1024
 };
 
-template <int D>
+// E: the element type of q and the caches, bf16 or f16
+template <int D, typename E>
 __global__ void __launch_bounds__(kPreThreads)
 flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -323,9 +332,9 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t dq = sw128_desc(q_s + (kk / 4) * kQBox + col, 16, 1024);
       const uint64_t dk = sw128_desc(k_s + (kk / 4) * S::kKBox + col, 16, 1024);
       if constexpr (S::kKeys == 128)
-        wgmma_ss_n128<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n128<0, 0, E>(sc, dq, dk, kk > 0);
       else
-        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n64<0, 0, E>(sc, dq, dk, kk > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -339,19 +348,19 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     tile_softmax(sc, o, m, l, scale_log2e);
-    // o += P_bf16.V: P from registers, V [keys, d] an MN-major B whose
-    // 64-column boxes are kKBox apart
+    // o += P_E.V: P (rounded to E) from registers, V [keys, d] an MN-major
+    // B whose 64-column boxes are kKBox apart
     constexpr int KS = S::kKeys / 16;
     uint32_t pf[KS][4];
-    to_a_frags<KS>(sc, pf);
+    to_a_frags<KS, E>(sc, pf);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const uint64_t bv = sw128_desc(v_s + kk * 16 * 128, S::kKBox, 1024);
       if constexpr (D == 64)
-        wgmma_rs_n64<1>(o, pf[kk], bv, 1);
+        wgmma_rs_n64<1, E>(o, pf[kk], bv, 1);
       else
-        wgmma_rs_n128<1>(o, pf[kk], bv, 1);
+        wgmma_rs_n128<1, E>(o, pf[kk], bv, 1);
     }
     wgmma_commit();
     wgmma_wait();
@@ -363,7 +372,7 @@ flash_decode_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // int8 caches: one warpgroup issues its own copies into a 2-stage ring and
-// widens each tile to bf16 before its products
+// widens each tile before its products: K to q's type E, V to bf16
 constexpr int kPq8Threads = kWgThreads;
 constexpr int kPq8Stages = 2;
 
@@ -371,10 +380,10 @@ template <int D>
 struct PreQ8Smem {
   static constexpr int kBoxes = D / 64;
   static constexpr int kKeys = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr int kKBox = kKeys * 128;         // bytes of a [kKeys, 64 bf16] box
-  static constexpr int kTile = kBoxes * kKBox;      // [kKeys, D] bf16
+  static constexpr int kKBox = kKeys * 128;         // bytes of a [kKeys, 64] 2-byte box
+  static constexpr int kTile = kBoxes * kKBox;      // [kKeys, D] of E (K) or bf16 (V)
   static constexpr int kRaw = kKeys * D;            // [kKeys, D] int8
-  static constexpr int kQ = 0;                      // [64 rows, D] bf16 (TMA, swizzled)
+  static constexpr int kQ = 0;                      // [64 rows, D] E (TMA, swizzled)
   static constexpr int kK = kQ + kBoxes * kQBox;    // the tile's K, widened
   static constexpr int kV = kK + kTile;             // the tile's V, widened
   static constexpr int kRawK = kV + kTile;          // kPq8Stages stages of int8 K rows
@@ -385,7 +394,7 @@ struct PreQ8Smem {
   static constexpr int kBytes = kBar + 8 * (1 + kPq8Stages) + 1024;  // + slack to align to 1024
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kPq8Threads)
 flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
@@ -465,8 +474,8 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(full + st, (j / kPq8Stages) & 1);
     __syncthreads();  // the last tile's products have read K, V and `cur`
     const int cnt = min(kKeys, limit - k0);
-    widen_tile<D, kKeys>(smem + S::kRawK + st * S::kRaw, smem + S::kK, cnt);
-    widen_tile<D, kKeys>(smem + S::kRawV + st * S::kRaw, smem + S::kV, cnt);
+    widen_tile<D, kKeys, E>(smem + S::kRawK + st * S::kRaw, smem + S::kK, cnt);
+    widen_tile<D, kKeys, __nv_bfloat16>(smem + S::kRawV + st * S::kRaw, smem + S::kV, cnt);
     const float* scl = reinterpret_cast<const float*>(smem + S::kScl) + st * 2 * kKeys;
     for (int i = threadIdx.x; i < 2 * kKeys; i += kPq8Threads) cur[i] = scl[i];
     fence_proxy_async();  // the widened tiles, for wgmma
@@ -484,9 +493,9 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t dq = sw128_desc(q_s + (kk / 4) * kQBox + col, 16, 1024);
       const uint64_t dk = sw128_desc(k_s + (kk / 4) * S::kKBox + col, 16, 1024);
       if constexpr (kKeys == 128)
-        wgmma_ss_n128<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n128<0, 0, E>(sc, dq, dk, kk > 0);
       else
-        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n64<0, 0, E>(sc, dq, dk, kk > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -503,7 +512,8 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     tile_softmax(sc, o, m, l, scale_log2e);
     // o += (P * v_scale).V, P * v_scale as bf16 high + low parts from
-    // registers; V [keys, d] an MN-major B whose 64-column boxes are kKBox apart
+    // registers (whatever q's type); V [keys, d] bf16, an MN-major B whose
+    // 64-column boxes are kKBox apart
 #pragma unroll
     for (int i = 0; i < NS; ++i) sc[i] *= cur[kKeys + key_of(i, lane)];
     constexpr int KS = kKeys / 16;
@@ -534,31 +544,31 @@ flash_decode_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int D, int R, bool Q8>
+template <int D, int R, bool Q8, typename E>
 int launch_split(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                  const int* vf, float* out, float* part, int* counters, int bn, int n, int t,
                  int L, int limit, int splits, float scale_log2e, cudaStream_t st) {
-  auto kern = flash_decode_split_kernel<D, R, Q8>;
+  auto kern = flash_decode_split_kernel<D, R, Q8, E>;
   const int smem = DecGeom<D, Q8>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bn, splits, (t + R - 1) / R);
   kern<<<grid, kDecThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const E*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), ks, vs, vf, out, part, counters, n, t, L, limit,
       scale_log2e);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_prefill(const void* q, const void* k, const void* v, const int* vf, float* out, int bn, int n,
-            int t, int L, int limit, float scale_log2e, cudaStream_t st) {
+template <int D, typename E>
+int launch_prefill(const void* q, const void* k, const void* v, const int* vf, float* out,
+                   int bn, int n, int t, int L, int limit, float scale_log2e, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   constexpr int keys = PreSmem<D>::kKeys;
-  if (!make_map(&tq, q, bn, t, t, D, 64) || !make_map(&tk, k, bn, limit, L, D, keys) ||
-      !make_map(&tv, v, bn, limit, L, D, keys))
+  if (!make_map<E>(&tq, q, bn, t, t, D, 64) || !make_map<E>(&tk, k, bn, limit, L, D, keys) ||
+      !make_map<E>(&tv, v, bn, limit, L, D, keys))
     return kMapFailed;
-  auto kern = flash_decode_prefill_kernel<D>;
+  auto kern = flash_decode_prefill_kernel<D, E>;
   const int smem = PreSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -567,13 +577,13 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* vf, f
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename E>
 int launch_prefill_q8(const void* q, const void* k, const void* v, const float* ks,
                       const float* vs, const int* vf, float* out, int bn, int n, int t, int L,
                       int limit, float scale_log2e, cudaStream_t st) {
   CUtensorMap tq;
-  if (!make_map(&tq, q, bn, t, t, D, 64)) return kMapFailed;
-  auto kern = flash_decode_prefill_q8_kernel<D>;
+  if (!make_map<E>(&tq, q, bn, t, t, D, 64)) return kMapFailed;
+  auto kern = flash_decode_prefill_q8_kernel<D, E>;
   const int smem = PreQ8Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -584,19 +594,19 @@ int launch_prefill_q8(const void* q, const void* k, const void* v, const float* 
 }
 
 // the split-K kernel at t <= kSplitMaxRows: one row per CTA at t = 1, else 4
-template <bool Q8>
+template <bool Q8, typename E>
 int launch_decode(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                   const int* vf, float* o, float* pt, int* ct, int bn, int n, int t, int L, int d,
                   int limit, int splits, float sl2, cudaStream_t st) {
   if (t == 1)
-    return d == 64 ? launch_split<64, 1, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
-                                             splits, sl2, st)
-                   : launch_split<128, 1, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
-                                              splits, sl2, st);
-  return d == 64 ? launch_split<64, 4, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
-                                           splits, sl2, st)
-                 : launch_split<128, 4, Q8>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
-                                            splits, sl2, st);
+    return d == 64 ? launch_split<64, 1, Q8, E>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L,
+                                                limit, splits, sl2, st)
+                   : launch_split<128, 1, Q8, E>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L,
+                                                 limit, splits, sl2, st);
+  return d == 64 ? launch_split<64, 4, Q8, E>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L, limit,
+                                              splits, sl2, st)
+                 : launch_split<128, 4, Q8, E>(q, k, v, ks, vs, vf, o, pt, ct, bn, n, t, L,
+                                               limit, splits, sl2, st);
 }
 
 // what neither entry takes
@@ -612,8 +622,9 @@ bool bad_args(const void* part, const void* counters, int b, int n, int t, int L
 
 extern "C" {
 
-// bfloat16 q [b, n, t, d] and caches [b, n, L, d], d = 64 or 128; valid_from
-// int32 [b] or null; out float32 [b, n, t, d].  t <= 16 takes the split-K
+// q [b, n, t, d] and caches [b, n, L, d] of one element type, `dtype` 1
+// bfloat16 or 2 float16, d = 64 or 128; valid_from int32 [b] or null; out
+// float32 [b, n, t, d].  t <= 16 takes the split-K
 // kernel over `splits` CTAs per (b, h, row group), rows = 1 at t = 1, else
 // 4: with splits > 1, `part` is float32 scratch of groups * splits * rows *
 // (d + 2) floats and `counters` int32 scratch of groups = b * n *
@@ -621,7 +632,7 @@ extern "C" {
 // tensor-core prefill (splits, part and counters unused).
 int flash_decode_sm90(const void* q, const void* k, const void* v, const void* valid_from,
                       void* out, void* part, void* counters, int b, int n, int t, int L, int d,
-                      int limit, int splits, float scale, void* stream) {
+                      int limit, int splits, float scale, int dtype, void* stream) {
   if (bad_args(part, counters, b, n, t, L, d, limit, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* vf = static_cast<const int*>(valid_from);
@@ -629,21 +640,24 @@ int flash_decode_sm90(const void* q, const void* k, const void* v, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
   const int bn = b * n;
-  if (t > kSplitMaxRows) {
-    return d == 64 ? launch_prefill<64>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st)
-                   : launch_prefill<128>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st);
-  }
-  return launch_decode<false>(q, k, v, nullptr, nullptr, vf, o, static_cast<float*>(part),
-                              static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2,
-                              st);
+  return by_dtype(dtype, [&](auto tag) {
+    using E = decltype(tag);
+    if (t > kSplitMaxRows)
+      return d == 64 ? launch_prefill<64, E>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st)
+                     : launch_prefill<128, E>(q, k, v, vf, o, bn, n, t, L, limit, sl2, st);
+    return launch_decode<false, E>(q, k, v, nullptr, nullptr, vf, o, static_cast<float*>(part),
+                                   static_cast<int*>(counters), bn, n, t, L, d, limit, splits,
+                                   sl2, st);
+  });
 }
 
 // The same over int8 caches [b, n, L, d] with float32 k_scale / v_scale
-// [b, n, L]; q bfloat16, the rest as flash_decode_sm90.
+// [b, n, L]; q of `dtype` (1 bfloat16, 2 float16), the rest as
+// flash_decode_sm90.
 int flash_decode_q8_sm90(const void* q, const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* valid_from, void* out, void* part,
                          void* counters, int b, int n, int t, int L, int d, int limit,
-                         int splits, float scale, void* stream) {
+                         int splits, float scale, int dtype, void* stream) {
   if (bad_args(part, counters, b, n, t, L, d, limit, splits) || k_scale == nullptr ||
       v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -654,12 +668,16 @@ int flash_decode_q8_sm90(const void* q, const void* k, const void* v, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
   const int bn = b * n;
-  if (t > kSplitMaxRows) {
-    return d == 64 ? launch_prefill_q8<64>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st)
-                   : launch_prefill_q8<128>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st);
-  }
-  return launch_decode<true>(q, k, v, ks, vs, vf, o, static_cast<float*>(part),
-                             static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2, st);
+  return by_dtype(dtype, [&](auto tag) {
+    using E = decltype(tag);
+    if (t > kSplitMaxRows)
+      return d == 64
+                 ? launch_prefill_q8<64, E>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st)
+                 : launch_prefill_q8<128, E>(q, k, v, ks, vs, vf, o, bn, n, t, L, limit, sl2, st);
+    return launch_decode<true, E>(q, k, v, ks, vs, vf, o, static_cast<float*>(part),
+                                  static_cast<int*>(counters), bn, n, t, L, d, limit, splits, sl2,
+                                  st);
+  });
 }
 
 const char* flash_decode_sm90_error_string(int code) { return error_string(code); }

@@ -900,13 +900,6 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
 // launchers
 // ---------------------------------------------------------------------------
 
-// the tensor-map data type of an element type
-template <typename T>
-constexpr CUtensorMapDataType kMapType =
-    std::is_same<T, float>::value
-        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-        : (kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
-
 // a 3-D map over [bh, s, d] of T (innermost first) with a [rows, cols] box
 // and 128-byte swizzle; rows past s read as zeros and are not written
 template <typename T>
@@ -986,14 +979,6 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
       tq, tk, tv, tdo, tdq, static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), bh, s, scale);
   return cudaGetLastError();
-}
-
-// the element type of a dtype code (1 bfloat16, 2 float16), as a tag
-template <typename F>
-int by_dtype(int dtype, F&& f) {
-  if (dtype == 1) return f(__nv_bfloat16{});
-  if (dtype == 2) return f(__half{});
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

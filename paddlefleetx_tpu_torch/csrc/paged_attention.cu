@@ -1,7 +1,7 @@
-// Paged decode / verify attention for Hopper (sm_90a), bf16/f32 and int8 KV pools.
+// Paged decode / verify attention for Hopper (sm_90a), f32/bf16/f16 and int8 KV pools.
 //
 // Replaces the TPU kernel of paddlefleetx_tpu/ops/decode_attention.py:
-//   _paged_kernel (:524, launched by _paged_pallas :646) -> paged_decode (bf16/f32 pools)
+//   _paged_kernel (:524, launched by _paged_pallas :646) -> paged_decode (f32/bf16/f16 pools)
 //                                                        -> paged_decode_q8 (int8 pools)
 //
 // What it computes (the math of _paged_lax / _paged_kernel): q [b, n, t, d]
@@ -11,7 +11,7 @@
 // where logical slot col lives in pool block tables[i, col / bs] at offset
 // col % bs (pools [num_blocks, n, bs, d]).  Online softmax with float32
 // state (m, l, acc); out float32 [b, n, t, d] = acc / max(l, 1e-30), so a
-// row that sees no key is 0, not NaN.  bf16/f32 pools: s = scale * (q . k)
+// row that sees no key is 0, not NaN.  f32/bf16/f16 pools: s = scale * (q . k)
 // in f32 and the probabilities are rounded to the pool dtype before p @ v
 // (the Pallas kernel's p.astype(v.dtype)).  int8 pools: float32 scale
 // tiles [num_blocks, n, bs] ride with each pool block; the key scale
@@ -55,6 +55,7 @@
 // upload).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,12 +72,16 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 // p rounded to the pool dtype before the p @ v product
 __device__ __forceinline__ float round_to(float p, const float*) { return p; }
 __device__ __forceinline__ float round_to(float p, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(p));
+}
+__device__ __forceinline__ float round_to(float p, const __half*) {
+  return __half2float(__float2half_rn(p));
 }
 __device__ __forceinline__ float round_to(float p, const int8_t*) { return p; }
 
@@ -340,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both pools share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and both pools share it).
 // q [b, n, t, d]; pools [num_blocks, n, bs, d]; tables int32 [b, M];
 // positions int32 [b]; out float32 [b, n, t, d].
 int paged_decode(const void* q, const void* k_pool, const void* v_pool, const void* tables,
@@ -356,11 +361,15 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool, const vo
                                                        tables, positions, out, b, n, t, M,
                                                        bs, d, num_blocks, scale, stream);
   }
+  if (dtype == 2) {
+    return launch<__half, __half, false>(q, k_pool, v_pool, nullptr, nullptr, tables, positions,
+                                         out, b, n, t, M, bs, d, num_blocks, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // int8 pools with float32 per-(slot, head) scale tiles [num_blocks, n, bs];
-// q_dtype: 0 = float32, 1 = bfloat16.
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 int paged_decode_q8(const void* q, const void* k_pool, const void* v_pool,
                     const void* k_scale, const void* v_scale, const void* tables,
                     const void* positions, void* out, int b, int n, int t, int M, int bs,
@@ -374,6 +383,10 @@ int paged_decode_q8(const void* q, const void* k_pool, const void* v_pool,
     return launch<__nv_bfloat16, int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, tables,
                                                positions, out, b, n, t, M, bs, d, num_blocks,
                                                scale, stream);
+  }
+  if (q_dtype == 2) {
+    return launch<__half, int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, tables, positions,
+                                        out, b, n, t, M, bs, d, num_blocks, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,13 @@
 // Paged decode / verify / chunk attention at head dim 64 or 128 on Hopper
-// (sm_90a), for bfloat16 q over bfloat16 pools or over int8 pools with
-// per-slot scales.
+// (sm_90a), for bfloat16 or float16 q over pools of q's type or over int8
+// pools with per-slot scales.  One template per element type E (the
+// entries' `dtype` argument: 1 bfloat16, 2 float16), sharing every tile,
+// swizzle and copy.
 //
-// Replaces, for bfloat16 q at d in {64, 128} and block sizes 8, 16, 32, 64
-// or 128, the TPU kernel of paddlefleetx_tpu/ops/decode_attention.py:
-//   _paged_kernel (:524, launched by _paged_pallas :646) -> paged_decode_sm90 (bf16 pools)
-//                                                        -> paged_decode_q8_sm90 (int8 pools)
+// Replaces, for bfloat16 and float16 q at d in {64, 128} and block sizes 8,
+// 16, 32, 64 or 128, the TPU kernel of paddlefleetx_tpu/ops/decode_attention.py:
+//   _paged_kernel (:524, launched by _paged_pallas :646) -> paged_decode_sm90 (bf16 / f16)
+//                                                        -> paged_decode_q8_sm90 (int8)
 // csrc/paged_attention.cu keeps float32 q, other head dims and block sizes
 // (ops/decode_attention.paged_kernel_route).
 //
@@ -14,9 +16,9 @@
 // logical slot positions[i] + r and attends over the row's logical slots col
 // <= positions[i] + r, where slot col lives in pool block tables[i, col / bs]
 // at offset col % bs (pools [num_blocks, n, bs, d]).  Online softmax with
-// float32 state; out float32 [b, n, t, d] = acc / max(l, 1e-30).  bf16 pools:
-// the probabilities are rounded to bf16 before p @ v (the Pallas kernel's
-// p.astype(v.dtype)).  int8 pools: the scores are multiplied by k_scale per
+// float32 state; out float32 [b, n, t, d] = acc / max(l, 1e-30).  bf16 / f16
+// pools: the probabilities are rounded to the pool's type before p @ v (the
+// Pallas kernel's p.astype(v.dtype)).  int8 pools: the scores are multiplied by k_scale per
 // key, and p * v_scale stays in float32 (nothing is rounded).  Scales
 // [num_blocks, n, bs] float32 are indexed by pool block, like the payload.
 // Slots below positions[i] + t hold written keys; slots at or past it may
@@ -42,7 +44,7 @@
 //  * A ring of bulk copies fed through the block table.  Each (pool block,
 //    head) is one contiguous run of bs * d elements (16-byte aligned), and
 //    its scales one run of 4 * bs bytes (a multiple of 32: bs % 8 == 0).  A
-//    stage holds 8 KB of K and of V (DecGeom: 64 / 32 keys of bf16 at d = 64
+//    stage holds 8 KB of K and of V (DecGeom: 64 / 32 keys of bf16 / f16 at d = 64
 //    / 128, 128 / 64 of int8), a whole number of blocks (bs <= stage) or a
 //    stage-sized run of one block (bs > stage); the threads first stage the
 //    split's table entries in shared memory, then for each stage warp 0's
@@ -71,17 +73,20 @@
 //  * A CTA is one warpgroup on a 64-row query tile of one (row, head) and
 //    one split of its keys; S = Q.K^T by wgmma from shared memory, the
 //    online softmax in registers (csrc/sm90.cuh: tile_softmax), P as the
-//    register A operand of P.V (bf16: P rounded to bf16; int8: p * v_scale
-//    as a bf16 high and a bf16 low part, tools/q8_prefill_precision.py).
+//    register A operand of P.V (bf16 / f16: P rounded to the pool's type;
+//    int8: p * v_scale as a bf16 high and a bf16 low part under either q
+//    type, tools/q8_prefill_precision.py, with K widened to q's type and V
+//    to bf16, as csrc/decode_attention_sm90.cu's int8 prefill says why).
 //    Key tiles of 128 keys at d = 64, 64 at d = 128, through a 2-stage
 //    mbarrier ring; a tile is assembled from the row's pool blocks, one copy
 //    per block (or per tile-sized run of a block larger than the tile):
-//    bf16 by TMA through one 4-D map over the pool [nb, n, bs, d] with a
-//    [64 bf16, min(bs, tile)] box and 128-byte swizzle, each block landing on
+//    bf16 / f16 by TMA through one 4-D map over the pool [nb, n, bs, d] with
+//    a [64 values, min(bs, tile)] box and 128-byte swizzle, each block landing on
 //    a 1024-byte boundary of the tile (bs * 128 bytes, bs % 8 == 0), so on
 //    the swizzle phase the wgmma descriptors expect; int8 by cp.async.bulk of
-//    the block's bs * d payload bytes and its two scale runs, widened to bf16
-//    in the same swizzled layout (csrc/sm90.cuh: widen_tile) before the
+//    the block's bs * d payload bytes and its two scale runs, widened (K to
+//    q's type, V to bf16) in the same swizzled layout (csrc/sm90.cuh:
+//    widen_tile) before the
 //    products.  warp 0's lanes issue one block each.
 //  * Only the table entries and blocks below the tile's causal end are read
 //    (blocks up to (positions[i] + t - 1) / bs at most); a query tile skips
@@ -126,11 +131,11 @@ struct PagedSmem {
 };
 
 // R: query rows per CTA.  Q8: int8 pools with k_scale / v_scale [nb, n, bs]
-// (else bf16 pools, scales null).  Pools are read as bytes: a pool row is
-// G::kRow bytes.
-template <int D, int R, bool Q8>
+// (else pools of E, scales null).  E: q's element type, bf16 or f16.  Pools
+// are read as bytes: a pool row is G::kRow bytes.
+template <int D, int R, bool Q8, typename E>
 __global__ void __launch_bounds__(kDecThreads)
-paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_pool,
+paged_decode_split_kernel(const E* __restrict__ q, const uint8_t* __restrict__ k_pool,
                           const uint8_t* __restrict__ v_pool, const float* __restrict__ k_scale,
                           const float* __restrict__ v_scale, const int* __restrict__ tables,
                           const int* __restrict__ positions, float* __restrict__ out,
@@ -201,7 +206,7 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
     for (int s = 0; s < min(kDecStages, nstages); ++s) issue(s);
 
   float qf[R][P];
-  split_load_q<D, R, Q8>(q + (static_cast<size_t>(bn) * t + r0) * D, nrows, sub, qf);
+  split_load_q<D, R, Q8, E>(q + (static_cast<size_t>(bn) * t + r0) * D, nrows, sub, qf);
   float m[R], l[R], acc[R][P];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -215,10 +220,10 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
     const int st = s % kDecStages;
     mbar_wait(full + st, (s / kDecStages) & 1);
     const int c0 = lo + s * G::kKeys;
-    split_stage<D, R, Q8>(smem + G::kK + st * G::kTile, smem + G::kV + st * G::kTile,
-                          reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys,
-                          stream, sub, c0, min(G::kKeys, hi - c0), pos0, nrows, scale_log2e, qf,
-                          m, l, acc);
+    split_stage<D, R, Q8, E>(smem + G::kK + st * G::kTile, smem + G::kV + st * G::kTile,
+                             reinterpret_cast<const float*>(smem + G::kScl) + st * 2 * G::kKeys,
+                             stream, sub, c0, min(G::kKeys, hi - c0), pos0, nrows, scale_log2e,
+                             qf, m, l, acc);
     __syncthreads();  // the stage is read: refill it
     if (warp == 0 && s + kDecStages < nstages) issue(s + kDecStages);
   }
@@ -231,18 +236,18 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __
                          counters + idx, split, active);
 }
 
-template <int D, int R, bool Q8>
+template <int D, int R, bool Q8, typename E>
 int launch_split(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                  const int* tables, const int* positions, float* out, float* part,
                  int* counters, int bn, int n, int t, int M, int bs, int splits, int split_keys,
                  float scale_log2e, cudaStream_t st) {
-  auto kern = paged_decode_split_kernel<D, R, Q8>;
+  auto kern = paged_decode_split_kernel<D, R, Q8, E>;
   const int smem = PagedSmem<D, Q8>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bn, splits, (t + R - 1) / R);
   kern<<<grid, kDecThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const E*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), ks, vs, tables, positions, out, part, counters, n, t, M,
       bs, split_keys, scale_log2e);
   return cudaGetLastError();
@@ -256,18 +261,18 @@ constexpr int kChunkRows = 64;  // query rows a CTA: one warpgroup's wgmma tile
 constexpr int kChunkStages = 2;
 
 // Key tiles of 128 keys at d = 64 and of 64 at d = 128 (K7/K8's prefill
-// tiles).  bf16: the ring's stages hold K and V as TMA lands them; int8: the
-// ring holds the raw rows and their scales, widened into one K and one V
-// tile before the products.
+// tiles).  bf16 / f16: the ring's stages hold K and V as TMA lands them;
+// int8: the ring holds the raw rows and their scales, widened into one K
+// tile (q's type) and one V tile (bf16) before the products.
 template <int D, bool Q8>
 struct ChunkSmem {
   static constexpr int kBoxes = D / 64;
   static constexpr int kKeys = D == 64 ? 128 : 64;     // keys per tile
-  static constexpr int kKBox = kKeys * 128;            // bytes of a [kKeys, 64 bf16] box
-  static constexpr int kTile = kBoxes * kKBox;         // [kKeys, D] bf16
-  static constexpr int kTiles = Q8 ? 1 : kChunkStages;  // bf16 K (and V) tiles
+  static constexpr int kKBox = kKeys * 128;            // bytes of a [kKeys, 64] 2-byte box
+  static constexpr int kTile = kBoxes * kKBox;         // [kKeys, D] 2-byte values
+  static constexpr int kTiles = Q8 ? 1 : kChunkStages;  // 2-byte K (and V) tiles
   static constexpr int kRaw = Q8 ? kKeys * D : 0;      // int8 rows [kKeys, D] a stage
-  static constexpr int kQ = 0;                         // [64 rows, D] bf16 (TMA, swizzled)
+  static constexpr int kQ = 0;                         // [64 rows, D] q (TMA, swizzled)
   static constexpr int kK = kQ + kBoxes * kQBox;
   static constexpr int kV = kK + kTiles * kTile;
   static constexpr int kRawK = kV + kTiles * kTile;
@@ -280,11 +285,12 @@ struct ChunkSmem {
 };
 
 // One CTA: query tile qi of (row, head) bn, split `split` of the tile's
-// keys.  tm_q: q [b * n, t, D]; tm_k / tm_v (bf16 pools): the pools as [nb,
-// n, bs, D] with a [64, min(bs, kKeys)] box; k_pool / v_pool and the scales
+// keys.  E: q's element type (bf16 or f16), and the pools' unless Q8.
+// tm_q: q [b * n, t, D]; tm_k / tm_v (pools of E): the pools as [nb, n,
+// bs, D] with a [64, min(bs, kKeys)] box; k_pool / v_pool and the scales
 // (int8 pools): read by bulk copies.  Scores and the running max are kept
 // in the log2 domain (scale * log2(e) folded in).
-template <int D, bool Q8>
+template <int D, bool Q8, typename E>
 __global__ void __launch_bounds__(kWgThreads)
 paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -402,8 +408,8 @@ paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint8_t* vt = smem + S::kV + (Q8 ? 0 : st * S::kTile);
     if constexpr (Q8) {
       // widen (rows past cnt: zeros) and take the scales (past cnt: zeros)
-      widen_tile<D, KT>(smem + S::kRawK + st * S::kRaw, kt, cnt);
-      widen_tile<D, KT>(smem + S::kRawV + st * S::kRaw, vt, cnt);
+      widen_tile<D, KT, E>(smem + S::kRawK + st * S::kRaw, kt, cnt);
+      widen_tile<D, KT, __nv_bfloat16>(smem + S::kRawV + st * S::kRaw, vt, cnt);
       const float* scl = reinterpret_cast<const float*>(smem + S::kScl) + st * 2 * KT;
       for (int i = threadIdx.x; i < 2 * KT; i += kWgThreads) cur[i] = i % KT < cnt ? scl[i] : 0.f;
       fence_proxy_async();  // the widened tiles, for wgmma
@@ -435,9 +441,9 @@ paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t dq = sw128_desc(q_s + (kk / 4) * kQBox + col, 16, 1024);
       const uint64_t dk = sw128_desc(k_s + (kk / 4) * S::kKBox + col, 16, 1024);
       if constexpr (KT == 128)
-        wgmma_ss_n128<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n128<0, 0, E>(sc, dq, dk, kk > 0);
       else
-        wgmma_ss_n64<0, 0>(sc, dq, dk, kk > 0);
+        wgmma_ss_n64<0, 0, E>(sc, dq, dk, kk > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -454,8 +460,8 @@ paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     tile_softmax(sc, o, m, l, scale_log2e);
     // o += P.V: P from registers, V [KT, d] an MN-major B whose 64-column
-    // boxes are kKBox apart; bf16: P rounded to bf16; int8: P * v_scale as
-    // bf16 high and low parts
+    // boxes are kKBox apart; native: P rounded to E; int8: P * v_scale as
+    // bf16 high and low parts over bf16 V, whatever q's type
     if constexpr (Q8) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) sc[i] *= cur[KT + key_of(i, lane)];
@@ -480,15 +486,15 @@ paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(pl);
     } else {
       uint32_t pf[KS][4];
-      to_a_frags<KS>(sc, pf);
+      to_a_frags<KS, E>(sc, pf);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const uint64_t bv = sw128_desc(v_s + kk * 16 * 128, S::kKBox, 1024);
         if constexpr (D == 64)
-          wgmma_rs_n64<1>(o, pf[kk], bv, 1);
+          wgmma_rs_n64<1, E>(o, pf[kk], bv, 1);
         else
-          wgmma_rs_n128<1>(o, pf[kk], bv, 1);
+          wgmma_rs_n128<1, E>(o, pf[kk], bv, 1);
       }
       wgmma_commit();
       wgmma_wait();
@@ -558,8 +564,9 @@ paged_chunk_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) counters[group] = 0;  // ready for the next call
 }
 
-// a 4-D bf16 map over a pool [nb, n, bs, d] (innermost first: d, slot,
-// head, block) with a [64, box_rows, 1, 1] box and 128-byte swizzle
+// a 4-D map over a pool [nb, n, bs, d] of E (bf16 or f16; innermost first:
+// d, slot, head, block) with a [64, box_rows, 1, 1] box and 128-byte swizzle
+template <typename E>
 bool make_pool_map(CUtensorMap* map, const void* pool, int nb, int n, int bs, int d,
                    int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -570,13 +577,13 @@ bool make_pool_map(CUtensorMap* map, const void* pool, int nb, int n, int bs, in
   const cuuint64_t strides[3] = {row, row * bs, row * bs * n};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(pool), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, kMapType<E>, 4, const_cast<void*>(pool), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, typename E>
 int launch_chunk(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                  const int* tables, const int* positions, float* out, float* part,
                  int* counters, int bn, int n, int t, int M, int bs, int nb, int splits,
@@ -584,11 +591,11 @@ int launch_chunk(const void* q, const void* k, const void* v, const float* ks, c
   constexpr int keys = ChunkSmem<D, Q8>::kKeys;
   const int box_rows = bs < keys ? bs : keys;
   CUtensorMap tq, tk = {}, tv = {};
-  if (!make_map(&tq, q, bn, t, t, D, kChunkRows)) return kMapFailed;
-  if (!Q8 && (!make_pool_map(&tk, k, nb, n, bs, D, box_rows) ||
-              !make_pool_map(&tv, v, nb, n, bs, D, box_rows)))
+  if (!make_map<E>(&tq, q, bn, t, t, D, kChunkRows)) return kMapFailed;
+  if (!Q8 && (!make_pool_map<E>(&tk, k, nb, n, bs, D, box_rows) ||
+              !make_pool_map<E>(&tv, v, nb, n, bs, D, box_rows)))
     return kMapFailed;
-  auto kern = paged_chunk_kernel<D, Q8>;
+  auto kern = paged_chunk_kernel<D, Q8, E>;
   const int smem = ChunkSmem<D, Q8>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -601,25 +608,29 @@ int launch_chunk(const void* q, const void* k, const void* v, const float* ks, c
 }
 
 // t <= 16: the split-K kernel, one row per CTA at t = 1, else 4; above:
-// the tensor-core chunk kernel
+// the tensor-core chunk kernel; q of `dtype` (1 bfloat16, 2 float16)
 template <bool Q8>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* tab, const int* pos, float* o, float* pt, int* ct, int bn, int n, int t,
-           int M, int bs, int d, int nb, int splits, int split_keys, float sl2, cudaStream_t st) {
-  if (t > kMaxRows)
-    return d == 64 ? launch_chunk<64, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M, bs,
-                                          nb, splits, split_keys, sl2, st)
-                   : launch_chunk<128, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M, bs,
-                                           nb, splits, split_keys, sl2, st);
-  if (t == 1)
-    return d == 64 ? launch_split<64, 1, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M,
-                                             bs, splits, split_keys, sl2, st)
-                   : launch_split<128, 1, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M,
-                                              bs, splits, split_keys, sl2, st);
-  return d == 64 ? launch_split<64, 4, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M, bs,
-                                           splits, split_keys, sl2, st)
-                 : launch_split<128, 4, Q8>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M,
-                                            bs, splits, split_keys, sl2, st);
+           int M, int bs, int d, int nb, int splits, int split_keys, float sl2, int dtype,
+           cudaStream_t st) {
+  return by_dtype(dtype, [&](auto tag) {
+    using E = decltype(tag);
+    if (t > kMaxRows)
+      return d == 64 ? launch_chunk<64, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t, M,
+                                               bs, nb, splits, split_keys, sl2, st)
+                     : launch_chunk<128, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t,
+                                                M, bs, nb, splits, split_keys, sl2, st);
+    if (t == 1)
+      return d == 64 ? launch_split<64, 1, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t,
+                                                  M, bs, splits, split_keys, sl2, st)
+                     : launch_split<128, 1, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n,
+                                                   t, M, bs, splits, split_keys, sl2, st);
+    return d == 64 ? launch_split<64, 4, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t,
+                                                M, bs, splits, split_keys, sl2, st)
+                   : launch_split<128, 4, Q8, E>(q, k, v, ks, vs, tab, pos, o, pt, ct, bn, n, t,
+                                                 M, bs, splits, split_keys, sl2, st);
+  });
 }
 
 // what neither entry takes; splits * split_keys must cover the table's
@@ -644,8 +655,9 @@ bool bad_args(const void* part, const void* counters, int b, int n, int t, int M
 
 extern "C" {
 
-// bfloat16 q [b, n, t, d] (d = 64 or 128) over bfloat16 pools [num_blocks,
-// n, bs, d] (bs = 8, 16, 32, 64 or 128); tables int32 [b, M]; positions
+// q [b, n, t, d] (d = 64 or 128) over pools [num_blocks, n, bs, d] (bs =
+// 8, 16, 32, 64 or 128) of one element type, `dtype` 1 bfloat16 or 2
+// float16; tables int32 [b, M]; positions
 // int32 [b]; out float32 [b, n, t, d].  Split s of a row group takes its
 // keys [s * split_keys, (s + 1) * split_keys) (split_keys a multiple of 128,
 // at most 512 for t <= 16; splits * split_keys >= M * bs).  With splits > 1,
@@ -656,22 +668,23 @@ extern "C" {
 int paged_decode_sm90(const void* q, const void* k_pool, const void* v_pool, const void* tables,
                       const void* positions, void* out, void* part, void* counters, int b, int n,
                       int t, int M, int bs, int d, int num_blocks, int splits, int split_keys,
-                      float scale, void* stream) {
+                      float scale, int dtype, void* stream) {
   if (bad_args(part, counters, b, n, t, M, bs, d, num_blocks, splits, split_keys))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<false>(q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(tables),
                        static_cast<const int*>(positions), static_cast<float*>(out),
                        static_cast<float*>(part), static_cast<int*>(counters), b * n, n, t, M, bs,
-                       d, num_blocks, splits, split_keys, scale * kLog2e,
+                       d, num_blocks, splits, split_keys, scale * kLog2e, dtype,
                        static_cast<cudaStream_t>(stream));
 }
 
-// The same over int8 pools with float32 k_scale / v_scale [num_blocks, n, bs].
+// The same over int8 pools with float32 k_scale / v_scale [num_blocks, n,
+// bs]; q of `dtype` (1 bfloat16, 2 float16).
 int paged_decode_q8_sm90(const void* q, const void* k_pool, const void* v_pool,
                          const void* k_scale, const void* v_scale, const void* tables,
                          const void* positions, void* out, void* part, void* counters, int b,
                          int n, int t, int M, int bs, int d, int num_blocks, int splits,
-                         int split_keys, float scale, void* stream) {
+                         int split_keys, float scale, int dtype, void* stream) {
   if (bad_args(part, counters, b, n, t, M, bs, d, num_blocks, splits, split_keys) ||
       k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -679,7 +692,7 @@ int paged_decode_q8_sm90(const void* q, const void* k_pool, const void* v_pool,
                       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
                       static_cast<const int*>(positions), static_cast<float*>(out),
                       static_cast<float*>(part), static_cast<int*>(counters), b * n, n, t, M, bs,
-                      d, num_blocks, splits, split_keys, scale * kLog2e,
+                      d, num_blocks, splits, split_keys, scale * kLog2e, dtype,
                       static_cast<cudaStream_t>(stream));
 }
 

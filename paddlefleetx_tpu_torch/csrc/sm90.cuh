@@ -3,10 +3,11 @@
 // bulk groups, wgmma (bf16 or f16 in, float32 accumulators) with its 128-byte
 // swizzled shared-memory descriptors, the accumulator-to-A-fragment
 // packing, the pieces of the tensor-core attention tiles (a key tile's
-// online softmax, int8 tiles widened to bf16, the output rows), the
-// split-K decode pieces (bulk copies, the bf16 and int8 widening, a
+// online softmax, int8 tiles widened to bf16 or f16, the output rows), the
+// split-K decode pieces (bulk copies, the bf16, f16 and int8 widening, a
 // stage's scores and online softmax, the merge of the splits) and the
-// host's route to cuTensorMapEncodeTiled and its tensor maps.
+// host's route to cuTensorMapEncodeTiled, its tensor maps and the element
+// type of a dtype code.
 //
 // Included by csrc/flash_attention_sm90.cu (K3-K6),
 // csrc/decode_attention_sm90.cu (K7, K8) and csrc/paged_attention_sm90.cu
@@ -397,7 +398,7 @@ __device__ __forceinline__ int key_of(int i, int lane) {
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;
-constexpr int kQBox = 64 * 128;  // bytes of a [64 rows, 64 bf16] box
+constexpr int kQBox = 64 * 128;  // bytes of a [64 rows, 64 2-byte values] box
 
 // One key tile's online softmax in the log2 domain: sc holds S = Q.K^T of
 // the tile (scale not yet applied, masked scores already -inf); a row's
@@ -484,14 +485,14 @@ constexpr int kDecThreads = 128;
 constexpr int kDecStages = 4;    // the bulk-copy ring
 constexpr int kKeysPerGroup = 4;  // keys a lane group takes from each stage
 
-// Q8: int8 caches with float32 scales; else bf16
+// Q8: int8 caches with float32 scales; else bf16 or f16 (2 bytes a value)
 template <int D, bool Q8>
 struct DecGeom {
   static constexpr int kPer = Q8 ? 16 : 8;             // values of a key row per lane: 16 bytes
   static constexpr int kLanesPerKey = D / kPer;
   static constexpr int kGroups = 32 / kLanesPerKey;  // lane groups per warp
   static constexpr int kStreams = 4 * kGroups;       // lane groups per CTA
-  static constexpr int kKeys = kStreams * kKeysPerGroup;  // keys per stage: bf16 64 / 32, int8 128 / 64
+  static constexpr int kKeys = kStreams * kKeysPerGroup;  // a stage: 2-byte 64 / 32, int8 128 / 64
   static constexpr int kRow = Q8 ? D : 2 * D;         // bytes of a key row
   static constexpr int kTile = kKeys * kRow;          // bytes of K (or V) per stage: 8 KB
   static constexpr int kK = 0;                        // kDecStages stages
@@ -517,18 +518,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// the 8 bf16 of a 16-byte chunk as float32 (the low half is the lower index)
+// the 8 E (bf16: a shift into a float32's high half; f16: a conversion) of
+// a 16-byte chunk as float32, exactly (the low half is the lower index)
+template <typename E>
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    const float2 x = unpack2<E>(w[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
-__device__ __forceinline__ float round_bf16(float p) {
-  return __bfloat162float(__float2bfloat16(p));
+// p rounded to nearest in E and back: the Pallas kernels' p.astype(v.dtype)
+// before P.V
+template <typename E>
+__device__ __forceinline__ float round_to(float p) {
+  if constexpr (kIsF16<E>)
+    return __half2float(__float2half_rn(p));
+  else
+    return __bfloat162float(__float2bfloat16(p));
 }
 
 // the 16 int8 of a 16-byte chunk as float32 (byte i is value i): each byte,
@@ -546,10 +556,10 @@ __device__ __forceinline__ void unpack16_s8(const uint4& u, float (&f)[16]) {
 }
 
 // int8 rows [KEYS, D] at `raw` (rows at or past `cnt` read as zeros) into
-// bf16 [KEYS, 64] boxes at `dst` in TMA's 128-byte swizzle, the layout the
-// wgmma descriptors read; the warpgroup's threads widen 16 values of a row
-// each (exact: int8 values are bf16 values)
-template <int D, int KEYS>
+// [KEYS, 64] boxes of E (bf16 or f16) at `dst` in TMA's 128-byte swizzle,
+// the layout the wgmma descriptors read; the warpgroup's threads widen 16
+// values of a row each (exact: int8 values are bf16 and f16 values)
+template <int D, int KEYS, typename E>
 __device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int cnt) {
   constexpr int kChunks = D / 16;
   for (int i = threadIdx.x; i < KEYS * kChunks; i += kWgThreads) {
@@ -558,10 +568,10 @@ __device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int
     if (r < cnt) {
       float f[16];
       unpack16_s8(*reinterpret_cast<const uint4*>(raw + r * D + 16 * c), f);
-      a = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                     pack_bf16(f[6], f[7]));
-      b = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
-                     pack_bf16(f[14], f[15]));
+      a = make_uint4(pack2<E>(f[0], f[1]), pack2<E>(f[2], f[3]), pack2<E>(f[4], f[5]),
+                     pack2<E>(f[6], f[7]));
+      b = make_uint4(pack2<E>(f[8], f[9]), pack2<E>(f[10], f[11]), pack2<E>(f[12], f[13]),
+                     pack2<E>(f[14], f[15]));
     }
     uint8_t* box = dst + (16 * c / 64) * KEYS * 128;
     const int col_byte = 2 * (16 * c % 64);
@@ -570,20 +580,20 @@ __device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* dst, int
   }
 }
 
-// 16 bytes of a key row at p as float32: 8 bf16 or 16 int8
-template <bool Q8, int P>
+// 16 bytes of a key row at p as float32: 8 E (bf16 or f16) or 16 int8
+template <bool Q8, typename E, int P>
 __device__ __forceinline__ void load_row(const uint8_t* p, float (&f)[P]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   if constexpr (Q8)
     unpack16_s8(u, f);
   else
-    unpack8(u, f);
+    unpack8<E>(u, f);
 }
 
-// the lane's 16-byte slices of the CTA's R query rows of bf16 q [bn, t, D]
-// as float32 (zeros past nrows)
-template <int D, int R, bool Q8>
-__device__ __forceinline__ void split_load_q(const __nv_bfloat16* q_rows, int nrows, int sub,
+// the lane's 16-byte slices of the CTA's R query rows of q [bn, t, D] of
+// element type E as float32 (zeros past nrows)
+template <int D, int R, bool Q8, typename E>
+__device__ __forceinline__ void split_load_q(const E* q_rows, int nrows, int sub,
                                              float (&qf)[R][DecGeom<D, Q8>::kPer]) {
   constexpr int P = DecGeom<D, Q8>::kPer;
 #pragma unroll
@@ -593,7 +603,7 @@ __device__ __forceinline__ void split_load_q(const __nv_bfloat16* q_rows, int nr
 #pragma unroll
       for (int h = 0; h < P / 8; ++h) {
         float f8[8];
-        unpack8(qp[h], f8);
+        unpack8<E>(qp[h], f8);
 #pragma unroll
         for (int e = 0; e < 8; ++e) qf[r][8 * h + e] = f8[e];
       }
@@ -606,10 +616,11 @@ __device__ __forceinline__ void split_load_q(const __nv_bfloat16* q_rows, int nr
 
 // One stage of the ring: key j of the stage (row j of kt / vt) is key c0 + j;
 // the first cnt are the CTA's, and row r sees keys up to pos0 + r.  kss: the
-// stage's k_scale[kKeys] then v_scale[kKeys] (int8).  A masked score is
+// stage's k_scale[kKeys] then v_scale[kKeys] (int8).  E: the element type of
+// a native cache (bf16 or f16; unused for int8).  A masked score is
 // selected away, never multiplied, and a slot past cnt is never multiplied
 // into acc: stale or NaN bytes there cannot reach the output.
-template <int D, int R, bool Q8>
+template <int D, int R, bool Q8, typename E>
 __device__ __forceinline__ void split_stage(const uint8_t* kt, const uint8_t* vt,
                                             const float* kss, int stream, int sub, int c0,
                                             int cnt, int pos0, int nrows, float scale_log2e,
@@ -624,7 +635,7 @@ __device__ __forceinline__ void split_stage(const uint8_t* kt, const uint8_t* vt
   for (int kk = 0; kk < kKeysPerGroup; ++kk) {
     const int j = stream + G::kStreams * kk;
     float kf[P];
-    load_row<Q8>(kt + j * G::kRow + sub * 16, kf);
+    load_row<Q8, E>(kt + j * G::kRow + sub * 16, kf);
     const float sl2 = Q8 ? scale_log2e * kss[j] : scale_log2e;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -656,16 +667,17 @@ __device__ __forceinline__ void split_stage(const uint8_t* kt, const uint8_t* vt
     for (int e = 0; e < P; ++e) acc[r][e] *= alpha;
     m[r] = m_new;
   }
-  // acc += p_bf16 . v (bf16) or (p * v_scale) . v (int8, p * v_scale in float32)
+  // acc += p_E . v (native, p rounded to E) or (p * v_scale) . v (int8, p *
+  // v_scale in float32)
 #pragma unroll
   for (int kk = 0; kk < kKeysPerGroup; ++kk) {
     const int j = stream + G::kStreams * kk;
     if (j < cnt) {  // a slot past cnt holds stale bytes: never multiplied
       float vf[P];
-      load_row<Q8>(vt + j * G::kRow + sub * 16, vf);
+      load_row<Q8, E>(vt + j * G::kRow + sub * 16, vf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float p = Q8 ? sc[kk][r] * kss[G::kKeys + j] : round_bf16(sc[kk][r]);
+        const float p = Q8 ? sc[kk][r] * kss[G::kKeys + j] : round_to<E>(sc[kk][r]);
 #pragma unroll
         for (int e = 0; e < P; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
       }
@@ -803,9 +815,17 @@ EncodeTiled encode_tiled() {
 
 constexpr int kMapFailed = 10001;  // cuTensorMapEncodeTiled refused a map
 
-// a 3-D bf16 map over [bn, rows, d] (innermost first): `rows` rows readable
-// per head (rows past it read as zeros), heads `head_rows` rows apart, with a
-// [box_rows, 64] box and 128-byte swizzle
+// the tensor-map data type of an element type
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    std::is_same<T, float>::value
+        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+        : (kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+
+// a 3-D map over [bn, rows, d] of E (bf16 or f16; innermost first): `rows`
+// rows readable per head (rows past it read as zeros), heads `head_rows`
+// rows apart, with a [box_rows, 64] box and 128-byte swizzle
+template <typename E>
 bool make_map(CUtensorMap* map, const void* ptr, int bn, int rows, int head_rows, int d,
               int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -816,10 +836,18 @@ bool make_map(CUtensorMap* map, const void* ptr, int bn, int rows, int head_rows
                                  static_cast<cuuint64_t>(head_rows) * d * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, kMapType<E>, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the element type of a dtype code (1 bfloat16, 2 float16), as a tag
+template <typename F>
+int by_dtype(int dtype, F&& f) {
+  if (dtype == 1) return f(__nv_bfloat16{});
+  if (dtype == 2) return f(__half{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* error_string(int code) {

@@ -12,8 +12,8 @@ Two spellings behind :func:`flash_decode`:
     tensors on the card.  ``flash_decode`` (the TPU's ``_decode_kernel``)
     and ``flash_decode_q8`` (``_decode_kernel_q8``, int8 caches with
     per-slot scales) each take one of two routes by q's dtype and the head
-    dim only (:func:`kernel_route`): bf16 q at d = 64 or 128 the Hopper
-    kernels of ``csrc/decode_attention_sm90.cu`` ("sm90": split-K
+    dim only (:func:`kernel_route`): bf16 or float16 q at d = 64 or 128 the
+    Hopper kernels of ``csrc/decode_attention_sm90.cu`` ("sm90": split-K
     flash-decoding over bulk copies for t <= 16, the tensor cores for a
     longer prefill), anything else the CUDA-core kernels of
     ``csrc/decode_attention.cu`` ("cuda_core");
@@ -25,8 +25,8 @@ The paged counterpart (``_paged_lax`` / ``_paged_kernel``, the
 continuous-batching engine's attention over block tables) has the same
 two spellings behind :func:`paged_decode_attention`: the CUDA kernels
 ``paged_decode`` / ``paged_decode_q8``, on one of two routes by q's dtype
-and the shapes only (:func:`paged_kernel_route`): bf16 q at d = 64 or
-128 and a block size of 8-128 (a power of two) the Hopper kernels of
+and the shapes only (:func:`paged_kernel_route`): bf16 or float16 q at d
+= 64 or 128 and a block size of 8-128 (a power of two) the Hopper kernels of
 ``csrc/paged_attention_sm90.cu`` ("sm90": split-K over the block tables
 for t <= 16, the tensor cores for a wider chunk), anything else the
 CUDA-core kernel of ``csrc/paged_attention.cu`` ("cuda_core"); and
@@ -74,7 +74,9 @@ _MAX_HEAD_DIM = 128
 # "paged_decode_chunk" / "paged_decode_q8_chunk" count the paged launches
 # wider than that (t > SPLIT_MAX_ROWS: a chunked prefill's chunk, a prefix
 # hit's suffix or a wide verify) on either route, and "<kernel>_sm90_chunk"
-# those that took the sm90 route's tensor-core chunk kernel.
+# those that took the sm90 route's tensor-core chunk kernel.  "<kernel>_f16"
+# counts the launches of each kernel under float16 q (any route), so a run can
+# tell the types apart.
 # Process-wide; reset with reset_counts().
 COUNTS = {
     "flash_decode": 0, "flash_decode_sm90": 0, "flash_decode_sm90_prefill": 0,
@@ -85,7 +87,8 @@ COUNTS = {
     "paged_decode_sm90_multi": 0, "paged_decode_q8": 0, "paged_decode_q8_sm90": 0,
     "paged_decode_q8_multi": 0, "paged_decode_q8_sm90_multi": 0, "paged_decode_chunk": 0,
     "paged_decode_sm90_chunk": 0, "paged_decode_q8_chunk": 0, "paged_decode_q8_sm90_chunk": 0,
-    "paged_plain": 0,
+    "paged_plain": 0, "flash_decode_f16": 0, "flash_decode_q8_f16": 0, "paged_decode_f16": 0,
+    "paged_decode_q8_f16": 0,
 }
 
 # The sm90 route (csrc/decode_attention_sm90.cu): t up to SPLIT_MAX_ROWS
@@ -93,6 +96,7 @@ COUNTS = {
 # SPLIT_ROWS otherwise; a split takes at least SPLIT_MIN_KEYS keys (one
 # stage of the d = 64 kernel).
 SM90_HEAD_DIMS = (64, 128)
+SM90_DTYPES = (torch.bfloat16, torch.float16)
 SPLIT_MAX_ROWS = 16
 SPLIT_ROWS = 4
 SPLIT_MIN_KEYS = 64
@@ -115,10 +119,12 @@ def reset_counts() -> None:
         COUNTS[key] = 0
 
 
-def _count(name: str, t: int, route: str) -> None:
-    """One launch of kernel ``name`` with ``t`` queries a row on ``route``."""
+def _count(name: str, t: int, route: str, dtype: Optional[torch.dtype] = None) -> None:
+    """One launch of kernel ``name`` with ``t`` queries a row (of q's
+    ``dtype``) on ``route``."""
     multi = 1 < t <= SPLIT_MAX_ROWS
     COUNTS[name] += 1
+    COUNTS[f"{name}_f16"] += dtype == torch.float16
     COUNTS[f"{name}_multi"] += multi
     if name.startswith("paged"):
         COUNTS[f"{name}_chunk"] += t > SPLIT_MAX_ROWS
@@ -132,20 +138,21 @@ def _count(name: str, t: int, route: str) -> None:
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route a CUDA launch of ``flash_decode`` takes for q of ``dtype``
     at ``head_dim``, over caches of q's dtype or int8 caches alike: "sm90"
-    (``csrc/decode_attention_sm90.cu``) for bfloat16 q at d = 64 or 128,
-    else "cuda_core" (``csrc/decode_attention.cu``)."""
-    return "sm90" if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS else "cuda_core"
+    (``csrc/decode_attention_sm90.cu``) for bfloat16 or float16 q at d = 64
+    or 128, else "cuda_core" (``csrc/decode_attention.cu``)."""
+    return "sm90" if dtype in SM90_DTYPES and head_dim in SM90_HEAD_DIMS else "cuda_core"
 
 
 def paged_kernel_route(dtype: torch.dtype, head_dim: int, t: int, block: int) -> str:
     """The route a CUDA launch of ``paged_decode`` takes for q of ``dtype``
     at ``head_dim`` with ``t`` queries a row over pools of ``block`` slots a
-    block, bf16 or int8 pools alike: "sm90" (``csrc/paged_attention_sm90.cu``:
-    split-K for t <= SPLIT_MAX_ROWS, the tensor-core chunk kernel above) for
-    bfloat16 q at d = 64 or 128, t >= 1 and a block size in
-    PAGED_SM90_BLOCKS (each divides the kernels' key stages and tiles or is
-    a multiple of them), else "cuda_core" (``csrc/paged_attention.cu``)."""
-    if (dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS and t >= 1
+    block, pools of q's dtype or int8 pools alike: "sm90"
+    (``csrc/paged_attention_sm90.cu``: split-K for t <= SPLIT_MAX_ROWS, the
+    tensor-core chunk kernel above) for bfloat16 or float16 q at d = 64 or
+    128, t >= 1 and a block size in PAGED_SM90_BLOCKS (each divides the
+    kernels' key stages and tiles or is a multiple of them), else
+    "cuda_core" (``csrc/paged_attention.cu``)."""
+    if (dtype in SM90_DTYPES and head_dim in SM90_HEAD_DIMS and t >= 1
             and block in PAGED_SM90_BLOCKS):
         return "sm90"
     return "cuda_core"
@@ -315,7 +322,7 @@ def decode_attention_plain(
 
 _LIB: Optional[ctypes.CDLL] = None
 _SM90_LIB: Optional[ctypes.CDLL] = None
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # split-K scratch of the sm90 route per (device, stream): float32 partials
 # and int32 arrival counters, which every launch leaves zeroed
 _SCRATCH: dict = {}
@@ -346,9 +353,9 @@ def _sm90_lib() -> ctypes.CDLL:
 
         lib = _build.load("decode_attention_sm90")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_sm90.argtypes = [ptr] * 7 + [i32] * 7 + [f32, ptr]
+        lib.flash_decode_sm90.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
         lib.flash_decode_sm90.restype = i32
-        lib.flash_decode_q8_sm90.argtypes = [ptr] * 9 + [i32] * 7 + [f32, ptr]
+        lib.flash_decode_q8_sm90.argtypes = [ptr] * 9 + [i32] * 7 + [f32, i32, ptr]
         lib.flash_decode_q8_sm90.restype = i32
         lib.flash_decode_sm90_error_string.argtypes = [i32]
         lib.flash_decode_sm90_error_string.restype = ctypes.c_char_p
@@ -370,8 +377,9 @@ def _split_scratch(dev: torch.device, stream: int, part_floats: int, groups: int
 
 
 def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_scale, v_scale):
-    """The sm90 route, over bf16 caches (``flash_decode_sm90``) or int8
-    caches with their scales (``flash_decode_q8_sm90``): the split-K kernel
+    """The sm90 route, over caches of q's type, bf16 or float16
+    (``flash_decode_sm90``), or int8 caches with their scales
+    (``flash_decode_q8_sm90``): the split-K kernel
     for t <= SPLIT_MAX_ROWS (its split count from :func:`decode_splits`),
     the tensor-core prefill above.  TMA and the bulk copies need 16-byte
     aligned tensors."""
@@ -392,7 +400,7 @@ def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_sca
     lib = _sm90_lib()
     scratch = (out.data_ptr(), None if part is None else part.data_ptr(),
                None if counters is None else counters.data_ptr(),
-               b, n, t, L, d, int(limit), splits, float(scale), stream)
+               b, n, t, L, d, int(limit), splits, float(scale), _DTYPE_CODES[q_t.dtype], stream)
     if k_scale is not None:
         name = "flash_decode_q8"
         rc = lib.flash_decode_q8_sm90(q_t.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -404,7 +412,7 @@ def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_sca
     if rc != 0:
         msg = lib.flash_decode_sm90_error_string(rc).decode()
         raise RuntimeError(f"{name} (sm90) kernel launch failed: CUDA error {rc} ({msg})")
-    _count(name, t, "sm90")
+    _count(name, t, "sm90", q_t.dtype)
     if t > SPLIT_MAX_ROWS:
         COUNTS[f"{name}_sm90_prefill"] += 1
 
@@ -421,7 +429,8 @@ def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
     b, n, t, d = q_t.shape
     L = k_cache.shape[2]
     quant = k_scale is not None
-    _require(q_t.dtype in _DTYPE_CODES, f"q dtype {q_t.dtype}; valid: float32, bfloat16")
+    _require(q_t.dtype in _DTYPE_CODES,
+             f"q dtype {q_t.dtype}; valid: float32, bfloat16, float16")
     _require(tuple(k_cache.shape) == (b, n, L, d) and v_cache.shape == k_cache.shape,
              f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} vs q {tuple(q_t.shape)}")
     _require(1 <= d <= _MAX_HEAD_DIM, f"head dim {d} outside [1, {_MAX_HEAD_DIM}]")
@@ -470,7 +479,7 @@ def _launch(q_t, k_cache, v_cache, limit, valid_from, scale, k_scale, v_scale):
     if rc != 0:
         msg = lib.flash_decode_error_string(rc).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc} ({msg})")
-    _count(name, t, "cuda_core")
+    _count(name, t, "cuda_core", q_t.dtype)
     return out
 
 
@@ -662,9 +671,9 @@ def _paged_sm90_lib() -> ctypes.CDLL:
 
         lib = _build.load("paged_attention_sm90")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_decode_sm90.argtypes = [ptr] * 8 + [i32] * 9 + [f32, ptr]
+        lib.paged_decode_sm90.argtypes = [ptr] * 8 + [i32] * 9 + [f32, i32, ptr]
         lib.paged_decode_sm90.restype = i32
-        lib.paged_decode_q8_sm90.argtypes = [ptr] * 10 + [i32] * 9 + [f32, ptr]
+        lib.paged_decode_q8_sm90.argtypes = [ptr] * 10 + [i32] * 9 + [f32, i32, ptr]
         lib.paged_decode_q8_sm90.restype = i32
         lib.paged_decode_sm90_error_string.argtypes = [i32]
         lib.paged_decode_sm90_error_string.restype = ctypes.c_char_p
@@ -674,8 +683,9 @@ def _paged_sm90_lib() -> ctypes.CDLL:
 
 def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
                        stream, split_keys):
-    """The sm90 route over bf16 pools (``paged_decode_sm90``) or int8 pools
-    with their scales (``paged_decode_q8_sm90``): the split-K kernel for t
+    """The sm90 route over pools of q's type, bf16 or float16
+    (``paged_decode_sm90``), or int8 pools with their scales
+    (``paged_decode_q8_sm90``): the split-K kernel for t
     <= SPLIT_MAX_ROWS, the tensor-core chunk kernel above (the C entry
     chooses by t), :func:`paged_splits` CTAs of ``split_keys`` keys for
     each (row, head, group of :func:`paged_rows` queries).  The scratch
@@ -701,7 +711,8 @@ def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v
     args = (tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            b, n, t, M, bs, d, nb, splits, split_keys, float(scale), stream)
+            b, n, t, M, bs, d, nb, splits, split_keys, float(scale), _DTYPE_CODES[q_t.dtype],
+            stream)
     if k_scale is not None:
         rc = lib.paged_decode_q8_sm90(q_t.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                                       k_scale.data_ptr(), v_scale.data_ptr(), *args)
@@ -733,7 +744,7 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
     M = tables.shape[1] if tables.dim() == 2 else -1
     quant = k_scale is not None
     _paged_require(q_t.dtype in _DTYPE_CODES,
-                   f"q dtype {q_t.dtype}; valid: float32, bfloat16")
+                   f"q dtype {q_t.dtype}; valid: float32, bfloat16, float16")
     _paged_require(tuple(k_pool.shape) == (nb, n, bs, d) and v_pool.shape == k_pool.shape,
                    f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} vs q "
                    f"{tuple(q_t.shape)}")
@@ -771,7 +782,7 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
     if route == "sm90":
         _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scale, out,
                            stream, split_keys)
-        _count(name, t, "sm90")
+        _count(name, t, "sm90", q_t.dtype)
         return out
     lib = _paged_lib()
     if quant:
@@ -789,7 +800,7 @@ def _paged_launch(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v_scal
     if rc != 0:
         msg = lib.paged_decode_error_string(rc).decode()
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc} ({msg})")
-    _count(name, t, "cuda_core")
+    _count(name, t, "cuda_core", q_t.dtype)
     return out
 
 

@@ -257,8 +257,10 @@ def load_pretrained_params(cfg) -> Optional[Dict[str, torch.Tensor]]:
 def load_params_into(model: torch.nn.Module, params: Dict[str, torch.Tensor],
                      source: str) -> torch.nn.Module:
     """Copy ``params`` into ``model``'s parameters of the same names, each
-    cast to the parameter's dtype (bf16 serving weights round as the
-    bridge rounds them; LayerNorm affines stay float32).  A checkpoint of
+    cast to the parameter's dtype: bf16 and float16 serving weights round to
+    nearest from a step's float32 masters, as the bridge rounds them and as
+    the JAX server's ``astype`` casts its params (a float16 overflow is
+    inf); LayerNorm affines stay float32.  A checkpoint of
     another config raises ``ValueError`` naming the first mismatched
     parameter, before anything is copied."""
     own = dict(model.named_parameters())

@@ -64,6 +64,15 @@ TRAINING_REST = ("paddlefleetx_tpu_torch.ops.chunked_ce", "paddlefleetx_tpu_torc
                  "paddlefleetx_tpu_torch.models.gpt.evaluation",
                  "paddlefleetx_tpu_torch.tools.eval")
 
+# serving a float16 model: the decode kernels' float16 routes, the servers,
+# the paged arena and its spill tier, generation, params loading and the
+# serve CLI; each imported above without JAX
+F16_SERVING = ("paddlefleetx_tpu_torch.ops.decode_attention",
+               "paddlefleetx_tpu_torch.core.serving", "paddlefleetx_tpu_torch.core.paged_cache",
+               "paddlefleetx_tpu_torch.core.continuous_batching",
+               "paddlefleetx_tpu_torch.models.gpt.generation",
+               "paddlefleetx_tpu_torch.utils.checkpoint", "paddlefleetx_tpu_torch.tools.serve")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -83,6 +92,7 @@ def test_port_imports_no_jax():
     assert set(TENANCY) <= set(listed.split()), listed
     assert set(TEXT_SERVING) <= set(listed.split()), listed
     assert set(TRAINING_REST) <= set(listed.split()), listed
+    assert set(F16_SERVING) <= set(listed.split()), listed
 
 
 def test_eval_without_card_raises():

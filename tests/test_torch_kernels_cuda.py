@@ -1332,3 +1332,198 @@ def test_fused_ln_train_on_card_matches_cpu():
     assert abs(cu[0] - cp[0]) <= 1e-5 * abs(cp[0])
     for (a, b) in zip(_leaves(cu[1]), _leaves(cp[1])):
         assert np.abs(a - b).max() <= 1e-3 * max(np.abs(b).max(), 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# float16 routes of K7, K8 and K9 (a float16 model served): float16 q at d =
+# 64 / 128 takes the sm90 kernels at every t (split-K, the tensor-core
+# prefill and chunk kernels), over float16 caches and pools or int8 ones;
+# other head dims and blocks take the CUDA-core kernels.  Selected with
+# ``-k f16``.
+# ---------------------------------------------------------------------------
+
+F16_KV = dict(argvalues=[torch.float16, torch.int8], ids=["f16", "int8"])
+
+
+def _f16_tol(kv_dtype, v):
+    """float16 caches: the kernel and the plain version each round p to
+    float16 once before P.V, at other points of the sum (the kernel against
+    its lane group's or tile's running max): at most 2^-10 of max |v|, plus
+    2e-5 of float32 summation order.  int8 caches under float16 q: float32
+    math on both sides, bf16's 1e-4."""
+    if kv_dtype == torch.int8:
+        return TOL[torch.int8]
+    return 2.0**-10 * v.float().abs().max().item() + 2e-5
+
+
+def _as_f16(case):
+    """A case of :func:`_case` or :func:`_paged_case` with q (and native
+    caches or pools) in float16: the same draws, rounded to float16."""
+    q, k, v, *rest = case
+    if k.dtype != torch.int8:
+        k, v = k.to(torch.float16), v.to(torch.float16)
+    return (q.to(torch.float16), k, v, *rest)
+
+
+def _f16_contiguous(name, kv_dtype, dev, seed=0):
+    return _as_f16(_case(name, torch.float32 if kv_dtype == torch.float16 else kv_dtype, dev,
+                         seed))
+
+
+def _f16_paged(name, kv_dtype, dev, seed=0):
+    return _as_f16(_paged_case(name, torch.float32 if kv_dtype == torch.float16 else kv_dtype,
+                               dev, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", **F16_KV)
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_f16_kernel_matches_plain(name, kv_dtype):
+    dev = _card()
+    q, k, v, limit, vf, scale, ks, vs = _f16_contiguous(name, kv_dtype, dev)
+    key = "flash_decode_q8" if kv_dtype == torch.int8 else "flash_decode"
+    t, d = q.shape[2], q.shape[3]
+    route = da.kernel_route(q.dtype, d)
+    assert route == ("sm90" if d in (64, 128) else "cuda_core")
+    before = dict(da.COUNTS)
+    got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    torch.cuda.synchronize()
+    sm90 = int(route == "sm90")
+    assert da.COUNTS[key] - before[key] == 1 and da.COUNTS[f"{key}_f16"] - before[f"{key}_f16"] == 1
+    assert da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == sm90
+    assert da.COUNTS[f"{key}_sm90_prefill"] - before[f"{key}_sm90_prefill"] == (
+        sm90 * int(t > da.SPLIT_MAX_ROWS))
+    assert da.COUNTS["plain"] == before["plain"]
+    ref = da.decode_attention_plain(q, k, v, limit, vf, da.decode_block(k.shape[2]), scale, ks, vs)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= _f16_tol(kv_dtype, v), err
+    # the wrapper generation calls: q's type, [b, t, n, d]
+    out = da.decode_attention(q.transpose(1, 2), k, v, limit - t, kv_valid_from=vf,
+                              k_scale=ks, v_scale=vs)
+    assert out.dtype == torch.float16 and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "prefill_request_d",
+                                  "decode_b1_split_k_short", "prefill_d128"])
+@pytest.mark.parametrize("kv_dtype", **F16_KV)
+def test_f16_kernel_never_reads_past_limit_and_repeats(kv_dtype, name):
+    """NaN past ``limit`` (int8: in the scales, the payload at the int8
+    extremes) leaves the float16 routes' output bitwise unchanged, and a
+    repeat call gives the same bits."""
+    dev = _card()
+    q, k, v, limit, vf, scale, ks, vs = _f16_contiguous(name, kv_dtype, dev)
+    ref = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    again = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    if kv_dtype == torch.int8:
+        for x in (ks, vs):
+            x[:, :, limit:] = float("nan")
+        k[:, :, limit:] = 127
+        v[:, :, limit:] = -128
+    else:
+        k[:, :, limit:] = float("nan")
+        v[:, :, limit:] = float("nan")
+    got = da.flash_decode(q, k, v, limit, vf, scale, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(again, ref)
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", **F16_KV)
+@pytest.mark.parametrize("name", sorted(PAGED_SHAPES))
+def test_f16_paged_kernel_matches_plain(name, kv_dtype):
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _f16_paged(name, kv_dtype, dev)
+    key = "paged_decode_q8" if kv_dtype == torch.int8 else "paged_decode"
+    t = q.shape[1]
+    route = da.paged_kernel_route(q.dtype, q.shape[-1], t, k.shape[2])
+    assert route == ("cuda_core" if name in PAGED_CUDA_CORE else "sm90")
+    before = dict(da.COUNTS)
+    q_t = q.transpose(1, 2).contiguous()
+    scale = 1.0 / q.shape[-1] ** 0.5
+    got = da._paged_launch(q_t, k, v, tables, positions, scale, ks, vs)
+    torch.cuda.synchronize()
+    chunk = int(route == "sm90" and t > da.SPLIT_MAX_ROWS)
+    assert da.COUNTS[key] - before[key] == 1 and da.COUNTS[f"{key}_f16"] - before[f"{key}_f16"] == 1
+    assert da.COUNTS[f"{key}_sm90"] - before[f"{key}_sm90"] == int(route == "sm90")
+    assert da.COUNTS[f"{key}_sm90_chunk"] - before[f"{key}_sm90_chunk"] == chunk
+    ref = da.paged_decode_attention_plain(q_t, k, v, tables, positions, scale, ks, vs)
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= _f16_tol(kv_dtype, v), err
+    out = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    assert out.dtype == torch.float16 and out.shape == q.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", **F16_KV)
+@pytest.mark.parametrize("name", ["decode_gpt345m_b8", "verify_t4_gpt345m", "block8_boundaries",
+                                  "block128_head_dim_128", "chunk_t80_block8_mid_block",
+                                  "chunk_t100_head_dim_128_block128", "chunk_t17_long_rows",
+                                  "chunk_t256_head_dim_128_block8"])
+def test_f16_paged_kernel_never_reads_past_a_rows_bound_and_repeats(name, kv_dtype):
+    """NaN in every block no row sees (the null block too) and past each
+    row's bound in its last block leaves the float16 routes' output bitwise
+    unchanged (split-K and the chunk kernel), and two calls give the same
+    bits."""
+    dev = _card()
+    q, k, v, tables, positions, ks, vs = _f16_paged(name, kv_dtype, dev)
+    clean = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    again = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    _poison_past_bounds(k, v, ks, vs, tables, positions, q.shape[1])
+    got = da.paged_decode_attention(q, k, v, tables, positions, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(again, clean)
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 5, 64], ids=["split_k", "verify", "prefill"])
+def test_f16_values_near_float16_max_are_neither_clamped_nor_nan(t):
+    """V of +-65504 (float16's largest finite value) through K7 and K9 on
+    their float16 routes: the float32 outputs equal the plain version's
+    within the float16 rule, every row that sees one key returns that key's
+    V exactly (+-65504, neither clamped nor NaN), and the float16 wrapper
+    output holds them exactly."""
+    dev = _card()
+    g = torch.Generator().manual_seed(t)
+    b, n, d, L = 2, 4, 64, 128
+    limit = 100
+    q = torch.randn(b, n, t, d, generator=g).to(dev, torch.float16)
+    k = torch.randn(b, n, L, d, generator=g).to(dev, torch.float16)
+    sign = torch.randint(0, 2, (b, n, L, d), generator=g) * 2 - 1
+    v = (65504.0 * sign).to(dev, torch.float16)
+    # row 1's first query sees exactly one key (the one at limit - t)
+    vf = torch.tensor([0, limit - t], dtype=torch.int32, device=dev)
+    scale = 1.0 / d**0.5
+    got = da.flash_decode(q, k, v, limit, vf, scale)
+    ref = da.decode_attention_plain(q, k, v, limit, vf, da.decode_block(L), scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= _f16_tol(torch.float16, v)
+    one = got[1, :, 0]
+    assert torch.equal(one, v[1, :, limit - t].float())
+    out = da.decode_attention(q.transpose(1, 2), k, v, limit - t, kv_valid_from=vf)
+    assert torch.equal(out[1, 0].float(), v[1, :, limit - t].float())
+    # K9: one row at slot 0 (its first query sees one key), one mid-table
+    bs = 16
+    M = 8
+    nb = b * M + 1
+    pk = torch.randn(nb, n, bs, d, generator=g).to(dev, torch.float16)
+    psign = torch.randint(0, 2, (nb, n, bs, d), generator=g) * 2 - 1
+    pv = (65504.0 * psign).to(dev, torch.float16)
+    tables = (torch.randperm(nb - 1, generator=g)[: b * M].reshape(b, M) + 1).to(dev, torch.int32)
+    positions = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    qp = torch.randn(b, t, n, d, generator=g).to(dev, torch.float16)
+    q_t = qp.transpose(1, 2).contiguous()
+    pgot = da._paged_launch(q_t, pk, pv, tables, positions, scale, None, None)
+    pref = da.paged_decode_attention_plain(q_t, pk, pv, tables, positions, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(pgot).all()
+    assert (pgot - pref).abs().max().item() <= _f16_tol(torch.float16, pv)
+    first = pv[int(tables[0, 0])][:, 0].float()  # slot 0 of row 0: [n, d]
+    assert torch.equal(pgot[0, :, 0], first)
+    pout = da.paged_decode_attention(qp, pk, pv, tables, positions)
+    assert torch.equal(pout[0, 0].float(), first)

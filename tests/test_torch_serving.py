@@ -80,7 +80,8 @@ class _ByteTokenizer:
 def _jax_serve(server, prompts, max_dec_len, strategy="greedy_search"):
     """What the JAX GenerationServer returns for these prompts: pow2 batch
     padding, prompt buckets, 32-token decode buckets, trim, EOS cut."""
-    cfg = JaxGPTConfig(**{k: v for k, v in TINY["Model"].items() if k != "module"})
+    model_kw = {k: v for k, v in TINY["Model"].items() if k not in ("module", "dtype")}
+    cfg = JaxGPTConfig(**model_kw, dtype=server.module.config.dtype)
     params = jax.tree.map(jnp.asarray, params_to_jax(server.model))
     target = 1
     while target < len(prompts):
@@ -160,14 +161,15 @@ def test_unported_features_fail_loudly():
                                                        max_dec_len=5)
     want = _server().generate_ids([[4, 5, 6], [9, 10]], max_dec_len=5)
     assert texts == [tok.decode(r) for r in want]
-    # float16 trains (dynamic loss scaling) but is not served: the decode
-    # kernels K7-K9 have no float16 route
+    # float16 is served (K7-K9's float16 routes on the card): a float16
+    # server answers the JAX server's tokens on the same float16 weights
     raw = copy.deepcopy(TINY)
     raw["Model"]["dtype"] = "float16"
     cfg = process_configs(AttrDict.from_nested(raw))
     module = GPTModule(cfg)
-    with pytest.raises(NotImplementedError, match="float16"):
-        GenerationServer(cfg, module, module.init_model(7, "cpu"), torch.device("cpu"))
+    f16 = GenerationServer(cfg, module, module.init_model(7, "cpu"), torch.device("cpu"))
+    assert f16.model.embeddings.word.dtype == torch.float16
+    assert f16.generate_ids(prompts, max_dec_len=5) == _jax_serve(f16, prompts, 5)
 
 
 def test_plan_request_and_clamp():
