@@ -280,6 +280,19 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      CUDA-core, 0 plain; every answered token within ``F16_ULPS`` float16
      ulps of its prefix's argmax under the plain forward (``attn_impl=xla``,
      float16; the int8 runs under the cached forward with an int8 cache).
+  28. the serving step's dispatch path, in process at full width: phase
+     7's traffic through the continuous scheduler over bf16 and int8 pools
+     in three modes (CUDA graphs with dispatch-ahead, graphs alone, eager
+     and synchronous: ``graphs=False, dispatch_ahead=False``), the table
+     widths warmed (and captured) before the traffic; every decode step
+     after warmup a graph replay, K9's replayed launches counted (24 a
+     step, all sm90, 0 plain); each answer token within ``SPEC_ULPS`` bf16
+     ulps of its prefix's argmax; the same three modes in float32 at
+     ``PFX_F32_LAYERS`` layers give identical tokens; per mode the median
+     step wall (the scheduler's iteration period), the device span of a
+     step (CUDA events around its launches or its replay), the host gap
+     per gap step, the graphs captured and their seconds, and the device
+     memory the warmup keeps reserved (the graph pool: graphs minus eager).
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -421,9 +434,9 @@ BEAM_CAPTURE_STEP = 8
 HF_GPT2_MEDIUM = {"n_embd": 1024, "n_layer": 24, "n_head": 16, "n_positions": 1024,
                   "vocab_size": 50257}
 # phases 4, 7 and 16: the traffic runs this many times a server, the first
-# round checked, every round timed (tokens/s: the rounds' median; two rounds
-# keep the script inside its time limit)
-TIMED_ROUNDS = 2
+# round checked, every round timed (tokens/s: the rounds' median; one round
+# keeps the script inside its time limit with phase 28)
+TIMED_ROUNDS = 1
 N_LAYERS = 24
 # phase 12: K1/K2 against their plain versions.  float32: summation order
 # only; bfloat16 outputs within one bf16 ulp (2**-7 of the value) of the
@@ -439,6 +452,14 @@ CLI_STEPS, CLI_EVAL_FREQ, CLI_EVAL_ITERS, CLI_SAVE = 12, 6, 2, 9
 # dq with reductions in L2, so the card's sums differ from run to run.  15-20x
 # the largest differences read (4.6e-6 and 6.7e-6, PERF.md)
 RESUME_LOSS_TOL = 1e-4
+
+
+# phase 28: the three dispatch modes (name, CUDA graphs, dispatch-ahead) and
+# the prompt buckets warmed (and captured) before the traffic: their rows'
+# table widths cover phase 7's
+GRAPH_MODES = (("graphs_ahead", True, True), ("graphs", True, False),
+               ("eager_sync", False, False))
+GRAPH_WARM = (16, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -1321,10 +1342,181 @@ def serve_continuous(kv_dtype, env, draft_k=0):
         f"requests in {traffic_s:.2f}s (latency {min(lat):.2f}-{max(lat):.2f}s; "
         f"{info['tokens_per_s']:.1f} tokens/s, the median of {TIMED_ROUNDS} rounds "
         f"{[round(w, 3) for w in walls]} s; accept rate {info['accept_rate']}), {steps} "
-        f"engine steps, {serving['mid_decode_admits']} mid-decode admissions, kernels {kernels}")
+        f"engine steps ({serving['graph_replays'] - serving0['graph_replays']} CUDA graph "
+        f"replays of {serving['graphs']} graphs, dispatch-ahead {serving['dispatch_ahead']}), "
+        f"{serving['mid_decode_admits']} mid-decode admissions, kernels {kernels}")
     info.update({"boot_s": boot_s, "latency_s": lat, "steps": steps,
                  "mid_decode_admits": serving["mid_decode_admits"], "answers": answers})
     return kernels, info
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the continuous engine's dispatch path, three modes in process
+# ---------------------------------------------------------------------------
+
+
+def graph_traffic(sched, ps):
+    """Phase 7's arrivals in process: the first request steps twice before
+    the rest arrive 30 ms apart.  Returns (the answers, the wall)."""
+    eng = sched.engine
+    t0 = time.time()
+    steps_at = eng.stats["steps"]
+    futs = [sched.submit([ps[0]], MAX_NEW, deadline_s=600)]
+    while eng.stats["steps"] < steps_at + 2:
+        check(time.time() - t0 < 120, "the first request never stepped")
+        time.sleep(0.001)
+    for p in ps[1:]:
+        futs.append(sched.submit([p], MAX_NEW, deadline_s=600))
+        time.sleep(0.03)
+    answers = [f.result(timeout=600)[0] for f in futs]
+    return answers, time.time() - t0
+
+
+def graph_mode_run(torch, da, server, kv_dtype, mode, graphs, ahead, ps, layers):
+    """One engine and scheduler in ``mode``: warm up, serve ``ps`` once,
+    drain; returns the run's numbers, answers and K9 launches."""
+    import gc
+    import statistics
+
+    from paddlefleetx_tpu_torch.core.continuous_batching import (
+        ContinuousScheduler,
+        PagedDecodeEngine,
+    )
+
+    gc.collect()
+    eng = PagedDecodeEngine(server, max_batch=8, block=KV_BLOCK, kv_dtype=kv_dtype,
+                            graphs=graphs)
+    sched = ContinuousScheduler(eng, max_depth=16, name=f"phase28-{mode}",
+                                dispatch_ahead=ahead, quantum=1)
+    # the device memory the warmup keeps reserved: the graphs' private pool
+    # (the arena and the buffers exist before it; what the warmup frees
+    # goes back with empty_cache)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    t0 = time.time()
+    eng.warmup(GRAPH_WARM)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    torch.cuda.empty_cache()
+    mem = torch.cuda.memory_reserved() - mem0
+    g0 = dict(eng.graphs.stats) if graphs else {"graphs": 0, "graph_replays": 0,
+                                                "graph_capture_s": 0.0}
+    # the iteration period (between the scheduler's step calls) and the
+    # device span of each step (events around its launches or its replay)
+    stamps, spans = [], []
+    inner_step = eng.step
+
+    def timed_step():
+        stamps.append(time.perf_counter())
+        return inner_step()
+
+    def spanned(fn):
+        def run(*a):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(*a)
+            e1.record()
+            spans.append((e0, e1))
+        return run
+
+    eng.step = timed_step
+    if graphs:
+        eng.graphs.run = spanned(eng.graphs.run)
+    else:
+        eng._run_step = spanned(eng._run_step)
+    steps0, gap_s0, gaps0 = eng.stats["steps"], eng.stats["host_gap_s"], eng.stats["gap_steps"]
+    before = dict(da.COUNTS)
+    sched.start()
+    answers, wall = graph_traffic(sched, ps)
+    check(sched.shutdown(timeout=120), f"phase 28 {mode}: the scheduler did not drain")
+    torch.cuda.synchronize()
+    used = {k: da.COUNTS[k] - before[k] for k in da.COUNTS}
+    steps = eng.stats["steps"] - steps0
+    gap_steps = eng.stats["gap_steps"] - gaps0
+    g1 = eng.graphs.stats if graphs else g0
+    key = "paged_decode_q8" if kv_dtype == "int8" else "paged_decode"
+    what = f"phase 28 {mode} kv={kv_dtype or 'native'} {layers} layers"
+    check(used["paged_plain"] == 0 and used["plain"] == 0, f"{what}: plain version ran {used}")
+    check(used[key] == layers * steps > 0,
+          f"{what}: {used[key]} K9 launches for {steps} steps of {layers} layers")
+    if server.module.config.dtype == "bfloat16":
+        check(used[f"{key}_sm90"] == used[key], f"{what}: K9 launches off the sm90 route {used}")
+    replays = g1["graph_replays"] - g0["graph_replays"]
+    if graphs:
+        check(replays == steps and g1["graphs"] == g0["graphs"],
+              f"{what}: {replays} replays and {g1['graphs'] - g0['graphs']} captures for "
+              f"{steps} steps after warmup (each step must be a replay)")
+    for a in answers:
+        check_rows([a], what)
+    dev_ms = [e0.elapsed_time(e1) for e0, e1 in spans]
+    period = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    info = {
+        "mode": mode, "kv": kv_dtype or "native", "layers": layers, "steps": steps,
+        "step_wall_ms": statistics.median(period), "device_ms": statistics.median(dev_ms),
+        "host_gap_ms": (eng.stats["host_gap_s"] - gap_s0) * 1e3 / max(gap_steps, 1),
+        "gap_steps": gap_steps, "traffic_s": wall, "warmup_s": warm_s,
+        "graphs": g1["graphs"], "capture_s": g1["graph_capture_s"], "replays": replays,
+        "warmup_mem_mib": mem / 2**20, "k9_launches": used[key],
+        "k9_sm90": used[f"{key}_sm90"],
+    }
+    log(f"  {what}: {steps} steps, step wall {info['step_wall_ms']:.3f} ms (median), device "
+        f"{info['device_ms']:.3f} ms, host gap {info['host_gap_ms']:.3f} ms over {gap_steps} "
+        f"gap steps; {info['graphs']} graphs captured in {info['capture_s']:.2f} s, {replays} "
+        f"replays; {info['warmup_mem_mib']:.1f} MiB kept by the warmup; K9 {used[key]} "
+        "launches")
+    del sched, eng
+    return info, answers
+
+
+def phase_graphs(torch, da, card):
+    """Phase 28 (see the module docstring): bf16 and int8 pools at 24
+    layers, then float32 at PFX_F32_LAYERS layers."""
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    ps = prompts(7, D_LENS)
+    report = {"card": card, "runs": []}
+    for dtype, layers in (("bfloat16", N_LAYERS), ("float32", PFX_F32_LAYERS)):
+        cfg = get_config(str(REPO / CONFIG), [
+            "Generation.decode_strategy=greedy_search", f"Generation.max_dec_len={MAX_NEW}",
+            f"Model.dtype={dtype}", f"Model.num_layers={layers}"])
+        module = GPTModule(cfg)
+        model = module.init_model(cfg.Global.seed, "cuda")
+        server = GenerationServer(cfg, module, model, torch.device("cuda"))
+        for kv in ("", "int8"):
+            runs = {}
+            for mode, graphs, ahead in GRAPH_MODES:
+                info, answers = graph_mode_run(torch, da, server, kv, mode, graphs, ahead, ps,
+                                               layers)
+                runs[mode] = answers
+                report["runs"].append(info)
+            eager_mem = report["runs"][-1]["warmup_mem_mib"]
+            for info in report["runs"][-3:-1]:
+                info["graph_pool_mib"] = info["warmup_mem_mib"] - eager_mem
+            if dtype == "float32":
+                check(runs["graphs_ahead"] == runs["graphs"] == runs["eager_sync"],
+                      f"phase 28 float32 kv={kv or 'native'}: tokens differ across modes")
+                log(f"  float32 kv={kv or 'native'}: tokens identical across the three modes")
+                continue
+            worst = 0.0
+            same = 0
+            for mode, answers in runs.items():
+                same += answers == runs["eager_sync"]
+                for prompt, ans in zip(ps, answers):
+                    worst = max([worst] + greedy_deficits(torch, G, model, module.config,
+                                                          prompt, ans, kv))
+            check(worst <= SPEC_ULPS,
+                  f"phase 28 kv={kv or 'bf16'}: a token sits {worst:.1f} bf16 ulps under its "
+                  f"prefix's argmax (> {SPEC_ULPS})")
+            report[f"bf16_{kv or 'native'}"] = {"modes_identical_to_eager": same,
+                                                "worst_deficit_ulps": worst}
+            log(f"  bf16 kv={kv or 'native'}: {same} of 3 modes identical to eager_sync; every "
+                f"token within {worst:.1f} bf16 ulps of its prefix's argmax")
+        del server, model
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4116,6 +4308,10 @@ def main():
     begin("27", "phase 23's float16 step_12 served at full width: both schedulers, native and "
           "int8 KV, speculation, chunked prefill and the prefix cache, beam search")
     f16_serve = phase_f16_serving(torch, env, f16["ckpt"])
+    begin("28", "the continuous engine's dispatch path at full width: CUDA graphs with "
+          "dispatch-ahead, graphs alone, eager and synchronous")
+    graph_report = phase_graphs(torch, da, card)
+    log("step_graphs " + json.dumps(graph_report))
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -4197,6 +4393,13 @@ def main():
             entry["kernel_route"] = row["route"]
             entry["launch_ms"] = row["launch_ms"]
             entry["split_ms"] = row["split_ms"]
+            # phase 28: the same traffic in process per dispatch mode (the
+            # launches of the graph modes are replays, counted per replay)
+            kv = "int8" if name == "paged_decode_q8" else "native"
+            entry["step_graphs"] = {
+                r["mode"]: {k: r[k] for k in ("steps", "replays", "k9_launches", "k9_sm90",
+                                              "step_wall_ms", "device_ms", "host_gap_ms")}
+                for r in graph_report["runs"] if r["layers"] == N_LAYERS and r["kv"] == kv}
             entry["cuda_core"] = {
                 "source": "paddlefleetx_tpu_torch/csrc/paged_attention.cu",
                 "launches": counts[name] - counts[f"{name}_sm90"],

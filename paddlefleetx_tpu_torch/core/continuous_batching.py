@@ -12,9 +12,10 @@ them, and no row pays another row's length.
     numpy mirrors of positions, budgets and activity; pending logits and
     repetition counts on the device) and runs one fixed-capacity step
     at a time.  Each step uploads the block tables and the row state as
-    one int32 array, runs ``models/gpt/generation.decode_step`` (the
-    paged attention kernel on the card, its plain version on the CPU)
-    and reads back the sampled tokens and the new activity in one copy.
+    one int32 array, runs ``models/gpt/generation.decode_step`` in place
+    over static buffers (the paged attention kernel on the card, its plain
+    version on the CPU) and reads back the sampled tokens and the new
+    activity in one copy.
     With speculation on (``Generation.speculative.draft_k``), each step
     is one draft-verify iteration instead (``decode_step_spec``): the
     host drafts k tokens a row from its own history (n-gram lookup), the
@@ -26,7 +27,7 @@ them, and no row pays another row's length.
     behind ``--scheduler``.  One thread, one iteration per decode step:
     shed expired waiting entries, evict expired active rows mid-decode,
     admit while slots and blocks allow, preempt for a blocked arrival of
-    higher priority, step.
+    higher priority, step (the scans on quantum boundaries only).
 
 Tenancy (``core/tenancy.py``): the admission pull is a deficit
 round-robin across tenant queues (weights from ``tenant_config``; FCFS
@@ -59,15 +60,25 @@ demotes to host RAM and a later match brings it back instead of
 recomputing it.
 
 Greedy outputs are token-identical to the coalescing path and to the
-JAX engine, with or without speculation, chunking or prefix hits.  The
-stepping is synchronous: the JAX scheduler's dispatch-ahead decode and
-its ``PFX_SCHED_QUANTUM`` are not ported, and neither variable is read
-here (the JAX scheduler flushes its dispatched step before a preemption;
-this engine has none in flight, so nothing needs flushing).  Not ported
-either, and refused where asked for: KV handoff (export/adopt) and prefix
-migration, the decision log and the goodput ledgers.  No CUDA graphs
-yet: the ``stats["traces"]`` count of distinct step, prefill, chunk and
-copy shapes is what a later capture would key on.
+JAX engine, with or without speculation, chunking or prefix hits.
+
+The dispatch path is the JAX engine's.  Under dispatch-ahead
+(``PFX_DISPATCH_AHEAD=1``, the scheduler's default) a step stays in
+flight: the next one is dispatched, chained on its device-resident row
+state, before its tokens are read back, so the host's scheduling work runs
+in the device's shadow (speculation and a pending chunk commit first).
+Every change of row membership or host row state (admission, eviction,
+preemption, a drain) flushes the step in flight first, and a commit folds
+its outputs only into the rows it was dispatched with.  ``PFX_SCHED_QUANTUM``
+runs the shed, eviction and admission scans on every k-th iteration only.
+On the card each decode or verify step is one CUDA graph per (capacity,
+table width) (``core/step_graphs.py``, the counterpart of the JAX engine's
+compiled step families) over static device buffers, fed from pinned host
+buffers and read back through one asynchronous copy whose event the commit
+waits on; prefills, chunks, block copies and readmits stay eager and write
+the same buffers in place.  Not ported, and refused where asked for: KV
+handoff (export/adopt) and prefix migration, the decision log and the
+goodput ledgers.
 """
 
 from __future__ import annotations
@@ -101,6 +112,7 @@ from paddlefleetx_tpu_torch.core.tenancy import (
     TenantLabelCap,
     normalize_tenant,
 )
+from paddlefleetx_tpu_torch.core.step_graphs import StepGraphs
 from paddlefleetx_tpu_torch.models.gpt.generation import (
     PagedRows,
     bucket_len,
@@ -113,7 +125,11 @@ from paddlefleetx_tpu_torch.models.gpt.generation import (
     prefix_token_counts,
     scatter_kv_blocks,
 )
-from paddlefleetx_tpu_torch.ops.decode_attention import kv_cache_dtype
+from paddlefleetx_tpu_torch.ops.decode_attention import (
+    kv_cache_dtype,
+    paged_scratch_size,
+    reserve_split_scratch,
+)
 from paddlefleetx_tpu_torch.ops.speculative import (
     NGRAM_WINDOW,
     SpecConfig,
@@ -121,7 +137,7 @@ from paddlefleetx_tpu_torch.ops.speculative import (
 )
 from paddlefleetx_tpu_torch.utils.log import logger
 from paddlefleetx_tpu_torch.utils.resilience import maybe_fire
-from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
+from paddlefleetx_tpu_torch.utils.telemetry import StatsView, env_int, get_registry
 
 
 def _pow2_at_least(n: int) -> int:
@@ -223,12 +239,18 @@ class PagedDecodeEngine:
     A failure inside a prefill, a chunk, a block copy or a step may leave
     the arena half written: :meth:`reset` rebuilds it and the caller
     fails the rows that were live (:class:`ArenaReset`), as the JAX
-    engine does after a failed donating dispatch."""
+    engine does after a failed donating dispatch.
+
+    ``graphs``: None (the default) captures each decode / verify step
+    shape as a CUDA graph on a CUDA device and steps eagerly on the CPU;
+    False steps eagerly on the card too (in-process comparisons only).
+    ``dispatch_ahead`` (an attribute, set by :class:`ContinuousScheduler`)
+    leaves each step in flight (see :meth:`step`)."""
 
     def __init__(self, server, *, max_batch: int = 8, block: int = 0,
                  num_blocks: int = 0, spec="auto", kv_dtype: str = "",
                  prefix_cache_blocks: int = 0, prefill_chunk: int = 0,
-                 prefix_spill_bytes: int = 0) -> None:
+                 prefix_spill_bytes: int = 0, graphs: Optional[bool] = None) -> None:
         # speculation: "auto" inherits the server's parsed
         # Generation.speculative (one parse site, so both schedulers agree
         # on one config); a SpecConfig overrides, None turns it off
@@ -277,9 +299,37 @@ class PagedDecodeEngine:
         self.pools = init_paged_pools(self.mcfg, num_blocks, self.block, self.device,
                                       kv_dtype=self.kv_dtype)
         B, vocab = self.capacity, int(self.mcfg.vocab_size)
+        # the step's static device buffers: written in place by prefills,
+        # chunks and steps alike, so a captured step reads whatever the
+        # eager work before it left there
         self._logits = torch.zeros((B, vocab), dtype=torch.float32, device=self.device)
         self._counts = torch.zeros((B, vocab), dtype=torch.int32, device=self.device)
         self._reject = torch.full((B,), -1, dtype=torch.int32, device=self.device)
+        self._init_step_buffers()
+        # graphs: one CUDA graph per step shape on a CUDA device (None),
+        # never on the CPU; False steps eagerly (in-process comparisons)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.graphs: Optional[StepGraphs] = None
+        if graphs:
+            self.graphs = StepGraphs(self.device, server.generator)
+            # a capture never allocates: size the split-K scratch once for
+            # the widest launch the engine makes (the decode step, the
+            # verify chunk, and a one-row chunk as wide as the context), so
+            # no launch of this engine ever moves it
+            heads, hd = int(self.mcfg.num_attention_heads), int(self.mcfg.head_dim)
+            need = [paged_scratch_size(b, heads, t, hd, self._max_width, self.block)
+                    for b, t in ((B, 1), (B, self.draft_k + 1), (1, self.context))]
+            reserve_split_scratch(self.device, max(n[0] for n in need), max(n[1] for n in need))
+        # dispatch-ahead (ContinuousScheduler flips it from
+        # PFX_DISPATCH_AHEAD; a direct caller of the engine steps synchronously):
+        # the dispatched step whose tokens are not read back yet, and when
+        # the last commit's results landed (the host-gap clock)
+        self.dispatch_ahead = False
+        self._inflight: Optional[Dict[str, Any]] = None
+        self._t_results: Optional[float] = None
         self.positions = np.zeros((B,), np.int32)
         self.gen_steps = np.zeros((B,), np.int32)
         self.max_news = np.zeros((B,), np.int32)
@@ -295,16 +345,21 @@ class PagedDecodeEngine:
         # distinct (capacity, table width) step shapes, (prompt bucket,
         # prefill blocks) prefill shapes, (chunk width, table width) chunk
         # shapes, the block copy and the readmit scatter run so far: the
-        # JAX engine's compile families, and what a CUDA-graph capture
-        # would key on.  "prefill_tokens" counts prompt tokens actually
+        # JAX engine's compile families (the step shapes are the CUDA
+        # graphs' keys).  "prefill_tokens" counts prompt tokens actually
         # computed (a prefix hit's shared span never enters it);
         # "prefill_chunks" counts chunk dispatches, "interleaved_chunks"
-        # those a step ran beside the decode step of other rows
+        # those a step ran beside the decode step of other rows;
+        # "host_gap_s" / "gap_steps" the host time the device sat idle
+        # between one commit's results and the next step's dispatch (a
+        # chained dispatch has none; an admission or a chunk in between
+        # stops the clock: device work, not a scheduling gap)
         self._shapes: set = set()
         self.stats: Dict[str, Any] = {
             "traces": 0, "steps": 0, "prefills": 0, "prefill_tokens": 0,
             "prefill_chunks": 0, "interleaved_chunks": 0, "mid_decode_admits": 0,
             "spec_proposed": 0, "spec_accepted": 0, "spec_accept_rate": 0.0,
+            "host_gap_s": 0.0, "gap_steps": 0,
         }
 
     # -- capacity queries ----------------------------------------------
@@ -481,6 +536,9 @@ class PagedDecodeEngine:
         model, in chunks; with ``prefill_chunk`` set every prompt does.
         Such a row returns mid-prefill (its first chunk ran): the rest
         streams in one chunk per :meth:`step`."""
+        # an admission sits between a commit and the next dispatch as
+        # device work, not as a scheduling gap: stop the host-gap clock
+        self._t_results = None
         prompt_ids = [int(t) for t in prompt_ids]
         plen = len(prompt_ids)
         if plen < 1:
@@ -590,6 +648,7 @@ class PagedDecodeEngine:
         chunk seeds the row's pending logits (its last real prompt
         token's), repetition counts and residual mask, and makes it
         decode-active."""
+        self._t_results = None  # a chunk between commit and dispatch
         row = self.slots[slot]
         final = min(row.chunk, len(row.pending)) == len(row.pending)
         # no release_seq: the row sits in slots, so reset() releases it
@@ -613,7 +672,97 @@ class PagedDecodeEngine:
 
     def table_width_bucket(self) -> int:
         widest = max((len(r.table) for r in self.slots if r is not None), default=1)
-        return min(_pow2_at_least(widest), _pow2_at_least(self.max_row_blocks))
+        return min(_pow2_at_least(widest), self._max_width)
+
+    # -- the step's buffers ------------------------------------------------
+    def _init_step_buffers(self) -> None:
+        """The step's static buffers.  Inputs: one int32 device array of
+        the five per-row state rows (positions, gen_steps, max_news,
+        forced_steps, active), the drafts and the block tables at the
+        widest table width (a narrower step views its prefix), and the
+        rows' activity as bool; outputs: each row's committed window, its
+        count and its activity after the step as one int32 array.  The
+        host side: two pinned copies of each (two, so a buffer is not
+        rewritten before the copy that reads it ran), each with an event
+        recorded after its copy."""
+        B, k = self.capacity, self.draft_k
+        self._max_width = _pow2_at_least(self.max_row_blocks)
+        self._tables_at = 5 * B + B * k
+        n_in = self._tables_at + B * self._max_width
+        cuda = self.device.type == "cuda"
+        self._dev_in = torch.zeros((n_in,), dtype=torch.int32, device=self.device)
+        self._state = self._dev_in[:5 * B].view(5, B)
+        self._active_dev = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        self._out = torch.zeros((B, k + 3), dtype=torch.int32, device=self.device)
+        self._host_in = [torch.zeros((n_in,), dtype=torch.int32, pin_memory=cuda)
+                         for _ in range(2)]
+        self._host_out = [torch.zeros((B, k + 3), dtype=torch.int32, pin_memory=cuda)
+                          for _ in range(2)]
+        self._in_events = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._out_events = [torch.cuda.Event() if cuda else None for _ in range(2)]
+        self._in_turn = self._out_turn = 0
+
+    def _upload(self, M: int, chained: bool) -> None:
+        """Copy the step's inputs to the device: the block tables at width
+        ``M`` and, unless the step chains on the in-flight step's
+        device-resident row state, the host's row state and drafts."""
+        B, k = self.capacity, self.draft_k
+        i = self._in_turn = 1 - self._in_turn
+        if self._in_events[i] is not None:
+            self._in_events[i].synchronize()
+        host = self._host_in[i]
+        flat = host.numpy()
+        lo, hi = self._tables_at, self._tables_at + B * M
+        tables = flat[lo:hi].reshape(B, M)
+        tables.fill(NULL_BLOCK)
+        for r_i, r in enumerate(self.slots):
+            if r is not None:
+                tables[r_i, : len(r.table)] = r.table
+        nb = self.cache.allocator.num_blocks
+        if tables.min() < 0 or tables.max() >= nb:  # the kernel trusts its tables
+            raise RuntimeError(f"block table entry outside [0, {nb}): {tables.tolist()}")
+        if not chained:
+            flat[:5 * B] = np.concatenate([
+                self.positions, self.gen_steps, self.max_news, self.forced_steps,
+                self.active.astype(np.int32),
+            ])
+            if k:
+                flat[5 * B:lo] = self._host_drafts().reshape(-1)
+            lo = 0
+        self._dev_in[lo:hi].copy_(host[lo:hi], non_blocking=True)
+        if not chained:
+            self._active_dev.copy_(self._state[4])
+        if self._in_events[i] is not None:
+            self._in_events[i].record()
+
+    def _run_step(self, M: int) -> None:
+        """ONE decode (or verify) step over the static buffers: the paged
+        forward reads its inputs from them and writes the next row state,
+        the pending logits, the counts and the residual mask back in place,
+        and the committed window, its count and the activity into ``_out``.
+        Eager on the CPU and for ``graphs=False``; captured and replayed
+        otherwise."""
+        B, k = self.capacity, self.draft_k
+        st = self._state
+        tables = self._dev_in[self._tables_at:self._tables_at + B * M].view(B, M)
+        rows = PagedRows(
+            logits=self._logits, counts=self._counts, positions=st[0], gen_steps=st[1],
+            max_news=st[2], active=self._active_dev, forced_steps=st[3],
+            reject=self._reject if k else None,
+        )
+        if k:
+            drafts = self._dev_in[5 * B:self._tables_at].view(B, k)
+            window, ncommit, _ = decode_step_spec(
+                self.model, self.pools, tables, rows, drafts, self.gen,
+                generator=self.server.generator, inplace=True,
+            )
+        else:
+            ncommit = self._active_dev.to(torch.int32)
+            nxt, _ = decode_step(self.model, self.pools, tables, rows, self.gen,
+                                 generator=self.server.generator, inplace=True)
+            window = nxt[:, None]
+        self._out.copy_(torch.cat([window.to(torch.int32), ncommit.to(torch.int32)[:, None],
+                                   self._active_dev.to(torch.int32)[:, None]], dim=1))
 
     # -- stepping --------------------------------------------------------
     def _host_drafts(self) -> np.ndarray:
@@ -644,72 +793,120 @@ class PagedDecodeEngine:
         row); returns the slots that finished (their tokens are complete:
         release them with :meth:`release`).  A row finishes on EOS or on
         its budget inside the committed window, never past it.  Raises
-        :class:`ArenaReset` when an arena write fails."""
+        :class:`ArenaReset` when an arena write fails.
+
+        Synchronous (the default): dispatch and commit in one call.  With
+        ``dispatch_ahead`` the step stays IN FLIGHT: the next call
+        dispatches the next step before it reads this one's tokens back,
+        chained on its device-resident positions, gen_steps and activity
+        when nothing is pending and speculation is off (speculation drafts
+        from committed tokens, a pending chunk needs the host tick: both
+        commit first).  The finished slots returned are then the committed
+        (previous) step's.  A caller that changes row membership or host
+        row state (admit, release, preempt, evict) calls :meth:`flush`
+        first."""
         pending = [i for i, r in enumerate(self.slots) if r is not None and not r.prefill_done]
+        if (self.dispatch_ahead and self._inflight is not None and self.spec is None
+                and not pending and self.active.any()):
+            prev, self._inflight = self._inflight, None
+            nxt = self._dispatch(chained=True)
+            # stashed before the commit: a failed commit resets the arena,
+            # and reset() drops the chained step too
+            self._inflight = nxt
+            finished = self._commit(prev)
+            # the chained step's rows are the committed step's survivors:
+            # a later commit never re-finishes a slot released now
+            nxt["was_active"] = self.active.copy()
+            return finished
+        finished = self.flush()
         if pending:
             self.stats["interleaved_chunks"] += bool(self.active.any())
             self._tick_prefill(min(pending, key=lambda i: self.slots[i].seq_id))
         if not self.active.any():
-            return []
-        B = self.capacity
+            return finished
+        fl = self._dispatch(chained=False)
+        fl["was_active"] = self.active.copy()
+        self._inflight = fl
+        if self.dispatch_ahead:
+            return finished
+        return finished + self.flush()
+
+    @property
+    def has_inflight(self) -> bool:
+        """True while a dispatched step's tokens are not read back yet
+        (dispatch-ahead only)."""
+        return self._inflight is not None
+
+    def _dispatch(self, chained: bool) -> Dict[str, Any]:
+        """Upload the inputs, run one step (a graph replay on the card)
+        and queue the copy of its outputs to pinned host memory; returns
+        the in-flight record :meth:`_commit` reads (the caller fills in
+        ``was_active``).  A failure resets the arena."""
+        B, k = self.capacity, self.draft_k
         M = self.table_width_bucket()
-        k = self.draft_k
-        was_active = self.active.copy()
-        # one host -> device copy per step: the null-padded block tables,
-        # the five per-row int32 state rows and the drafts, as int32 views
-        # of one array
-        flat = np.full((B * M + 5 * B + B * k,), NULL_BLOCK, np.int32)
-        tables = flat[:B * M].reshape(B, M)
-        for i, r in enumerate(self.slots):
-            if r is not None:
-                tables[i, : len(r.table)] = r.table
-        flat[B * M:B * M + 5 * B] = np.concatenate([
-            self.positions, self.gen_steps, self.max_news, self.forced_steps,
-            self.active.astype(np.int32),
-        ])
-        if k:
-            flat[B * M + 5 * B:] = self._host_drafts().reshape(-1)
+        key = ("verify", B, M, k) if k else ("step", B, M)
+        if self._t_results is not None and not chained:
+            self.stats["host_gap_s"] += max(0.0, time.monotonic() - self._t_results)
+            self.stats["gap_steps"] += 1
 
         def run():
-            nb = self.cache.allocator.num_blocks
-            if tables.min() < 0 or tables.max() >= nb:  # the kernel trusts its tables
-                raise RuntimeError(f"block table entry outside [0, {nb}): {tables.tolist()}")
-            dev_flat = torch.from_numpy(flat).to(self.device)
-            st = dev_flat[B * M:B * M + 5 * B].view(5, B)
-            rows = PagedRows(
-                logits=self._logits, counts=self._counts, positions=st[0], gen_steps=st[1],
-                max_news=st[2], active=st[4].bool(), forced_steps=st[3],
-                reject=self._reject if k else None,
-            )
-            dev_tables = dev_flat[:B * M].view(B, M)
-            if k:
-                window, ncommit, rows2 = decode_step_spec(
-                    self.model, self.pools, dev_tables, rows,
-                    dev_flat[B * M + 5 * B:].view(B, k), self.gen,
-                    generator=self.server.generator,
-                )
-                self._reject = rows2.reject
+            self._upload(M, chained)
+            if self.graphs is not None:
+                self.graphs.run(key, lambda: self._run_step(M))
             else:
-                nxt, rows2 = decode_step(
-                    self.model, self.pools, dev_tables, rows, self.gen,
-                    generator=self.server.generator,
-                )
-                window, ncommit = nxt[:, None], rows.active.long()
-            self._logits = rows2.logits
-            self._counts = rows2.counts
-            return torch.cat([window.long(), ncommit.long()[:, None],
-                              rows2.active.long()[:, None]], dim=1).cpu().numpy()
+                self._run_step(M)
+            j = self._out_turn = 1 - self._out_turn
+            self._host_out[j].copy_(self._out, non_blocking=True)
+            if self._out_events[j] is not None:
+                self._out_events[j].record()
+            return j
 
-        out = self._guarded(run, "decode step")
-        self._note_shape(("step", B, M))
+        j = self._guarded(run, "decode step")
+        self._note_shape(key)
+        return {"out": j, "rows": list(self.slots), "k": k, "was_active": None}
+
+    def flush(self) -> List[int]:
+        """Commit the in-flight step, if any; returns the slots it
+        finished.  The flush the dispatch-ahead contract asks for before
+        any change of row membership or host row state: the commit's merge
+        protects only rows that join or leave after the dispatch."""
+        if self._inflight is None:
+            return []
+        prev, self._inflight = self._inflight, None
+        return self._commit(prev)
+
+    def _commit(self, fl: Dict[str, Any]) -> List[int]:
+        """Wait for one dispatched step's outputs and fold them into the
+        host state: the decode path's only wait on the device.  The step's
+        device errors surface here, so any failure resets the arena, and
+        the :class:`ArenaReset` carries every live row, those admitted
+        while the step was in flight included (the ``cb_commit_crash``
+        fault fires here)."""
+        j = fl["out"]
+        try:
+            at = int(self.stats["steps"]) + 1
+            if maybe_fire("cb_commit_crash", at):
+                raise RuntimeError(f"PFX_FAULT: injected cb_commit_crash at step {at}")
+            if self._out_events[j] is not None:
+                self._out_events[j].synchronize()
+            out = self._host_out[j].numpy().copy()
+        except BaseException as exc:
+            dead = self.reset()
+            raise ArenaReset(
+                f"decode step failed ({type(exc).__name__}: {exc}); arena reset", dead
+            ) from exc
+        self._t_results = time.monotonic()
         self.stats["steps"] += 1
-        ncommit = out[:, -2].astype(np.int32)
+        was_active = fl["was_active"]
+        ncommit = out[:, -2]
         new_active = out[:, -1].astype(bool)
+        # merge, never overwrite: rows that joined or left after the
+        # dispatch were not part of it, and their host state wins
         self.positions[was_active] += ncommit[was_active]
         self.gen_steps[was_active] += ncommit[was_active]
         self.active[was_active] = new_active[was_active]
         finished: List[int] = []
-        for i, r in enumerate(self.slots):
+        for i, r in enumerate(fl["rows"]):
             if r is None or not was_active[i]:
                 continue
             start = len(r.tokens)  # a speculative step may commit several
@@ -726,8 +923,8 @@ class PagedDecodeEngine:
             if not new_active[i]:
                 finished.append(i)
         n_act = int(was_active.sum())
-        if k and n_act and not self._warmup:
-            self.stats["spec_proposed"] += k * n_act
+        if fl["k"] and n_act and not self._warmup:
+            self.stats["spec_proposed"] += fl["k"] * n_act
             self.stats["spec_accepted"] += int(ncommit[was_active].sum()) - n_act
             self.stats["spec_accept_rate"] = (
                 self.stats["spec_accepted"] / self.stats["spec_proposed"])
@@ -795,8 +992,13 @@ class PagedDecodeEngine:
         pools hold none of the old blocks' KV, so the prefix index and the
         spill store empty in the same breath: a dead arena's KV must never
         come back as a hit or a readmit (``clear()`` frees directly, so
-        nothing spills here)."""
+        nothing spills here).  A step in flight chains on the failed one:
+        it is dropped, never committed.  The pools and the step's buffers
+        are zeroed in place: the captured graphs hold their addresses (the
+        sm90 kernels' too), so they stay valid for the rebuilt arena."""
         dead = [r for r in self.slots if r is not None]
+        self._inflight = None
+        self._t_results = None
         for r in dead:
             self.cache.release(r.seq_id)
         self.cache.prefix.clear()
@@ -807,13 +1009,11 @@ class PagedDecodeEngine:
         self.gen_steps[:] = 0
         self.max_news[:] = 0
         self.forced_steps[:] = 0
-        self.pools = init_paged_pools(
-            self.mcfg, self.cache.allocator.num_blocks, self.block, self.device,
-            kv_dtype=self.kv_dtype,
-        )
-        self._logits = torch.zeros_like(self._logits)
-        self._counts = torch.zeros_like(self._counts)
-        self._reject = torch.full_like(self._reject, -1)
+        for buf in (self.pools.k, self.pools.v, self.pools.k_scale, self.pools.v_scale,
+                    self._logits, self._counts, self._dev_in, self._active_dev, self._out):
+            if buf is not None:
+                buf.zero_()
+        self._reject.fill_(-1)
         return dead
 
     def _warm_copy_family(self) -> None:
@@ -844,6 +1044,9 @@ class PagedDecodeEngine:
         bucket."""
         per: Dict[str, float] = {}
         self._warmup = True
+        # warmup steps, inspects and releases one slot at a time: it runs
+        # synchronous whatever the dispatch-ahead setting
+        ahead, self.dispatch_ahead = self.dispatch_ahead, False
         try:
             if self.prefix_enabled:
                 self._warm_copy_family()
@@ -868,6 +1071,7 @@ class PagedDecodeEngine:
                     f"continuous warmup: prompt bucket {n} ran in {per[str(int(n))]:.2f}s")
         finally:
             self._warmup = False
+            self.dispatch_ahead = ahead
         return per
 
 
@@ -883,12 +1087,17 @@ class ContinuousScheduler:
     allow (prefill-on-admit, or its first chunk), preempt for a blocked
     arrival of higher priority (or once at a ``preempt_storm`` fire),
     then step the batch (at most one pending chunk, then the decode
-    step)."""
+    step).  ``dispatch_ahead`` / ``quantum`` (None: ``PFX_DISPATCH_AHEAD``,
+    default 1, and ``PFX_SCHED_QUANTUM``, default 1) keep a step in flight
+    across iterations and run the scans on every ``quantum``-th iteration;
+    the step in flight is committed before an eviction, an admission, a
+    preemption, when the batch empties and at the drain."""
 
     kind = "continuous"
 
     def __init__(self, engine: PagedDecodeEngine, *, max_depth: int = 64,
-                 name: str = "serve-cb", tenant_config: Optional[TenantConfig] = None,
+                 name: str = "serve-cb", dispatch_ahead: Optional[bool] = None,
+                 quantum: Optional[int] = None, tenant_config: Optional[TenantConfig] = None,
                  preempt_min_tokens: int = 8) -> None:
         if max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
@@ -905,6 +1114,23 @@ class ContinuousScheduler:
         self._fair = DeficitRoundRobin(self.tenant_config.weight)
         self._tenant_labels = TenantLabelCap(seed=self.tenant_config.known_tenants())
         self.preempt_min_tokens = int(preempt_min_tokens)
+        # dispatch-ahead decode and the k-step scheduling quantum, as the
+        # JAX scheduler reads them: PFX_DISPATCH_AHEAD (default 1; 0 is the
+        # loud synchronous fallback.  The JAX parse refuses 0 as below its
+        # minimum of 1, so there only the argument reaches the fallback)
+        # and PFX_SCHED_QUANTUM=k, the shed, eviction and admission scans
+        # on every k-th iteration only.  The scheduler owns the knob: a
+        # direct caller of the engine keeps synchronous steps
+        if dispatch_ahead is None:
+            dispatch_ahead = env_int("PFX_DISPATCH_AHEAD", 1, minimum=0) != 0
+        self.dispatch_ahead = bool(dispatch_ahead)
+        engine.dispatch_ahead = self.dispatch_ahead
+        if not self.dispatch_ahead:
+            logger.warning(f"{name}: PFX_DISPATCH_AHEAD=0 — synchronous decode stepping; host "
+                           "scheduling no longer overlaps device compute")
+        self.quantum = env_int("PFX_SCHED_QUANTUM", 1) if quantum is None else int(quantum)
+        if self.quantum < 1:
+            raise ValueError(f"PFX_SCHED_QUANTUM must be >= 1, got {self.quantum}")
         # rows admitted and preempted per tenant label (scheduler thread
         # only; the same sites bump the labelled registry counters)
         self._tenant_admitted: Dict[str, int] = {}
@@ -1028,10 +1254,17 @@ class ContinuousScheduler:
         occupancy (``prefix_cached_blocks``, ``prefix_spill_bytes``,
         ``prefix_spill_entries`` among it), and the prefix index's and the
         spill store's counters: ``prefix`` {hits, misses, hit_tokens,
-        evictions}, ``spill`` {spills, readmits, discards}."""
+        evictions}, ``spill`` {spills, readmits, discards}; the dispatch
+        path's ``dispatch_ahead``, ``quantum``, ``inflight``, the host gap
+        (``host_gap_s`` over ``gap_steps``) and the CUDA graphs (``graphs``
+        captured, ``graph_replays``, ``graph_capture_s``; 0 when off)."""
         eng = self.engine
+        graphs = (eng.graphs.stats if eng.graphs is not None
+                  else {"graphs": 0, "graph_replays": 0, "graph_capture_s": 0.0})
         return {**eng.stats, **eng.cache.stats(), "active_rows": eng.active_rows(),
-                "prefix": dict(eng.cache.prefix.stats), "spill": dict(eng.cache.spill.stats)}
+                "prefix": dict(eng.cache.prefix.stats), "spill": dict(eng.cache.spill.stats),
+                "dispatch_ahead": eng.dispatch_ahead, "quantum": self.quantum,
+                "inflight": eng.has_inflight, **graphs}
 
     def try_remove(self, future: RequestFuture) -> bool:
         """Shed a WAITING entry (no row admitted yet).  An entry already in
@@ -1082,11 +1315,16 @@ class ContinuousScheduler:
     def _run(self) -> None:
         while True:
             with self._wake:
-                while not self._entries and not self._has_live_rows():
-                    if self._closed:
-                        return  # drained
+                while not self._entries and not self._has_live_rows() and not self._closed:
                     self._wake.wait()
-                self._busy_since = time.monotonic()
+                drained = not self._entries and not self._has_live_rows()
+                if not drained:
+                    self._busy_since = time.monotonic()
+            if drained:
+                # closed and empty: commit a step still in flight (its rows
+                # all finished), so the drain leaves nothing on the device
+                self._flush_engine()
+                return
             try:
                 self._iterate()
             finally:
@@ -1138,6 +1376,15 @@ class ContinuousScheduler:
     def _iterate_inner(self) -> int:
         eng = self.engine
         now = time.monotonic()
+        n_finished = 0
+        # the k-step scheduling quantum: the shed, eviction and admission
+        # scans below run on quantum boundaries only.  An iteration with no
+        # live row always scans: waiting entries admit now, never after k
+        # empty spins
+        boundary = (self.quantum <= 1 or self._iter_counter % self.quantum == 0
+                    or not self._has_live_rows())
+        if not boundary:
+            return self._step_batch()
         admitted: List[tuple] = []
         expired_partial: List[_CBEntry] = []
         with self._wake:
@@ -1162,10 +1409,21 @@ class ContinuousScheduler:
             if r is not None and r.entry is not None:
                 if r.entry.deadline is not None and now > r.entry.deadline:
                     expired.add(r.entry)
+        if expired:
+            # row membership is about to change: commit the step in flight
+            # first, so evicted rows' last tokens land before their blocks
+            # return
+            n_finished += self._flush_engine()
         partial = set(expired_partial)
         for e in expired:
-            if not e.future.done():
+            if not e.future.done():  # the flushed step may have completed it
                 self._evict_entry(e, "expired_partial" if e in partial else "mid-decode")
+
+        with self._wake:
+            waiting = bool(self._entries)
+        if waiting:
+            # admission sees the slots and blocks the step in flight frees
+            n_finished += self._flush_engine()
 
         reserved_blocks = 0
         blocked: Optional[tuple] = None
@@ -1209,11 +1467,12 @@ class ContinuousScheduler:
         # preempt_storm:K forces one preemption at iteration K with no
         # arrival.  Victims must be past the minimum-progress floor, and a
         # preempted row is requeued as a continuation, never killed.  The
-        # JAX scheduler flushes its dispatched step first; this engine's
-        # steps are synchronous, so no step is in flight here.
+        # step in flight is committed before the first victim goes, and the
+        # victim is picked again on the committed state.
         storm = maybe_fire("preempt_storm", self._iter_counter + 1)
         want = blocked if blocked is not None and not blocked[0].future.done() else None
         if want is not None or storm:
+            flushed = False
             fits = False
             for _ in range(eng.capacity + 1):
                 if want is not None:
@@ -1225,9 +1484,18 @@ class ContinuousScheduler:
                     if free_s >= 1 and need <= free_b:
                         fits = True
                         break
-                victim = self._pick_victim(want[0].priority if want is not None else None)
+                # before the flush a row's committed count lags the step in
+                # flight by one token: the pre-flush probe takes that slack,
+                # so the flush (which costs the overlap) runs only when a
+                # victim is at least plausibly eligible
+                victim = self._pick_victim(want[0].priority if want is not None else None,
+                                           progress_slack=0 if flushed else 1)
                 if victim is None:
                     break
+                if not flushed:
+                    n_finished += self._flush_engine()
+                    flushed = True
+                    continue  # the flush may have finished the victim
                 self._preempt_slot(victim)
                 if want is None:
                     break  # a storm fire: exactly one forced preemption
@@ -1267,9 +1535,7 @@ class ContinuousScheduler:
                     entry.future.set_exception(exc)
                 logger.warning(f"{self.name}: admission failed: {type(exc).__name__}: {exc}")
 
-        if not self._has_live_rows():
-            return 0
-        return self._step_batch()
+        return n_finished + self._step_batch()
 
     def _take_unit_locked(self, head: _CBEntry, row_idx: int, prompt: List[int], mx: int,
                           resumed: bool, admitted: List[tuple]) -> None:
@@ -1299,13 +1565,14 @@ class ContinuousScheduler:
                     head.max_new - len(committed), True)
         return head.next_row, head.prompts[head.next_row], head.max_new, False
 
-    def _pick_victim(self, below_priority: Optional[int]) -> Optional[int]:
+    def _pick_victim(self, below_priority: Optional[int],
+                     progress_slack: int = 0) -> Optional[int]:
         """The slot of the lowest-priority row eligible for preemption, or
         None: decode-active with its prefill done, its entry live, at
         least ``preempt_min_tokens`` committed since its last admission
-        (a resumed victim re-earns eligibility) and, unless
-        ``below_priority`` is None (the preempt_storm drill), strictly
-        below the preemptor's priority.  Ties: the lowest slot."""
+        (less ``progress_slack``; a resumed victim re-earns eligibility)
+        and, unless ``below_priority`` is None (the preempt_storm drill),
+        strictly below the preemptor's priority.  Ties: the lowest slot."""
         eng = self.engine
         best: Optional[int] = None
         for i, r in enumerate(eng.slots):
@@ -1313,7 +1580,7 @@ class ContinuousScheduler:
                 continue
             if not r.prefill_done or not bool(eng.active[i]):
                 continue
-            if len(r.tokens) < self.preempt_min_tokens:
+            if len(r.tokens) + progress_slack < self.preempt_min_tokens:
                 continue
             if below_priority is not None and r.entry.priority >= below_priority:
                 continue
@@ -1345,9 +1612,21 @@ class ContinuousScheduler:
             self._wake.notify_all()
 
     def _step_batch(self) -> int:
-        """One decode step, then resolve the rows it finished."""
+        """One decode step (dispatch, and commit unless it stays in
+        flight), then resolve the rows the committed step finished."""
+        if not self._has_live_rows():
+            return 0
+        eng = self.engine
         try:
-            finished = self.engine.step()
+            finished = eng.step()
+            if eng.has_inflight and all(r is None or i in finished
+                                        for i, r in enumerate(eng.slots)):
+                # the batch empties: commit the step still in flight (it
+                # has no row left) before the last answers go out, so an
+                # idle engine has nothing on the device and its committed
+                # steps match the launches counted (the JAX engine leaves
+                # it to the next flush)
+                finished += eng.flush()
         except ArenaReset as exc:
             with self._lock:
                 self.stats["gen_errors"] += 1
@@ -1356,6 +1635,22 @@ class ContinuousScheduler:
             return 0
         with self._lock:
             self.stats["batches"] += 1
+        return self._finish_rows(finished)
+
+    def _flush_engine(self) -> int:
+        """Commit the engine's step in flight (a no-op when there is none)
+        and resolve the rows it finished: the flush that must come before
+        any change of row membership."""
+        if not self.engine.has_inflight:
+            return 0
+        try:
+            finished = self.engine.flush()
+        except ArenaReset as exc:
+            with self._lock:
+                self.stats["gen_errors"] += 1
+            self._fail_rows(exc.dead_rows, exc)
+            logger.warning(f"{self.name}: {exc}")
+            return 0
         return self._finish_rows(finished)
 
     def _finish_rows(self, finished: List[int]) -> int:

@@ -1022,6 +1022,7 @@ def decode_step(
     rows: PagedRows,
     gen: GenerationConfig,
     generator: Optional[torch.Generator] = None,
+    inplace: bool = False,
 ) -> Tuple[torch.Tensor, PagedRows]:
     """ONE iteration-level decode step over the running batch.
 
@@ -1030,7 +1031,13 @@ def decode_step(
     current slot and returns (sampled tokens [B], the rows' next state,
     whose ``logits`` are the refreshed pending logits).  Greedy rows are
     token-identical to the contiguous path.  ``rows.counts`` is updated
-    in place."""
+    in place.
+
+    ``inplace``: the next state goes into ``rows``' own tensors (logits,
+    positions, gen_steps, active) and ``rows`` is returned, so a caller
+    that keeps those tensors (the continuous engine's static buffers, which
+    a CUDA graph captures) reads every step from the same memory.  The
+    values are the functional form's, bit for bit."""
     B = rows.logits.shape[0]
     i = rows.gen_steps
     logits = process_step_logits(rows.logits, i, rows.counts, rows.forced_steps, gen)
@@ -1046,6 +1053,12 @@ def decode_step(
     rows.counts[torch.arange(B, device=nxt.device), nxt] += act
     finished = rows.active & ((nxt == gen.eos_token_id) | (i + 1 >= rows.max_news))
     new_logits = paged_forward_step(model, nxt, pools, tables, rows.positions, rows.active)
+    if inplace:
+        rows.logits.copy_(new_logits[:, 0])
+        rows.positions += act
+        rows.gen_steps += act
+        rows.active &= ~finished
+        return nxt, rows
     return nxt, PagedRows(
         logits=new_logits[:, 0],
         counts=rows.counts,
@@ -1065,6 +1078,7 @@ def decode_step_spec(
     drafts: torch.Tensor,
     gen: GenerationConfig,
     generator: Optional[torch.Generator] = None,
+    inplace: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, PagedRows]:
     """ONE speculative iteration over the running batch: the paged
     spelling of :func:`_generate_speculative`'s body with a TRUE per-row
@@ -1087,7 +1101,9 @@ def decode_step_spec(
     ncommit [B] in [0, k+1], 0 only for inactive rows; the rows' next
     state, whose ``logits`` are the raw target logits at each row's last
     committed position and ``reject`` the residual mask of the next
-    sample).  ``rows.counts`` is updated in place."""
+    sample).  ``rows.counts`` is updated in place, and with ``inplace``
+    the rest of the next state too, as in :func:`decode_step` (``reject``
+    into ``rows.reject``)."""
     B, vocab = rows.logits.shape
     dev = rows.logits.device
     k = int(drafts.shape[1])
@@ -1143,6 +1159,13 @@ def decode_step_spec(
     reject = torch.where(mism & (ncommit == a + 1) & active_after, rej_draft,
                          torch.full_like(rej_draft, -1)).to(torch.int32)
     ncommit32 = ncommit.to(rows.positions.dtype)
+    if inplace:
+        rows.logits.copy_(new_logits)
+        rows.positions += ncommit32
+        rows.gen_steps += ncommit32
+        rows.active.copy_(active_after)
+        rows.reject.copy_(reject)
+        return window, ncommit, rows
     return window, ncommit, PagedRows(
         logits=new_logits,
         counts=rows.counts,

@@ -168,6 +168,22 @@ def paged_splits(table_width: int, block: int, split_keys: int = PAGED_SPLIT_KEY
     return max(1, -(-int(table_width) * int(block) // int(split_keys)))
 
 
+def paged_scratch_size(b: int, n: int, t: int, d: int, table_width: int, block: int,
+                       split_keys: Optional[int] = None) -> tuple:
+    """(float32 partials, int32 counters) the sm90 paged route needs for a
+    launch at these shapes, (0, 0) when it takes one split: a counter per
+    (row, head, group of :func:`paged_rows` queries), and per counter
+    ``splits`` partial rows of d + 2 floats for each of its queries."""
+    if split_keys is None:
+        split_keys = PAGED_SPLIT_KEYS if t <= SPLIT_MAX_ROWS else PAGED_CHUNK_SPLIT_KEYS
+    splits = paged_splits(table_width, block, split_keys)
+    if splits == 1:
+        return 0, 0
+    rows = paged_rows(t)
+    groups = b * n * -(-t // rows)
+    return groups * splits * rows * (d + 2), groups
+
+
 def split_rows(t: int) -> int:
     """Query rows per CTA of the sm90 split-K kernel (t <= SPLIT_MAX_ROWS)."""
     return 1 if t == 1 else SPLIT_ROWS
@@ -323,8 +339,14 @@ def decode_attention_plain(
 _LIB: Optional[ctypes.CDLL] = None
 _SM90_LIB: Optional[ctypes.CDLL] = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# split-K scratch of the sm90 route per (device, stream): float32 partials
-# and int32 arrival counters, which every launch leaves zeroed
+# split-K scratch of the sm90 routes per device: float32 partials and int32
+# arrival counters, which every launch leaves zeroed.  Launches on one
+# device run in stream order (eager launches and CUDA graph replays alike),
+# so one pair serves them all.  A captured graph keeps the pointers it was
+# captured with: a capture never allocates (reserve_split_scratch sizes the
+# pair first), and the graph cache (core/step_graphs.py) holds a reference
+# to the pair, so a later eager launch that grows the scratch never frees
+# memory a graph still writes
 _SCRATCH: dict = {}
 _SMS: dict = {}
 
@@ -363,17 +385,39 @@ def _sm90_lib() -> ctypes.CDLL:
     return _SM90_LIB
 
 
-def _split_scratch(dev: torch.device, stream: int, part_floats: int, groups: int):
-    """(partials, counters) of at least the sizes asked, kept per device and
-    stream; the counters are zeroed once, when allocated."""
-    key = (dev.index, stream)
-    part, counters = _SCRATCH.get(key, (None, None))
+def reserve_split_scratch(dev: torch.device, part_floats: int, groups: int):
+    """Grow the device's split-K scratch to at least ``part_floats``
+    float32 partials and ``groups`` counters (the counters zeroed when
+    allocated); returns (partials, counters).  A buffer is replaced, never
+    resized in place: whoever captured the old one keeps it alive."""
+    part, counters = _SCRATCH.get(dev.index, (None, None))
     if part is None or part.numel() < part_floats:
-        part = torch.empty(part_floats, dtype=torch.float32, device=dev)
+        part = torch.empty(max(part_floats, 1), dtype=torch.float32, device=dev)
     if counters is None or counters.numel() < groups:
-        counters = torch.zeros(groups, dtype=torch.int32, device=dev)
-    _SCRATCH[key] = (part, counters)
+        counters = torch.zeros(max(groups, 1), dtype=torch.int32, device=dev)
+    _SCRATCH[dev.index] = (part, counters)
     return part, counters
+
+
+def split_scratch(dev: torch.device):
+    """The device's split-K scratch (partials, counters) now in use, or None."""
+    return _SCRATCH.get(dev.index)
+
+
+def _split_scratch(dev: torch.device, part_floats: int, groups: int):
+    """(partials, counters) of at least the sizes asked.  Under a CUDA graph
+    capture the reserved pair must already be large enough: allocating
+    there would bake a pointer nobody keeps."""
+    part, counters = _SCRATCH.get(dev.index, (None, None))
+    if (part is not None and part.numel() >= part_floats and counters.numel() >= groups):
+        return part, counters
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        have = (0, 0) if part is None else (part.numel(), counters.numel())
+        raise RuntimeError(
+            f"split-K scratch {have} (floats, counters) is smaller than this launch needs "
+            f"({part_floats}, {groups}) during a CUDA graph capture: reserve_split_scratch "
+            "for the largest captured step first")
+    return reserve_split_scratch(dev, part_floats, groups)
 
 
 def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_scale, v_scale):
@@ -396,7 +440,7 @@ def _launch_sm90(q_t, k_cache, v_cache, limit, scale, out, vf_ptr, stream, k_sca
             _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = decode_splits(groups, int(limit), _SMS[dev.index])
         if splits > 1:
-            part, counters = _split_scratch(dev, stream, groups * splits * rows * (d + 2), groups)
+            part, counters = _split_scratch(dev, groups * splits * rows * (d + 2), groups)
     lib = _sm90_lib()
     scratch = (out.data_ptr(), None if part is None else part.data_ptr(),
                None if counters is None else counters.data_ptr(),
@@ -690,7 +734,7 @@ def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v
     chooses by t), :func:`paged_splits` CTAs of ``split_keys`` keys for
     each (row, head, group of :func:`paged_rows` queries).  The scratch
     comes from :func:`_split_scratch` (shared with the contiguous route:
-    launches on one stream run in order).  TMA and the bulk copies need
+    launches on one device run in stream order).  TMA and the bulk copies need
     16-byte aligned tensors."""
     dev = q_t.device
     b, n, t, d = q_t.shape
@@ -701,12 +745,11 @@ def _paged_launch_sm90(q_t, k_pool, v_pool, tables, positions, scale, k_scale, v
         _paged_require(x.data_ptr() % 16 == 0, "the sm90 route needs 16-byte aligned tensors")
     if split_keys is None:
         split_keys = PAGED_SPLIT_KEYS if t <= SPLIT_MAX_ROWS else PAGED_CHUNK_SPLIT_KEYS
-    rows = paged_rows(t)
-    groups = b * n * -(-t // rows)
     splits = paged_splits(M, bs, split_keys)
+    part_floats, groups = paged_scratch_size(b, n, t, d, M, bs, split_keys)
     part = counters = None
     if splits > 1:
-        part, counters = _split_scratch(dev, stream, groups * splits * rows * (d + 2), groups)
+        part, counters = _split_scratch(dev, part_floats, groups)
     lib = _paged_sm90_lib()
     args = (tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),

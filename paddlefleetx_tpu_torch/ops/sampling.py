@@ -101,19 +101,26 @@ def sample_top_p_topk(
     covers its ``top_p``, the nucleus lies inside the k candidates, so
     truncate/renormalize those and draw there — the same nucleus, the same
     uniform and the same prefix sums as :func:`sample_top_p`.  Otherwise
-    the whole batch takes the full sort."""
+    the whole batch takes the full sort.  Under a CUDA graph capture the
+    host cannot read which case holds, so both run and the device picks:
+    the same ids either way."""
     k = min(int(k), probs.shape[-1])
     top_probs, top_idx = torch.topk(probs, k, dim=-1)
     cum = torch.cumsum(top_probs, dim=-1)
     u = _uniform(probs, generator, u)
-    if not bool(torch.all(cum[:, -1] >= top_p)):
+    fits = torch.all(cum[:, -1] >= top_p)
+    capturing = probs.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not capturing and not bool(fits):
         return sample_top_p(probs, top_p, u=u)
     in_nucleus = cum - top_probs < top_p[:, None]
     in_nucleus[:, 0] = True
     trunc = torch.where(in_nucleus, top_probs, torch.zeros_like(top_probs))
     total = trunc.sum(dim=-1, keepdim=True)
     sel = (torch.cumsum(trunc, dim=-1) >= u * total).to(torch.int32).argmax(dim=-1)
-    return torch.gather(top_idx, -1, sel[:, None])[:, 0]
+    ids = torch.gather(top_idx, -1, sel[:, None])[:, 0]
+    if capturing:
+        return torch.where(fits, ids, sample_top_p(probs, top_p, u=u))
+    return ids
 
 
 def filtered_logits(

@@ -15,7 +15,9 @@ traffic``: a fresh engine, warmed as the serve CLI warms it, takes the
 prompts one at a time (the first, two steps, then one admission before
 each step, 32 new tokens each) and steps until every row is done; it
 prints the wall time of the whole run and of every admission and step.
-``--device cpu`` runs the same on the CPU (host times only).
+``--device cpu`` runs the same on the CPU (host times only).  On the card
+the engine's decode step is a CUDA graph replay (``core/step_graphs.py``),
+captured at its first step of each table width.
 """
 
 import argparse

@@ -67,9 +67,20 @@ the continuous scheduler sends each step's commits as they land; on the
 coalescing one the whole answer arrives in one flush at completion.
 
 ``PFX_FAULT`` drills: ``preempt_storm:K`` (the continuous scheduler
-preempts its lowest-priority eligible row at iteration K) and
+preempts its lowest-priority eligible row at iteration K),
 ``spill_corrupt:K`` (the Kth spill readmit probe finds its host copy
-torn); a value that does not parse, or any other site, fails the boot.
+torn) and ``cb_commit_crash:K`` (the commit of engine step K fails: the
+arena resets and every live row's request fails); a value that does not
+parse, or any other site, fails the boot.
+
+The continuous scheduler dispatches ahead (``PFX_DISPATCH_AHEAD``, default
+1; 0 steps synchronously, with a warning) and scans its queue every
+``PFX_SCHED_QUANTUM``-th step (default 1); on the card each decode or
+verify step is a CUDA graph replay.  ``/healthz`` ``serving`` shows
+``dispatch_ahead``, ``quantum``, ``inflight``, ``host_gap_s`` over
+``gap_steps``, and ``graphs`` captured, ``graph_replays`` and
+``graph_capture_s``; ``kernels`` counts a replay's launches as an eager
+step's.
 
 The model runs on the card (``--device cuda``, the default) and the
 command fails without one; ``--device cpu`` runs the plain PyTorch path.

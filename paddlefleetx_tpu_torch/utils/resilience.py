@@ -133,8 +133,10 @@ FAULT_SITES = (
     "cb_commit_crash", "spill_corrupt", "migrate_stall",
     "preempt_storm",
 )
-# the sites the port's serving path wires
-SERVING_FAULT_SITES = ("preempt_storm", "spill_corrupt")
+# the sites the port's serving path wires (cb_commit_crash: the continuous
+# engine's commit raises "PFX_FAULT: injected cb_commit_crash at step K", the
+# JAX message, where a dispatched step's readback would fail)
+SERVING_FAULT_SITES = ("preempt_storm", "spill_corrupt", "cb_commit_crash")
 
 # fires per site in THIS process; a relaunched process starts clean
 _fires: Dict[str, int] = {}

@@ -42,6 +42,24 @@ import torch
 
 from paddlefleetx_tpu_torch.utils.log import logger
 
+
+def env_int(name: str, default: int, minimum: int = 1) -> int:
+    """An integer environment knob, parsed loudly (the JAX package's
+    ``_env_int``, same messages): unset or blank is ``default``, anything
+    else must be an integer of at least ``minimum``."""
+    raw = os.environ.get(name) or ""
+    if not raw.strip():
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r} is not an integer (loud-parse: unset it or pass a valid value)"
+        ) from None
+    if val < minimum:
+        raise ValueError(f"{name}={val} must be >= {minimum}")
+    return val
+
 # dense bf16 tensor-core FLOP/s by a substring of the device name (NVIDIA
 # data sheets, SXM parts at their full power limit)
 PEAK_FLOPS_BY_DEVICE_NAME: Dict[str, float] = {

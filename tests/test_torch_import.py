@@ -73,6 +73,12 @@ F16_SERVING = ("paddlefleetx_tpu_torch.ops.decode_attention",
                "paddlefleetx_tpu_torch.models.gpt.generation",
                "paddlefleetx_tpu_torch.utils.checkpoint", "paddlefleetx_tpu_torch.tools.serve")
 
+# the serving step's dispatch path: dispatch-ahead and the CUDA graph cache;
+# each imported above without JAX
+DISPATCH = ("paddlefleetx_tpu_torch.core.step_graphs",
+            "paddlefleetx_tpu_torch.core.continuous_batching",
+            "paddlefleetx_tpu_torch.ops.decode_attention")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -93,6 +99,7 @@ def test_port_imports_no_jax():
     assert set(TEXT_SERVING) <= set(listed.split()), listed
     assert set(TRAINING_REST) <= set(listed.split()), listed
     assert set(F16_SERVING) <= set(listed.split()), listed
+    assert set(DISPATCH) <= set(listed.split()), listed
 
 
 def test_eval_without_card_raises():

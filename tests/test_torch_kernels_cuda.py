@@ -1527,3 +1527,240 @@ def test_f16_values_near_float16_max_are_neither_clamped_nor_nan(t):
     assert torch.equal(pgot[0, :, 0], first)
     pout = da.paged_decode_attention(qp, pk, pv, tables, positions)
     assert torch.equal(pout[0, 0].float(), first)
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's decode and verify steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# TINY's depth (2 layers) at head dim 64, so K9 takes its sm90 route (a
+# bf16 or float16 model) as at GPT-345M
+GRAPH_KINDS = {"bf16": ("bfloat16", "bf16"), "int8": ("bfloat16", "int8"),
+               "float16": ("float16", "bf16")}
+
+
+def _graph_server(dtype, strategy="greedy_search", max_pos=128, **gen):
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.utils.config import AttrDict, process_configs
+
+    cfg = process_configs(AttrDict.from_nested({
+        "Global": {"seed": 1},
+        "Engine": {"mix_precision": {"enable": False}},
+        "Model": {"module": "GPTModule", "vocab_size": 96, "hidden_size": 256,
+                  "num_layers": 2, "num_attention_heads": 4,
+                  "max_position_embeddings": max_pos, "dtype": dtype},
+        "Generation": {"max_dec_len": 24, "decode_strategy": strategy, "pad_to_multiple": 8,
+                       "eos_token_id": -1, "pad_token_id": 0, **gen},
+    }))
+    module = GPTModule(cfg)
+    return GenerationServer(cfg, module, module.init_model(1, "cuda"), torch.device("cuda"))
+
+
+def _graph_traffic(eng, prompts, steps=6):
+    """Two short rows, then a row whose table is twice as wide (a second
+    graph key), stepped to the end; returns (tokens, the pending logits
+    after every step)."""
+    slots = [eng.admit(prompts[0], 20), eng.admit(prompts[1], 20)]
+    seen = []
+    for _ in range(steps):
+        eng.step()
+        seen.append(eng._logits.clone())
+    slots.append(eng.admit(prompts[2], 20))
+    while eng.active.any():
+        eng.step()
+        seen.append(eng._logits.clone())
+    torch.cuda.synchronize()
+    return [list(eng.slots[s].tokens) for s in slots], seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft_k", [0, 3], ids=["decode", "verify"])
+@pytest.mark.parametrize("kind", sorted(GRAPH_KINDS))
+def test_step_graph_replay_is_bitwise_the_eager_step(kind, draft_k):
+    """The captured decode (t = 1) and verify (t = draft_k + 1) steps at two
+    table widths: every replay's tokens and pending logits equal the eager
+    engine's bit for bit, and a replay's K9 launches are counted as the
+    eager step's are (one a layer, all on the sm90 route)."""
+    _card()
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+    from paddlefleetx_tpu_torch.ops.speculative import SpecConfig
+
+    dtype, kv = GRAPH_KINDS[kind]
+    server = _graph_server(dtype)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 90, size=n).tolist() for n in (5, 9)] + [[7, 8] * 30]
+    spec = SpecConfig(draft_k=draft_k) if draft_k else None
+    key = "paged_decode_q8" if kv == "int8" else "paged_decode"
+    runs = {}
+    for graphs in (False, True):
+        eng = PagedDecodeEngine(server, max_batch=4, block=16, kv_dtype=kv, spec=spec,
+                                graphs=graphs)
+        before = dict(da.COUNTS)
+        tokens, seen = _graph_traffic(eng, prompts)
+        used = {k: da.COUNTS[k] - before[k] for k in da.COUNTS}
+        runs[graphs] = (tokens, seen, used, eng)
+    (t0, s0, u0, e0), (t1, s1, u1, e1) = runs[False], runs[True]
+    assert t1 == t0 and all(len(t) == 20 for t in t1)
+    assert len(s1) == len(s0) and all(torch.equal(a, b) for a, b in zip(s0, s1))
+    steps = e1.stats["steps"]
+    assert steps == e0.stats["steps"] and u1 == u0
+    assert u1[key] == u1[f"{key}_sm90"] == 2 * steps and u1["paged_plain"] == 0
+    if draft_k:
+        assert u1[f"{key}_sm90_multi"] == u1[key]
+    g = e1.graphs.stats
+    assert g["graphs"] == 2 and g["graph_replays"] == steps - 2 and e0.graphs is None
+
+
+@pytest.mark.cuda
+def test_split_scratch_pointers_stay_across_captures():
+    """Rows long enough for several K9 splits a row: the engine reserves
+    the split-K scratch once, and captures at two table widths (and the
+    eager chunk launches between them) never move the pair a graph holds."""
+    _card()
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+
+    server = _graph_server("bfloat16", max_pos=1024)
+    eng = PagedDecodeEngine(server, max_batch=4, block=16, prefill_chunk=256, graphs=True)
+    dev = torch.device("cuda")
+    part, counters = da.split_scratch(dev)
+    ptrs = (part.data_ptr(), counters.data_ptr())
+    rng = np.random.default_rng(1)
+    eng.admit(rng.integers(1, 90, size=300).tolist(), 8)
+    while eng.active.any() or any(r is not None and not r.prefill_done for r in eng.slots):
+        eng.step()
+    eng.admit(rng.integers(1, 90, size=700).tolist(), 8)
+    while eng.active.any() or any(r is not None and not r.prefill_done for r in eng.slots):
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.graphs.stats["graphs"] == 2
+    held = eng.graphs._held
+    assert held and held[0][0].data_ptr() == ptrs[0] and held[0][1].data_ptr() == ptrs[1]
+    assert all(h[0].data_ptr() == ptrs[0] for h in held)
+
+
+@pytest.mark.cuda
+def test_step_graph_replays_draw_fresh_numbers():
+    """The frozen-Philox check: the generator registered with a graph
+    advances on every replay, so two replays draw different numbers, and
+    reseeding it repeats the sequence an eager run of the same calls
+    draws."""
+    _card()
+    from paddlefleetx_tpu_torch.core.step_graphs import StepGraphs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    out = torch.zeros(64, device=dev)
+    graphs = StepGraphs(dev, gen)
+
+    def fn():
+        out.copy_(torch.rand(64, generator=gen, device=dev))
+
+    gen.manual_seed(5)
+    eager = []
+    for _ in range(4):
+        fn()
+        eager.append(out.clone())
+    gen.manual_seed(5)
+    draws = []
+    for _ in range(4):
+        graphs.run("rand", fn)
+        draws.append(out.clone())
+    torch.cuda.synchronize()
+    assert graphs.stats["graph_replays"] == 3
+    assert not torch.equal(draws[1], draws[2]) and not torch.equal(draws[2], draws[3])
+    assert all(torch.equal(a, b) for a, b in zip(draws, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_p", [1.0, 0.9])
+def test_sampling_step_graphs_repeat_under_a_seed(top_p):
+    """A sampled engine (multinomial, or the nucleus with its top-k
+    prefilter) on graphs: the same generator seed gives the eager engine's
+    tokens, and the draws vary from step to step."""
+    _card()
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+
+    server = _graph_server("bfloat16", strategy="sampling", top_p=top_p)
+    outs = []
+    for graphs in (False, True, True):
+        server.generator.manual_seed(9)
+        eng = PagedDecodeEngine(server, max_batch=4, block=16, graphs=graphs)
+        slots = [eng.admit([3, 4, 5], 20), eng.admit([3, 4, 5], 20)]
+        while eng.active.any():
+            eng.step()
+        torch.cuda.synchronize()
+        outs.append([list(eng.slots[s].tokens) for s in slots])
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[0][0] != outs[0][1] and len(set(outs[0][0])) > 3
+
+
+@pytest.mark.cuda
+def test_reset_keeps_the_graphs_valid():
+    """reset() rewrites the arena and the step's buffers in place, so the
+    graphs captured before it replay on the rebuilt arena: the next rows
+    decode as on a fresh eager engine, with no new capture; after drop()
+    they decode the same through a new capture."""
+    _card()
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+
+    server = _graph_server("bfloat16")
+    eng = PagedDecodeEngine(server, max_batch=4, block=16, graphs=True)
+    pools = (eng.pools.k.data_ptr(), eng.pools.v.data_ptr(), eng._logits.data_ptr())
+    eng.admit([1, 2, 3], 12)
+    for _ in range(4):
+        eng.step()
+    captured = eng.graphs.stats["graphs"]
+    dead = eng.reset()
+    assert len(dead) == 1 and not eng.has_inflight
+    assert (eng.pools.k.data_ptr(), eng.pools.v.data_ptr(), eng._logits.data_ptr()) == pools
+    replays = eng.graphs.stats["graph_replays"]
+    s = eng.admit([4, 5, 6, 7], 12)
+    while eng.active.any():
+        eng.step()
+    ref = PagedDecodeEngine(server, max_batch=4, block=16, graphs=False)
+    r = ref.admit([4, 5, 6, 7], 12)
+    while ref.active.any():
+        ref.step()
+    torch.cuda.synchronize()
+    assert eng.slots[s].tokens == ref.slots[r].tokens
+    assert eng.graphs.stats["graphs"] == captured
+    assert eng.graphs.stats["graph_replays"] > replays
+    # drop() releases every graph; the next step captures its shape again
+    eng.release(s)
+    eng.graphs.drop()
+    assert len(eng.graphs) == 0
+    s = eng.admit([4, 5, 6, 7], 12)
+    while eng.active.any():
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.slots[s].tokens == ref.slots[r].tokens and len(eng.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_and_never_steps_eagerly(monkeypatch):
+    """A step that cannot be captured (here: a host read inside it) fails
+    the step with ArenaReset, every time, instead of running eagerly."""
+    _card()
+    from paddlefleetx_tpu_torch.core import continuous_batching as cb
+
+    server = _graph_server("bfloat16")
+    eng = cb.PagedDecodeEngine(server, max_batch=4, block=16, graphs=True)
+    real = cb.decode_step
+
+    def syncing(*a, **k):
+        out = real(*a, **k)
+        out[0].sum().item()  # a host read: refused inside a capture
+        return out
+
+    monkeypatch.setattr(cb, "decode_step", syncing)
+    for _ in range(2):
+        eng.admit([1, 2, 3], 8)
+        with pytest.raises(cb.ArenaReset):
+            eng.step()
+        assert len(eng.graphs) == 0 and not eng.active.any()
+    monkeypatch.undo()
+    eng.admit([1, 2, 3], 8)
+    eng.step()
+    torch.cuda.synchronize()
+    assert len(eng.graphs) == 1

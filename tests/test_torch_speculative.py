@@ -842,20 +842,23 @@ def test_multi_query_launches_are_counted_apart(monkeypatch):
 
 def test_split_scratch_grows_and_stays_shared(monkeypatch):
     """The verify chunk (t = k + 1) needs more split-K partials than the
-    t = 1 step: the scratch of a (device, stream) grows to the largest
-    request, a smaller one reuses it, and the counters (left zeroed by
-    every launch) are kept while they are large enough."""
+    t = 1 step: the scratch of a device grows to the largest request, a
+    smaller one reuses it, and the counters (left zeroed by every launch)
+    are kept while they are large enough.  Growing replaces a buffer and
+    never resizes it, so a holder of the old pair (a captured CUDA graph)
+    keeps its memory."""
     monkeypatch.setattr(da, "_SCRATCH", {})
     dev = torch.device("cpu")
-    p1, c1 = da._split_scratch(dev, 7, 100, 8)
-    p2, c2 = da._split_scratch(dev, 7, 400, 8)
-    assert p2.numel() == 400 and c2 is c1
-    p3, c3 = da._split_scratch(dev, 7, 50, 4)
+    p1, c1 = da._split_scratch(dev, 100, 8)
+    p2, c2 = da._split_scratch(dev, 400, 8)
+    assert p2.numel() == 400 and c2 is c1 and p1.numel() == 100
+    p3, c3 = da._split_scratch(dev, 50, 4)
     assert p3 is p2 and c3 is c1
-    p4, c4 = da._split_scratch(dev, 7, 50, 16)
+    p4, c4 = da._split_scratch(dev, 50, 16)
     assert p4 is p2 and c4.numel() == 16 and int(c4.abs().sum()) == 0
-    p5, _ = da._split_scratch(dev, 8, 50, 4)  # another stream: its own pair
-    assert p5 is not p2
+    assert da.split_scratch(dev)[0] is p4 and da.split_scratch(dev)[1] is c4
+    p5, c5 = da.reserve_split_scratch(dev, 1000, 4)  # the engine's reservation
+    assert p5.numel() == 1000 and c5 is c4 and p4.numel() == 400
 
 
 # ---------------------------------------------------------------------------

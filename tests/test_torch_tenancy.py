@@ -7,7 +7,8 @@ are held against the JAX modules on the same inputs: same outputs, same
 error messages, the same pick sequences.  The schedulers (the coalescing
 ``RequestQueue`` and the ``ContinuousScheduler``) are driven through the
 sequences of tests/test_tenant_sched.py next to the JAX schedulers, one
-iteration at a time (the JAX scheduler synchronous, as the port's is):
+iteration at a time (the JAX scheduler synchronous, the port's with its
+default dispatch-ahead, whose commits land one iteration later):
 same batch order, same victim slots, the same preemption and admission
 counts and identical greedy tokens (float32).  The serve CLI runs as a
 ``--device cpu`` subprocess: SSE frames reassemble the non-streamed
