@@ -246,8 +246,9 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      restores it (the resumed run's step_12 is kept for phase 27); then a
      bare float16 step at scale 2**31 with the split
      backward (K4 and K5 in float16): skipped, the scale halved, the params
-     bitwise unchanged; and a float16 step at 4 layers of the full width,
-     ``F16_CPU_SEQ`` tokens, card against CPU, loss within ``F16_CPU_TOL``;
+     bitwise unchanged; and a float16 step at ``F16_CPU_LAYERS`` layers of
+     the full width, ``F16_CPU_SEQ`` tokens, card against CPU, loss within
+     ``F16_CPU_TOL``;
   24. the memory levers at 345M, ``LEVER_STEPS`` steps each beside the
      default: main_grad=False (bf16 grads), bf16 first moments,
      multi_precision=False (bf16 params and moments), chunked
@@ -293,6 +294,23 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      step (CUDA events around its launches or its replay), the host gap
      per gap step, the graphs captured and their seconds, and the device
      memory the warmup keeps reserved (the graph pool: graphs minus eager).
+  29. serving observability on the card, GPT-345M at full width, bf16: one
+     continuous serve CLI with ``PFX_TRACE_SAMPLE=1``, ``--slo-ttft-p99``,
+     a ``PFX_ADMIN_TOKEN`` and ``PFX_FLIGHT_DIR`` in a temporary
+     directory serves phase 7's traffic; ``/debug/state`` answers 401
+     without the token; ``/debug/state`` (rows, goodput, a decision log),
+     a served request's ``/debug/trace?id=`` (its prefill, every decode
+     step, the respond stamp) and ``/debug/traces`` (valid nesting per
+     lane) read with it; ``/metrics``: the time buckets close within 1% of
+     ``pfx_sched_wall_seconds_total`` and the token ledger closes exactly
+     with 0 in flight, K9 launched, 0 plain; a 2-second ``/admin/profile``
+     under traffic carries device events (its top device ops logged,
+     naming K9's kernel or the graph launch); ``/admin/drain`` answers,
+     the server exits 0 and its flight dump on disk holds the drain.  In
+     process, phase 28's bf16 traffic with graphs and dispatch-ahead at
+     ``PFX_TRACE_SAMPLE`` 1 and 0: both median step walls and K9's
+     launches logged, and the traced run's decision log replays to the
+     scheduler's counters.
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -310,6 +328,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -460,6 +479,11 @@ RESUME_LOSS_TOL = 1e-4
 GRAPH_MODES = (("graphs_ahead", True, True), ("graphs", True, False),
                ("eager_sync", False, False))
 GRAPH_WARM = (16, 64)
+# phase 29: the profile window (seconds), the SLO objective (generous: the
+# phase checks the slo block, not a breach) and the admin token
+OBS_PROFILE_S = 2.0
+OBS_SLO_TTFT_S = 5.0
+OBS_TOKEN = "phase29-admin-token"
 
 
 class SmokeFailure(RuntimeError):
@@ -1372,9 +1396,11 @@ def graph_traffic(sched, ps):
     return answers, time.time() - t0
 
 
-def graph_mode_run(torch, da, server, kv_dtype, mode, graphs, ahead, ps, layers):
+def graph_mode_run(torch, da, server, kv_dtype, mode, graphs, ahead, ps, layers,
+                   inspect=None):
     """One engine and scheduler in ``mode``: warm up, serve ``ps`` once,
-    drain; returns the run's numbers, answers and K9 launches."""
+    drain; returns the run's numbers, answers and K9 launches.
+    ``inspect(sched)`` (optional) runs after the drain."""
     import gc
     import statistics
 
@@ -1449,6 +1475,8 @@ def graph_mode_run(torch, da, server, kv_dtype, mode, graphs, ahead, ps, layers)
               f"{steps} steps after warmup (each step must be a replay)")
     for a in answers:
         check_rows([a], what)
+    if inspect is not None:
+        inspect(sched)
     dev_ms = [e0.elapsed_time(e1) for e0, e1 in spans]
     period = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     info = {
@@ -1516,6 +1544,286 @@ def phase_graphs(torch, da, card):
             log(f"  bf16 kv={kv or 'native'}: {same} of 3 modes identical to eager_sync; every "
                 f"token within {worst:.1f} bf16 ulps of its prefix's argmax")
         del server, model
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 29: serving observability on the card
+# ---------------------------------------------------------------------------
+
+
+def admin_http(port, path, body=None, token=OBS_TOKEN, timeout=600):
+    """(status, parsed JSON) of an /admin or /debug call; an HTTP error
+    status comes back as its code, never raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 **({"Authorization": f"Bearer {token}"} if token else {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def check_nesting(doc, what):
+    """A Chrome trace's spans nest per (pid, tid) lane: any two are
+    disjoint or one holds the other (Perfetto's loading rule)."""
+    lanes = {}
+    for ev in doc["traceEvents"]:
+        check(ev.get("ph") in ("X", "M"), f"{what}: unknown event {ev}")
+        if ev["ph"] == "X":
+            check(ev["dur"] >= 0 and ev["ts"] >= 0 and ev["name"], f"{what}: bad span {ev}")
+            lanes.setdefault((ev["pid"], ev["tid"]), []).append(ev)
+    for lane, evs in lanes.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for ev in evs:
+            start, end = ev["ts"], ev["ts"] + ev["dur"]
+            while stack and start >= stack[-1] - 1.0:
+                stack.pop()
+            check(not stack or end <= stack[-1] + 1.0,
+                  f"{what}: {ev['name']} overlaps its enclosing span in lane {lane}")
+            stack.append(end)
+    return len(lanes)
+
+
+def metric_values(port):
+    """/metrics parsed with the port's own parser: {(name, labels): v}."""
+    from paddlefleetx_tpu_torch.utils.telemetry import parse_exposition
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {(n, tuple(sorted(lab.items()))): v for n, lab, v in parse_exposition(text)}
+
+
+def ledger_closure(vals, what):
+    """The goodput ledgers from /metrics: the six time buckets against the
+    wall (within 1%), the token dispositions against admitted (exactly,
+    with 0 in flight).  Returns (buckets, wall, tokens)."""
+    buckets = {dict(lab)["bucket"]: v for (n, lab), v in vals.items()
+               if n == "pfx_sched_time_seconds_total"}
+    wall = vals[("pfx_sched_wall_seconds_total", ())]
+    check(set(buckets) == {"device_decode", "device_prefill", "host_sched", "readback",
+                           "stream_flush", "idle"}, f"{what}: buckets {sorted(buckets)}")
+    check(wall > 0 and abs(sum(buckets.values()) - wall) <= 0.01 * wall,
+          f"{what}: time buckets {sum(buckets.values()):.6f} s against the wall {wall:.6f} s")
+    toks = {dict(lab)["disposition"]: v for (n, lab), v in vals.items()
+            if n == "pfx_token_ledger_total"}
+    inflight = vals[("pfx_token_ledger_in_flight", ())]
+    out = sum(toks[d] for d in ("delivered", "evicted_lost", "preempt_refunded",
+                                "shed_after_admit"))
+    check(inflight == 0 and toks["admitted"] == out > 0,
+          f"{what}: token ledger {toks}, in flight {inflight}")
+    return buckets, wall, toks
+
+
+def phase_observability(torch, da, env, card):
+    """Phase 29 (see the module docstring).  Returns the phase's report."""
+    import tempfile
+
+    report = {"card": card}
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase29-", dir=str(REPO / "build"))
+    port = free_port()
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
+           "--port", str(port), "--scheduler", "continuous", "--cb-batch", "8",
+           "-o", "Generation.decode_strategy=greedy_search",
+           "-o", f"Generation.max_dec_len={MAX_NEW}",
+           "--slo-ttft-p99", str(OBS_SLO_TTFT_S), "--slo-windows", "60,600"]
+    senv = dict(env, PFX_TRACE_SAMPLE="1", PFX_ADMIN_TOKEN=OBS_TOKEN, PFX_FLIGHT_DIR=tmp)
+    out_path = Path(tmp) / "serve.log"
+    t0 = time.time()
+    with open(out_path, "w") as fh:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=senv, stdout=fh, stderr=subprocess.STDOUT)
+    ps = prompts(7, D_LENS)
+
+    def output():
+        return out_path.read_text()[-3000:]
+
+    def traffic(poll=True):
+        """Phase 7's arrivals: the first request steps twice (``poll``:
+        watched on /healthz) before the rest arrive 30 ms apart.  Returns
+        the answers' bodies."""
+        results = {}
+
+        def post(i):
+            try:
+                results[i] = http(port, "/generate", {"prompt_ids": ps[i], "max_tokens": MAX_NEW})
+            except Exception as e:  # noqa: BLE001 — reported below
+                results[i] = e
+
+        steps_at = http(port, "/healthz", timeout=30)["serving"]["steps"]
+        t1 = time.time()
+        threads = [threading.Thread(target=post, args=(0,))]
+        threads[0].start()
+        while poll and http(port, "/healthz", timeout=30)["serving"]["steps"] < steps_at + 2:
+            check(time.time() - t1 < 120, "phase 29: the first request never stepped")
+            time.sleep(0.01)
+        for i in range(1, len(ps)):
+            threads.append(threading.Thread(target=post, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.03)
+        for th in threads:
+            th.join(timeout=600)
+        for i in range(len(ps)):
+            check(isinstance(results.get(i), dict), f"phase 29 request {i}: {results.get(i)}")
+            check_rows([results[i]["completion_ids"]], f"phase 29 request {i}")
+        return [results[i] for i in range(len(ps))]
+
+    try:
+        health = None
+        while health is None:
+            check(proc.poll() is None, f"phase 29 server exited {proc.returncode}: {output()}")
+            check(time.time() - t0 < 420, "phase 29 server did not come up in 420 s")
+            try:
+                health = http(port, "/healthz", timeout=5)
+            except OSError:
+                time.sleep(1)
+        report["boot_s"] = time.time() - t0
+        check(health["identity"]["device"].startswith("cuda"), f"phase 29 device {health}")
+        check("slo" in health and health["slo"]["enabled"], f"phase 29: no slo block {health}")
+        code, body = admin_http(port, "/debug/state", token=None)
+        check(code == 401, f"phase 29: /debug/state without the token answered {code} {body}")
+        t1 = time.time()
+        bodies = traffic()
+        report["traffic_s"] = time.time() - t1
+        # a served request's timeline
+        tid = bodies[-1].get("trace_id")
+        check(tid, f"phase 29: a 200 without a trace_id at PFX_TRACE_SAMPLE=1: {bodies[-1]}")
+        code, tl = admin_http(port, f"/debug/trace?id={tid}")
+        check(code == 200, f"phase 29: /debug/trace answered {code} {tl}")
+        names = [e["name"] for e in tl["events"]]
+        chunks = [e for e in tl["events"] if e["name"] == "decode_chunk"]
+        check(tl["done"] and "admission" in names and "queue_wait" in names
+              and ("prefill" in names or "prefill_chunk" in names) and names.count("respond") == 1
+              and sum(c["args"]["committed"] for c in chunks)
+              >= len(bodies[-1]["completion_ids"]), f"phase 29: timeline {names}")
+        code, doc = admin_http(port, "/debug/traces")
+        check(code == 200, f"phase 29: /debug/traces answered {code}")
+        lanes = check_nesting(doc, "phase 29 /debug/traces")
+        check(lanes >= len(ps), f"phase 29: {lanes} lanes for {len(ps)} requests")
+        code, dbg = admin_http(port, "/debug/state")
+        check(code == 200 and dbg["scheduler"] == "continuous" and dbg["decisions"]
+              and dbg["goodput"]["tokens_in_flight"] == 0 and not dbg["overlap"]["inflight"],
+              f"phase 29: /debug/state {code} {str(dbg)[:2000]}")
+        vals = metric_values(port)
+        buckets, wall, toks = ledger_closure(vals, "phase 29")
+        health = http(port, "/healthz", timeout=30)
+        kernels = health["kernels"]
+        check(kernels["paged_decode"] > 0 and kernels["paged_decode_sm90"] == kernels["paged_decode"]
+              and kernels["paged_plain"] == 0 and kernels["plain"] == 0,
+              f"phase 29: K9 launches {kernels}")
+        report.update({
+            "time_buckets_s": buckets, "wall_s": wall, "tokens": toks,
+            "decisions": len(dbg["decisions"]), "trace_events": len(tl["events"]),
+            "k9_launches": kernels["paged_decode"], "k9_plain": kernels["paged_plain"],
+            "slo": health["slo"]["burn"]})
+        log(f"  phase 29: boot {report['boot_s']:.1f}s; trace {tid}: {len(tl['events'])} events "
+            f"({len(chunks)} decode steps); /debug/traces {lanes} lanes nest; time buckets "
+            f"{json.dumps({k: round(v, 4) for k, v in buckets.items()})} close against the wall "
+            f"{wall:.4f} s; tokens {json.dumps(toks)}; K9 {kernels['paged_decode']} launches, "
+            f"0 plain; slo burn {health['slo']['burn']}")
+        # a profile under traffic: rounds of phase 7's traffic until it ends,
+        # without the /healthz polls (the profiler's stop pays for every
+        # thread the server ran during the window, one a request)
+        prof = {}
+
+        def profile():
+            prof["code"], prof["body"] = admin_http(
+                port, "/admin/profile", {"seconds": OBS_PROFILE_S, "top": 40})
+
+        pth = threading.Thread(target=profile)
+        t1 = time.time()
+        pth.start()
+        rounds = 0
+        while pth.is_alive():
+            traffic(poll=False)
+            rounds += 1
+        pth.join()
+        report["profile_wall_s"] = time.time() - t1
+        code, summ = prof["code"], prof["body"]
+        check(code == 200 and summ["source"] == "cuda" and summ["device_us"] > 0
+              and summ["top_ops"], f"phase 29: /admin/profile {code} {str(summ)[:2000]}")
+        tops = summ["top_ops"]
+        k9 = [r for r in tops if "paged" in r["op"].lower() or "graph" in r["op"].lower()]
+        check(k9, f"phase 29: no K9 kernel or graph launch among the top device ops "
+                  f"{[r['op'] for r in tops]}")
+        report["profile"] = {k: summ[k] for k in ("seconds", "stop_s", "fold_s", "device_us",
+                                                  "host_us", "op_count")}
+        report["profile"]["top_ops"] = [
+            {k: r[k] for k in ("op", "occurrences", "self_us", "self_frac")} for r in tops]
+        report["profile"]["traffic_rounds"] = rounds
+        log(f"  phase 29 profile: {summ['seconds']} s ({summ['stop_s']} s in the profiler's stop, "
+            f"{summ['fold_s']} s folding), device {summ['device_us']:.0f} us, host "
+            f"{summ['host_us']:.0f} us, {summ['op_count']} device ops, {rounds} traffic rounds; "
+            "top device ops:")
+        for r in tops[:12] + [r for r in k9 if r not in tops[:12]]:
+            log(f"    {r['self_us']:12.1f} us {100 * r['self_frac']:5.1f}% x{r['occurrences']:<6}"
+                f" {r['op'][:110]}")
+        t1 = time.time()
+        code, body = admin_http(port, "/admin/drain", {})
+        check(code == 200 and body["state"] == "draining", f"phase 29: /admin/drain {code} {body}")
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"phase 29: drain exit {rc}: {output()}")
+        check("drained cleanly" in output(), "phase 29: no clean-drain line")
+        dump = Path(tmp) / "flight_recorder.jsonl"
+        check(dump.is_file(), f"phase 29: no flight dump in {tmp}")
+        events = [json.loads(line) for line in dump.read_text().splitlines()]
+        kinds = [e.get("event") for e in events]
+        check("drain_start" in kinds and "drain_done" in kinds and "span" in kinds,
+              f"phase 29: the flight dump holds {kinds[-20:]}")
+        report["flight_events"] = len(events)
+        report["drain_s"] = time.time() - t1
+        log(f"  phase 29: /admin/drain exit 0; flight dump {len(events)} lines "
+            f"(drain_start, drain_done, {kinds.count('span')} request spans)")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+    # in process: phase 28's bf16 traffic, graphs and dispatch-ahead, with
+    # tracing on and off
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.utils import tracing
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    t1 = time.time()
+    cfg = get_config(str(REPO / CONFIG), [
+        "Generation.decode_strategy=greedy_search", f"Generation.max_dec_len={MAX_NEW}"])
+    module = GPTModule(cfg)
+    server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, "cuda"),
+                              torch.device("cuda"))
+    report["in_process"] = {}
+
+    def replayed(sched):
+        rep = tracing.replay_decision_log(sched.decision_log)
+        check(rep["prefill_admits"] == sched.stats["prefill_admits"] > 0
+              and rep["iterations"] == len(sched.decision_log)
+              and rep["tok_delivered"] == sched.token_ledger()["delivered"],
+              f"phase 29: the decision log replays to {rep}, the scheduler counts "
+              f"{dict(sched.stats)}")
+        buckets = sched.time_ledger()
+        check(abs(sum(buckets["buckets"].values()) - buckets["wall_s"])
+              <= 0.01 * buckets["wall_s"], f"phase 29: in-process time ledger {buckets}")
+
+    for sample in (1.0, 0.0):
+        tracing._buffer = tracing.TraceBuffer(sample=sample)
+        info, _ = graph_mode_run(torch, da, server, "", f"trace_{sample:g}", True, True, ps,
+                                 N_LAYERS, inspect=replayed if sample else None)
+        report["in_process"][f"sample_{sample:g}"] = {
+            k: info[k] for k in ("steps", "step_wall_ms", "device_ms", "k9_launches", "replays")}
+    tracing._buffer = None
+    report["in_process_s"] = time.time() - t1
+    on, off = report["in_process"]["sample_1"], report["in_process"]["sample_0"]
+    log(f"  phase 29 in process: step wall {on['step_wall_ms']:.3f} ms traced, "
+        f"{off['step_wall_ms']:.3f} ms untraced (median); K9 {on['k9_launches']} / "
+        f"{off['k9_launches']} launches; seconds: boot {report['boot_s']:.1f}, traffic "
+        f"{report['traffic_s']:.1f}, profile {report['profile_wall_s']:.1f}, drain "
+        f"{report['drain_s']:.1f}, in process {report['in_process_s']:.1f}")
+    del server
     return report
 
 
@@ -3598,9 +3906,10 @@ F16_CLI = ("Model.dtype=float16", "Engine.mix_precision.dtype=float16",
            'Engine.mix_precision.scale_loss={"init": 32768.0, "incr_every_n_steps": 4}',
            "Data.Train.loader.num_workers=2", "Engine.save_load.async_save=True")
 F16_INIT, F16_INCR = 32768.0, 4
-# phase 23: float16 card against the CPU at 4 layers of the full width and
-# F16_CPU_SEQ tokens (the CPU's float16 products are slow), loss
-F16_CPU_TOL, F16_CPU_SEQ = 1e-3, 32
+# phase 23: float16 card against the CPU at F16_CPU_LAYERS layers of the full
+# width and F16_CPU_SEQ tokens (the CPU's float16 products are slow: 4
+# layers took 58 s, so phase 29's cost is paid by cutting the depth), loss
+F16_CPU_TOL, F16_CPU_SEQ, F16_CPU_LAYERS = 1e-3, 32, 2
 
 
 def scale_trajectory(records):
@@ -3711,10 +4020,11 @@ def phase_f16_train(torch, fa, fl, env, cli_data):
         log(f"  float16 step at scale 2**31: found_inf 1, loss_scale {m['loss_scale']:.0f}, params "
             f"bitwise unchanged; launches {bare}")
 
-        # the float16 step, card against CPU: 4 layers of the full width
+        # the float16 step, card against CPU: F16_CPU_LAYERS of the full width
         cfg4 = get_config(str(REPO / CONFIG), [
             "Global.global_batch_size=1", "Global.local_batch_size=1",
-            "Global.micro_batch_size=1", "Model.num_layers=4", "Model.dtype=float16",
+            "Global.micro_batch_size=1", f"Model.num_layers={F16_CPU_LAYERS}",
+            "Model.dtype=float16",
             "Engine.mix_precision.dtype=float16", "Model.hidden_dropout_prob=0.0",
             "Model.attention_probs_dropout_prob=0.0", "Model.attn_impl=flash",
             "Model.flash_bwd=fused", "Model.use_fused_ln=True",
@@ -3728,7 +4038,8 @@ def phase_f16_train(torch, fa, fl, env, cli_data):
         check(err <= F16_CPU_TOL and res["cuda"]["found_inf"] == res["cpu"]["found_inf"] == 0.0
               and res["cuda"]["loss_scale"] == res["cpu"]["loss_scale"],
               f"float16 step card vs cpu: {res} ({err} relative)")
-        log(f"  float16 step card vs cpu, 4 layers, seq {F16_CPU_SEQ} ({cpu_s:.1f}s): loss "
+        log(f"  float16 step card vs cpu, {F16_CPU_LAYERS} layers, seq {F16_CPU_SEQ} "
+            f"({cpu_s:.1f}s): loss "
             f"{res['cuda']['loss']:.6f} vs "
             f"{res['cpu']['loss']:.6f} (rel {err:.2e}), grad_norm {res['cuda']['grad_norm']:.4f} "
             f"vs {res['cpu']['grad_norm']:.4f}")
@@ -4312,6 +4623,9 @@ def main():
           "dispatch-ahead, graphs alone, eager and synchronous")
     graph_report = phase_graphs(torch, da, card)
     log("step_graphs " + json.dumps(graph_report))
+    begin("29", "serving observability at full width: traces, the decision log, the goodput "
+          "ledgers, SLO burn, /debug/*, /admin/profile and /admin/drain, the flight recorder")
+    log("observability " + json.dumps(phase_observability(torch, da, env, card)))
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],

@@ -76,9 +76,28 @@ table width) (``core/step_graphs.py``, the counterpart of the JAX engine's
 compiled step families) over static device buffers, fed from pinned host
 buffers and read back through one asynchronous copy whose event the commit
 waits on; prefills, chunks, block copies and readmits stay eager and write
-the same buffers in place.  Not ported, and refused where asked for: KV
-handoff (export/adopt) and prefix migration, the decision log and the
-goodput ledgers.
+the same buffers in place.
+
+Observability (the JAX scheduler's, ``:2014-2160``, ``:2462-2530``,
+``:2680-2810``): a sampled per-request trace (``utils/tracing.py``:
+admission, queue wait, prefill or prefix hit and chunks, one
+``decode_chunk`` event per committed step, preemption, eviction, shed);
+a per-iteration decision log (``decision_log``, ``PFX_DECISION_LOG_CAP``
+rows, default 4096) whose replay (``utils/tracing.replay_decision_log``)
+reproduces the admission, eviction, speculation, prefix, token-ledger and
+tenant counters exactly, in commit order, with dispatch-ahead on or off;
+the goodput ledgers (scheduler-thread wall seconds in six buckets that
+close against the wall by construction, admitted tokens against their
+dispositions exactly, per-tenant slot and KV-block seconds), all host
+clocks and counts: nothing here waits on the device.  ``debug_state``
+(``GET /debug/state``) reads a view the scheduler thread publishes after
+each iteration from host mirrors of the row state only (rebuilt live
+while the scheduler is parked); with tracing off (``PFX_TRACE_SAMPLE=0``)
+and no debug reader yet, the scheduler builds neither rows nor views.
+The ``gen_crash`` (an admission) and ``cb_step_hang`` (before a step)
+fault sites fire where the JAX scheduler fires them.  Not ported, and
+refused where asked for: KV handoff (export/adopt) and prefix migration
+(the decision log's ``migrate_adopted`` column reads 0).
 """
 
 from __future__ import annotations
@@ -86,6 +105,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,6 +158,11 @@ from paddlefleetx_tpu_torch.ops.speculative import (
 from paddlefleetx_tpu_torch.utils.log import logger
 from paddlefleetx_tpu_torch.utils.resilience import maybe_fire
 from paddlefleetx_tpu_torch.utils.telemetry import StatsView, env_int, get_registry
+from paddlefleetx_tpu_torch.utils.tracing import (
+    attach_request_trace,
+    discard_request_trace,
+    get_trace_buffer,
+)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -168,6 +193,10 @@ class _Row:
     prompt_ids: List[int]  # the speculative drafter reads prompt + tokens
     table: List[int]
     tokens: List[int] = dataclasses.field(default_factory=list)
+    max_new: int = 0
+    # the request's sampled trace (utils/tracing.TraceContext) or None: the
+    # engine stamps the prefill and every committed step onto it
+    trace: Any = None
     # prefix reuse / chunked prefill: tokens matched against the prefix
     # index (their KV was mapped shared, never recomputed), prompt tokens
     # still to prefill, the next chunk's first slot, the row's chunk
@@ -353,13 +382,23 @@ class PagedDecodeEngine:
         # "host_gap_s" / "gap_steps" the host time the device sat idle
         # between one commit's results and the next step's dispatch (a
         # chained dispatch has none; an admission or a chunk in between
-        # stops the clock: device work, not a scheduling gap)
+        # stops the clock: device work, not a scheduling gap).  The
+        # time-ledger accumulators are host wall seconds this thread spent
+        # in each phase: "t_device_decode" in a step's dispatch (its upload
+        # and graph replay), "t_device_prefill" in every other arena write
+        # (prefill, chunk, block copy, readmit), "t_readback" waiting on a
+        # commit's copy event, "t_stream_flush" in the stream sinks; the
+        # scheduler diffs them per iteration.  "ledger_admitted" counts the
+        # tokens committed into scheduler-owned rows (the token ledger's
+        # admission side); "migrate_adopted" stays 0 (no prefix migration)
         self._shapes: set = set()
         self.stats: Dict[str, Any] = {
             "traces": 0, "steps": 0, "prefills": 0, "prefill_tokens": 0,
             "prefill_chunks": 0, "interleaved_chunks": 0, "mid_decode_admits": 0,
             "spec_proposed": 0, "spec_accepted": 0, "spec_accept_rate": 0.0,
-            "host_gap_s": 0.0, "gap_steps": 0,
+            "host_gap_s": 0.0, "gap_steps": 0, "migrate_adopted": 0,
+            "t_device_decode": 0.0, "t_device_prefill": 0.0, "t_readback": 0.0,
+            "t_stream_flush": 0.0, "ledger_admitted": 0,
         }
 
     # -- capacity queries ----------------------------------------------
@@ -400,13 +439,16 @@ class PagedDecodeEngine:
             self._shapes.add(key)
             self.stats["traces"] = len(self._shapes)
 
-    def _guarded(self, fn: Callable[[], Any], what: str, release_seq: Optional[int] = None):
+    def _guarded(self, fn: Callable[[], Any], what: str, release_seq: Optional[int] = None,
+                 ledger: str = "t_device_prefill"):
         """Run one arena-writing call under the arena contract: on any
         failure the arena may be half written, so release a row not yet
         in ``slots`` (``release_seq``; rows in ``slots`` are released by
         :meth:`reset`), rebuild the arena and raise :class:`ArenaReset`
         with the dead rows.  One spelling for the prefill, chunk, block
-        copy and readmit writes."""
+        copy, readmit and step writes; the call's host seconds go to the
+        ``ledger`` accumulator (a decode step's to ``t_device_decode``)."""
+        t0 = time.monotonic()
         try:
             return fn()
         except BaseException as exc:
@@ -416,6 +458,8 @@ class PagedDecodeEngine:
             raise ArenaReset(
                 f"{what} failed ({type(exc).__name__}: {exc}); arena reset", dead
             ) from exc
+        finally:
+            self.stats[ledger] += time.monotonic() - t0
 
     # -- prefix cache ----------------------------------------------------
     @property
@@ -558,8 +602,9 @@ class PagedDecodeEngine:
         if slot is None:
             raise RuntimeError("no free slot in the running batch")
         mid_decode = bool((self.active & (self.gen_steps > 0)).any())
-        seq_id, table, _, _, m = self._prefix_admit(
+        seq_id, table, shared, cow, m = self._prefix_admit(
             prompt_ids, self.row_capacity_tokens(plen, max_new))
+        trace = entry.future.trace if entry is not None else None
         if m == 0 and self.prefill_chunk == 0:
             # no reuse, no chunking: the monolithic prefill writes the
             # bucket's PB blocks (pad junk included); the reservation
@@ -567,6 +612,7 @@ class PagedDecodeEngine:
             PB = blocks_for(P, self.block)
             prompt = torch.full((1, P), self.gen.pad_token_id, dtype=torch.int64)
             prompt[0, :plen] = torch.tensor(prompt_ids, dtype=torch.int64)
+            t_prefill = time.monotonic()
             last, counts = self._guarded(
                 lambda: paged_prefill(self.model, prompt.to(self.device), plen, self.pools,
                                       table[:PB]),
@@ -576,8 +622,11 @@ class PagedDecodeEngine:
             self._reject[slot] = -1
             self._note_shape(("prefill", P, PB))
             self.stats["prefill_tokens"] += plen
+            if trace is not None:
+                trace.span("prefill", t0=t_prefill, t1=time.monotonic(), prompt_len=plen,
+                           bucket=P, blocks=len(table), slot=slot)
             row = _Row(seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids,
-                       table=table)
+                       table=table, max_new=max_new, trace=trace)
         else:
             # prefix hit or chunked: only the unmatched suffix [m, plen)
             # runs through the model, in chunks.  The row sits
@@ -585,10 +634,14 @@ class PagedDecodeEngine:
             # it), so decode latency stays flat while the prompt streams in
             row = _Row(
                 seq_id=seq_id, entry=entry, row_idx=row_idx, prompt_ids=prompt_ids,
-                table=table, prefix_hit=m, pending=prompt_ids[m:], prefill_pos=m,
+                table=table, max_new=max_new, trace=trace, prefix_hit=m,
+                pending=prompt_ids[m:], prefill_pos=m,
                 chunk=self.prefill_chunk or bucket_len(plen - m, self.bucket),
                 prefill_done=False,
             )
+            if trace is not None and m:
+                trace.event("prefix_hit", slot=slot, hit_tokens=m, shared_blocks=len(shared),
+                            cow=cow is not None)
         self.positions[slot] = plen if row.prefill_done else m
         self.gen_steps[slot] = 0
         self.max_news[slot] = max_new
@@ -651,6 +704,7 @@ class PagedDecodeEngine:
         self._t_results = None  # a chunk between commit and dispatch
         row = self.slots[slot]
         final = min(row.chunk, len(row.pending)) == len(row.pending)
+        t0 = time.monotonic()
         # no release_seq: the row sits in slots, so reset() releases it
         last, take = self._guarded(
             lambda: self._run_prefill_chunk(row.chunk, self._padded_chunk_table(row.table),
@@ -661,6 +715,9 @@ class PagedDecodeEngine:
         row.pending = row.pending[take:]
         row.prefill_pos += take
         self.positions[slot] = row.prefill_pos
+        if row.trace is not None:
+            row.trace.span("prefill_chunk", t0=t0, t1=time.monotonic(), slot=slot, tokens=take,
+                           position=row.prefill_pos, final=final)
         if final:
             counts = prefix_token_counts(row.prompt_ids, int(self.mcfg.vocab_size))
             self._logits[slot] = last
@@ -861,7 +918,7 @@ class PagedDecodeEngine:
                 self._out_events[j].record()
             return j
 
-        j = self._guarded(run, "decode step")
+        j = self._guarded(run, "decode step", ledger="t_device_decode")
         self._note_shape(key)
         return {"out": j, "rows": list(self.slots), "k": k, "was_active": None}
 
@@ -883,6 +940,7 @@ class PagedDecodeEngine:
         while the step was in flight included (the ``cb_commit_crash``
         fault fires here)."""
         j = fl["out"]
+        t_rb = time.monotonic()
         try:
             at = int(self.stats["steps"]) + 1
             if maybe_fire("cb_commit_crash", at):
@@ -891,10 +949,13 @@ class PagedDecodeEngine:
                 self._out_events[j].synchronize()
             out = self._host_out[j].numpy().copy()
         except BaseException as exc:
+            # the failed wait is readback; the reset after it host work
+            self.stats["t_readback"] += time.monotonic() - t_rb
             dead = self.reset()
             raise ArenaReset(
                 f"decode step failed ({type(exc).__name__}: {exc}); arena reset", dead
             ) from exc
+        self.stats["t_readback"] += time.monotonic() - t_rb
         self._t_results = time.monotonic()
         self.stats["steps"] += 1
         was_active = fl["was_active"]
@@ -906,20 +967,34 @@ class PagedDecodeEngine:
         self.gen_steps[was_active] += ncommit[was_active]
         self.active[was_active] = new_active[was_active]
         finished: List[int] = []
+        t_chunk = time.monotonic()
         for i, r in enumerate(fl["rows"]):
             if r is None or not was_active[i]:
                 continue
+            committed = int(ncommit[i])
             start = len(r.tokens)  # a speculative step may commit several
-            for tok in out[i, :ncommit[i]].tolist():
+            for tok in out[i, :committed].tolist():
                 if tok != self.gen.eos_token_id:
                     r.tokens.append(tok)
+            if r.entry is not None:
+                # token ledger: commits into scheduler-owned rows are
+                # admitted tokens (EOS never appends, so never enters)
+                self.stats["ledger_admitted"] += len(r.tokens) - start
             if (len(r.tokens) > start and not self._warmup and r.entry is not None
                     and r.entry.stream is not None):
+                t_sf = time.monotonic()
                 try:
                     r.entry.emit_stream(r.row_idx, start, r.tokens[start:])
                 except Exception as exc:  # noqa: BLE001 — a sink never kills the batch
                     logger.warning(f"stream sink failed for seq {r.seq_id}: "
                                    f"{type(exc).__name__}: {exc}")
+                finally:
+                    self.stats["t_stream_flush"] += time.monotonic() - t_sf
+            if r.trace is not None:
+                # one event a committed step: counts, never token values
+                r.trace.event("decode_chunk", t=t_chunk, slot=i, committed=committed,
+                              accepted=committed - 1 if self.spec else 0,
+                              position=int(self.positions[i]))
             if not new_active[i]:
                 finished.append(i)
         n_act = int(was_active.sum())
@@ -1142,6 +1217,38 @@ class ContinuousScheduler:
         self._closed = False
         self._busy_since: Optional[float] = None
         self._thread: Optional[threading.Thread] = None
+        # the PFX_FAULT indices: row admissions (gen_crash) and steps
+        # (cb_step_hang), as the JAX scheduler counts them
+        self._req_counter = 0
+        self._step_counter = 0
+        # the decision log: one row per iteration while tracing is on
+        # (PFX_TRACE_SAMPLE > 0), accounted in commit order, bounded
+        self.decision_log: deque = deque(maxlen=env_int("PFX_DECISION_LOG_CAP", 4096))
+        # the time ledger: every scheduler-thread wall second in exactly
+        # one bucket.  idle is stamped in _run's wait, the device,
+        # readback and stream buckets are diffed off the engine's
+        # accumulators in _iterate, and host_sched is the residual, so the
+        # sum closes against _sched_wall_s by construction
+        self._time_ledger: Dict[str, float] = {
+            "device_decode": 0.0, "device_prefill": 0.0, "host_sched": 0.0,
+            "readback": 0.0, "stream_flush": 0.0, "idle": 0.0,
+        }
+        self._sched_wall_s = 0.0
+        # the token ledger over admitted (committed) tokens: admitted ==
+        # delivered + evicted_lost + preempt_refunded + shed_after_admit +
+        # the tokens on live rows, exactly, at every iteration boundary
+        self._tok_ledger: Dict[str, int] = {
+            "admitted": 0, "delivered": 0, "evicted_lost": 0,
+            "preempt_refunded": 0, "shed_after_admit": 0,
+        }
+        self._ledger_admit_base = 0
+        # per-tenant-label slot seconds and KV-block seconds, accrued over
+        # each iteration for every live row
+        self._tenant_occ: Dict[str, Dict[str, float]] = {}
+        # the engine view debug_state() reads, published by the scheduler
+        # thread after each iteration; with tracing off it is rebuilt only
+        # once a debug reader has asked (the first call latches interest)
+        self._debug_requested = False
         # the RequestQueue keys that apply (no coalescing: rows join the
         # running batch instead) plus the continuous-only counters, under
         # the JAX scheduler's registry names; "preemptions" stays local
@@ -1152,6 +1259,7 @@ class ContinuousScheduler:
             "prefill_admits": "pfx_prefill_admits_total",
             "preemptions": None,
         })
+        self._debug_engine: Dict[str, Any] = self._engine_debug_view()
         get_registry().register_collector(self)
 
     def collect(self):
@@ -1186,6 +1294,22 @@ class ContinuousScheduler:
         if eng.spec is not None:
             out.append(("pfx_spec_accept_rate", {},
                         float(eng.stats["spec_accepted"]) / prop if prop else 0.0))
+        # the goodput ledgers: the time buckets close against the wall
+        # (within 1%), the token dispositions against admitted exactly once
+        # in flight reads 0; the host gap overlaps the buckets
+        for b, v in sorted(self._time_ledger.items()):
+            out.append(("pfx_sched_time_seconds_total", {"bucket": b}, round(v, 6)))
+        out.append(("pfx_sched_wall_seconds_total", {}, round(self._sched_wall_s, 6)))
+        out.append(("pfx_sched_host_gap_seconds_total", {},
+                    round(float(eng.stats["host_gap_s"]), 6)))
+        for d, v in sorted(self._tok_ledger.items()):
+            out.append(("pfx_token_ledger_total", {"disposition": d}, float(v)))
+        out.append(("pfx_token_ledger_in_flight", {}, float(self._ledger_in_flight())))
+        for lab, occ in sorted(dict(self._tenant_occ).items()):
+            out.append(("pfx_tenant_slot_seconds_total", {"tenant": lab},
+                        round(occ["slot_s"], 6)))
+            out.append(("pfx_tenant_kv_block_seconds_total", {"tenant": lab},
+                        round(occ["kv_block_s"], 6)))
         per_tenant: Dict[str, int] = {}
         with self._lock:
             for e in self._entries:
@@ -1222,16 +1346,25 @@ class ContinuousScheduler:
             tenant=normalize_tenant(tenant),
             priority=int(priority),
         )
-        with self._wake:
-            if self._closed:
-                self.stats["rejected_closed"] += 1
-                raise QueueClosed(f"{self.name} queue is draining")
-            if len(self._entries) >= self.max_depth:
-                self.stats["rejected_full"] += 1
-                raise QueueFull(f"{self.name} queue full ({self.max_depth} waiting)")
-            self._entries.append(entry)
-            self.stats["submitted"] += 1
-            self._wake.notify_all()
+        entry.future.times["enqueued"] = now
+        # attached before the entry is visible to the scheduler thread, or
+        # a fast pickup would miss the prefill span
+        attach_request_trace(entry.future, t0=now, scheduler=self.name,
+                             prompts=len(entry.prompts), max_new=entry.max_new)
+        try:
+            with self._wake:
+                if self._closed:
+                    self.stats["rejected_closed"] += 1
+                    raise QueueClosed(f"{self.name} queue is draining")
+                if len(self._entries) >= self.max_depth:
+                    self.stats["rejected_full"] += 1
+                    raise QueueFull(f"{self.name} queue full ({self.max_depth} waiting)")
+                self._entries.append(entry)
+                self.stats["submitted"] += 1
+                self._wake.notify_all()
+        except (QueueClosed, QueueFull):
+            discard_request_trace(entry.future)  # never admitted
+            raise
         return entry.future
 
     def depth(self) -> int:
@@ -1274,9 +1407,195 @@ class ContinuousScheduler:
                 if e.future is future and e.next_row == 0:
                     self._entries.remove(e)
                     self.stats["shed_deadline"] += 1
+                    if e.future.trace is not None:
+                        e.future.trace.event("shed", reason="handler_timeout")
                     e.future.set_exception(DeadlineExceeded("deadline exceeded while queued"))
                     return True
         return False
+
+    # -- goodput ledgers --------------------------------------------------
+    def _fold_admitted(self) -> None:
+        """Fold the engine's commit-site admitted-token count into the
+        ledger: right after any step or flush that can commit and before
+        its rows are resolved or failed, so no disposition outruns
+        admission."""
+        cur = int(self.engine.stats["ledger_admitted"])
+        if cur != self._ledger_admit_base:
+            self._tok_ledger["admitted"] += cur - self._ledger_admit_base
+            self._ledger_admit_base = cur
+
+    @staticmethod
+    def _row_on_books(row: _Row) -> int:
+        """A live row's tokens on the books: its commits since its last
+        admission plus the resume prefix it re-admitted."""
+        if row.entry is None:
+            return 0
+        return len(row.tokens) + len(row.entry.row_prefill.get(row.row_idx, ()))
+
+    def _ledger_in_flight(self) -> int:
+        """Admitted tokens without a disposition yet (on live rows)."""
+        return sum(self._row_on_books(r) for r in self.engine.slots if r is not None)
+
+    def time_ledger(self) -> Dict[str, Any]:
+        """The time ledger: seconds per bucket and the wall they close
+        against."""
+        return {"buckets": dict(self._time_ledger), "wall_s": self._sched_wall_s}
+
+    def token_ledger(self) -> Dict[str, int]:
+        """The token ledger and the live in-flight count: ``admitted ==
+        delivered + evicted_lost + preempt_refunded + shed_after_admit +
+        in_flight`` at iteration boundaries."""
+        out = dict(self._tok_ledger)
+        out["in_flight"] = self._ledger_in_flight()
+        return out
+
+    # -- live introspection (GET /debug/state) --------------------------
+    def _engine_debug_view(self) -> Dict[str, Any]:
+        """The engine half of :meth:`debug_state`, built on the scheduler
+        thread (or while it is parked) from host state only: the row
+        mirrors, the arena's books, the shapes run so far.  Lengths and
+        counts, never token ids; no device tensor is read."""
+        eng = self.engine
+        rows = []
+        for i, r in enumerate(eng.slots):
+            if r is None:
+                continue
+            rows.append({
+                "slot": i, "seq_id": r.seq_id, "prompt_len": r.prompt_len,
+                "max_new": r.max_new, "position": int(eng.positions[i]),
+                "gen_step": int(eng.gen_steps[i]), "tokens_out": len(r.tokens),
+                "blocks": len(r.table), "active": bool(eng.active[i]),
+                "prefix_hit_tokens": r.prefix_hit, "prefill_pending": len(r.pending),
+            })
+        families: Dict[str, int] = {}
+        for key in list(eng._shapes):
+            families[key[0]] = families.get(key[0], 0) + 1
+        view: Dict[str, Any] = {
+            # the iteration this view reflects: staleness is visible
+            "as_of_iter": self._iter_counter,
+            "batch": {
+                "capacity": eng.capacity,
+                "active_rows": eng.active_rows(),
+                "occupancy": round(eng.active_rows() / max(1, eng.capacity), 4),
+                "width_bucket": eng.table_width_bucket(),
+                "rows": rows,
+            },
+            "arena": eng.cache.stats(),
+            "overlap": {
+                "dispatch_ahead": bool(eng.dispatch_ahead),
+                "quantum": self.quantum,
+                "inflight": eng.has_inflight,
+                "host_gap_s": round(float(eng.stats["host_gap_s"]), 6),
+                "gap_steps": int(eng.stats["gap_steps"]),
+            },
+            # the JAX engine's compiled families are the port's step shapes
+            # (the CUDA graphs' keys), prefill and chunk shapes
+            "compiled": {
+                "prefill_families": families.get("prefill", 0),
+                "step_families": families.get("step", 0) + families.get("verify", 0),
+                "chunk_families": families.get("chunk", 0),
+                "traces": int(eng.stats["traces"]),
+            },
+            # the ledgers from the same build as the rows above, so the
+            # token equation holds exactly within this view
+            "goodput": {
+                "time_s": {k: round(v, 6) for k, v in self._time_ledger.items()},
+                "wall_s": round(self._sched_wall_s, 6),
+                "tokens": dict(self._tok_ledger),
+                "tokens_in_flight": self._ledger_in_flight(),
+                "tenant_occupancy": {
+                    lab: {"slot_s": round(occ["slot_s"], 6),
+                          "kv_block_s": round(occ["kv_block_s"], 6)}
+                    for lab, occ in sorted(self._tenant_occ.items())
+                },
+            },
+        }
+        if eng.prefix_enabled or eng.prefill_chunk:
+            pfx, spill = eng.cache.prefix, eng.cache.spill
+            view["prefix_cache"] = {
+                "enabled": eng.prefix_enabled,
+                "budget_blocks": pfx.budget,
+                "cached_blocks": pfx.cached_blocks(),
+                "hits": int(pfx.stats["hits"]),
+                "misses": int(pfx.stats["misses"]),
+                "hit_tokens": int(pfx.stats["hit_tokens"]),
+                "evictions": int(pfx.stats["evictions"]),
+                "prefill_chunk": eng.prefill_chunk,
+                "prefill_chunks": int(eng.stats["prefill_chunks"]),
+                "prefill_tokens": int(eng.stats["prefill_tokens"]),
+                "spill_budget_bytes": spill.budget,
+                "spill_bytes": spill.bytes_used(),
+                "spill_entries": len(spill),
+                "spills": int(spill.stats["spills"]),
+                "readmits": int(spill.stats["readmits"]),
+                "spill_discards": int(spill.stats["discards"]),
+                "migrate_adopted": int(eng.stats["migrate_adopted"]),
+            }
+        if eng.spec is not None:
+            prop, acc = int(eng.stats["spec_proposed"]), int(eng.stats["spec_accepted"])
+            view["spec"] = {"draft_k": eng.spec.draft_k, "proposed": prop, "accepted": acc,
+                            "accept_rate": round(acc / prop, 4) if prop else 0.0}
+        return view
+
+    def _publish_debug(self) -> None:
+        # one reference assignment: a reader gets the old or the new view
+        self._debug_engine = self._engine_debug_view()
+
+    def debug_state(self) -> Dict[str, Any]:
+        """``GET /debug/state``: the waiting queue (under this scheduler's
+        lock, briefly) and the engine view.  While an iteration runs the
+        view is the one published at the last iteration's end (the HTTP
+        thread never touches live engine state); while the scheduler is
+        parked (``_busy_since`` None under the lock, and it cannot start
+        an iteration without the lock) the view is rebuilt here.  A parked
+        scheduler has no step in flight: the batch's last step is
+        committed when it empties, dispatch-ahead or not."""
+        self._debug_requested = True
+        now = time.monotonic()
+        with self._lock:
+            waiting = [
+                {
+                    "age_s": round(now - e.enqueued_at, 4),
+                    "prompts": len(e.prompts),
+                    "admitted_rows": e.next_row,
+                    "max_new": e.max_new,
+                    "deadline_in_s": (round(e.deadline - now, 4)
+                                      if e.deadline is not None else None),
+                    "tenant": e.tenant,
+                    "priority": e.priority,
+                    "requeued_rows": len(e.requeue_rows),
+                }
+                for e in self._entries
+            ]
+            tenant_admitted = dict(self._tenant_admitted)
+            tenant_preempted = dict(self._tenant_preempted)
+            closed = self._closed
+            busy = now - self._busy_since if self._busy_since is not None else 0.0
+            decisions = list(self.decision_log)  # appended under this lock
+            if self._busy_since is None:
+                self._publish_debug()
+        # per label (the top-k fold), so the keys match the counters
+        tenants: Dict[str, Dict[str, Any]] = {}
+        for w in waiting:
+            lab = self._tenant_labels.label(w["tenant"])
+            t = tenants.setdefault(lab, {"waiting": 0, "admitted_rows": 0})
+            t["waiting"] += 1
+        for lab, n in tenant_admitted.items():
+            tenants.setdefault(lab, {"waiting": 0})["admitted_rows"] = n
+        for lab, n in tenant_preempted.items():
+            tenants.setdefault(lab, {"waiting": 0})["preempted_rows"] = n
+        return {
+            "scheduler": "continuous",
+            "depth": len(waiting),
+            "waiting": waiting,
+            "tenants": tenants,
+            "preempt_min_tokens": self.preempt_min_tokens,
+            "busy_s": round(busy, 4),
+            "closed": closed,
+            "iterations": self._iter_counter,
+            "decisions": decisions,
+            **self._debug_engine,
+        }
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "ContinuousScheduler":
@@ -1306,7 +1625,9 @@ class ContinuousScheduler:
         return self.join(timeout)
 
     def warmup(self, prompt_lens: Sequence[int]) -> Dict[str, float]:
-        return self.engine.warmup(prompt_lens)
+        per = self.engine.warmup(prompt_lens)
+        self._publish_debug()  # /debug/state sees the warmed shapes
+        return per
 
     # -- scheduler loop -------------------------------------------------
     def _has_live_rows(self) -> bool:
@@ -1314,12 +1635,18 @@ class ContinuousScheduler:
 
     def _run(self) -> None:
         while True:
+            t_wait0 = time.monotonic()
             with self._wake:
                 while not self._entries and not self._has_live_rows() and not self._closed:
                     self._wake.wait()
                 drained = not self._entries and not self._has_live_rows()
                 if not drained:
-                    self._busy_since = time.monotonic()
+                    t_busy0 = time.monotonic()
+                    self._busy_since = t_busy0
+                    # the parked wait is idle: with each iteration's own
+                    # duration, the ledger covers this thread's whole wall
+                    self._time_ledger["idle"] += t_busy0 - t_wait0
+                    self._sched_wall_s += t_busy0 - t_wait0
             if drained:
                 # closed and empty: commit a step still in flight (its rows
                 # all finished), so the drain leaves nothing on the device
@@ -1335,22 +1662,31 @@ class ContinuousScheduler:
         self.stats["shed_deadline"] += 1
         waited = time.monotonic() - entry.enqueued_at
         logger.warning(f"{self.name}: shed expired request after {waited:.2f}s queued")
+        if entry.future.trace is not None:
+            entry.future.trace.event("shed", reason="expired_in_queue")
         entry.future.set_exception(
             DeadlineExceeded(f"deadline exceeded after {waited:.2f}s queued")
         )
 
     def _evict_entry(self, entry: _CBEntry, reason: str) -> None:
         """Mid-decode eviction: free every admitted row of the entry and
-        resolve its future; the blocks return to the pool at once."""
+        resolve its future; the blocks return to the pool at once.  The
+        rows' tokens on the books leave the token ledger as
+        ``shed_after_admit`` (an entry that expired partly admitted) or
+        ``evicted_lost``."""
         eng = self.engine
+        disposition = "shed_after_admit" if reason == "expired_partial" else "evicted_lost"
         n = 0
         for i, r in enumerate(eng.slots):
             if r is not None and r.entry is entry:
+                self._tok_ledger[disposition] += self._row_on_books(r)
                 eng.release(i)
                 n += 1
         with self._lock:
             self.stats["evictions"] += n
             self.stats["shed_deadline"] += 1
+        if entry.future.trace is not None:
+            entry.future.trace.event("evicted", rows=n, reason=reason)
         waited = time.monotonic() - entry.enqueued_at
         logger.warning(
             f"{self.name}: evicted {n} mid-decode row(s) of an expired request "
@@ -1362,16 +1698,110 @@ class ContinuousScheduler:
             )
 
     def _fail_rows(self, rows, exc: BaseException) -> None:
+        # the rows died with their tokens on the books: evicted_lost (the
+        # commits that landed before the failure are folded in first)
+        self._fold_admitted()
+        for r in rows:
+            self._tok_ledger["evicted_lost"] += self._row_on_books(r)
         for e in {r.entry for r in rows if r.entry is not None}:
             if not e.future.done():
                 e.future.set_exception(exc)
 
     def _iterate(self) -> int:
-        """One scheduler iteration; returns the rows it finished."""
+        """One scheduler iteration; returns the rows it finished.  Its wall
+        seconds go to the time ledger (the engine's phase accumulators'
+        deltas, host_sched the rest), its live rows' occupancy to their
+        tenants, and, while tracing is on, one decision-log row of counter
+        deltas (baseline-diffed, so an admission before a failure still
+        lands).  All of it after the step's dispatch: in the device's
+        shadow under dispatch-ahead, and none of it reads the device."""
+        eng = self.engine
+        trace_on = get_trace_buffer().enabled
+        if trace_on:
+            base = (self._decision_counters(), eng.cache.allocator.free_count(),
+                    dict(self._tenant_admitted), dict(self._tenant_preempted),
+                    dict(self._tok_ledger))
+        t_iter0 = time.monotonic()
+        acc0 = {k: float(eng.stats[k]) for k in
+                ("t_device_decode", "t_device_prefill", "t_readback", "t_stream_flush")}
+        n_finished = 0
         try:
-            return self._iterate_inner()
+            n_finished = self._iterate_inner()
+            return n_finished
         finally:
+            self._fold_admitted()
+            dur = time.monotonic() - t_iter0
+            d = {k: float(eng.stats[k]) - v for k, v in acc0.items()}
+            led = self._time_ledger
+            led["device_decode"] += d["t_device_decode"]
+            led["device_prefill"] += d["t_device_prefill"]
+            led["readback"] += d["t_readback"]
+            led["stream_flush"] += d["t_stream_flush"]
+            led["host_sched"] += max(0.0, dur - sum(d.values()))
+            self._sched_wall_s += dur
+            # every live row held its slot and blocks for the iteration
+            for r in eng.slots:
+                if r is not None and r.entry is not None:
+                    lab = self._tenant_labels.label(r.entry.tenant)
+                    occ = self._tenant_occ.setdefault(lab, {"slot_s": 0.0, "kv_block_s": 0.0})
+                    occ["slot_s"] += dur
+                    occ["kv_block_s"] += len(r.table) * dur
             self._iter_counter += 1
+            if trace_on:
+                self._log_decision(*base, n_finished)
+            if trace_on or self._debug_requested:
+                self._publish_debug()
+
+    def _decision_counters(self) -> Dict[str, int]:
+        """The counters a decision-log row diffs, under its column names."""
+        eng = self.engine
+        pfx, spill = eng.cache.prefix.stats, eng.cache.spill.stats
+        return {
+            "admitted": int(self.stats["prefill_admits"]),
+            "evicted": int(self.stats["evictions"]),
+            "shed": int(self.stats["shed_deadline"]),
+            "spec_proposed": int(eng.stats["spec_proposed"]),
+            "spec_accepted": int(eng.stats["spec_accepted"]),
+            "prefix_hits": int(pfx["hits"]),
+            "prefix_hit_tokens": int(pfx["hit_tokens"]),
+            "prefix_evictions": int(pfx["evictions"]),
+            "chunks": int(eng.stats["prefill_chunks"]),
+            "spills": int(spill["spills"]),
+            "readmits": int(spill["readmits"]),
+            "spill_discards": int(spill["discards"]),
+            "migrate_adopted": int(eng.stats["migrate_adopted"]),
+        }
+
+    def _log_decision(self, base, blocks_free0, tadmit0, tpre0, tok0, n_finished) -> None:
+        """Append this iteration's decision-log row (the JAX columns)."""
+        eng = self.engine
+        now = self._decision_counters()
+        free = eng.cache.allocator.free_count()
+        row = {
+            "iter": self._iter_counter,
+            "t": round(time.monotonic(), 6),
+            **{k: v - base[k] for k, v in now.items()},
+            # informational (not replayed): 0 when the step raised
+            "finished": n_finished,
+            "active": eng.active_rows(),
+            "width_bucket": eng.table_width_bucket(),
+            "blocks_free": free,
+            "blocks_delta": free - blocks_free0,
+        }
+        for k in ("admitted", "delivered", "evicted_lost", "preempt_refunded",
+                  "shed_after_admit"):
+            row[f"tok_{k}"] = self._tok_ledger[k] - tok0[k]
+        tenants_row = {lab: n - tadmit0.get(lab, 0) for lab, n in self._tenant_admitted.items()
+                       if n - tadmit0.get(lab, 0)}
+        preempted_row = {lab: n - tpre0.get(lab, 0)
+                         for lab, n in self._tenant_preempted.items() if n - tpre0.get(lab, 0)}
+        row["preempted"] = sum(preempted_row.values())
+        if tenants_row:
+            row["tenants"] = tenants_row
+        if preempted_row:
+            row["preempted_tenants"] = preempted_row
+        with self._lock:
+            self.decision_log.append(row)
 
     def _iterate_inner(self) -> int:
         eng = self.engine
@@ -1508,11 +1938,16 @@ class ContinuousScheduler:
                         self._take_unit_locked(*want[:5], admitted)
 
         # prefill-on-admit (outside the lock: device work)
-        for entry, row_idx, prompt, mx in admitted:
+        for entry, row_idx, prompt, mx, resumed in admitted:
             if entry.future.done():
                 continue  # an earlier row of this entry already failed
+            self._req_counter += 1
             try:
+                maybe_fire("gen_crash", self._req_counter)
                 eng.admit(prompt, mx, entry=entry, row_idx=row_idx)
+                if resumed:
+                    # a resume re-admits the prefix its preemption refunded
+                    self._tok_ledger["admitted"] += len(entry.row_prefill.get(row_idx, ()))
                 self.stats["prefill_admits"] += 1
                 lab = self._tenant_labels.label(entry.tenant)
                 self._tenant_admitted[lab] = self._tenant_admitted.get(lab, 0) + 1
@@ -1526,10 +1961,12 @@ class ContinuousScheduler:
                 logger.warning(f"{self.name}: {exc}")
             except (BlockPoolExhausted, RuntimeError, ValueError) as exc:
                 # host-side failure before any device work: the arena is
-                # intact, fail only this entry (and its admitted rows)
+                # intact, fail only this entry (and its admitted rows, whose
+                # tokens on the books are lost)
                 self.stats["gen_errors"] += 1
                 for i, r in enumerate(eng.slots):
                     if r is not None and r.entry is entry:
+                        self._tok_ledger["evicted_lost"] += self._row_on_books(r)
                         eng.release(i)
                 if not entry.future.done():
                     entry.future.set_exception(exc)
@@ -1540,10 +1977,14 @@ class ContinuousScheduler:
     def _take_unit_locked(self, head: _CBEntry, row_idx: int, prompt: List[int], mx: int,
                           resumed: bool, admitted: List[tuple]) -> None:
         """Book one picked unit for this iteration's admissions: charge
-        its tenant, advance the entry, and drop the entry from the queue
-        once every row of it is admitted."""
+        its tenant, stamp its pickup, advance the entry, and drop the entry
+        from the queue once every row of it is admitted."""
         self._fair.charge(head.tenant)
-        admitted.append((head, row_idx, prompt, mx))
+        t_pick = time.monotonic()
+        head.future.times.setdefault("picked", t_pick)
+        if head.future.trace is not None and head.next_row == 0 and not resumed:
+            head.future.trace.span("queue_wait", t0=head.enqueued_at, t1=t_pick)
+        admitted.append((head, row_idx, prompt, mx, resumed))
         if resumed:
             head.requeue_rows.pop(0)
         else:
@@ -1599,10 +2040,16 @@ class ContinuousScheduler:
         committed = eng.preempt_row(slot)
         entry.row_prefill[row.row_idx] = entry.row_prefill.get(row.row_idx, []) + committed
         entry.requeue_rows.append(row.row_idx)
+        # the row's whole on-book amount leaves as a refund; its resume
+        # re-admits it, so the books close across any preempt-resume chain
+        self._tok_ledger["preempt_refunded"] += len(entry.row_prefill[row.row_idx])
         self.stats["preemptions"] += 1
         lab = self._tenant_labels.label(entry.tenant)
         self._tenant_preempted[lab] = self._tenant_preempted.get(lab, 0) + 1
         get_registry().counter("pfx_tenant_preemptions_total", tenant=lab).inc()
+        if row.trace is not None:
+            row.trace.event("preempted", slot=slot, committed=len(committed),
+                            total_committed=len(entry.row_prefill[row.row_idx]))
         logger.info(f"{self.name}: preempted slot {slot} (tenant {entry.tenant}, priority "
                     f"{entry.priority}) after {len(committed)} committed token(s); requeued "
                     "as a continuation")
@@ -1617,6 +2064,8 @@ class ContinuousScheduler:
         if not self._has_live_rows():
             return 0
         eng = self.engine
+        self._step_counter += 1
+        maybe_fire("cb_step_hang", self._step_counter)
         try:
             finished = eng.step()
             if eng.has_inflight and all(r is None or i in finished
@@ -1633,6 +2082,7 @@ class ContinuousScheduler:
             self._fail_rows(exc.dead_rows, exc)
             logger.warning(f"{self.name}: {exc}")
             return 0
+        self._fold_admitted()  # before _finish_rows can deliver them
         with self._lock:
             self.stats["batches"] += 1
         return self._finish_rows(finished)
@@ -1651,6 +2101,7 @@ class ContinuousScheduler:
             self._fail_rows(exc.dead_rows, exc)
             logger.warning(f"{self.name}: {exc}")
             return 0
+        self._fold_admitted()  # before _finish_rows can deliver them
         return self._finish_rows(finished)
 
     def _finish_rows(self, finished: List[int]) -> int:
@@ -1663,6 +2114,8 @@ class ContinuousScheduler:
             if entry is None:
                 continue
             entry.results[row.row_idx] = entry.finished_tokens(row.row_idx, row.tokens)
+            # the whole output (resume prefix included) is delivered
+            self._tok_ledger["delivered"] += len(entry.results[row.row_idx])
             entry.done_rows += 1
             if entry.done_rows == len(entry.prompts) and not entry.future.done():
                 entry.future.set_result(list(entry.results))

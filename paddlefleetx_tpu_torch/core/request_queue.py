@@ -1,8 +1,7 @@
 """Admission-controlled serving request queue: bounded depth, deadlines,
 coalescing and graceful drain.
 
-Counterpart of ``paddlefleetx_tpu/core/request_queue.py`` (deep-dive
-tracing and ``debug_state`` come later):
+Counterpart of ``paddlefleetx_tpu/core/request_queue.py``:
 
   - **bounded admission**: ``submit`` raises :class:`QueueFull` at
     capacity (HTTP 429) and :class:`QueueClosed` while draining (HTTP 503);
@@ -18,7 +17,14 @@ tracing and ``debug_state`` come later):
   - **tenancy**: each entry carries a tenant and a priority; with a
     ``tenant_config`` the head is picked by a deficit round-robin across
     tenants (``core/tenancy.py``), FCFS within a tenant, and coalescing
-    never merges two tenants' entries.  One tenant is exactly FCFS.
+    never merges two tenants' entries.  One tenant is exactly FCFS;
+  - **tracing**: each future carries its lifecycle stamps (``times``:
+    enqueued, picked, resolved) and, when sampled, a trace
+    (``utils/tracing.attach_request_trace`` at submit, JAX ``:264``) that
+    gets the admission, queue-wait, decode, shed and error phases;
+  - **introspection**: :meth:`RequestQueue.debug_state` (JAX ``:317``) is
+    ``GET /debug/state``'s view: waiting-entry ages and sizes, never
+    prompt contents, under this queue's lock only.
 
 The runner is ``runner(prompts, max_new_tokens) -> rows`` (one row per
 prompt, in order).  Coordination is plain ``threading``.
@@ -40,6 +46,7 @@ from paddlefleetx_tpu_torch.core.tenancy import (
     normalize_tenant,
 )
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.tracing import attach_request_trace, discard_request_trace
 from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
 
 
@@ -71,21 +78,31 @@ class DeadlineExceeded(RuntimeError):
 
 
 class RequestFuture:
-    """One-shot future resolved once by the scheduler thread."""
+    """One-shot future resolved once by the scheduler thread.
 
-    __slots__ = ("_event", "_value", "_exc")
+    ``times`` carries the request's lifecycle stamps (monotonic):
+    ``enqueued`` at admission, ``picked`` when the scheduler takes the
+    entry, ``resolved`` when the result or exception lands; the HTTP layer
+    turns them into span phases and histograms.  ``trace`` is the
+    request's sampled trace (``utils/tracing.TraceContext``) or None."""
+
+    __slots__ = ("_event", "_value", "_exc", "times", "trace")
 
     def __init__(self) -> None:
         self._event = threading.Event()
         self._value: Any = None
         self._exc: Optional[BaseException] = None
+        self.times: Dict[str, float] = {}
+        self.trace = None
 
     def set_result(self, value: Any) -> None:
         self._value = value
+        self.times.setdefault("resolved", time.monotonic())
         self._event.set()
 
     def set_exception(self, exc: BaseException) -> None:
         self._exc = exc
+        self.times.setdefault("resolved", time.monotonic())
         self._event.set()
 
     def done(self) -> bool:
@@ -207,16 +224,25 @@ class RequestQueue:
             tenant=normalize_tenant(tenant),
             priority=int(priority),
         )
-        with self._wake:
-            if self._closed:
-                self.stats["rejected_closed"] += 1
-                raise QueueClosed(f"{self.name} queue is draining")
-            if len(self._entries) >= self.max_depth:
-                self.stats["rejected_full"] += 1
-                raise QueueFull(f"{self.name} queue full ({self.max_depth} waiting)")
-            self._entries.append(entry)
-            self.stats["submitted"] += 1
-            self._wake.notify_all()
+        entry.future.times["enqueued"] = now
+        # the trace hangs on the future before the entry is visible to
+        # the scheduler thread, or a fast pickup would miss its stamps
+        attach_request_trace(entry.future, t0=now, scheduler=self.name,
+                             prompts=len(entry.prompts), max_new=entry.max_new_tokens)
+        try:
+            with self._wake:
+                if self._closed:
+                    self.stats["rejected_closed"] += 1
+                    raise QueueClosed(f"{self.name} queue is draining")
+                if len(self._entries) >= self.max_depth:
+                    self.stats["rejected_full"] += 1
+                    raise QueueFull(f"{self.name} queue full ({self.max_depth} waiting)")
+                self._entries.append(entry)
+                self.stats["submitted"] += 1
+                self._wake.notify_all()
+        except (QueueClosed, QueueFull):
+            discard_request_trace(entry.future)  # never admitted
+            raise
         return entry.future
 
     def depth(self) -> int:
@@ -245,9 +271,43 @@ class RequestQueue:
                 if e.future is future:
                     self._entries.remove(e)
                     self.stats["shed_deadline"] += 1
+                    if e.future.trace is not None:
+                        e.future.trace.event("shed", reason="handler_timeout")
                     e.future.set_exception(DeadlineExceeded("deadline exceeded while queued"))
                     return True
         return False
+
+    def debug_state(self) -> Dict[str, Any]:
+        """``GET /debug/state``'s view of this queue: waiting-entry ages
+        and sizes (never prompt contents), depth, the drain flag.  Takes
+        only this queue's lock, briefly: never blocks a running decode."""
+        now = time.monotonic()
+        with self._lock:
+            waiting = [
+                {
+                    "age_s": round(now - e.enqueued_at, 4),
+                    "prompts": len(e.prompts),
+                    "max_new": e.max_new_tokens,
+                    "deadline_in_s": (round(e.deadline - now, 4)
+                                      if e.deadline is not None else None),
+                    "tenant": e.tenant,
+                    "priority": e.priority,
+                }
+                for e in self._entries
+            ]
+            closed = self._closed
+            busy = now - self._busy_since if self._busy_since is not None else 0.0
+        tenants: Dict[str, int] = {}
+        for w in waiting:
+            tenants[w["tenant"]] = tenants.get(w["tenant"], 0) + 1
+        return {
+            "scheduler": "coalesce",
+            "depth": len(waiting),
+            "waiting": waiting,
+            "tenants": tenants,
+            "busy_s": round(busy, 4),
+            "closed": closed,
+        }
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "RequestQueue":
@@ -289,6 +349,8 @@ class RequestQueue:
         self.stats["shed_deadline"] += 1
         waited = now - entry.enqueued_at
         logger.warning(f"{self.name}: shed expired request after {waited:.2f}s queued")
+        if entry.future.trace is not None:
+            entry.future.trace.event("shed", reason="expired_in_queue")
         entry.future.set_exception(DeadlineExceeded(f"deadline exceeded after {waited:.2f}s queued"))
 
     def _take_batch_locked(self) -> Optional[List[_Entry]]:
@@ -339,6 +401,11 @@ class RequestQueue:
                     self._wake.wait()
                     batch = self._take_batch_locked()
                 self._busy_since = time.monotonic()
+                for e in batch:
+                    # queue wait ends here, decode begins
+                    e.future.times.setdefault("picked", self._busy_since)
+                    if e.future.trace is not None:
+                        e.future.trace.span("queue_wait", t0=e.enqueued_at, t1=self._busy_since)
             try:
                 self._run_batch(batch)
             finally:
@@ -358,6 +425,7 @@ class RequestQueue:
                 f"{self.name}: coalesced {len(batch)} requests "
                 f"({len(prompts)} prompts) into one batch"
             )
+        t_decode = time.monotonic()
         try:
             rows = list(self._runner(prompts, max_new))
             if len(rows) != len(prompts):
@@ -368,16 +436,22 @@ class RequestQueue:
             with self._lock:
                 self.stats["gen_errors"] += 1
             for e in batch:
+                if e.future.trace is not None:
+                    e.future.trace.event("error", type=type(exc).__name__)
                 e.future.set_exception(exc)
             logger.warning(
                 f"{self.name}: generation failed for a batch of {len(batch)} "
                 f"request(s): {type(exc).__name__}: {exc}"
             )
             return
+        t_done = time.monotonic()
         i = 0
         for e in batch:
             out = [r[: e.max_new_tokens] for r in rows[i:i + len(e.prompts)]]
             i += len(e.prompts)
+            if e.future.trace is not None:
+                e.future.trace.span("decode", t0=t_decode, t1=t_done, batch=len(batch),
+                                    prompts=len(prompts), tokens=sum(len(r) for r in out))
             e.future.set_result(out)
             with self._lock:
                 self.stats["completed"] += 1

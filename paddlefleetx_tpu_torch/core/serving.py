@@ -16,6 +16,8 @@ at ``GenerationConfig``'s beam settings (4 beams, length penalty 1.0,
 one group), which builds and reorders its own cache (no pool, no
 speculation), as the JAX server does.  A ``tokenizer``
 (``Generation.tokenizer_dir``) adds :meth:`GenerationServer.generate_text`.
+The ``gen_crash`` and ``gen_hang`` fault sites fire inside generation
+request K (warmup generations count), where the JAX server fires them.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from paddlefleetx_tpu_torch.models.gpt.generation import (
 from paddlefleetx_tpu_torch.ops.decode_attention import kv_cache_dtype
 from paddlefleetx_tpu_torch.ops.speculative import spec_config_from
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.resilience import maybe_fire
 from paddlefleetx_tpu_torch.utils.telemetry import StatsView, get_registry
 
 
@@ -138,6 +141,8 @@ class GenerationServer:
         if run_len != gen.max_dec_len:
             gen = dataclasses.replace(gen, max_dec_len=run_len)
         t0 = time.time()
+        # the PFX_FAULT request index: warmup generations count, as in JAX
+        req_idx = int(self.stats["requests"]) + 1
         # beam search reorders the cache by parent each step and builds its
         # own: no pool, no speculation
         beam = gen.decode_strategy == "beam_search"
@@ -156,6 +161,10 @@ class GenerationServer:
                 )
         spec_stats = None
         try:
+            # the serving fault sites fire after the cache pop, so an
+            # injected failure lands on the path of a real mid-decode one
+            maybe_fire("gen_crash", req_idx)
+            maybe_fire("gen_hang", req_idx)
             out = generate(
                 self.model, ids, gen, generator=self.generator,
                 prompt_lens=lens, cache=cache, spec=spec,

@@ -1,9 +1,13 @@
-"""Generation serving CLI of the PyTorch port: an HTTP JSON endpoint.
+"""Generation serving CLI of the PyTorch port: a stdin REPL or an HTTP
+JSON endpoint.
 
     python -m paddlefleetx_tpu_torch.tools.serve \\
         -c configs/gpt/pretrain_gpt_345M_single.yaml --port 8000
 
-Counterpart of ``tools/serve.py`` with its two schedulers:
+Counterpart of ``tools/serve.py`` with its two schedulers.  ``--port 0``
+(the default) reads one prompt a line from stdin (space-separated token
+ids, or text with a tokenizer) and prints the completion, until an empty
+line or EOF.  With a port:
 
     POST /generate  {"prompt_ids": [...], "max_tokens": 32, "deadline_s": 30}
                     -> {"completion_ids": [...]}
@@ -24,6 +28,23 @@ Counterpart of ``tools/serve.py`` with its two schedulers:
                     versions)
     GET  /metrics   Prometheus text of the metrics registry; /healthz's
                     numbers come from a snapshot of the same registry
+    GET  /debug/state    the scheduler's live view: waiting entries (ages,
+                    sizes, tenants; never prompt contents), and on the
+                    continuous scheduler the rows, the arena, the dispatch
+                    path, the goodput ledgers and the decision log
+    GET  /debug/trace?id=  one sampled request's timeline (a 200's body
+                    carries its ``trace_id``)
+    GET  /debug/traces   the retained traces as Chrome trace JSON
+    POST /admin/drain    answered first, then the SIGTERM drain (exit 0)
+    POST /admin/profile  {"seconds": T, "top": N}: a ``torch.profiler``
+                    capture of the live process, answered with its op table
+                    (``utils/profiler.py``; 409 while one runs, 400 past
+                    ``PFX_PROFILE_MAX_SECONDS``)
+
+``/debug/*`` and ``/admin/*`` take ``Authorization: Bearer
+$PFX_ADMIN_TOKEN`` when the token is set, else loopback clients only
+(``core/router.check_admin``: 401 / 403).  ``/admin/adopt_prefixes``
+answers 501: prefix migration is not ported.
 
 Requests go through a bounded admission queue: a full queue answers 429
 with Retry-After, an expired deadline 503.  ``--scheduler coalesce``
@@ -69,9 +90,28 @@ coalescing one the whole answer arrives in one flush at completion.
 ``PFX_FAULT`` drills: ``preempt_storm:K`` (the continuous scheduler
 preempts its lowest-priority eligible row at iteration K),
 ``spill_corrupt:K`` (the Kth spill readmit probe finds its host copy
-torn) and ``cb_commit_crash:K`` (the commit of engine step K fails: the
-arena resets and every live row's request fails); a value that does not
-parse, or any other site, fails the boot.
+torn), ``cb_commit_crash:K`` (the commit of engine step K fails: the
+arena resets and every live row's request fails), ``gen_crash:K``
+(generation request K raises: one 500, the server keeps serving),
+``gen_hang:K`` / ``cb_step_hang:K`` (generation request K, or continuous
+step K, sleeps ``PFX_FAULT_HANG_S`` seconds) and ``boot_crash:0`` (exit
+23 right after the arguments parse); a value that does not parse, or any
+other site, fails the boot.
+
+Operations (the JAX CLI's): every response feeds the request span
+histograms (``pfx_request_queue_wait_seconds``, ``_decode_seconds``,
+``_per_token_seconds``) and the flight recorder; a sampled request's
+trace (``PFX_TRACE_SAMPLE``, default 1.0; ``PFX_TRACE_CAP`` retained)
+gets its respond stamp.  ``--slo-ttft-p99 S`` / ``--slo-error-rate F``
+over ``--slo-windows`` (default 60,600) evaluate burn rates: ``/healthz``
+grows an ``slo`` block and ``/metrics`` the ``pfx_slo_*`` gauges.
+``--watchdog S`` (default 300): a generation busy past S seconds flips
+``/healthz`` to ``degraded`` (``ok`` false, ``pfx_serve_degraded`` 1) and
+dumps the flight recorder; it flips back once the scheduler comes
+unstuck.  The flight recorder (``PFX_FLIGHT_DIR``, default
+``./artifacts/``; ``PFX_FLIGHT_RECORDER`` names the file) dumps on an
+uncaught exception on any thread, at a watchdog degrade, after a drain
+and at exit.
 
 The continuous scheduler dispatches ahead (``PFX_DISPATCH_AHEAD``, default
 1; 0 steps synchronously, with a warning) and scans its queue every
@@ -94,9 +134,9 @@ with ``vocab.json`` and ``merges.txt``) loads the GPT BPE tokenizer, for
 text prompts.  ``Generation.decode_strategy: beam_search`` decodes with
 beam search on the coalescing scheduler; the continuous scheduler treats
 it as sampling, as the JAX CLI's does (its paged step argmaxes only
-``greedy_search``).  Not ported yet, and refused where asked for:
-``/debug/*`` and ``/admin/*`` (KV handoff and prefix migration among
-them), SLO objectives and their burn rates.
+``greedy_search``).  Not ported yet: the disaggregated roles and the KV
+handoff, prefix migration (``/admin/adopt_prefixes``), router
+registration (``--router-url``, ``--role``, ``--replica-id``).
 """
 
 from __future__ import annotations
@@ -119,6 +159,7 @@ from paddlefleetx_tpu_torch.core.continuous_batching import (
     PagedDecodeEngine,
 )
 from paddlefleetx_tpu_torch.core.module import GPTModule
+from paddlefleetx_tpu_torch.core.router import check_admin
 from paddlefleetx_tpu_torch.core.request_queue import (
     QUEUE_METRICS,
     DeadlineExceeded,
@@ -143,8 +184,17 @@ from paddlefleetx_tpu_torch.utils.checkpoint import load_params_into, load_pretr
 from paddlefleetx_tpu_torch.utils.config import get_config
 from paddlefleetx_tpu_torch.utils.device import resolve_device
 from paddlefleetx_tpu_torch.utils.log import log_server_error, logger
-from paddlefleetx_tpu_torch.utils.resilience import serving_fault_spec
-from paddlefleetx_tpu_torch.utils.telemetry import get_registry
+from paddlefleetx_tpu_torch.utils import tracing
+from paddlefleetx_tpu_torch.utils.profiler import ProfileBusy, capture_profile
+from paddlefleetx_tpu_torch.utils.resilience import maybe_fire, serving_fault_spec
+from paddlefleetx_tpu_torch.utils.telemetry import (
+    SLOTracker,
+    Span,
+    atomic_artifact_write,
+    flight_dir,
+    get_flight_recorder,
+    get_registry,
+)
 
 
 def build_server(config: str, overrides, device=None) -> GenerationServer:
@@ -191,6 +241,41 @@ def plan_request(prompts_ids, max_toks: int, *, bucket: int, context: int):
     return trim, (pbucket, run)
 
 
+def _record_request_span(reg, recorder, t0, fut, code, tokens=None, streamed=False):
+    """One /generate lifecycle as telemetry (JAX ``tools/serve.py:140``):
+    span phases admission -> queue_wait -> decode -> respond from the
+    future's monotonic stamps, the queue-wait, decode and per-token
+    histograms, the TTFT of a non-streamed success (its whole completion
+    lands at resolution; a streamed one observes its own at the first
+    flush), and a flight-recorder event.  A request shed before pickup
+    has no decode phase (``shed``).  The request's sampled trace gets its
+    ``respond`` stamp and is finished."""
+    trace = getattr(fut, "trace", None) if fut is not None else None
+    if trace is not None:
+        trace.event("respond", code=code, tokens=tokens)
+        trace.finish()
+    span = Span("request", t0=t0)
+    times = dict(getattr(fut, "times", {}) or {}) if fut is not None else {}
+    if "enqueued" in times:
+        span.mark("admission", t=times["enqueued"])
+    if "picked" in times:
+        span.mark("queue_wait", t=times["picked"])
+    if "resolved" in times:
+        span.mark("decode" if "picked" in times else "shed", t=times["resolved"])
+    span.mark("respond")
+    phases = span.phases()
+    if "queue_wait" in phases:
+        reg.histogram("pfx_request_queue_wait_seconds").observe(phases["queue_wait"])
+    if "decode" in phases:
+        reg.histogram("pfx_request_decode_seconds").observe(phases["decode"])
+        if tokens:
+            reg.histogram("pfx_request_per_token_seconds").observe(
+                phases["decode"] / max(1, tokens))
+    if "resolved" in times and code == 200 and not streamed:
+        reg.histogram("pfx_request_ttft_seconds").observe(max(0.0, times["resolved"] - t0))
+    recorder.record(span.event(code=code, tokens=tokens))
+
+
 def build_scheduler(server: GenerationServer, scheduler: str, *, queue_depth: int,
                     max_coalesce: int, cb_batch: int = 8, kv_blocks: int = 0,
                     prefill_chunk: int = 0, prefix_cache_blocks: int = 0,
@@ -230,33 +315,60 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                queue_depth: int = 64, max_coalesce: int = 8,
                default_deadline_s: float = 120.0, max_deadline_s: float = 600.0,
                shed_slack_s: float = 2.0, max_tokens_cap: int = 0,
-               tenant_config=None) -> int:
+               tenant_config=None, watchdog_s: float = 300.0,
+               slo_ttft_p99_s: float = 0.0, slo_error_rate: float = 0.0,
+               slo_windows_s=(60.0, 600.0)) -> int:
     """Serve ``queue`` (a scheduler from :func:`build_scheduler`) until a
-    SIGTERM/SIGINT drain completes; returns 0."""
+    drain (SIGTERM/SIGINT or ``POST /admin/drain``) completes; returns 0."""
     cap = max_tokens_cap or int(
         server.cfg.get("Generation", {}).get("max_tokens_cap", 0) or 0
     )
     context, bucket = server.context, server.bucket
-    flags = {"draining": False}
+    flags = {"draining": False, "degraded": False}
+    stop_event = threading.Event()
     reg = get_registry()
+    recorder = get_flight_recorder()
+    # an uncaught exception on any thread leaves a postmortem ring
+    recorder.install_excepthook()
+    trace_buffer = tracing.get_trace_buffer()
     tenant_labels = TenantLabelCap(seed=(tenant_config or TenantConfig()).known_tenants())
+    # the SLO burn rates: observed per response in the HTTP layer, never
+    # on the decode path
+    slo = SLOTracker(ttft_p99_s=slo_ttft_p99_s, error_rate=slo_error_rate,
+                     windows_s=slo_windows_s, tenant_label_fn=tenant_labels.label)
+    if slo.enabled:
+        reg.register_collector(slo)
     in_flight = reg.gauge("pfx_http_requests_in_flight")
     client_gone = reg.counter("pfx_http_client_gone_total")
     latency_hist = reg.histogram("pfx_request_latency_seconds")
     ttft_hist = reg.histogram("pfx_request_ttft_seconds")
     itl_hist = reg.histogram("pfx_request_itl_seconds")
     draining_gauge = reg.gauge("pfx_serve_draining")
+    degraded_gauge = reg.gauge("pfx_serve_degraded")
     # only the continuous scheduler has a per-step commit hook; the
     # coalescing one resolves whole completions, so its streams degrade
     # to one flush at completion (the same SSE frames either way)
     stream_capable = queue.kind == "continuous"
     identity = {"listen": f"{host}:{port}", "pid": os.getpid(),
                 "device": str(server.device), "started_at": round(time.time(), 3)}
+    tracing.set_process_identity(replica_id=identity["listen"])
 
-    def observe_ttft(tenant: str, seconds: float) -> None:
-        ttft_hist.observe(seconds)
+    def observe_tenant_ttft(tenant: str, seconds: float) -> None:
         reg.histogram("pfx_tenant_ttft_seconds",
                       tenant=tenant_labels.label(tenant)).observe(seconds)
+
+    def _slo_observe(code, fut, t0, tenant=None):
+        """A response's SLO outcome (JAX ``tools/serve.py:368``): the
+        tenant TTFT of a 200 from its resolution stamp; 200 is
+        budget-neutral, 429 / 500 / 503 spend the budget, 400 / 404 are the
+        client's and observe nothing."""
+        ttft = None
+        times = getattr(fut, "times", {}) if fut is not None else {}
+        if code == 200 and "resolved" in times:
+            ttft = max(0.0, times["resolved"] - t0)
+            observe_tenant_ttft(normalize_tenant(tenant), ttft)
+        if slo.enabled and code not in (400, 404):
+            slo.observe_request(ttft_s=ttft, ok=code == 200, tenant=tenant)
 
     def healthz_body():
         """/healthz from ONE registry snapshot (the one /metrics renders
@@ -287,9 +399,10 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             for lab, v in per_label(name).items():
                 tenants.setdefault(lab, {})[key] = v
         ttft = val("pfx_request_ttft_seconds", default={"p50": 0.0, "p99": 0.0})
-        return {
-            "ok": True,
-            "state": "draining" if flags["draining"] else "ok",
+        body = {
+            "ok": not flags["degraded"],
+            "state": ("draining" if flags["draining"]
+                      else "degraded" if flags["degraded"] else "ok"),
             "identity": identity,
             "in_flight": int(val("pfx_http_requests_in_flight")),
             "queue_depth": int(val("pfx_queue_depth")),
@@ -302,6 +415,10 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             "tenants": tenants,
             "kernels": dict(decode_attention.COUNTS),
         }
+        if slo.enabled:
+            # the burn rates with the breach's reason
+            body["slo"] = slo.evaluate()
+        return body
 
     class Handler(BaseHTTPRequestHandler):
         timeout = 120  # a silent client cannot pin a handler thread
@@ -327,10 +444,6 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 log_server_error("serve", code, self.path, outcome=obj.get("error"))
             self._send(code, json.dumps(obj).encode(), "application/json", headers)
 
-        def _not_ported(self, what: str):
-            self._json(501, {"error": f"{what} is not ported to the PyTorch "
-                                      "serve CLI yet"})
-
         def do_GET(self):
             path = urlsplit(self.path).path
             if path == "/healthz":
@@ -339,13 +452,68 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 return self._send(200, reg.render_prometheus().encode(),
                                   "text/plain; version=0.0.4; charset=utf-8")
             if path.startswith("/debug/"):
-                return self._not_ported(path)
+                return self._debug_get()
             self._json(404, {"error": "unknown path"})
+
+        def _authorized(self, what: str) -> bool:
+            """Gate an /admin or /debug request on ``core/router.check_admin``
+            (the PFX_ADMIN_TOKEN rule); answers 401 / 403 itself."""
+            ok, code, msg = check_admin(self.headers, self.client_address, what=what)
+            if not ok:
+                self._json(code, {"error": msg})
+            return ok
+
+        def _debug_get(self):
+            """Read-only snapshots that never block the scheduler thread
+            and never carry prompt or token contents (JAX
+            ``tools/serve.py:773-838``)."""
+            if not self._authorized("/debug"):
+                return
+            parts = urlsplit(self.path)
+            if parts.path == "/debug/state":
+                snap = reg.snapshot()  # one read beside the view
+                dbg = queue.debug_state()
+                dbg["serving"] = {"requests": int(server.stats["requests"]),
+                                  "gen_errors": int(server.stats["gen_errors"])}
+                dbg["flags"] = dict(flags)
+                dbg["trace_buffer"] = {"sample": trace_buffer.sample, "cap": trace_buffer.cap,
+                                       "retained": len(trace_buffer.traces())}
+                if slo.enabled:
+                    dbg["slo"] = slo.evaluate()
+                dbg["metrics"] = {
+                    name: reg.value(name, snap=snap) for name in (
+                        "pfx_queue_depth", "pfx_queue_busy_seconds",
+                        "pfx_http_requests_in_flight", "pfx_batch_occupancy",
+                        "pfx_kv_blocks_used", "pfx_kv_blocks_free", "pfx_prefill_admits_total",
+                        "pfx_request_evictions_total", "pfx_spec_accept_rate",
+                        "pfx_spec_accepted_total", "pfx_spec_proposed_total",
+                        "pfx_prefix_hits_total", "pfx_prefix_misses_total",
+                        "pfx_prefix_hit_tokens_total", "pfx_prefix_evictions_total",
+                        "pfx_prefix_cached_blocks", "pfx_prefill_chunks_total",
+                        "pfx_prefix_spill_bytes", "pfx_prefix_spill_entries",
+                        "pfx_prefix_spills_total", "pfx_prefix_readmits_total",
+                        "pfx_prefix_spill_discards_total")
+                    if name in snap}
+                return self._json(200, dbg)
+            if parts.path == "/debug/trace":
+                tid = (parse_qs(parts.query).get("id") or [""])[0]
+                if not tid:
+                    return self._json(400, {"error": "need ?id=<trace_id>"})
+                tc = trace_buffer.get(tid)
+                if tc is None:
+                    return self._json(404, {
+                        "error": f"trace {tid!r} not in the sampled window (cap "
+                                 f"{trace_buffer.cap}, sample {trace_buffer.sample:g})"})
+                return self._json(200, tc.timeline())
+            if parts.path == "/debug/traces":
+                # the retained window as Perfetto / chrome://tracing JSON
+                return self._json(200, tracing.chrome_trace(trace_buffer.traces()))
+            return self._json(404, {"error": "unknown debug path"})
 
         def do_POST(self):
             parts = urlsplit(self.path)
             if parts.path.startswith("/admin/"):
-                return self._not_ported(parts.path)
+                return self._admin(parts)
             if parts.path != "/generate":
                 return self._json(404, {"error": "unknown path"})
             in_flight.add(1)
@@ -355,6 +523,62 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
             finally:
                 in_flight.add(-1)
+
+        def _read_json(self):
+            n = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(n) or b"{}")
+
+        def _admin(self, parts):
+            """The authenticated operations surface.  ``/admin/drain`` is
+            the remote SIGTERM: answered first (the caller learns the drain
+            started), then admission closes, every admitted request is
+            answered and the process exits 0."""
+            if not self._authorized("/admin"):
+                return
+            if parts.path == "/admin/drain":
+                try:
+                    self._read_json()  # a body (migrate_to) is read and ignored
+                except json.JSONDecodeError:
+                    pass
+                self._json(200, {"state": "draining", "already_draining": flags["draining"],
+                                 "queued": queue.depth()})
+                initiate_drain("admin drain")
+                return
+            if parts.path == "/admin/profile":
+                return self._profile()
+            if parts.path == "/admin/adopt_prefixes":
+                return self._json(501, {"error": "/admin/adopt_prefixes (prefix migration) is "
+                                                 "not ported to the PyTorch serve CLI yet"})
+            return self._json(404, {"error": "unknown admin path"})
+
+        def _profile(self):
+            """``POST /admin/profile {"seconds": T, "top": N}``: a capture
+            of this live process (``utils/profiler.capture_profile``),
+            answered with its summary, which is also kept under the flight
+            directory."""
+            try:
+                req = self._read_json()
+                seconds = req.get("seconds", 3.0)
+                top = int(req.get("top", 20))
+            except (json.JSONDecodeError, TypeError, ValueError, AttributeError):
+                return self._json(400, {"error": "body must be a JSON object"})
+            prof_dir = os.path.join(flight_dir(), "profiles",
+                                    time.strftime("%Y%m%d-%H%M%S") + f"-{os.getpid()}")
+            try:
+                summary = capture_profile(seconds, prof_dir, top=top, device=server.device)
+            except ProfileBusy as e:
+                print(f"[serve] /admin/profile refused: {e}", flush=True)
+                return self._json(409, {"error": str(e)})
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            except RuntimeError as e:  # the card's capture saw no device event
+                return self._json(500, {"error": str(e)})
+            summary["replica_id"] = identity["listen"]
+            atomic_artifact_write(os.path.join(prof_dir, "profile_summary.json"),
+                                  lambda f: json.dump(summary, f, indent=1))
+            recorder.record({"event": "profile_capture", "seconds": summary["seconds"],
+                             "trace_dir": prof_dir, "source": summary["source"]})
+            return self._json(200, summary)
 
         def _parse(self, req):
             """(prompts_ids, mode) from a /generate body; raises ValueError
@@ -396,25 +620,50 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 return True
             return "text/event-stream" in (self.headers.get("Accept") or "")
 
-        def _submit(self, prompts, trim, kw):
-            """Admission: the future, or None once a 400/429/503 went out."""
+        def _submit(self, prompts, trim, kw, t0):
+            """Admission: the future, or None once a 400/429/503 went out
+            (a 429 or 503 spends SLO budget)."""
             try:
                 return queue.submit(prompts, trim, **kw)
             except ValueError as e:  # a prompt the paged arena can never hold
                 self._json(400, {"error": str(e)})
             except QueueFull as e:
+                _slo_observe(429, None, t0)
                 self._json(429, {"error": f"{e}; retry later"}, headers={"Retry-After": "1"})
             except QueueClosed:
+                _slo_observe(503, None, t0)
                 self._json(503, {"error": "draining: not admitting new requests"},
                            headers={"Retry-After": "5"})
+            return None
+
+        def _fail(self, code, msg, fut, t0, tenant, retry=None):
+            """A failed request's epilogue: span, SLO (a 400 spends none)
+            and the response."""
+            _record_request_span(reg, recorder, t0, fut, code)
+            _slo_observe(code, fut, t0, tenant=tenant)
+            self._json(code, {"error": msg}, headers={"Retry-After": retry} if retry else None)
+
+        def _await_result(self, fut, deadline_s, t0, tenant):
+            """The result, bounded by the deadline plus the slack; on a
+            failure the honest error (503 shed, 400, 500) and None."""
+            try:
+                return fut.result(timeout=deadline_s + shed_slack_s)
+            except TimeoutError:
+                queue.try_remove(fut)  # shed it if still queued
+                self._fail(503, f"deadline {deadline_s:g}s exceeded", fut, t0, tenant, "1")
+            except (DeadlineExceeded, QueueClosed) as e:
+                self._fail(503, str(e), fut, t0, tenant, "1")
+            except ValueError as e:
+                self._fail(400, str(e), fut, t0, tenant)
+            except Exception as e:  # noqa: BLE001 — report, keep serving
+                self._fail(500, f"{type(e).__name__}: {e}", fut, t0, tenant)
             return None
 
         def _generate(self, parts):
             t0 = time.monotonic()
             tenant, priority = self._tenant_of()
-            n = int(self.headers.get("Content-Length", 0))
             try:
-                req = json.loads(self.rfile.read(n) or b"{}")
+                req = self._read_json()
                 prompts, mode = self._parse(req)
                 max_toks = clamp_max_tokens(req.get("max_tokens"), server.gen.max_dec_len, cap)
                 deadline_s = float(req.get("deadline_s", default_deadline_s))
@@ -428,29 +677,27 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                   "priority": priority}
             if self._wants_stream(parts):
                 return self._generate_stream(prompts, trim, kw, deadline_s, t0, tenant, mode)
-            fut = self._submit(prompts, trim, kw)
+            fut = self._submit(prompts, trim, kw, t0)
             if fut is None:
                 return
+            rows = self._await_result(fut, deadline_s, t0, tenant)
+            if rows is None:
+                return
             try:
-                rows = fut.result(timeout=deadline_s + shed_slack_s)
-            except TimeoutError:
-                queue.try_remove(fut)
-                return self._json(503, {"error": f"deadline {deadline_s:g}s exceeded"},
-                                  headers={"Retry-After": "1"})
-            except (DeadlineExceeded, QueueClosed) as e:
-                return self._json(503, {"error": str(e)}, headers={"Retry-After": "1"})
-            except ValueError as e:
-                return self._json(400, {"error": str(e)})
-            # non-streamed: the first token reaches the client with the rest
-            observe_ttft(tenant, time.monotonic() - t0)
+                if mode in ("prompt", "prompts"):
+                    texts = [server.tokenizer.decode(r) for r in rows]
+                    payload = ({"completion": texts[0]} if mode == "prompt"
+                               else {"completions": texts})
+                else:
+                    payload = ({"completion_ids": rows[0]} if mode == "prompt_ids"
+                               else {"completions_ids": rows})
+            except Exception as e:  # noqa: BLE001 — a failure after the decode still fails
+                return self._fail(500, f"{type(e).__name__}: {e}", fut, t0, tenant)
+            if fut.trace is not None:
+                payload["trace_id"] = fut.trace.trace_id  # the /debug/trace?id= handle
             latency_hist.observe(time.monotonic() - t0)
-            if mode in ("prompt", "prompts"):
-                texts = [server.tokenizer.decode(r) for r in rows]
-                payload = ({"completion": texts[0]} if mode == "prompt"
-                           else {"completions": texts})
-            else:
-                payload = ({"completion_ids": rows[0]} if mode == "prompt_ids"
-                           else {"completions_ids": rows})
+            _record_request_span(reg, recorder, t0, fut, 200, tokens=sum(len(r) for r in rows))
+            _slo_observe(200, fut, t0, tenant=tenant)
             self._json(200, payload)
 
         def _generate_stream(self, prompts, trim, kw, deadline_s, t0, tenant, mode):
@@ -465,7 +712,7 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             sink = SinkQueue()
             if stream_capable:
                 kw["stream"] = lambda row, start, toks: sink.put((row, start, list(toks)))
-            fut = self._submit(prompts, trim, kw)
+            fut = self._submit(prompts, trim, kw, t0)
             if fut is None:
                 return
             try:
@@ -473,6 +720,8 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
                 self.send_header("Connection", "close")
+                if fut.trace is not None:
+                    self.send_header("X-Trace-Id", fut.trace.trace_id)
                 self.end_headers()
                 self.wfile.flush()
             except (BrokenPipeError, ConnectionResetError, TimeoutError):
@@ -498,7 +747,7 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 now = time.monotonic()
                 if st["first"] is None:
                     st["first"] = now  # TTFT: when bytes leave for the client
-                    observe_ttft(tenant, now - t0)
+                    ttft_hist.observe(now - t0)
                 else:
                     itl_hist.observe(now - st["last"])
                 st["last"] = now
@@ -536,6 +785,9 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                     code, err = 500, f"{type(e).__name__}: {e}"
             if err is not None:
                 emit("error", {"error": err, "code": code, "tokens_committed": st["sent"]})
+                _record_request_span(reg, recorder, t0, fut, code, tokens=st["sent"] or None,
+                                     streamed=True)
+                _slo_observe(code, fut, t0, tenant=tenant)
                 return
             if st["flushes"] == 0:
                 # one flush at completion: the coalescing scheduler, or a
@@ -544,9 +796,18 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                     if not flush_tokens(i, 0, list(r)):
                         break
             latency_hist.observe(time.monotonic() - t0)
-            emit("summary", {"usage": {"prompts": len(rows),
-                                       "tokens": sum(len(r) for r in rows)},
-                             "flushes": st["flushes"]})
+            _record_request_span(reg, recorder, t0, fut, 200,
+                                 tokens=sum(len(r) for r in rows), streamed=True)
+            ttft = None if st["first"] is None else st["first"] - t0
+            if ttft is not None:
+                observe_tenant_ttft(tenant, ttft)
+            if slo.enabled:
+                slo.observe_request(ttft_s=ttft, ok=True, tenant=tenant)
+            summary = {"usage": {"prompts": len(rows), "tokens": sum(len(r) for r in rows)},
+                       "flushes": st["flushes"]}
+            if fut.trace is not None:
+                summary["trace_id"] = fut.trace.trace_id
+            emit("summary", summary)
 
     class Server(ThreadingHTTPServer):
         daemon_threads = False
@@ -555,33 +816,73 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
     httpd = Server((host, port), Handler)
     drain_lock = threading.Lock()
 
-    def _drain():
-        queue.close()
-        queue.join()
-        httpd.shutdown()
+    def _watchdog():
+        # a generation busy past the budget flips /healthz to degraded, so
+        # an orchestrator stops routing here, and dumps the flight ring
+        # while the wedge is live; it flips back once the scheduler is
+        # unstuck (compared with the budget: a 1 Hz sampler may never see
+        # an idle scheduler under a steady backlog)
+        while not stop_event.wait(1.0):
+            busy = queue.busy_seconds()
+            if busy > watchdog_s and not flags["degraded"]:
+                flags["degraded"] = True
+                degraded_gauge.set(1)
+                print(f"WATCHDOG: generation wedged for {busy:.0f}s (budget "
+                      f"{watchdog_s:.0f}s); /healthz degraded", flush=True)
+                recorder.record({"event": "watchdog_degraded", "busy_s": round(busy, 3),
+                                 "budget_s": watchdog_s})
+                recorder.dump(reason="watchdog_degraded")
+            elif flags["degraded"] and busy < watchdog_s:
+                flags["degraded"] = False
+                degraded_gauge.set(0)
+                recorder.record({"event": "watchdog_recovered"})
+                print("WATCHDOG: generation recovered; /healthz ok", flush=True)
+
+    def initiate_drain(source: str) -> bool:
+        """The drain, shared by the signal handler and ``POST
+        /admin/drain``: close admission, answer every admitted request,
+        dump the flight ring, stop the listener.  False when a drain is
+        already under way."""
+        with drain_lock:
+            if flags["draining"]:
+                return False
+            flags["draining"] = True
+            draining_gauge.set(1)
+        recorder.record({"event": "drain_start", "source": source, "queued": queue.depth()})
+        print(f"{source}: draining — admission closed, {queue.depth()} queued request(s) "
+              "will finish", flush=True)
+
+        def _drain():
+            queue.close()
+            queue.join()
+            recorder.record({"event": "drain_done", "source": source})
+            recorder.dump(reason="drain")
+            httpd.shutdown()
+
+        threading.Thread(target=_drain, name="serve-drain", daemon=True).start()
+        return True
 
     def _on_signal(signum, frame):
         for sig in (signal.SIGTERM, signal.SIGINT):
             signal.signal(sig, signal.SIG_DFL)  # a second signal force-quits
-        with drain_lock:
-            if flags["draining"]:
-                return
-            flags["draining"] = True
-            draining_gauge.set(1)
-        print(f"signal {signum}: draining — admission closed, {queue.depth()} "
-              "queued request(s) will finish", flush=True)
-        threading.Thread(target=_drain, name="serve-drain", daemon=True).start()
+        initiate_drain(f"signal {signum}")
 
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, _on_signal)
     queue.start()
+    threading.Thread(target=_watchdog, name="serve-watchdog", daemon=True).start()
     print(f"serving on {host}:{port} (POST /generate, GET /healthz, GET /metrics; device "
           f"{server.device}, scheduler {queue.kind}, queue depth {queue_depth}, "
-          f"max prompts {max_coalesce})", flush=True)
+          f"max prompts {max_coalesce}, watchdog {watchdog_s:g}s)", flush=True)
     try:
         httpd.serve_forever()
     finally:
+        stop_event.set()
+        # joins the in-flight handler threads: every admitted request gets
+        # its response bytes before the process exits
         httpd.server_close()
+        recorder.record({"event": "serve_exit", "drained": flags["draining"]})
+        recorder.dump(reason="exit")
     if flags["draining"]:
         print("drained cleanly: all admitted requests answered", flush=True)
     return 0
@@ -595,7 +896,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser("paddlefleetx_tpu_torch.tools.serve")
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-o", "--override", action="append", default=[])
-    ap.add_argument("--port", type=int, required=True, help="HTTP port")
+    ap.add_argument("--port", type=int, default=0, help="HTTP port (0 = stdin REPL)")
     ap.add_argument("--host", default="127.0.0.1",
                     help="bind address (use 0.0.0.0 to expose externally)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -618,6 +919,17 @@ def main(argv=None) -> int:
                     help="ceiling on a client's deadline_s")
     ap.add_argument("--shed-slack", type=float, default=2.0,
                     help="slack past the deadline before the handler answers 503")
+    ap.add_argument("--watchdog", type=float, default=300.0,
+                    help="seconds a single generation may run before /healthz flips to "
+                    "degraded (wedged-decode detector)")
+    ap.add_argument("--slo-ttft-p99", type=float, default=0.0,
+                    help="SLO objective: p99 time-to-first-token seconds (0 = off); breach "
+                    "when >1%% of requests exceed it on every --slo-windows window")
+    ap.add_argument("--slo-error-rate", type=float, default=0.0,
+                    help="SLO objective: allowed fraction of failed requests (429/500/503; "
+                    "0 = off), burn-rate evaluated like --slo-ttft-p99")
+    ap.add_argument("--slo-windows", default="60,600",
+                    help="comma-separated rolling burn-rate window seconds, short first")
     ap.add_argument("--max-tokens-cap", type=int, default=0,
                     help="per-request max_tokens ceiling (0 = "
                     "Generation.max_tokens_cap, else the context)")
@@ -664,6 +976,8 @@ def main(argv=None) -> int:
     if fault is not None:
         logger.warning(f"PFX_FAULT drill armed: {fault[0]} at step {fault[1]} "
                        f"({fault[2]} fire(s))")
+    # a replica that can never come up (exit 23)
+    maybe_fire("boot_crash", 0)
     tenant_config = TenantConfig.from_file(args.tenants) if args.tenants else None
     # the spec and KV flags are plain config overrides, so both schedulers
     # read one Generation.speculative section
@@ -673,6 +987,8 @@ def main(argv=None) -> int:
         args.override.append(f"Generation.speculative.kv_dtype={args.kv_dtype}")
 
     server = build_server(args.config, args.override, args.device)
+    if not args.port:
+        return repl(server)
     queue = build_scheduler(
         server, args.scheduler, queue_depth=args.queue_depth,
         max_coalesce=args.max_coalesce, cb_batch=args.cb_batch, kv_blocks=args.kv_blocks,
@@ -699,8 +1015,38 @@ def main(argv=None) -> int:
         queue_depth=args.queue_depth, max_coalesce=args.max_coalesce,
         default_deadline_s=args.deadline, max_deadline_s=args.max_deadline,
         shed_slack_s=args.shed_slack, max_tokens_cap=args.max_tokens_cap,
-        tenant_config=tenant_config,
+        tenant_config=tenant_config, watchdog_s=args.watchdog,
+        slo_ttft_p99_s=args.slo_ttft_p99, slo_error_rate=args.slo_error_rate,
+        slo_windows_s=tuple(float(x) for x in args.slo_windows.split(",") if x.strip()),
     )
+
+
+def repl(server: GenerationServer, stdin=None) -> int:
+    """The stdin REPL (JAX ``tools/serve.py:2187-2210``): one prompt a line
+    (space-separated token ids, or text with a tokenizer) -> the
+    completion on one line, until an empty line or EOF.  A bad line
+    prints its error and the session goes on."""
+    try:
+        print("prompt> ", end="", flush=True)
+        for line in stdin or sys.stdin:
+            line = line.strip()
+            if not line:
+                break
+            try:
+                if server.tokenizer is not None:
+                    print(server.generate_text([line])[0], flush=True)
+                else:
+                    ids = [int(t) for t in line.split()]
+                    print(" ".join(map(str, server.generate_ids([ids])[0])), flush=True)
+            except ValueError as e:  # bad ids or an empty prompt
+                print(f"error: {e}", flush=True)
+            except Exception as e:  # noqa: BLE001 — reported, the session goes on
+                print(f"generation failed ({type(e).__name__}): {e}", flush=True)
+            print("prompt> ", end="", flush=True)
+    except (EOFError, KeyboardInterrupt):
+        pass
+    print("", flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -8,14 +8,21 @@ rolls back to the last checkpoint), and the fault-injection harness
 ``maybe_fire:318``): ``PFX_FAULT=<site>:<step>[:<count>]`` fires a named
 fault at a step, at most ``count`` times a process.
 
-The serving path wires two sites, whose behavior lives at the call site
-(``maybe_fire`` only counts and reports): ``preempt_storm`` (the
-continuous scheduler force-preempts its lowest-priority eligible row at
-that iteration) and ``spill_corrupt`` (the engine's Kth spill readmit
-probe finds its host copy torn, and the checksum discards it).  The
-serve CLI refuses every other site at boot (:func:`serving_fault_spec`);
-the training engine refuses ``PFX_FAULT`` altogether.  Not ported: the
-I/O retry wrapper.
+The serving path wires seven sites (:data:`SERVING_FAULT_SITES`).
+``maybe_fire`` carries out four of them, with the JAX behavior
+(``resilience.py:344-379``): ``gen_crash`` raises ``RuntimeError``
+inside generation request K, ``gen_hang`` and ``cb_step_hang`` sleep
+``PFX_FAULT_HANG_S`` seconds (default 3600) inside generation request K
+or before continuous decode step K, and ``boot_crash`` hard-exits the
+serve CLI with code 23 right after argument parsing.  The other three
+live at their call sites (``maybe_fire`` only counts and reports):
+``preempt_storm`` (the continuous scheduler force-preempts its
+lowest-priority eligible row at that iteration), ``spill_corrupt`` (the
+engine's Kth spill readmit probe finds its host copy torn) and
+``cb_commit_crash`` (the engine's commit of step K raises).  The serve
+CLI refuses every other site at boot (:func:`serving_fault_spec`); the
+training engine refuses ``PFX_FAULT`` altogether.  Not ported: the I/O
+retry wrapper.
 """
 
 from __future__ import annotations
@@ -24,11 +31,13 @@ import collections
 import math
 import os
 import signal
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from paddlefleetx_tpu_torch.utils.log import logger
+from paddlefleetx_tpu_torch.utils.telemetry import env_float
 
 
 class PreemptionGuard:
@@ -135,8 +144,10 @@ FAULT_SITES = (
 )
 # the sites the port's serving path wires (cb_commit_crash: the continuous
 # engine's commit raises "PFX_FAULT: injected cb_commit_crash at step K", the
-# JAX message, where a dispatched step's readback would fail)
-SERVING_FAULT_SITES = ("preempt_storm", "spill_corrupt", "cb_commit_crash")
+# JAX message, where a dispatched step's readback would fail); the KV
+# handoff and migration sites stay refused with the handoff itself
+SERVING_FAULT_SITES = ("preempt_storm", "spill_corrupt", "cb_commit_crash",
+                       "gen_crash", "gen_hang", "cb_step_hang", "boot_crash")
 
 # fires per site in THIS process; a relaunched process starts clean
 _fires: Dict[str, int] = {}
@@ -202,8 +213,10 @@ def serving_fault_spec() -> Optional[Tuple[str, int, int]]:
 
 def maybe_fire(site: str, step: int) -> bool:
     """True when the configured fault names ``site`` and ``step`` has
-    reached its step, at most ``count`` times a process.  The caller
-    carries out the fault."""
+    reached its step, at most ``count`` times a process.  ``gen_crash``
+    raises, ``gen_hang`` / ``cb_step_hang`` sleep ``PFX_FAULT_HANG_S``
+    seconds and ``boot_crash`` does not return; for every other site the
+    caller carries out the fault."""
     spec = fault_spec()
     if spec is None or spec[0] != site or step < spec[1]:
         return False
@@ -211,4 +224,13 @@ def maybe_fire(site: str, step: int) -> bool:
         return False
     _fires[site] = _fires.get(site, 0) + 1
     logger.warning(f"PFX_FAULT: firing {site} at step {step} ({_fires[site]}/{spec[2]})")
+    if site == "gen_crash":
+        raise RuntimeError(f"PFX_FAULT: injected gen_crash at request {step}")
+    if site in ("gen_hang", "cb_step_hang"):
+        # a wedged decode: the serve watchdog flips /healthz to degraded
+        time.sleep(env_float("PFX_FAULT_HANG_S", 3600.0))
+    elif site == "boot_crash":
+        # a replica that can never come up: os._exit skips every finally
+        # and atexit, the closest in-process stand-in for a broken image
+        os._exit(23)
     return True

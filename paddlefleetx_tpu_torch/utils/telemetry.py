@@ -23,7 +23,22 @@ Counterpart of the registry of ``paddlefleetx_tpu/utils/telemetry.py``
     ``PFX_PEAK_FLOPS`` overrides it.  On the CPU, or on a card the table
     does not know, there is no peak and the record carries no ``mfu``.
 
-Not ported yet: ``SLOTracker``, ``Span`` and ``FlightRecorder``.  Metric
+  - **Span** (``Span:776``): monotonic phase timing; ``mark()`` stamps a
+    labelled instant (injected stamps slot in by time), ``phases()``
+    turns consecutive marks into durations, ``event()`` shapes the span
+    for the flight recorder.
+  - **SLOTracker** (``SLOTracker:937``): p99 TTFT and error-rate
+    objectives over rolling multi-window burn rates, with per-tenant
+    short-window burns; ``evaluate()`` is ``/healthz``'s ``slo`` block
+    and ``collect()`` the ``pfx_slo_*`` gauges.
+  - **FlightRecorder** (``flight_dir:1195``, ``atomic_artifact_write:1202``,
+    ``FlightRecorder:1224``, ``get_flight_recorder:1335``): a bounded ring
+    of recent structured events dumped as JSONL on the bad-day paths
+    (an uncaught exception on any thread, a watchdog degrade, a drain).
+
+Knobs: ``PFX_FLIGHT_DIR`` (artifact directory, default ``./artifacts/``),
+``PFX_FLIGHT_RECORDER`` (explicit dump path, wins over everything),
+``PFX_FLIGHT_RECORDER_CAP`` (ring capacity, default 256).  Metric
 mutations never take the registry lock (each metric and collector owns
 one), so the scheduler threads never contend with a scrape.
 """
@@ -31,9 +46,12 @@ one), so the scheduler threads never contend with a scrape.
 from __future__ import annotations
 
 import bisect
+import json
 import os
 import re
+import sys
 import threading
+import time
 import weakref
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -59,6 +77,24 @@ def env_int(name: str, default: int, minimum: int = 1) -> int:
     if val < minimum:
         raise ValueError(f"{name}={val} must be >= {minimum}")
     return val
+
+
+def env_float(name: str, default: float, minimum: float = 0.0) -> float:
+    """A float environment knob, parsed loudly (the JAX package's
+    ``_env_float``, same messages)."""
+    raw = os.environ.get(name) or ""
+    if not raw.strip():
+        return default
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r} is not a number (loud-parse: unset it or pass a valid value)"
+        ) from None
+    if val < minimum:
+        raise ValueError(f"{name}={val} must be >= {minimum}")
+    return val
+
 
 # dense bf16 tensor-core FLOP/s by a substring of the device name (NVIDIA
 # data sheets, SXM parts at their full power limit)
@@ -172,6 +208,25 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "pfx_tenant_preemptions_total": ("counter", "Active rows preempted mid-decode by a higher-priority arrival and requeued as re-prefill continuations (labels: tenant = the victim's)"),
     "pfx_tenant_queue_depth": ("gauge", "Entries waiting in the scheduler's admission queue per tenant (labels: tenant)"),
     "pfx_tenant_ttft_seconds": ("histogram", "Time to first token per tenant (labels: tenant)"),
+    "pfx_request_queue_wait_seconds": ("histogram", "Admission to scheduler pickup"),
+    "pfx_request_decode_seconds": ("histogram", "Scheduler pickup to decode completion"),
+    "pfx_request_per_token_seconds": ("histogram", "Decode seconds per delivered token"),
+    "pfx_serve_degraded": ("gauge", "1 while the wedged-generation watchdog is tripped"),
+    "pfx_profiler_traces_total": ("counter", "Profiler trace windows captured"),
+    "pfx_profiler_trace_seconds": ("gauge", "Wall seconds of the last trace window"),
+    "pfx_trace_sampled_total": ("counter", "Requests/runs sampled into the trace buffer"),
+    "pfx_slo_objective": ("gauge", "Configured SLO objective value by objective label"),
+    "pfx_slo_burn_rate": ("gauge", "Error-budget burn rate over a rolling window (labels: objective, window)"),
+    "pfx_slo_breach": ("gauge", "1 while the labeled objective burns >threshold on every window"),
+    "pfx_slo_ttft_p99_seconds": ("gauge", "Rolling short-window p99 TTFT seen by the SLO tracker"),
+    "pfx_tenant_slo_burn_rate": ("gauge", "Short-window SLO burn rate per tenant (labels: tenant, objective)"),
+    "pfx_sched_time_seconds_total": ("counter", "Scheduler-thread wall seconds by attribution bucket (labels: bucket=device_decode|device_prefill|host_sched|readback|stream_flush|idle)"),
+    "pfx_sched_wall_seconds_total": ("counter", "Total scheduler-thread wall seconds the time buckets must close against"),
+    "pfx_sched_host_gap_seconds_total": ("counter", "Host seconds the device sat idle waiting for its next dispatch (goodput_frac subtrahend; overlaps the bucket family)"),
+    "pfx_token_ledger_total": ("counter", "Admitted-token dispositions (labels: disposition=admitted|delivered|evicted_lost|preempt_refunded|shed_after_admit)"),
+    "pfx_token_ledger_in_flight": ("gauge", "Admitted tokens still on the books in live decode slots (the exact-closure remainder)"),
+    "pfx_tenant_slot_seconds_total": ("counter", "Decode-slot occupancy in slot-seconds per tenant — billing-grade cost attribution (labels: tenant)"),
+    "pfx_tenant_kv_block_seconds_total": ("counter", "KV-block occupancy in block-seconds per tenant (labels: tenant)"),
 }
 
 # latency-shaped default buckets (seconds): sub-ms to minutes, exponential-ish
@@ -645,3 +700,386 @@ class StatsView:
 
     def __repr__(self) -> str:
         return f"StatsView({dict(self.items())!r})"
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+
+class Span:
+    """Monotonic-clock phase timing: consecutive ``mark()`` calls define
+    phases.  Callers may inject timestamps captured elsewhere (the request
+    queue stamps pickup/resolve under its own lock) via ``mark(label, t=)``;
+    marks are kept time-ordered so injected stamps slot in correctly."""
+
+    __slots__ = ("name", "marks")
+
+    def __init__(self, name: str, t0: Optional[float] = None) -> None:
+        self.name = name
+        self.marks: List[Tuple[str, float]] = [
+            ("start", time.monotonic() if t0 is None else float(t0))
+        ]
+
+    def mark(self, label: str, t: Optional[float] = None) -> None:
+        self.marks.append((label, time.monotonic() if t is None else float(t)))
+        self.marks.sort(key=lambda m: m[1])
+
+    def phases(self) -> "OrderedDict[str, float]":
+        """label -> seconds since the previous mark (the phase ENDING at
+        the label), ordered by time."""
+        out: "OrderedDict[str, float]" = OrderedDict()
+        for (_, t_prev), (label, t) in zip(self.marks, self.marks[1:]):
+            out[label] = out.get(label, 0.0) + (t - t_prev)
+        return out
+
+    def total(self) -> float:
+        return self.marks[-1][1] - self.marks[0][1]
+
+    def event(self, **extra: Any) -> Dict[str, Any]:
+        """This span as a flight-recorder event."""
+        return {
+            "event": "span",
+            "span": self.name,
+            "total_s": round(self.total(), 6),
+            "phases": {k: round(v, 6) for k, v in self.phases().items()},
+            **extra,
+        }
+
+
+# ---------------------------------------------------------------------------
+# SLO burn rates
+# ---------------------------------------------------------------------------
+
+
+class SLOTracker:
+    """Rolling multi-window burn-rate evaluation of serving SLOs: an
+    objective grants an error budget (p99 TTFT <= X allows 1% of requests
+    over X; error rate <= Y allows a Y fraction of failures) and the burn
+    rate is how many times faster than sustainable a window spends it.
+    Breach = every window burning past ``burn_threshold``: the short
+    window flips the flag fast, the long one keeps a single slow request
+    from paging anyone.
+
+    ``observe_request`` takes one served request (the HTTP layer calls it
+    per response, never the decode path); ``evaluate`` is the ``/healthz``
+    ``slo`` block; ``collect`` exports the same numbers as ``pfx_slo_*``
+    gauges (register the tracker as a registry collector).  ``t`` / ``now``
+    injection keeps the tests off the wall clock."""
+
+    def __init__(self, *, ttft_p99_s: float = 0.0, error_rate: float = 0.0,
+                 windows_s=(60.0, 600.0), burn_threshold: float = 1.0,
+                 cap: int = 131072, tenant_label_fn=None) -> None:
+        if ttft_p99_s < 0 or error_rate < 0:
+            raise ValueError("SLO objectives must be >= 0 (0 disables)")
+        ws = tuple(float(w) for w in windows_s)
+        if len(ws) < 1 or any(w <= 0 for w in ws):
+            raise ValueError(f"SLO windows must be positive, got {windows_s}")
+        self.ttft_p99_s = float(ttft_p99_s)
+        self.error_rate = float(error_rate)
+        self.windows_s = tuple(sorted(ws))
+        self.burn_threshold = float(burn_threshold)
+        # pruned by time on observe (events older than the long window
+        # drop off); ``cap`` is a memory backstop that warns once when it
+        # evicts an event still inside the long window
+        self.cap = int(cap)
+        self._cap_warned = False
+        self._events: deque = deque()
+        self._lock = threading.Lock()
+        self._memo: Optional[Tuple[float, Dict[str, Any]]] = None
+        # events carry a tenant label folded by this function (the serve
+        # CLI shares one TenantLabelCap); without one a private cap is
+        # built at the first labelled observation
+        self._tenant_label_fn = tenant_label_fn
+
+    @property
+    def enabled(self) -> bool:
+        return self.ttft_p99_s > 0.0 or self.error_rate > 0.0
+
+    def _tenant_label(self, tenant: str) -> str:
+        if self._tenant_label_fn is None:
+            from paddlefleetx_tpu_torch.core.tenancy import TenantLabelCap
+            self._tenant_label_fn = TenantLabelCap().label
+        return self._tenant_label_fn(tenant)
+
+    def observe_request(self, *, ttft_s: Optional[float] = None,
+                        ok: bool = True, t: Optional[float] = None,
+                        tenant: Optional[str] = None) -> None:
+        """One served request: ``ok`` means answered within contract
+        (200); a shed or an error (500, 503, 429) spends budget.
+        ``ttft_s`` is set only for requests that delivered tokens: a
+        failed request counts as a TTFT violation in :meth:`evaluate`,
+        not as a missing sample."""
+        if not self.enabled:
+            return
+        now = time.monotonic() if t is None else float(t)
+        horizon = self.windows_s[-1]
+        label = None if tenant is None else self._tenant_label(tenant)
+        with self._lock:
+            self._events.append((now, None if ttft_s is None else float(ttft_s),
+                                 bool(ok), label))
+            while self._events and self._events[0][0] < now - horizon:
+                self._events.popleft()
+            truncated = False
+            while len(self._events) > self.cap:
+                self._events.popleft()
+                truncated = True
+            if truncated and not self._cap_warned:
+                self._cap_warned = True
+                logger.warning(
+                    f"SLOTracker: event cap {self.cap} evicted events still inside the "
+                    f"{horizon:g}s window — long-window burn rates now cover less history "
+                    "than configured (sustained rps exceeds cap/window; raise cap= or "
+                    "shorten --slo-windows)"
+                )
+
+    @staticmethod
+    def _window_name(w: float) -> str:
+        return f"{w:g}s"
+
+    def evaluate(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """The ``slo`` block: per-objective burn rates per window, the
+        breach flag (and a per-objective ``breached`` map) and a reason
+        naming the burning objective.  Empty windows burn 0 (a quiet
+        server recovers).  Live calls (``now=None``) are memoized for
+        0.2 s: one ``/healthz`` evaluates once though the collector and
+        the JSON block both read it."""
+        if now is None:
+            live = time.monotonic()
+            memo = self._memo
+            if memo is not None and live - memo[0] < 0.2:
+                return memo[1]
+            out = self.evaluate(now=live)
+            self._memo = (live, out)
+            return out
+        now = float(now)
+        with self._lock:
+            events = list(self._events)
+        out: Dict[str, Any] = {
+            "enabled": self.enabled,
+            "windows_s": list(self.windows_s),
+            "burn_threshold": self.burn_threshold,
+            "objectives": {},
+            "burn": {},
+            "breached": {},
+            "breach": False,
+            "reason": None,
+        }
+        if not self.enabled:
+            return out
+        reasons = []
+        short = self.windows_s[0]
+        if self.ttft_p99_s > 0:
+            out["objectives"]["ttft_p99"] = self.ttft_p99_s
+            burns = {}
+            for w in self.windows_s:
+                win = [e for e in events if e[0] >= now - w]
+                ttfts = [e[1] for e in win if e[1] is not None]
+                # a failed request (no first token, ever) is a violation,
+                # or a wedged server whose every request 503s would burn
+                # nothing exactly when TTFT is worst
+                failed = sum(1 for e in win if e[1] is None and not e[2])
+                total = len(ttfts) + failed
+                bad = sum(1 for v in ttfts if v > self.ttft_p99_s) + failed
+                frac = bad / total if total else 0.0
+                burns[self._window_name(w)] = round(frac / 0.01, 3)  # p99: 1% budget
+            out["burn"]["ttft_p99"] = burns
+            # the observed p99 over delivered requests only (an inf here
+            # would break the Prometheus rendering)
+            short_ttfts = sorted(e[1] for e in events
+                                 if e[0] >= now - short and e[1] is not None)
+            out["ttft_p99_s"] = (
+                short_ttfts[min(len(short_ttfts) - 1,
+                                int(round(0.99 * (len(short_ttfts) - 1))))]
+                if short_ttfts else 0.0
+            )
+            breached = all(b > self.burn_threshold for b in burns.values())
+            out["breached"]["ttft_p99"] = breached
+            if breached:
+                reasons.append(
+                    f"ttft_p99: burn {'/'.join(str(b) for b in burns.values())}"
+                    f"x over the {self.ttft_p99_s:g}s objective"
+                )
+        if self.error_rate > 0:
+            out["objectives"]["error_rate"] = self.error_rate
+            burns = {}
+            for w in self.windows_s:
+                evs = [e for e in events if e[0] >= now - w]
+                bad = sum(1 for e in evs if not e[2])
+                frac = bad / len(evs) if evs else 0.0
+                burns[self._window_name(w)] = round(frac / self.error_rate, 3)
+            out["burn"]["error_rate"] = burns
+            breached = all(b > self.burn_threshold for b in burns.values())
+            out["breached"]["error_rate"] = breached
+            if breached:
+                reasons.append(
+                    f"error_rate: burn {'/'.join(str(b) for b in burns.values())}x over the "
+                    f"{self.error_rate:g} objective"
+                )
+        # per-tenant short-window burn (labels folded by the label cap, so
+        # the block is bounded at top-k + 1 tenants)
+        tenant_labels = sorted({e[3] for e in events if len(e) > 3 and e[3]})
+        if tenant_labels:
+            short_t0 = now - short
+            tview: Dict[str, Any] = {}
+            for tn in tenant_labels:
+                tev = [e for e in events if len(e) > 3 and e[3] == tn and e[0] >= short_t0]
+                row: Dict[str, Any] = {"requests": len(tev)}
+                if self.ttft_p99_s > 0:
+                    ttfts = [e[1] for e in tev if e[1] is not None]
+                    failed = sum(1 for e in tev if e[1] is None and not e[2])
+                    total = len(ttfts) + failed
+                    bad = sum(1 for v in ttfts if v > self.ttft_p99_s) + failed
+                    row["ttft_p99"] = round((bad / total if total else 0.0) / 0.01, 3)
+                if self.error_rate > 0:
+                    bad = sum(1 for e in tev if not e[2])
+                    row["error_rate"] = round(
+                        (bad / len(tev) if tev else 0.0) / self.error_rate, 3)
+                tview[tn] = row
+            out["tenants"] = tview
+        if reasons:
+            out["breach"] = True
+            out["reason"] = "; ".join(reasons)
+        return out
+
+    def collect(self):
+        """Registry collector: the :meth:`evaluate` numbers as
+        ``pfx_slo_*`` gauges (labels: objective, window)."""
+        ev = self.evaluate()
+        rows = []
+        for obj, target in ev["objectives"].items():
+            rows.append(("pfx_slo_objective", {"objective": obj}, target))
+        for obj, burns in ev["burn"].items():
+            for window, burn in burns.items():
+                rows.append(("pfx_slo_burn_rate", {"objective": obj, "window": window}, burn))
+            # the structured flag, never a match on the reason's text
+            rows.append(("pfx_slo_breach", {"objective": obj},
+                         1.0 if ev["breached"].get(obj) else 0.0))
+        if "ttft_p99_s" in ev:
+            rows.append(("pfx_slo_ttft_p99_seconds", {}, ev["ttft_p99_s"]))
+        for tn, row in ev.get("tenants", {}).items():
+            for obj in ("ttft_p99", "error_rate"):
+                if obj in row:
+                    rows.append(("pfx_tenant_slo_burn_rate",
+                                 {"tenant": tn, "objective": obj}, row[obj]))
+        return rows
+
+
+# ---------------------------------------------------------------------------
+# flight recorder
+# ---------------------------------------------------------------------------
+
+DEFAULT_FLIGHT_DIR = "artifacts"
+
+
+def flight_dir() -> str:
+    """Directory for operational artifacts (flight-recorder dumps, trace
+    exports, profiles): ``PFX_FLIGHT_DIR``, default ``./artifacts/``."""
+    return os.environ.get("PFX_FLIGHT_DIR") or DEFAULT_FLIGHT_DIR
+
+
+def atomic_artifact_write(path: str, write_fn) -> bool:
+    """The crash-path artifact write: makedirs, a pid-unique temporary
+    file, ``os.replace``, so a reader sees whole files only.  Returns
+    False on OSError (logged, never raised: it runs inside crash handlers,
+    where a second failure must not mask the first); ``write_fn(f)``
+    writes the content."""
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            write_fn(f)
+        os.replace(tmp, path)
+    except OSError as e:
+        logger.warning(f"artifact write to {path} failed: {e}")
+        return False
+    return True
+
+
+class FlightRecorder:
+    """Bounded ring of recent structured events, dumped as JSONL on the
+    bad-day paths (an uncaught exception, a watchdog degrade, a drain).
+
+    ``record()`` is a deque append under a lock, so request spans can
+    feed it unconditionally; ``dump()`` writes atomically and never
+    raises."""
+
+    def __init__(self, capacity: Optional[int] = None) -> None:
+        cap = capacity if capacity is not None else env_int("PFX_FLIGHT_RECORDER_CAP", 256)
+        self._events: deque = deque(maxlen=cap)
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._hook_installed = False
+
+    def record(self, event: Dict[str, Any]) -> None:
+        with self._lock:
+            self._seq += 1
+            self._events.append({"seq": self._seq, "ts": time.time(), **event})
+
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._events)
+
+    def dump(self, path: Optional[str] = None, reason: str = "") -> Optional[str]:
+        """Write the ring as JSONL (newest last) under a header line.  The
+        path: ``PFX_FLIGHT_RECORDER`` first, then ``path``, then
+        ``<PFX_FLIGHT_DIR>/flight_recorder.jsonl``.  Returns the path, or
+        None when the write failed (logged, never raised)."""
+        path = (os.environ.get("PFX_FLIGHT_RECORDER") or path
+                or os.path.join(flight_dir(), "flight_recorder.jsonl"))
+        events = self.events()
+        header = {"event": "flight_recorder_dump", "reason": reason, "ts": time.time(),
+                  "pid": os.getpid(), "events": len(events)}
+
+        def write(f):
+            f.write(json.dumps(header) + "\n")
+            for ev in events:
+                f.write(json.dumps(ev, default=str) + "\n")
+
+        if not atomic_artifact_write(path, write):
+            return None
+        logger.warning(f"flight recorder: {len(events)} event(s) dumped to {path}"
+                       + (f" ({reason})" if reason else ""))
+        return path
+
+    def install_excepthook(self, path: Optional[str] = None) -> None:
+        """Chain onto ``sys.excepthook`` and ``threading.excepthook``: an
+        uncaught exception on any thread records a ``crash`` event and
+        dumps the ring (the reason names the exception and the thread)
+        before the normal traceback prints.  The serving process does its
+        work in threads (scheduler, watchdog, HTTP handlers), which
+        ``sys.excepthook`` alone never sees.  Idempotent."""
+        if self._hook_installed:
+            return
+        self._hook_installed = True
+        prior = sys.excepthook
+
+        def hook(exc_type, exc, tb):
+            try:
+                self.record({"event": "crash", "error": f"{exc_type.__name__}: {exc}"})
+                self.dump(path=path, reason=f"uncaught {exc_type.__name__}")
+            finally:
+                prior(exc_type, exc, tb)
+
+        sys.excepthook = hook
+        prior_thread = threading.excepthook
+
+        def thread_hook(args):
+            try:
+                name = args.thread.name if args.thread else "?"
+                self.record({"event": "crash", "thread": name,
+                             "error": f"{args.exc_type.__name__}: {args.exc_value}"})
+                self.dump(path=path,
+                          reason=f"uncaught {args.exc_type.__name__} in thread {name}")
+            finally:
+                prior_thread(args)
+
+        threading.excepthook = thread_hook
+
+
+_flight = FlightRecorder()
+
+
+def get_flight_recorder() -> FlightRecorder:
+    """The process-wide flight recorder."""
+    return _flight

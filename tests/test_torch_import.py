@@ -79,6 +79,11 @@ DISPATCH = ("paddlefleetx_tpu_torch.core.step_graphs",
             "paddlefleetx_tpu_torch.core.continuous_batching",
             "paddlefleetx_tpu_torch.ops.decode_attention")
 
+# serving observability and control: traces and the decision-log replay,
+# the on-demand profiler, the admin rule; each imported above without JAX
+OBSERVABILITY = ("paddlefleetx_tpu_torch.utils.tracing", "paddlefleetx_tpu_torch.utils.profiler",
+                 "paddlefleetx_tpu_torch.core.router", "paddlefleetx_tpu_torch.utils.telemetry")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -100,6 +105,7 @@ def test_port_imports_no_jax():
     assert set(TRAINING_REST) <= set(listed.split()), listed
     assert set(F16_SERVING) <= set(listed.split()), listed
     assert set(DISPATCH) <= set(listed.split()), listed
+    assert set(OBSERVABILITY) <= set(listed.split()), listed
 
 
 def test_eval_without_card_raises():

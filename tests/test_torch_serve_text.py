@@ -245,8 +245,8 @@ def _post(port, body, stream=False):
 def test_serve_cli_answers_text_like_jax(trained, scheduler):
     """``tools.serve --device cpu`` with ckpt_dir and tokenizer_dir answers
     {"prompt": ...} with the JAX server's ``generate_text`` on the same
-    params; streamed frames carry their tokens' text, which joins to the
-    completion."""
+    params (beside the request's ``trace_id``); streamed frames carry their
+    tokens' text, which joins to the completion."""
     ckpt, tok_dir = trained
     served = build_server(CONFIG, _overrides(ckpt, tok_dir), device="cpu")
     want = _jax_text_server(served, tok_dir).generate_text(TEXTS, max_dec_len=8)
@@ -270,9 +270,12 @@ def test_serve_cli_answers_text_like_jax(trained, scheduler):
                     break
             except OSError:
                 time.sleep(0.3)
+        # each 200 also carries its sampled trace's id (PFX_TRACE_SAMPLE: 1)
         for text, completion in zip(TEXTS, want):
-            assert _post(port, {"prompt": text, "max_tokens": 8}) == {"completion": completion}
-        assert _post(port, {"prompts": TEXTS[:2], "max_tokens": 8}) == {"completions": want[:2]}
+            body = _post(port, {"prompt": text, "max_tokens": 8})
+            assert body.pop("trace_id") and body == {"completion": completion}
+        body = _post(port, {"prompts": TEXTS[:2], "max_tokens": 8})
+        assert body.pop("trace_id") and body == {"completions": want[:2]}
         frames = _post(port, {"prompt": TEXTS[0], "max_tokens": 8}, stream=True)
         tok = GPTTokenizer.from_pretrained(tok_dir)
         assert frames[-1][0] == "summary"

@@ -314,7 +314,7 @@ def test_maybe_fire_counts_like_jax(monkeypatch):
         mod.reset_fault_state()
     assert fired[1] == fired[0] == [False, False, True, True, False, False, False]
     assert pt_res.serving_fault_spec() == ("preempt_storm", 3, 2)
-    monkeypatch.setenv("PFX_FAULT", "gen_crash:1")
+    monkeypatch.setenv("PFX_FAULT", "handoff_drop:1")
     with pytest.raises(NotImplementedError, match="not wired"):
         pt_res.serving_fault_spec()
 
@@ -728,8 +728,10 @@ def test_serve_cli_continuous_tenancy_stream_metrics(tmp_path):
     """--scheduler continuous with a --tenants file: tenant headers are
     read, SSE token frames reassemble the non-streamed answer with
     contiguous indices, /metrics parses (every name JAX-declared, same
-    kind) and agrees with /healthz, /debug and /admin answer 501, and an
-    armed PFX_FAULT drill on a wired site boots."""
+    kind) and agrees with /healthz, /debug/state answers, and
+    /admin/adopt_prefixes answers 501 (prefix migration is not ported),
+    /admin/drain drains with exit 0, and an armed PFX_FAULT drill on a
+    wired site boots."""
     tenants = tmp_path / "tenants.json"
     tenants.write_text(json.dumps({"tenants": {"gold": {"weight": 4}, "brz": {"weight": 1}}}))
     srv = _Server(tmp_path, ["--scheduler", "continuous", "--cb-batch", "2", "--tenants",
@@ -753,10 +755,13 @@ def test_serve_cli_continuous_tenancy_stream_metrics(tmp_path):
         want = json.loads(_request(srv.port, "/generate", multi)[2])["completions_ids"]
         text = _request(srv.port, "/generate", multi, {"Accept": "text/event-stream"})[2]
         assert _reassemble(_sse(text), 3) == want
-        for method, path in (("GET", "/debug/state"), ("POST", "/admin/drain")):
-            with pytest.raises(urllib.error.HTTPError) as err:
-                _request(srv.port, path, {} if method == "POST" else None)
-            assert err.value.code == 501
+        status, _, text = _request(srv.port, "/debug/state")
+        dbg = json.loads(text)
+        assert status == 200 and dbg["scheduler"] == "continuous" and dbg["depth"] == 0
+        assert dbg["tenants"]["gold"]["admitted_rows"] == 1
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _request(srv.port, "/admin/adopt_prefixes", {})
+        assert err.value.code == 501
         health = json.loads(_request(srv.port, "/healthz")[2])
         got = _metrics(srv.port)
         assert health["queue"]["completed"] == got[("pfx_queue_completed_total", ())] == 4
@@ -773,6 +778,9 @@ def test_serve_cli_continuous_tenancy_stream_metrics(tmp_path):
         assert got[("pfx_http_responses_total", (("code", "200"),))] >= 4
         assert got[("pfx_prefix_hits_total", ())] == health["serving"]["prefix"]["hits"] >= 1
         assert got[("pfx_queue_depth", ())] == health["queue_depth"] == 0
+        status, _, text = _request(srv.port, "/admin/drain", {})
+        assert status == 200 and json.loads(text)["state"] == "draining"
+        assert srv.proc.wait(timeout=60) == 0
         assert srv.stop() == 0
         assert "drained cleanly" in srv.output()
     finally:
@@ -803,7 +811,7 @@ def test_serve_cli_coalesce_stream_is_one_flush(tmp_path):
 @pytest.mark.parametrize("fault,want", [
     ("preempt_storm:x", "step/count must be integers"),
     ("no_such_site:1", "PFX_FAULT site 'no_such_site' unknown"),
-    ("gen_crash:1", "NotImplementedError: PFX_FAULT site 'gen_crash' is not wired"),
+    ("handoff_drop:1", "NotImplementedError: PFX_FAULT site 'handoff_drop' is not wired"),
 ])
 def test_serve_cli_refuses_pfx_fault_at_boot(tmp_path, fault, want):
     """A PFX_FAULT value that does not parse fails the boot with the JAX
