@@ -311,6 +311,30 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      ``PFX_TRACE_SAMPLE`` 1 and 0: both median step walls and K9's
      launches logged, and the traced run's decision log replays to the
      scheduler's counters.
+  30. disaggregated prefill/decode and the router, GPT-345M at full width.
+     In process at ``PFX_F32_LAYERS`` layers: ``FLEET_ENGINE_ROWS`` of phase
+     7's prompts exported on one PagedDecodeEngine, packed and unpacked
+     through the PFXH1 codec and adopted by a second, whose blocks (and
+     int8 scales) must then hold the payload's bytes exactly, float32 and
+     bf16 models (bf16 blocks as ``<V2`` words), native and int8 pools; at
+     float32 the adopted rows decode the tokens of that engine's own
+     ``admit``.  Served, bf16, warmed at the traffic's bucket: a ``--role
+     prefill`` replica (``--cb-batch 1``), a ``--role decode`` replica
+     (continuous, step graphs, dispatch-ahead), a monolithic continuous
+     replica, and an int8 prefill / decode pair, all booted together, with
+     the port's ``tools.router`` in front of each pair (``--handoff
+     proxy`` and ``direct`` over the bf16 pair, ``direct`` over the int8
+     one).  Phase 7's eight prompts through each router at once: every
+     answer token within ``SPEC_ULPS`` bf16 ulps of its prefix's argmax
+     (int8 under an int8 cache), the count identical to the monolithic
+     replica's printed; exports and adoptions one a request; the router's
+     ``pfx_router_handoff_bytes_total`` equal to the decode replica's
+     proxy bytes under proxy and flat under direct (the replicas count the
+     direct bytes); K7 on the prefill replicas (all sm90, no K9), K9 on the
+     decode replicas (all sm90, no K7), 0 plain anywhere; SIGTERM drains
+     every process with exit 0.  Printed: bytes a request, the routers'
+     ``pfx_router_handoff_seconds`` median (interpolated in its buckets),
+     the requests' walls and each boot's seconds.
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -484,6 +508,8 @@ GRAPH_WARM = (16, 64)
 OBS_PROFILE_S = 2.0
 OBS_SLO_TTFT_S = 5.0
 OBS_TOKEN = "phase29-admin-token"
+# phase 30: the rows of the in-process export/adopt round per pool dtype
+FLEET_ENGINE_ROWS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -3387,12 +3413,13 @@ def write_hf_gpt2_medium(path, seed):
     return path
 
 
-def start_serve(env, tag, args):
-    """``tools.serve`` on the card without warmup, its output drained by a
-    thread; returns the server's handle."""
+def start_serve(env, tag, args, warmup=False):
+    """``tools.serve`` on the card, without warmup unless ``warmup`` (then
+    ``args`` name the buckets), its output drained by a thread; returns
+    the server's handle."""
     port = free_port()
     cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c", CONFIG,
-           "--port", str(port), "--no-warmup", *args]
+           "--port", str(port), *([] if warmup else ["--no-warmup"]), *args]
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     lines = []
@@ -3907,9 +3934,11 @@ F16_CLI = ("Model.dtype=float16", "Engine.mix_precision.dtype=float16",
            "Data.Train.loader.num_workers=2", "Engine.save_load.async_save=True")
 F16_INIT, F16_INCR = 32768.0, 4
 # phase 23: float16 card against the CPU at F16_CPU_LAYERS layers of the full
-# width and F16_CPU_SEQ tokens (the CPU's float16 products are slow: 4
-# layers took 58 s, so phase 29's cost is paid by cutting the depth), loss
-F16_CPU_TOL, F16_CPU_SEQ, F16_CPU_LAYERS = 1e-3, 32, 2
+# width and F16_CPU_SEQ tokens (float16 products are slow on the H100
+# host's CPU: 4 layers took 58 s, 2 layers 19-39 s; phases 29 and 30 are
+# paid for by cutting the depth); the losses agree within F16_CPU_TOL,
+# relative
+F16_CPU_TOL, F16_CPU_SEQ, F16_CPU_LAYERS = 1e-3, 32, 1
 
 
 def scale_trajectory(records):
@@ -4500,6 +4529,302 @@ def phase_f16_serving(torch, env, ckpt):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 30: disaggregated prefill/decode and the router
+# ---------------------------------------------------------------------------
+
+
+def fleet_engine_round(torch, server, dtype, kv, ps):
+    """Phase 30 (a), one pool dtype: export each prompt on one engine,
+    carry it through the PFXH1 codec, adopt it on a second engine whose
+    blocks and scales must then hold the payload's bytes, and decode it
+    there; the same engine's ``admit`` of the prompt decodes the reference
+    tokens.  Returns (rows with identical tokens, rows, payload bytes)."""
+    from paddlefleetx_tpu_torch.core.continuous_batching import PagedDecodeEngine
+    from paddlefleetx_tpu_torch.core.paged_cache import pack_handoff, unpack_handoff
+    from paddlefleetx_tpu_torch.models.gpt.generation import gather_kv_blocks
+
+    src = PagedDecodeEngine(server, max_batch=2, block=KV_BLOCK, kv_dtype=kv or "bf16")
+    dst = PagedDecodeEngine(server, max_batch=2, block=KV_BLOCK, kv_dtype=kv or "bf16")
+
+    def decode(slot):
+        for _ in range(4 * MAX_NEW):
+            dst.step()
+            if not dst.active[slot]:
+                break
+        toks = list(dst.slots[slot].tokens)
+        dst.release(slot)
+        return toks
+
+    same, nbytes = 0, 0
+    for prompt in ps:
+        slot = dst.admit(prompt, MAX_NEW)
+        want = decode(slot)
+        payload = pack_handoff(*src.prefill_export(prompt, MAX_NEW))
+        nbytes += len(payload)
+        meta, arrays = unpack_handoff(payload)
+        slot = dst.adopt(meta, arrays)
+        landed = gather_kv_blocks(dst.pools, dst.slots[slot].table[: arrays["k"].shape[1]])
+        for name, t in landed.items():
+            raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            check(raw.numpy().tobytes() == arrays[name].tobytes(),
+                  f"phase 30 {dtype} kv={kv or 'native'}: adopted {name} "
+                  "blocks differ from the payload's bytes")
+        same += decode(slot) == want
+    check(src.cache.stats()["kv_blocks_used"] == 0 and dst.cache.stats()["kv_blocks_used"] == 0,
+          "phase 30: blocks left allocated after the round")
+    return same, len(ps), nbytes
+
+
+def start_router(env, tag, args):
+    """The port's ``tools.router`` on the card's host, its output drained
+    by a thread; :func:`wait_router` waits for its replicas."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.router", "--port", str(port),
+           "--poll-interval", "0.2", *args]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    return {"tag": tag, "proc": proc, "port": port, "lines": lines, "reader": reader,
+            "t0": time.time()}
+
+
+def wait_router(srv, n=2, limit=420):
+    """Poll the router's /healthz until ``n`` replicas are eligible."""
+    while True:
+        check(srv["proc"].poll() is None,
+              f"{srv['tag']} exited {srv['proc'].returncode}: {''.join(srv['lines'])[-3000:]}")
+        check(time.time() - srv["t0"] < limit, f"{srv['tag']}: replicas not eligible in {limit} s")
+        try:
+            if http(srv["port"], "/healthz", timeout=5).get("eligible", 0) >= n:
+                break
+        except OSError:
+            pass
+        time.sleep(0.2)
+    srv["boot_s"] = time.time() - srv["t0"]
+
+
+def stop_router(srv):
+    srv["proc"].send_signal(signal.SIGTERM)
+    rc = srv["proc"].wait(timeout=60)
+    srv["reader"].join(timeout=10)
+    out = "".join(srv["lines"])
+    check(rc == 0 and "drained cleanly" in out, f"{srv['tag']} drain exit {rc}: {out[-3000:]}")
+
+
+def fleet_traffic(port, ps):
+    """The prompts sent at once; returns (answers, each request's wall)."""
+    results, walls = {}, {}
+
+    def post(i):
+        t0 = time.time()
+        try:
+            results[i] = http(port, "/generate", {"prompt_ids": ps[i], "max_tokens": MAX_NEW})
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+        walls[i] = time.time() - t0
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(ps))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for i in range(len(ps)):
+        check(isinstance(results.get(i), dict), f"phase 30 request {i}: {results.get(i)}")
+        check_rows([results[i]["completion_ids"]], f"phase 30 request {i}")
+    return [results[i]["completion_ids"] for i in range(len(ps))], [walls[i] for i in
+                                                                    range(len(ps))]
+
+
+def histogram_median(vals, name):
+    """The median of a /metrics histogram, interpolated in its buckets as
+    Prometheus' histogram_quantile does."""
+    buckets = sorted((float(dict(lab)["le"]), v) for (n, lab), v in vals.items()
+                     if n == f"{name}_bucket" and dict(lab)["le"] != "+Inf")
+    count = vals.get((f"{name}_count", ()), 0.0)
+    if not count:
+        return None
+    lo_le, lo_cum = 0.0, 0.0
+    for le, cum in buckets:
+        if cum >= count / 2:
+            return lo_le + (le - lo_le) * (count / 2 - lo_cum) / max(cum - lo_cum, 1e-12)
+        lo_le, lo_cum = le, cum
+    return buckets[-1][0] if buckets else None
+
+
+def phase_fleet(torch, da, env, card):
+    """Phase 30 (see the module docstring).  Returns the phase's report."""
+    import tempfile
+
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.core.serving import GenerationServer
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    report = {"card": card, "engine": {}}
+    ps = prompts(7, D_LENS)
+    # (a) in process, full width cut to PFX_F32_LAYERS layers: float32 tokens
+    # identical to admit's; bf16 and int8 blocks bitwise through the codec
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(str(REPO / CONFIG), [
+            "Generation.decode_strategy=greedy_search", f"Generation.max_dec_len={MAX_NEW}",
+            f"Model.dtype={dtype}", f"Model.num_layers={PFX_F32_LAYERS}"])
+        module = GPTModule(cfg)
+        server = GenerationServer(cfg, module, module.init_model(cfg.Global.seed, "cuda"),
+                                  torch.device("cuda"))
+        for kv in ("", "int8"):
+            same, rows, nbytes = fleet_engine_round(torch, server, dtype, kv,
+                                                    ps[:FLEET_ENGINE_ROWS])
+            if dtype == "float32":
+                check(same == rows, f"phase 30 float32 kv={kv or 'native'}: {rows - same} "
+                      "adopted rows decoded other tokens than admit")
+            report["engine"][f"{dtype}_{kv or 'native'}"] = {
+                "rows": rows, "identical_to_admit": same, "payload_bytes": nbytes}
+            log(f"  in process {dtype} kv={kv or 'native'}: {same} of {rows} adopted rows' "
+                f"tokens identical to admit, blocks bitwise equal through the codec, "
+                f"{nbytes / rows:.0f} payload bytes a request")
+        del server
+    torch.cuda.empty_cache()
+
+    # (b) served at full width, bf16: a prefill, a decode and a monolithic
+    # replica, and an int8 prefill/decode pair, booted together and warmed
+    # at the traffic's prompt bucket (the decode replicas capture the step
+    # graph at its table width), with the three routers booting beside them
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase30-", dir=str(REPO / "build"))
+    fenv = dict(env, PFX_FLIGHT_DIR=tmp)
+    gen = ["-o", "Generation.decode_strategy=greedy_search",
+           "-o", f"Generation.max_dec_len={MAX_NEW}", "--warmup-buckets", str(max(D_LENS))]
+    specs = {"prefill": ["--role", "prefill", "--cb-batch", "1"],
+             "decode": ["--role", "decode", "--cb-batch", "8"],
+             "mono": ["--scheduler", "continuous", "--cb-batch", "8"],
+             "prefill_q8": ["--role", "prefill", "--cb-batch", "1", "--kv-dtype", "int8"],
+             "decode_q8": ["--role", "decode", "--cb-batch", "8", "--kv-dtype", "int8"]}
+    reps, routers = {}, []
+    try:
+        for tag, args in specs.items():
+            reps[tag] = start_serve(fenv, tag, [*args, "--replica-id", tag, *gen], warmup=True)
+        url = {tag: f"http://127.0.0.1:{srv['port']}" for tag, srv in reps.items()}
+        pairs = (("proxy", "prefill", "decode"), ("direct", "prefill", "decode"),
+                 ("direct_q8", "prefill_q8", "decode_q8"))
+        for transport, pre, dec in pairs:
+            routers.append(start_router(fenv, f"router_{transport}", [
+                "--prefill", url[pre], "--decode", url[dec],
+                "--handoff", transport.split("_")[0], "--router-id", f"router_{transport}"]))
+        # wait for the five at once, so each boot's seconds are its own
+        healths, errors = {}, []
+
+        def wait_one(srv):
+            try:
+                healths[srv["tag"]] = wait_serve(srv)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        waiters = [threading.Thread(target=wait_one, args=(srv,)) for srv in reps.values()]
+        for th in waiters:
+            th.start()
+        for th in waiters:
+            th.join()
+        if errors:
+            raise errors[0]
+        for srv in reps.values():
+            health = healths[srv["tag"]]
+            role = {"prefill": "prefill", "decode": "decode"}.get(srv["tag"].split("_")[0],
+                                                                  "monolith")
+            check(health["identity"]["role"] == role and health["identity"]["replica_id"] ==
+                  srv["tag"], f"phase 30 {srv['tag']}: identity {health['identity']}")
+        report["boot_s"] = {tag: round(srv["boot_s"], 1) for tag, srv in reps.items()}
+        for rt in routers:
+            wait_router(rt)
+        mono, _ = fleet_traffic(reps["mono"]["port"], ps)
+        runs, walls = {}, {}
+        for (transport, pre, dec), rt in zip(pairs, routers):
+            before = {t: metric_values(reps[t]["port"]) for t in (pre, dec)}
+            runs[transport], walls[transport] = fleet_traffic(rt["port"], ps)
+            rv = metric_values(rt["port"])
+            after = {t: metric_values(reps[t]["port"]) for t in (pre, dec)}
+
+            def delta(tag, name, **labels):
+                key = (name, tuple(sorted(labels.items())))
+                return after[tag].get(key, 0.0) - before[tag].get(key, 0.0)
+
+            exports = delta(pre, "pfx_handoff_exports_total")
+            adopts = delta(dec, "pfx_handoff_adopts_total")
+            check(exports == adopts == len(ps),
+                  f"phase 30 {transport}: {exports} exports, {adopts} adoptions for "
+                  f"{len(ps)} requests")
+            proxied = rv.get(("pfx_router_handoff_bytes_total", ()), 0.0)
+            got_proxy = delta(dec, "pfx_handoff_bytes_total", transport="proxy")
+            got_direct = delta(dec, "pfx_handoff_bytes_total", transport="direct")
+            sent_direct = delta(pre, "pfx_handoff_bytes_total", transport="direct")
+            if transport == "proxy":
+                check(proxied == got_proxy > 0 and got_direct == 0,
+                      f"phase 30 proxy: the router carried {proxied} bytes, the decode "
+                      f"replica received {got_proxy} (direct {got_direct})")
+                nbytes = got_proxy
+            else:
+                check(proxied == 0 and got_direct == sent_direct > 0 and got_proxy == 0,
+                      f"phase 30 {transport}: router bytes {proxied} (must stay flat), direct "
+                      f"{sent_direct} sent / {got_direct} received, proxy {got_proxy}")
+                nbytes = got_direct
+            med = histogram_median(rv, "pfx_router_handoff_seconds")
+            report[transport] = {"bytes_per_request": nbytes / len(ps),
+                                 "router_handoff_bytes": proxied,
+                                 "handoff_seconds_median": med,
+                                 "request_wall_median_s": sorted(walls[transport])[
+                                     len(ps) // 2],
+                                 "router_ready_s": round(rt["boot_s"], 1)}
+            stop_router(rt)
+            log(f"  {transport}: {nbytes / len(ps):.0f} handoff bytes a request, router bytes "
+                f"{proxied:.0f}, pfx_router_handoff_seconds median {med} s (bucket "
+                f"interpolation), request walls {[round(w, 3) for w in walls[transport]]} s")
+        kern = {tag: http(srv["port"], "/healthz", timeout=30)["kernels"]
+                for tag, srv in reps.items()}
+        for tag, k in kern.items():
+            check(k.get("plain", 0) == 0 and k.get("paged_plain", 0) == 0,
+                  f"phase 30 {tag}: plain version ran on the card: {k}")
+        for pre, dec, key in (("prefill", "decode", "paged_decode"),
+                              ("prefill_q8", "decode_q8", "paged_decode_q8")):
+            check(kern[pre]["flash_decode"] > 0
+                  and kern[pre]["flash_decode_sm90"] == kern[pre]["flash_decode"],
+                  f"phase 30 {pre}: K7 launches {kern[pre]}")
+            check(kern[pre].get(key, 0) == 0, f"phase 30 {pre}: K9 ran on a prefill replica")
+            check(kern[dec][key] > 0 and kern[dec][f"{key}_sm90"] == kern[dec][key]
+                  and kern[dec]["flash_decode"] == 0,
+                  f"phase 30 {dec}: K9 launches {kern[dec]}")
+        report["kernels"] = {tag: {k: v for k, v in kern[tag].items() if v}
+                             for tag in kern}
+        # tokens: the 4-bf16-ulp argmax rule under teacher forcing, against
+        # the monolithic replica's answers
+        cfg = get_config(str(REPO / CONFIG))
+        module = GPTModule(cfg)
+        model = module.init_model(cfg.Global.seed, "cuda")
+        for transport, answers in runs.items():
+            kv = "int8" if transport.endswith("q8") else ""
+            worst = 0.0
+            for prompt, ans in zip(ps, answers):
+                worst = max([worst] + greedy_deficits(torch, G, model, module.config, prompt,
+                                                      ans, kv))
+            same = sum(a == b for a, b in zip(answers, mono))
+            check(worst <= SPEC_ULPS,
+                  f"phase 30 {transport}: a token sits {worst:.1f} bf16 ulps under its "
+                  f"prefix's argmax (> {SPEC_ULPS})")
+            report[transport].update({"identical_to_monolith": same,
+                                      "worst_deficit_ulps": worst})
+            log(f"  {transport}: {same} of {len(ps)} answers identical to the monolithic "
+                f"replica's; every token within {worst:.1f} bf16 ulps of its prefix's argmax")
+        del model
+        for srv in reps.values():
+            stop_serve(srv)
+    finally:
+        for srv in list(reps.values()) + routers:
+            kill_serve(srv)
+    log("  boot seconds " + json.dumps(report["boot_s"]))
+    return report
+
+
 def main():
     import torch
 
@@ -4626,6 +4951,10 @@ def main():
     begin("29", "serving observability at full width: traces, the decision log, the goodput "
           "ledgers, SLO burn, /debug/*, /admin/profile and /admin/drain, the flight recorder")
     log("observability " + json.dumps(phase_observability(torch, da, env, card)))
+    begin("30", "disaggregated prefill/decode and the router at full width: the PFXH1 "
+          "handoff in process, proxy and direct transports, int8 KV")
+    fleet = phase_fleet(torch, da, env, card)
+    log("fleet " + json.dumps(fleet))
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -4739,6 +5068,19 @@ def main():
                                 and ("_q8" in k) == ("_q8" in name)}
             entry["tenancy"]["preemptions"] = ten_runs[
                 "int8" if name == "paged_decode_q8" else ""][1]["preemptions"]
+        if name in ("flash_decode", "paged_decode", "paged_decode_q8"):
+            # phase 30: the fleet's launches, K7 on the prefill replicas (its
+            # bf16 scratch cache under either pool dtype), K9 on the decode
+            # replicas by pool dtype
+            fk = fleet["kernels"]
+            entry["fleet"] = (
+                {"prefill_replica": fk["prefill"].get("flash_decode", 0),
+                 "prefill_q8_replica": fk["prefill_q8"].get("flash_decode", 0),
+                 "decode_replicas": fk["decode"].get("flash_decode", 0)
+                 + fk["decode_q8"].get("flash_decode", 0)}
+                if name == "flash_decode" else
+                {"decode_replica": fk["decode_q8" if name.endswith("q8") else "decode"].get(
+                    name, 0)})
         if name == "flash_decode":
             # phase 21: beam search over b * num_beams rows (its prefill and
             # MAX_NEW - 1 steps), and the text-serving runs' K7 launches

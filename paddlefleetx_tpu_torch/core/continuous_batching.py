@@ -95,9 +95,24 @@ each iteration from host mirrors of the row state only (rebuilt live
 while the scheduler is parked); with tracing off (``PFX_TRACE_SAMPLE=0``)
 and no debug reader yet, the scheduler builds neither rows nor views.
 The ``gen_crash`` (an admission) and ``cb_step_hang`` (before a step)
-fault sites fire where the JAX scheduler fires them.  Not ported, and
-refused where asked for: KV handoff (export/adopt) and prefix migration
-(the decision log's ``migrate_adopted`` column reads 0).
+fault sites fire where the JAX scheduler fires them.
+
+Disaggregated serving (JAX ``:986-1350``, ``:2215-2300``): a prefill
+replica's engine runs :meth:`PagedDecodeEngine.prefill_export` (one
+prompt prefilled into the prompt bucket's blocks, copied out with its
+pending logits and repetition counts, the blocks freed) and a decode
+replica's scheduler takes the payload through
+:meth:`ContinuousScheduler.submit_handoff`: its admission calls
+:meth:`PagedDecodeEngine.adopt` in place of ``admit`` (under the same
+flush-before-admission rule), which scatters the blocks into the row's
+reservation and seeds its state in the step's static buffers, so the
+captured step graphs stay valid and greedy tokens equal a local
+``admit``'s.  A handoff row preempted after its adoption resumes by
+re-prefilling its prompt and committed tokens.  Prefix migration:
+:meth:`PagedDecodeEngine.export_hot_prefixes` on a draining replica and
+:meth:`ContinuousScheduler.submit_prefix_adoption` (folded in at an
+iteration boundary) on its peer.  ``adopt_crash`` fires after the Kth
+adoption landed.
 """
 
 from __future__ import annotations
@@ -116,6 +131,8 @@ from paddlefleetx_tpu_torch.core.paged_cache import (
     BlockPoolExhausted,
     PagedCacheManager,
     blocks_for,
+    check_handoff_meta,
+    handoff_tensor,
     kv_block_size,
 )
 from paddlefleetx_tpu_torch.core.request_queue import (
@@ -242,6 +259,9 @@ class _CBEntry:
     # are rebased onto the committed prefix
     row_prefill: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
     requeue_rows: List[int] = dataclasses.field(default_factory=list)
+    # disaggregated serving: a (meta, arrays) KV-handoff payload in place
+    # of a prompt to prefill; the admission adopts its blocks
+    handoff: Optional[tuple] = None
 
     def __post_init__(self) -> None:
         self.results = [None] * len(self.prompts)
@@ -390,7 +410,8 @@ class PagedDecodeEngine:
         # commit's copy event, "t_stream_flush" in the stream sinks; the
         # scheduler diffs them per iteration.  "ledger_admitted" counts the
         # tokens committed into scheduler-owned rows (the token ledger's
-        # admission side); "migrate_adopted" stays 0 (no prefix migration)
+        # admission side); "exports" / "adopts" count KV handoffs served
+        # and "migrate_adopted" the prefix blocks adopted from a draining peer
         self._shapes: set = set()
         self.stats: Dict[str, Any] = {
             "traces": 0, "steps": 0, "prefills": 0, "prefill_tokens": 0,
@@ -398,7 +419,7 @@ class PagedDecodeEngine:
             "spec_proposed": 0, "spec_accepted": 0, "spec_accept_rate": 0.0,
             "host_gap_s": 0.0, "gap_steps": 0, "migrate_adopted": 0,
             "t_device_decode": 0.0, "t_device_prefill": 0.0, "t_readback": 0.0,
-            "t_stream_flush": 0.0, "ledger_admitted": 0,
+            "t_stream_flush": 0.0, "ledger_admitted": 0, "exports": 0, "adopts": 0,
         }
 
     # -- capacity queries ----------------------------------------------
@@ -585,19 +606,7 @@ class PagedDecodeEngine:
         self._t_results = None
         prompt_ids = [int(t) for t in prompt_ids]
         plen = len(prompt_ids)
-        if plen < 1:
-            raise ValueError("prompt must be non-empty")
-        if max_new < 1:
-            raise ValueError("max_new must be >= 1")
-        P = bucket_len(plen, self.bucket)
-        limit = self.context - P
-        if limit < 1:
-            raise ValueError(
-                f"prompt bucket {P} leaves no decode room in context {self.context}"
-            )
-        # the coalescing path trims an over-budget request to the context
-        # room (core/serving.plan_decode); deliver the identical count
-        max_new = min(int(max_new), limit)
+        P, PB, limit, max_new = self._clamp_budget(plen, int(max_new))
         slot = next((i for i, r in enumerate(self.slots) if r is None), None)
         if slot is None:
             raise RuntimeError("no free slot in the running batch")
@@ -609,7 +618,6 @@ class PagedDecodeEngine:
             # no reuse, no chunking: the monolithic prefill writes the
             # bucket's PB blocks (pad junk included); the reservation
             # always covers at least the bucket width
-            PB = blocks_for(P, self.block)
             prompt = torch.full((1, P), self.gen.pad_token_id, dtype=torch.int64)
             prompt[0, :plen] = torch.tensor(prompt_ids, dtype=torch.int64)
             t_prefill = time.monotonic()
@@ -1053,13 +1061,273 @@ class PagedDecodeEngine:
         self.forced_steps[slot] = 0
         return committed
 
-    def prefill_export(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the KV handoff (prefill_export / adopt) and prefix migration "
-            "(export_hot_prefixes / adopt_prefixes) are not ported to the PyTorch port yet"
-        )
+    # -- disaggregated prefill/decode (the KV handoff) -------------------
+    def _pool_sig(self) -> List[int]:
+        """[layers, heads, block, head_dim]: the arena signature a handoff
+        payload must match (num_blocks left out: two replicas' pools may
+        differ in size)."""
+        layers, _, heads, bs, d = self.pools.k.shape
+        return [int(layers), int(heads), int(bs), int(d)]
 
-    adopt = export_hot_prefixes = adopt_prefixes = prefill_export
+    def _clamp_budget(self, prompt_len: int, max_new: int) -> Tuple[int, int, int, int]:
+        """(P, PB, limit, clamped max_new): the one budget clamp of admit,
+        export and adopt, so a payload clamped on the prefill replica
+        clamps to the same value on the decode replica.  The coalescing
+        path trims an over-budget request to the context room
+        (``core/serving.plan_decode``); every path delivers that count."""
+        if prompt_len < 1:
+            raise ValueError("prompt must be non-empty")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        P = bucket_len(prompt_len, self.bucket)
+        limit = self.context - P
+        if limit < 1:
+            raise ValueError(f"prompt bucket {P} leaves no decode room in context {self.context}")
+        return P, blocks_for(P, self.block), limit, min(int(max_new), limit)
+
+    def _block_arrays(self, arrays: Dict[str, Any], nblocks: int, what: str
+                      ) -> Dict[str, torch.Tensor]:
+        """A payload's block arrays as CPU tensors of the arena's dtypes,
+        each checked to hold ``nblocks`` blocks of the arena's shape:
+        every refusal raises before anything touches the arena."""
+        need = [n for n in ("k", "v", "k_scale", "v_scale") if getattr(self.pools, n) is not None]
+        missing = sorted(set(need) - set(arrays))
+        if missing:
+            raise ValueError(f"{what} missing arrays {missing} (has {sorted(arrays)})")
+        out = {}
+        for name in need:
+            pool = getattr(self.pools, name)
+            t = handoff_tensor(arrays[name], pool.dtype, name)
+            want = (pool.shape[0], nblocks) + tuple(pool.shape[2:])
+            if tuple(t.shape) != want:
+                raise ValueError(f"{what} array {name!r} shape {tuple(t.shape)} does not carry "
+                                 f"{nblocks} blocks of arena {tuple(pool.shape)}")
+            out[name] = t
+        return out
+
+    @torch.inference_mode()
+    def prefill_export(self, prompt_ids: Sequence[int], max_new: int, trace: Any = None
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The prefill replica's half of the handoff: prefill ONE prompt
+        into this arena, copy its blocks and row state out as ``(meta,
+        arrays)`` for :func:`~paddlefleetx_tpu_torch.core.paged_cache.pack_handoff`,
+        and free the blocks.  Only the prompt bucket is reserved, and only
+        for the export: the decode budget is the decode replica's to hold.
+        ``meta["max_new"]`` is the clamped budget, which the adopting
+        engine clamps again to the same value.
+
+        With the prefix cache on, the radix index is consulted as
+        :meth:`admit` does: the matched span maps shared into the export
+        table, a mid-block divergence gets its copy-on-write block, and
+        only the unmatched suffix runs, through the chunk path, at once
+        (a prefill replica has no decode loop to interleave with).  The
+        exported bytes are the same either way.  ``arrays`` holds k / v
+        (and the int8 scale planes) in the arena dtype, ``logits`` float32
+        [vocab] and ``counts`` int32 [vocab]."""
+        prompt_ids = [int(t) for t in prompt_ids]
+        plen = len(prompt_ids)
+        P, PB, _, max_new = self._clamp_budget(plen, int(max_new))
+        t0 = time.monotonic()
+        self._t_results = None
+        seq_id, table, _shared, _cow, m = self._prefix_admit(prompt_ids, P)
+        if m == 0:
+            prompt = torch.full((1, P), self.gen.pad_token_id, dtype=torch.int64)
+            prompt[0, :plen] = torch.tensor(prompt_ids, dtype=torch.int64)
+            last, counts = self._guarded(
+                lambda: paged_prefill(self.model, prompt.to(self.device), plen, self.pools,
+                                      table[:PB]),
+                "prefill export", release_seq=seq_id)
+            self._note_shape(("prefill", P, PB))
+            self.stats["prefill_tokens"] += plen
+            counts = counts.to(torch.int32).cpu().numpy()
+        else:
+            last = self._export_suffix_chunks(prompt_ids, m, table, seq_id)
+            counts = prefix_token_counts(prompt_ids, int(self.mcfg.vocab_size))
+        arrays: Dict[str, Any] = dict(gather_kv_blocks(self.pools, table))
+        arrays["logits"] = last.float().cpu().numpy()
+        arrays["counts"] = np.asarray(counts, np.int32)
+        if self.prefix_enabled and not self._warmup:
+            # publish before the release: the index takes its own
+            # references while the export's table still pins the blocks
+            self.cache.prefix.publish(prompt_ids, table)
+        self.cache.release(seq_id)
+        meta = {"prompt_ids": prompt_ids, "prompt_len": plen, "max_new": int(max_new),
+                "block": self.block, "kv_dtype": self.kv_dtype, "pool_sig": self._pool_sig()}
+        self.stats["prefills"] += 1
+        self.stats["exports"] += 1
+        if not self._warmup:
+            get_registry().counter("pfx_handoff_exports_total").inc()
+        if trace is not None:
+            trace.span("prefill_export", t0=t0, t1=time.monotonic(), prompt_len=plen, bucket=P,
+                       blocks=PB, prefix_hit=m)
+        return meta, arrays
+
+    def _export_suffix_chunks(self, prompt_ids: List[int], m: int, table: List[int],
+                              seq_id: int) -> torch.Tensor:
+        """Run a prefix-hit export's unmatched suffix ``[m, plen)`` through
+        the chunk path, one chunk after another (an export returns a whole
+        payload); returns the last real prompt token's logits."""
+        chunk = self.prefill_chunk or bucket_len(len(prompt_ids) - m, self.bucket)
+        tbl = self._padded_chunk_table(table)
+        pending = prompt_ids[m:]
+        pos = m
+        last = None
+        while pending:
+            last, take = self._guarded(
+                lambda: self._run_prefill_chunk(chunk, tbl, pos, pending),
+                "export suffix chunk", release_seq=seq_id)
+            self.stats["prefill_chunks"] += 1
+            self.stats["prefill_tokens"] += take
+            pending = pending[take:]
+            pos += take
+        return last
+
+    @torch.inference_mode()
+    def adopt(self, meta: Dict[str, Any], arrays: Dict[str, Any],
+              entry: Optional[_CBEntry] = None, row_idx: int = 0) -> int:
+        """The decode replica's half of the handoff: validate the payload
+        against this arena (its signature, the array set, the dtypes and
+        every shape, before anything is written), reserve the row's full
+        capacity as :meth:`admit` does, scatter the exported blocks into
+        its first PB blocks in place, and seed the row state (pending
+        logits, repetition counts, residual mask) in the step's static
+        buffers, so decoding continues where the prefill replica's math
+        stopped: greedy tokens identical to :meth:`admit`.  A failed
+        scatter resets the arena (:class:`ArenaReset`).  Returns the slot."""
+        check_handoff_meta(meta, block=self.block, kv_dtype=self.kv_dtype,
+                           pool_sig=self._pool_sig())
+        prompt_ids = [int(t) for t in meta["prompt_ids"]]
+        plen = int(meta["prompt_len"])
+        if plen != len(prompt_ids):
+            raise ValueError(f"handoff prompt_len {plen} != {len(prompt_ids)} prompt ids")
+        P, PB, limit, max_new = self._clamp_budget(plen, int(meta["max_new"]))
+        vocab = int(self.mcfg.vocab_size)
+        for name, want in (("logits", (vocab,)), ("counts", (vocab,))):
+            got = tuple(np.shape(arrays.get(name)))
+            if got != want:
+                raise ValueError(f"handoff {name} shape {got} != {want} (vocab {vocab})")
+        logits = handoff_tensor(arrays["logits"], torch.float32, "logits")
+        counts = handoff_tensor(arrays["counts"], torch.int32, "counts")
+        blocks = self._block_arrays(arrays, PB, "handoff payload")
+        slot = next((i for i, r in enumerate(self.slots) if r is None), None)
+        if slot is None:
+            raise RuntimeError("no free slot in the running batch")
+        self._t_results = None  # an adoption is an admission for the host-gap clock
+        self._seq_counter += 1
+        seq_id = self._seq_counter
+        table = self.cache.admit(seq_id, self.row_capacity_tokens(plen, max_new))
+        trace = entry.future.trace if entry is not None else None
+        t0 = time.monotonic()
+        self._guarded(lambda: scatter_kv_blocks(self.pools, table[:PB], blocks),
+                      "handoff adopt", release_seq=seq_id)
+        self._note_shape(("adopt", PB))
+        self._logits[slot] = logits.to(self.device)
+        self._counts[slot] = counts.to(self.device)
+        self._reject[slot] = -1
+        self.positions[slot] = plen
+        self.gen_steps[slot] = 0
+        self.max_news[slot] = max_new
+        # admit()'s forced-EOS step: the coalescing path's bucketed run end
+        self.forced_steps[slot] = min(-(-max_new // 32) * 32, limit) - 1
+        self.active[slot] = True
+        if trace is not None:
+            trace.span("adopt", t0=t0, t1=time.monotonic(), prompt_len=plen, bucket=P,
+                       blocks=len(table), slot=slot)
+        self.slots[slot] = _Row(seq_id=seq_id, entry=entry, row_idx=row_idx,
+                                prompt_ids=prompt_ids, table=table, max_new=max_new,
+                                trace=trace)
+        self.stats["adopts"] += 1
+        if not self._warmup:
+            get_registry().counter("pfx_handoff_adopts_total").inc()
+        # the decode-death drill: the Kth adoption hard-exits after the row
+        # landed, so the transport sees the connection die mid-exchange
+        maybe_fire("adopt_crash", self.stats["adopts"])
+        return slot
+
+    # -- prefix migration (a drain's peer-to-peer hand-over) ---------------
+    def export_hot_prefixes(self, max_blocks: int = 0
+                            ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+        """The hottest published prefix blocks as ONE handoff payload
+        ``(meta, arrays)`` for a peer to adopt on this replica's drain: the
+        ``max_blocks`` most recently used full blocks (all when 0) with
+        their ancestor chains (a child's KV is unmatchable without its
+        parents), shortest path first.  None when nothing is cached.  Runs
+        after the scheduler thread exited (a single-threaded index walk)."""
+        if not self.prefix_enabled:
+            return None
+        pfx = self.cache.prefix
+        nodes = [n for n in list(pfx._nodes) if len(n.tokens) == self.block]
+        if not nodes:
+            return None
+        nodes.sort(key=lambda n: n.last_used, reverse=True)
+        picked = nodes[:max_blocks] if max_blocks > 0 else nodes
+        chosen: set = set()
+        for n in picked:
+            while n is not None and n not in chosen:
+                if len(n.tokens) == self.block:
+                    chosen.add(n)
+                n = n.parent
+        order = sorted(chosen, key=lambda n: len(pfx.node_path(n)))
+        arrays = dict(gather_kv_blocks(self.pools, [n.block_id for n in order]))
+        meta = {"kind": "prefixes", "prefixes": [list(pfx.node_path(n)) for n in order],
+                "block": self.block, "kv_dtype": self.kv_dtype, "pool_sig": self._pool_sig()}
+        return meta, arrays
+
+    def validate_prefix_payload(self, meta: Dict[str, Any], arrays: Dict[str, Any]) -> int:
+        """Validate a migration payload in full (signature, paths, array
+        set, dtypes, shapes) before anything touches the arena; returns its
+        block count."""
+        check_handoff_meta(meta, block=self.block, kv_dtype=self.kv_dtype,
+                           pool_sig=self._pool_sig())
+        prefixes = meta.get("prefixes")
+        if not isinstance(prefixes, list) or not prefixes:
+            raise ValueError("prefix payload carries no prefixes")
+        for p in prefixes:
+            if not isinstance(p, (list, tuple)) or not p or len(p) % self.block:
+                raise ValueError("prefix path is not a token list of positive "
+                                 f"block-{self.block}-multiple length: {p!r:.60}")
+        self._block_arrays(arrays, len(prefixes), "prefix payload")
+        return len(prefixes)
+
+    @torch.inference_mode()
+    def adopt_prefixes(self, meta: Dict[str, Any], arrays: Dict[str, Any]) -> int:
+        """The migration receiver: adopt a draining peer's prefix blocks
+        into this arena's radix index, shortest path first (parents before
+        children).  Pool pressure stops it at a block boundary (what landed
+        is a valid prefix), an already-cached path is skipped (a re-send
+        only bumps LRU), a child whose parent did not land is skipped.
+        Returns the adopted count."""
+        nb = self.validate_prefix_payload(meta, arrays)
+        if not self.prefix_enabled:
+            return 0
+        prefixes = meta["prefixes"]
+        blocks = self._block_arrays(arrays, nb, "prefix payload")
+        adopted = 0
+        for i in sorted(range(nb), key=lambda i: len(prefixes[i])):
+            path = [int(t) for t in prefixes[i]]
+            if self.cache.prefix.has_path(path):
+                continue
+            if len(path) > self.block and not self.cache.prefix.has_path(path[:-self.block]):
+                continue  # its parent never landed (pool pressure)
+            try:
+                fresh = self.cache.allocator.alloc(1)
+            except BlockPoolExhausted:
+                break  # a prefix-closed stop: everything adopted so far holds
+            one = {n: t[:, i:i + 1] for n, t in blocks.items()}
+            try:
+                self._guarded(lambda: scatter_kv_blocks(self.pools, fresh, one), "prefix adopt")
+            except ArenaReset:
+                self.cache.allocator.free(fresh)  # the orphan is ours to return
+                raise
+            self._note_shape(("adopt", 1))
+            self.cache.prefix.insert_block(path, fresh[0])
+            adopted += 1
+        if adopted:
+            self.cache.prefix.evict_to_budget()
+            self.stats["migrate_adopted"] += adopted
+            if not self._warmup:
+                get_registry().counter("pfx_migrate_adopted_total").inc(adopted)
+        return adopted
 
     def reset(self) -> List[_Row]:
         """Rebuild the arena after a failed arena write; returns the rows
@@ -1096,14 +1364,17 @@ class PagedDecodeEngine:
         (a no-op on the arena)."""
         self._guarded(lambda: self._copy_block(NULL_BLOCK, NULL_BLOCK), "COW copy warmup")
 
-    def _warm_chunk_family(self, n: int) -> None:
+    def _warm_chunk_family(self, n: int, capacity_tokens: Optional[int] = None) -> None:
         """The chunks a prefix hit at prompt bucket ``n`` runs its suffix
         through (needed only when ``prefill_chunk`` is off: a chunked
         engine's warmup admission already runs chunks): the one-quantum
         suffix and the full-bucket one, at the table width a bucket-``n``
-        row takes, over a null table with ``n_valid`` 0, so nothing
+        row takes (``capacity_tokens``: an export's, which holds only the
+        prompt bucket), over a null table with ``n_valid`` 0, so nothing
         touches a real block."""
-        blocks = blocks_for(self.row_capacity_tokens(int(n), self.gen.max_dec_len), self.block)
+        if capacity_tokens is None:
+            capacity_tokens = self.row_capacity_tokens(int(n), self.gen.max_dec_len)
+        blocks = blocks_for(capacity_tokens, self.block)
         tbl = np.full((min(_pow2_at_least(blocks), _pow2_at_least(self.max_row_blocks)),),
                       NULL_BLOCK, np.int32)
         for t in sorted({self.bucket, bucket_len(int(n), self.bucket)}):
@@ -1147,6 +1418,36 @@ class PagedDecodeEngine:
         finally:
             self._warmup = False
             self.dispatch_ahead = ahead
+        return per
+
+    @torch.inference_mode()
+    def warmup_prefill(self, prompt_lens: Sequence[int]) -> Dict[str, float]:
+        """The prefill replica's warmup: one export a prompt bucket (its
+        blocks are freed on export, so nothing stays allocated), and with
+        the prefix cache on the block copy and the export-width chunks a
+        hit's suffix takes.  Warmup exports are not traffic: the handoff
+        counters stay clean.  Fails loudly naming the bucket."""
+        per: Dict[str, float] = {}
+        self._warmup = True
+        try:
+            if self.prefix_enabled:
+                self._warm_copy_family()
+            for n in prompt_lens:
+                t0 = time.time()
+                try:
+                    if self.prefix_enabled:
+                        self._warm_chunk_family(int(n), capacity_tokens=bucket_len(int(n),
+                                                                                   self.bucket))
+                    self.prefill_export([1] * int(n), self.gen.max_dec_len)
+                except Exception as exc:
+                    raise RuntimeError(
+                        f"prefill warmup failed at bucket {n} (warmed so far: "
+                        f"{sorted(per) or 'none'}): {type(exc).__name__}: {exc}"
+                    ) from exc
+                per[str(int(n))] = round(time.time() - t0, 3)
+                logger.info(f"prefill warmup: prompt bucket {n} ran in {per[str(int(n))]:.2f}s")
+        finally:
+            self._warmup = False
         return per
 
 
@@ -1212,6 +1513,9 @@ class ContinuousScheduler:
         self._tenant_preempted: Dict[str, int] = {}
         self._iter_counter = 0
         self._entries: List[_CBEntry] = []
+        # peer prefix adoptions (POST /admin/adopt_prefixes) waiting for an
+        # iteration boundary: (meta, arrays, future)
+        self._admin_tasks: List[tuple] = []
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._closed = False
@@ -1366,6 +1670,62 @@ class ContinuousScheduler:
             discard_request_trace(entry.future)  # never admitted
             raise
         return entry.future
+
+    def submit_handoff(self, meta: Dict[str, Any], arrays: Dict[str, Any], *,
+                       deadline_s: Optional[float] = None, tenant: Optional[str] = None,
+                       priority: int = 0) -> RequestFuture:
+        """Admit a KV-handoff payload (one row a prefill replica prefilled):
+        the surface of :meth:`submit`, but the admission adopts the
+        exported blocks (:meth:`PagedDecodeEngine.adopt`) in place of a
+        prefill.  An incompatible payload or a budget that can never fit
+        raises ValueError before a queue slot is spent (HTTP 400)."""
+        eng = self.engine
+        check_handoff_meta(meta, block=eng.block, kv_dtype=eng.kv_dtype,
+                           pool_sig=eng._pool_sig())
+        prompt = [int(t) for t in meta.get("prompt_ids", [])]
+        max_new = int(meta.get("max_new", 0))
+        eng.validate_request(len(prompt), max_new)
+        now = time.monotonic()
+        entry = _CBEntry(
+            prompts=[prompt], max_new=max_new,
+            deadline=now + float(deadline_s) if deadline_s is not None else None,
+            future=RequestFuture(), enqueued_at=now, handoff=(meta, arrays),
+            tenant=normalize_tenant(tenant), priority=int(priority),
+        )
+        entry.future.times["enqueued"] = now
+        attach_request_trace(entry.future, t0=now, scheduler=self.name, prompts=1,
+                             max_new=entry.max_new)
+        try:
+            with self._wake:
+                if self._closed:
+                    self.stats["rejected_closed"] += 1
+                    raise QueueClosed(f"{self.name} queue is draining")
+                if len(self._entries) >= self.max_depth:
+                    self.stats["rejected_full"] += 1
+                    raise QueueFull(f"{self.name} queue full ({self.max_depth} waiting)")
+                self._entries.append(entry)
+                self.stats["submitted"] += 1
+                self._wake.notify_all()
+        except (QueueClosed, QueueFull):
+            discard_request_trace(entry.future)  # never admitted
+            raise
+        return entry.future
+
+    def submit_prefix_adoption(self, meta: Dict[str, Any], arrays: Dict[str, Any]
+                               ) -> RequestFuture:
+        """Queue a draining peer's prefix payload for adoption on the
+        scheduler thread (``POST /admin/adopt_prefixes``).  The payload is
+        validated in full here (ValueError, HTTP 400) and never reaches
+        the arena when it fails; the future resolves with the adopted
+        block count once an iteration boundary folds it in."""
+        self.engine.validate_prefix_payload(meta, arrays)
+        fut = RequestFuture()
+        with self._wake:
+            if self._closed:
+                raise QueueClosed(f"{self.name} queue is draining")
+            self._admin_tasks.append((meta, arrays, fut))
+            self._wake.notify_all()
+        return fut
 
     def depth(self) -> int:
         with self._lock:
@@ -1637,9 +1997,11 @@ class ContinuousScheduler:
         while True:
             t_wait0 = time.monotonic()
             with self._wake:
-                while not self._entries and not self._has_live_rows() and not self._closed:
+                while (not self._entries and not self._admin_tasks
+                       and not self._has_live_rows() and not self._closed):
                     self._wake.wait()
-                drained = not self._entries and not self._has_live_rows()
+                drained = (not self._entries and not self._admin_tasks
+                           and not self._has_live_rows())
                 if not drained:
                     t_busy0 = time.monotonic()
                     self._busy_since = t_busy0
@@ -1815,6 +2177,7 @@ class ContinuousScheduler:
                     or not self._has_live_rows())
         if not boundary:
             return self._step_batch()
+        n_finished += self._adopt_peer_prefixes()
         admitted: List[tuple] = []
         expired_partial: List[_CBEntry] = []
         with self._wake:
@@ -1944,7 +2307,13 @@ class ContinuousScheduler:
             self._req_counter += 1
             try:
                 maybe_fire("gen_crash", self._req_counter)
-                eng.admit(prompt, mx, entry=entry, row_idx=row_idx)
+                if entry.handoff is not None and not resumed:
+                    # disaggregated: adopt the prefill replica's blocks.  A
+                    # resumed handoff row re-prefills its prompt and
+                    # committed tokens instead: its arrays were consumed
+                    eng.adopt(*entry.handoff, entry=entry, row_idx=row_idx)
+                else:
+                    eng.admit(prompt, mx, entry=entry, row_idx=row_idx)
                 if resumed:
                     # a resume re-admits the prefix its preemption refunded
                     self._tok_ledger["admitted"] += len(entry.row_prefill.get(row_idx, ()))
@@ -1973,6 +2342,35 @@ class ContinuousScheduler:
                 logger.warning(f"{self.name}: admission failed: {type(exc).__name__}: {exc}")
 
         return n_finished + self._step_batch()
+
+    def _adopt_peer_prefixes(self) -> int:
+        """Fold in the queued peer prefix adoptions at an iteration
+        boundary, before this iteration's admissions (a migrated prefix is
+        a hit for the next admission); returns the rows the flush before
+        them finished.  A failed adoption fails its own future; an
+        :class:`ArenaReset` also fails every live row."""
+        with self._wake:
+            tasks, self._admin_tasks = self._admin_tasks, []
+        if not tasks:
+            return 0
+        # an adoption writes the arena: commit the step in flight first
+        n_finished = self._flush_engine()
+        for meta, arrays, fut in tasks:
+            try:
+                fut.set_result(self.engine.adopt_prefixes(meta, arrays))
+            except ArenaReset as exc:
+                with self._lock:
+                    self.stats["gen_errors"] += 1
+                self._fail_rows(exc.dead_rows, exc)
+                if not fut.done():
+                    fut.set_exception(exc)
+                logger.warning(f"{self.name}: {exc}")
+            except Exception as exc:  # noqa: BLE001 — fails this payload alone
+                if not fut.done():
+                    fut.set_exception(exc)
+                logger.warning(f"{self.name}: prefix adoption failed: "
+                               f"{type(exc).__name__}: {exc}")
+        return n_finished
 
     def _take_unit_locked(self, head: _CBEntry, row_idx: int, prompt: List[int], mx: int,
                           resumed: bool, admitted: List[tuple]) -> None:

@@ -2,9 +2,8 @@
 per-sequence block tables over the arena, the shared-prefix radix index
 and its host-RAM spill tier.
 
-Copy of ``paddlefleetx_tpu/core/paged_cache.py:52-724,858-972`` (pure
-host Python; the port keeps its own copy rather than importing the JAX
-package).  A sequence owns a BLOCK TABLE (logical block j -> arena block
+Copy of ``paddlefleetx_tpu/core/paged_cache.py`` (pure host Python; the
+port keeps its own copy rather than importing the JAX package).  A sequence owns a BLOCK TABLE (logical block j -> arena block
 id) into a preallocated arena of fixed-size blocks; the arena itself
 (``PagedPools``) lives in ``models/gpt/generation.py`` and the kernel
 that reads it is ``ops/decode_attention.paged_decode_attention``.
@@ -22,8 +21,12 @@ that reads it is ``ops/decode_attention.paged_decode_attention``.
     tensors alike (the engine hands it CPU tensors: numpy has no
     bfloat16).
 
-Not ported yet: the KV handoff pack/unpack (``pack_handoff`` /
-``unpack_handoff`` / ``check_handoff_meta``).
+The KV-handoff codec (``pack_handoff`` / ``unpack_handoff`` /
+``check_handoff_meta``, JAX ``:726-855``) writes the JAX package's PFXH1
+format byte for byte, so a payload crosses between the two packages'
+replicas: float32, float16 and int8 arrays as numpy writes them, and a
+bfloat16 tensor's raw 2-byte words under the dtype string the JAX codec
+writes for bfloat16 (``<V2``: numpy has no bfloat16).
 
 Knob, parsed loudly as in the JAX package:
 
@@ -35,7 +38,9 @@ from __future__ import annotations
 
 import collections
 import heapq
+import json
 import os
+import struct
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -740,6 +745,157 @@ class PrefixSpillStore:
         self._entries.clear()
         self._bytes = 0
         return n
+
+
+# ---------------------------------------------------------------------------
+# KV-handoff payload codec (disaggregated prefill/decode serving)
+#
+# A prefill replica exports one row's prefilled arena blocks and row state
+# as one binary payload; the router hands it to a decode replica, which
+# adopts the blocks into its own arena and decodes on.  Compact header plus
+# raw buffers (handoff bytes are a measured metric):
+#
+#   magic "PFXH1" | uint32 LE header length | JSON header | raw array bytes
+#
+# The header's "meta" carries the row state (prompt ids, lengths, decode
+# budget) and the compatibility signature (block size, kv dtype, pool
+# shape) that `check_handoff_meta` validates loudly on the adopting side;
+# "arrays" lists name, numpy dtype string and shape in payload order.
+# ---------------------------------------------------------------------------
+
+HANDOFF_MAGIC = b"PFXH1"
+
+# the dtype string the JAX codec writes for a bfloat16 array (ml_dtypes'
+# bfloat16 is a 2-byte void to numpy); the port writes the same for a
+# bfloat16 tensor's raw words
+BF16_WIRE_DTYPE = "<V2"
+
+
+def _wire_array(arr) -> Tuple[str, Tuple[int, ...], bytes]:
+    """(dtype string, shape, raw C-order bytes) of a numpy array or a CPU
+    tensor: a bfloat16 tensor goes as its raw 2-byte words under
+    :data:`BF16_WIRE_DTYPE`, any other tensor as the numpy array it views."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return BF16_WIRE_DTYPE, tuple(t.shape), t.view(torch.int16).numpy().tobytes()
+        arr = t.numpy()
+    a = np.ascontiguousarray(arr)
+    return a.dtype.str, tuple(a.shape), a.tobytes()
+
+
+def pack_handoff(meta: Dict[str, Any], arrays: Dict[str, Any]) -> bytes:
+    """Serialize (meta, named arrays) into one handoff payload.  Arrays
+    (numpy arrays or CPU tensors) go as C-contiguous raw bytes; the header
+    records name, dtype and shape in order, so :func:`unpack_handoff`
+    round-trips bit for bit.  The same float32 / int8 arrays and meta give
+    the JAX codec's bytes."""
+    specs = []
+    chunks = []
+    for name, arr in arrays.items():
+        dtype, shape, raw = _wire_array(arr)
+        specs.append({"name": name, "dtype": dtype, "shape": list(shape)})
+        chunks.append(raw)
+    header = json.dumps({"meta": meta, "arrays": specs}, separators=(",", ":")).encode()
+    return b"".join([HANDOFF_MAGIC, struct.pack("<I", len(header)), header, *chunks])
+
+
+def unpack_handoff(data: bytes) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+    """Parse a handoff payload back into (meta, numpy arrays; a bfloat16
+    array stays a 2-byte void array until :func:`handoff_tensor` reads it
+    into a bfloat16 arena).  Loud on a bad magic, a truncated header or
+    array section, trailing bytes or a malformed header: a torn payload
+    must never be adopted."""
+    if data[:5] != HANDOFF_MAGIC:
+        raise ValueError(f"not a KV-handoff payload (magic {data[:5]!r}, want {HANDOFF_MAGIC!r})")
+    if len(data) < 9:
+        raise ValueError("truncated KV-handoff payload (no header length)")
+    (hlen,) = struct.unpack("<I", data[5:9])
+    if len(data) < 9 + hlen:
+        raise ValueError(f"truncated KV-handoff payload (header wants {hlen} bytes, "
+                         f"{len(data) - 9} present)")
+    try:
+        header = json.loads(data[9:9 + hlen])
+    except json.JSONDecodeError as e:
+        raise ValueError(f"corrupt KV-handoff header: {e}") from None
+    if not isinstance(header, dict) or not isinstance(header.get("arrays"), list) \
+            or "meta" not in header:
+        raise ValueError("corrupt KV-handoff header: want an object with meta and arrays")
+    arrays: Dict[str, np.ndarray] = {}
+    off = 9 + hlen
+    for spec in header["arrays"]:
+        try:
+            name = str(spec["name"])
+            dt = np.dtype(spec["dtype"])
+            shape = tuple(int(s) for s in spec["shape"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"corrupt KV-handoff array spec {spec!r:.80}: {e}") from None
+        if dt.kind == "V" and dt.itemsize != 2:
+            raise ValueError(f"KV-handoff array {name!r} has void dtype {dt.str!r}: only "
+                             f"2-byte words ({BF16_WIRE_DTYPE}, bfloat16) are understood")
+        nbytes = dt.itemsize * int(np.prod(shape, dtype=np.int64))
+        if off + nbytes > len(data):
+            raise ValueError(f"truncated KV-handoff payload: array {name!r} wants {nbytes} "
+                             f"bytes past offset {off}, {len(data) - off} present")
+        arrays[name] = np.frombuffer(data, dtype=dt, count=nbytes // dt.itemsize,
+                                     offset=off).reshape(shape)
+        off += nbytes
+    if off != len(data):
+        raise ValueError(f"KV-handoff payload has {len(data) - off} trailing bytes past the "
+                         "declared arrays")
+    return header["meta"], arrays
+
+
+def handoff_tensor(arr, dtype: torch.dtype, name: str = "array") -> torch.Tensor:
+    """A payload array as a CPU tensor of the arena's ``dtype``: a 2-byte
+    void array (the bfloat16 wire type) is read as bfloat16 bits, only
+    into a bfloat16 arena; any other array must already carry ``dtype``.
+    A mismatch raises: mistyped bytes never reach an arena."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu()
+    else:
+        a = np.ascontiguousarray(arr)
+        if a.dtype.kind == "V":
+            if a.dtype.itemsize != 2 or dtype != torch.bfloat16:
+                raise ValueError(f"handoff {name} dtype {a.dtype.str} (bfloat16 words) != arena "
+                                 f"{dtype}")
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(a.copy())
+    if t.dtype != dtype:
+        raise ValueError(f"handoff {name} dtype {t.dtype} != arena {dtype}")
+    return t
+
+
+def check_handoff_meta(meta: Dict[str, Any], *, block: int, kv_dtype: str,
+                       pool_sig: List[int]) -> None:
+    """Validate a payload's compatibility signature against the adopting
+    arena, naming every mismatch.  ``pool_sig`` is [layers, heads, block,
+    head_dim] (the arena shape minus num_blocks, which may differ between
+    replicas).  Each field coerces under its own guard, so a malformed
+    value lands as a named problem, never a bare TypeError."""
+    problems = []
+    if not isinstance(meta, dict):
+        raise ValueError(f"KV-handoff meta must be an object, got {type(meta).__name__}")
+    try:
+        if int(meta.get("block", -1)) != int(block):
+            problems.append(f"block size {meta.get('block')} != arena block {block}")
+    except (TypeError, ValueError):
+        problems.append(f"block size {meta.get('block')!r} is not an integer")
+    if str(meta.get("kv_dtype", "")) != str(kv_dtype):
+        problems.append(f"kv dtype {meta.get('kv_dtype')!r} != arena dtype {kv_dtype!r}")
+    try:
+        sig = [int(x) for x in meta.get("pool_sig", [])]
+    except (TypeError, ValueError):
+        sig = None
+        problems.append(f"pool_sig {meta.get('pool_sig')!r} is not a list of integers")
+    if sig is not None and sig != [int(x) for x in pool_sig]:
+        problems.append(f"pool shape {meta.get('pool_sig')} != arena {list(pool_sig)}")
+    if problems:
+        raise ValueError(
+            "KV-handoff payload incompatible with this arena: " + "; ".join(problems)
+            + " (prefill and decode replicas must share Model config, PFX_KV_BLOCK, and "
+            "kv_dtype)"
+        )
 
 
 class PagedCacheManager:

@@ -168,6 +168,12 @@ class RequestQueue:
         self.tenant_config = tenant_config or TenantConfig()
         self._fair = DeficitRoundRobin(self.tenant_config.weight)
         self._tenant_labels = TenantLabelCap(seed=self.tenant_config.known_tenants())
+        # the traces of the batch inside the runner right now, one a prompt
+        # in the runner's order (None when unsampled): set by the scheduler
+        # thread around each runner call, so a runner that stamps its own
+        # spans (the prefill replica's prefill_export) lands them on the
+        # right request (JAX ``:189``)
+        self.batch_traces: List[Any] = []
         self._entries: deque = deque()
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -426,6 +432,7 @@ class RequestQueue:
                 f"({len(prompts)} prompts) into one batch"
             )
         t_decode = time.monotonic()
+        self.batch_traces = [e.future.trace for e in batch for _ in e.prompts]
         try:
             rows = list(self._runner(prompts, max_new))
             if len(rows) != len(prompts):
@@ -444,10 +451,15 @@ class RequestQueue:
                 f"request(s): {type(exc).__name__}: {exc}"
             )
             return
+        finally:
+            self.batch_traces = []
         t_done = time.monotonic()
         i = 0
         for e in batch:
-            out = [r[: e.max_new_tokens] for r in rows[i:i + len(e.prompts)]]
+            # token rows trim to the request's own budget; a runner's other
+            # rows (the prefill runner's handoff exports) pass whole
+            out = [r[: e.max_new_tokens] if isinstance(r, list) else r
+                   for r in rows[i:i + len(e.prompts)]]
             i += len(e.prompts)
             if e.future.trace is not None:
                 e.future.trace.span("decode", t0=t_decode, t1=t_done, batch=len(batch),

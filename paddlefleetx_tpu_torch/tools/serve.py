@@ -35,7 +35,12 @@ line or EOF.  With a port:
     GET  /debug/trace?id=  one sampled request's timeline (a 200's body
                     carries its ``trace_id``)
     GET  /debug/traces   the retained traces as Chrome trace JSON
-    POST /admin/drain    answered first, then the SIGTERM drain (exit 0)
+    POST /admin/drain    answered first, then the SIGTERM drain (exit 0);
+                    a body {"migrate_to": [peer_url, ...]} first ships the
+                    hottest cached prefixes to the first peer that adopts
+                    them (``PFX_MIGRATE_DEADLINE_S``, ``PFX_MIGRATE_TOP``)
+    POST /admin/adopt_prefixes  a draining peer's prefix payload (PFXH1
+                    body) -> {"adopted_blocks": N} (continuous scheduler)
     POST /admin/profile  {"seconds": T, "top": N}: a ``torch.profiler``
                     capture of the live process, answered with its op table
                     (``utils/profiler.py``; 409 while one runs, 400 past
@@ -43,8 +48,25 @@ line or EOF.  With a port:
 
 ``/debug/*`` and ``/admin/*`` take ``Authorization: Bearer
 $PFX_ADMIN_TOKEN`` when the token is set, else loopback clients only
-(``core/router.check_admin``: 401 / 403).  ``/admin/adopt_prefixes``
-answers 501: prefix migration is not ported.
+(``core/router.check_admin``: 401 / 403).
+
+Disaggregated serving (``--role``): a ``prefill`` replica answers only
+``POST /prefill {"prompt_ids", "max_tokens", "deadline_s"}`` with the
+binary KV-handoff payload (``core/paged_cache.pack_handoff``, PFXH1), or,
+given a router's ``"forward": {"url", "deadline_s"}`` ticket, POSTs the
+payload straight to that decode replica and relays its answer (a send
+that never arrived degrades to returning the payload, one lost
+mid-exchange answers a 502 naming the decode leg); its ``/generate``
+answers 400.  A ``decode`` replica (always the continuous scheduler) also
+answers ``POST /decode?deadline_s=S`` with a payload body ->
+``{"completion_ids": [...]}``.  ``/prefill``, ``/decode`` and
+``/generate`` carry the fleet's trace-propagation headers
+(``X-Trace-Id``, ``X-Parent-Span``, ``X-Span-Summary``).  ``/healthz``
+carries the identity block (``replica_id``, ``role``, ``scheduler``,
+``pid``, ``boot_id``), the router's scoring fields (``occupancy``,
+``available_blocks``, the prefix advertisement) and, with ``?metrics=1``,
+the ``/metrics`` text of the same snapshot.  ``--router-url`` registers
+the replica with a router on a heartbeat and deregisters it on its drain.
 
 Requests go through a bounded admission queue: a full queue answers 429
 with Retry-After, an expired deadline 503.  ``--scheduler coalesce``
@@ -95,8 +117,11 @@ arena resets and every live row's request fails), ``gen_crash:K``
 (generation request K raises: one 500, the server keeps serving),
 ``gen_hang:K`` / ``cb_step_hang:K`` (generation request K, or continuous
 step K, sleeps ``PFX_FAULT_HANG_S`` seconds) and ``boot_crash:0`` (exit
-23 right after the arguments parse); a value that does not parse, or any
-other site, fails the boot.
+23 right after the arguments parse), ``handoff_drop:K`` (a prefill
+replica drops its Kth direct send), ``adopt_crash:K`` (a decode replica
+exits 29 after its Kth adoption landed) and ``migrate_stall:K`` (the Kth
+drain-time migration send stalls within its deadline); a value that does
+not parse, or any other site, fails the boot.
 
 Operations (the JAX CLI's): every response feeds the request span
 histograms (``pfx_request_queue_wait_seconds``, ``_decode_seconds``,
@@ -134,9 +159,7 @@ with ``vocab.json`` and ``merges.txt``) loads the GPT BPE tokenizer, for
 text prompts.  ``Generation.decode_strategy: beam_search`` decodes with
 beam search on the coalescing scheduler; the continuous scheduler treats
 it as sampling, as the JAX CLI's does (its paged step argmaxes only
-``greedy_search``).  Not ported yet: the disaggregated roles and the KV
-handoff, prefix migration (``/admin/adopt_prefixes``), router
-registration (``--router-url``, ``--role``, ``--replica-id``).
+``greedy_search``).
 """
 
 from __future__ import annotations
@@ -145,6 +168,7 @@ import argparse
 import json
 import math
 import os
+import secrets
 import signal
 import sys
 import threading
@@ -159,7 +183,14 @@ from paddlefleetx_tpu_torch.core.continuous_batching import (
     PagedDecodeEngine,
 )
 from paddlefleetx_tpu_torch.core.module import GPTModule
-from paddlefleetx_tpu_torch.core.router import check_admin
+from paddlefleetx_tpu_torch.core.paged_cache import pack_handoff, unpack_handoff
+from paddlefleetx_tpu_torch.core.router import (
+    ReplicaUnavailable,
+    RequestNotSent,
+    _http_request,
+    admin_headers,
+    check_admin,
+)
 from paddlefleetx_tpu_torch.core.request_queue import (
     QUEUE_METRICS,
     DeadlineExceeded,
@@ -185,12 +216,21 @@ from paddlefleetx_tpu_torch.utils.config import get_config
 from paddlefleetx_tpu_torch.utils.device import resolve_device
 from paddlefleetx_tpu_torch.utils.log import log_server_error, logger
 from paddlefleetx_tpu_torch.utils import tracing
+from paddlefleetx_tpu_torch.utils.tracing import (
+    SPAN_SUMMARY_HEADER,
+    parse_span_summaries,
+    remote_parent,
+    remote_parent_from_headers,
+    span_summary,
+)
 from paddlefleetx_tpu_torch.utils.profiler import ProfileBusy, capture_profile
 from paddlefleetx_tpu_torch.utils.resilience import maybe_fire, serving_fault_spec
 from paddlefleetx_tpu_torch.utils.telemetry import (
     SLOTracker,
     Span,
     atomic_artifact_write,
+    env_float,
+    env_int,
     flight_dir,
     get_flight_recorder,
     get_registry,
@@ -280,7 +320,7 @@ def build_scheduler(server: GenerationServer, scheduler: str, *, queue_depth: in
                     max_coalesce: int, cb_batch: int = 8, kv_blocks: int = 0,
                     prefill_chunk: int = 0, prefix_cache_blocks: int = 0,
                     prefix_spill_bytes: int = 0, tenant_config=None,
-                    preempt_min_tokens: int = 8):
+                    preempt_min_tokens: int = 8, role: str = "monolith"):
     """The serving scheduler behind ``--scheduler``: ``coalesce`` (a
     ``RequestQueue`` whose runner is ``server.generate_ids``) or
     ``continuous`` (a ``ContinuousScheduler`` over a ``PagedDecodeEngine``
@@ -291,9 +331,33 @@ def build_scheduler(server: GenerationServer, scheduler: str, *, queue_depth: in
     weighted-fair pick); ``preempt_min_tokens`` is the continuous
     scheduler's preemption floor.  Both expose kind / submit /
     try_remove / depth / busy_seconds / stats_snapshot / serving_stats /
-    start / close / join, so the HTTP layer is scheduler-agnostic."""
+    start / close / join, so the HTTP layer is scheduler-agnostic.
+
+    ``role="prefill"`` (disaggregated serving) builds a ``RequestQueue``
+    whose runner is :meth:`PagedDecodeEngine.prefill_export` over an
+    engine with ``cb_batch`` rows, ``kv_blocks`` blocks and the prefix
+    flags: each admitted request leaves as a KV-handoff export, under the
+    queue's admission, deadline and drain contract (``queue.engine`` is
+    the engine, for the warmup and the prefix advertisement)."""
     reuse = {"prefill_chunk": prefill_chunk, "prefix_cache_blocks": prefix_cache_blocks,
              "prefix_spill_bytes": prefix_spill_bytes}
+    if role == "prefill":
+        engine = PagedDecodeEngine(server, max_batch=cb_batch, num_blocks=kv_blocks, **reuse)
+
+        def prefill_runner(prompts, max_new):
+            # each request's trace (RequestQueue.batch_traces, set around
+            # this call) gets the export's own prefill_export span
+            traces = queue.batch_traces or [None] * len(prompts)
+            return [engine.prefill_export(p, max_new, trace=tr) for p, tr in zip(prompts, traces)]
+
+        queue = RequestQueue(
+            prefill_runner, max_depth=queue_depth, max_coalesce=1, name="serve",
+            serving_stats=lambda: {**engine.stats, **engine.cache.stats(),
+                                   "prefix": dict(engine.cache.prefix.stats)},
+            tenant_config=tenant_config,
+        )
+        queue.engine = engine
+        return queue
     if scheduler == "coalesce":
         if any(reuse.values()):
             raise ValueError(f"{sorted(k for k, v in reuse.items() if v)} need "
@@ -317,9 +381,14 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                shed_slack_s: float = 2.0, max_tokens_cap: int = 0,
                tenant_config=None, watchdog_s: float = 300.0,
                slo_ttft_p99_s: float = 0.0, slo_error_rate: float = 0.0,
-               slo_windows_s=(60.0, 600.0)) -> int:
+               slo_windows_s=(60.0, 600.0), role: str = "monolith", replica_id: str = "",
+               router_url: str = "") -> int:
     """Serve ``queue`` (a scheduler from :func:`build_scheduler`) until a
-    drain (SIGTERM/SIGINT or ``POST /admin/drain``) completes; returns 0."""
+    drain (SIGTERM/SIGINT or ``POST /admin/drain``) completes; returns 0.
+    ``role`` is the replica's place in a disaggregated fleet (``prefill``
+    answers ``POST /prefill``, ``decode`` also ``POST /decode``),
+    ``replica_id`` its name in ``/healthz``, and ``router_url`` a router
+    it registers with on a heartbeat and says goodbye to on its drain."""
     cap = max_tokens_cap or int(
         server.cfg.get("Generation", {}).get("max_tokens_cap", 0) or 0
     )
@@ -349,9 +418,17 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
     # coalescing one resolves whole completions, so its streams degrade
     # to one flush at completion (the same SSE frames either way)
     stream_capable = queue.kind == "continuous"
-    identity = {"listen": f"{host}:{port}", "pid": os.getpid(),
+    # the paged engine behind the scheduler (None on the coalescing path):
+    # the prefix advertisement and the drain's prefix migration read it
+    engine = getattr(queue, "engine", None)
+    # the identity block: the router and a human tell replicas apart by it,
+    # the pid lets a same-host drain fall back to SIGTERM, and boot_id
+    # names this process start (a recycled pid is never mistaken for it)
+    identity = {"replica_id": replica_id or f"{host}:{port}", "role": role,
+                "scheduler": "queue" if role == "prefill" else queue.kind,
+                "listen": f"{host}:{port}", "pid": os.getpid(), "boot_id": secrets.token_hex(8),
                 "device": str(server.device), "started_at": round(time.time(), 3)}
-    tracing.set_process_identity(replica_id=identity["listen"])
+    tracing.set_process_identity(replica_id=identity["replica_id"], role=role)
 
     def observe_tenant_ttft(tenant: str, seconds: float) -> None:
         reg.histogram("pfx_tenant_ttft_seconds",
@@ -370,9 +447,10 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
         if slo.enabled and code not in (400, 404):
             slo.observe_request(ttft_s=ttft, ok=code == 200, tenant=tenant)
 
-    def healthz_body():
+    def healthz_body(with_metrics: bool = False):
         """/healthz from ONE registry snapshot (the one /metrics renders
-        on its own call), with the schedulers' instance-local extras."""
+        on its own call), with the schedulers' instance-local extras;
+        ``?metrics=1`` adds the exposition of that snapshot."""
         snap = reg.snapshot()
 
         def val(name, **labels):
@@ -399,6 +477,8 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             for lab, v in per_label(name).items():
                 tenants.setdefault(lab, {})[key] = v
         ttft = val("pfx_request_ttft_seconds", default={"p50": 0.0, "p99": 0.0})
+        lat = val("pfx_request_latency_seconds", default={"p50": 0.0, "p99": 0.0})
+        itl = val("pfx_request_itl_seconds", default={"p50": 0.0, "p99": 0.0})
         body = {
             "ok": not flags["degraded"],
             "state": ("draining" if flags["draining"]
@@ -411,6 +491,20 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             "counters": counts,
             "ttft_p50_s": round(ttft["p50"], 4),
             "ttft_p99_s": round(ttft["p99"], 4),
+            "latency_p50_s": round(lat["p50"], 4),
+            "latency_p99_s": round(lat["p99"], 4),
+            "itl_p50_s": round(itl["p50"], 4),
+            "itl_p99_s": round(itl["p99"], 4),
+            # the router's scoring signals: the batch's occupancy, the
+            # arena blocks an admission can obtain, and the prefix-affinity
+            # advertisement (the hottest cached prefixes' path hashes)
+            "occupancy": round(float(val("pfx_batch_occupancy")), 4),
+            **({"available_blocks": int(val("pfx_kv_blocks_available"))}
+               if "pfx_kv_blocks_available" in snap else {}),
+            **({"prefix_cached_blocks": int(val("pfx_prefix_cached_blocks"))}
+               if "pfx_prefix_cached_blocks" in snap else {}),
+            **({"prefix_hashes": engine.cache.prefix.digest(), "prefix_block": int(engine.block)}
+               if engine is not None and engine.prefix_enabled else {}),
             "serving": serving,
             "tenants": tenants,
             "kernels": dict(decode_attention.COUNTS),
@@ -418,7 +512,92 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
         if slo.enabled:
             # the burn rates with the breach's reason
             body["slo"] = slo.evaluate()
+        if with_metrics:
+            # fleet federation: the whole exposition from the same snapshot
+            # the fields above came from, so the router's scoring and its
+            # re-exported samples never disagree
+            body["metrics_text"] = reg.render_prometheus(snap)
         return body
+
+    # direct prefill -> decode transfer: one send counter a process, so
+    # PFX_FAULT=handoff_drop:K drops exactly the Kth send (handler threads
+    # count concurrently, under the lock)
+    direct_state = {"n": 0}
+    direct_lock = threading.Lock()
+
+    def _direct_handoff(payload: bytes, url: str, fwd_deadline: float, parent=None,
+                        extra_headers=None):
+        """POST one KV-handoff payload straight to the ticketed decode
+        replica (the fleet's admin token, a bounded timeout, one retry of
+        a send that provably never arrived); returns ``(code, body,
+        content_type, headers)`` for the /prefill answer:
+
+          - decode answered 200: its JSON completion is relayed (the
+            payload never crossed the router);
+          - the send never arrived (refused, dropped, not sent) twice, or
+            decode answered 429 / 503 (full, draining) or 401 / 403 (this
+            replica's token refused; the router authenticates its own
+            leg): the proxy fallback, the payload as octet-stream for the
+            router to carry to any decode replica (nothing was adopted);
+          - any other answer: relayed (a 400 repeats at every replica);
+          - lost mid-exchange: a 502 naming the decode leg, since the row
+            may have been adopted there and the router must re-prefill
+            through a healthy pair, never replay at that replica."""
+        with direct_lock:
+            direct_state["n"] += 1
+            seq = direct_state["n"]
+        # the router's trace identity rides on, so the decode leg's spans
+        # stitch under the same fleet timeline
+        fwd_trace = ({tracing.TRACE_ID_HEADER: parent["trace_id"],
+                      tracing.PARENT_SPAN_HEADER: "handoff_direct"} if parent else {})
+        last_err = "send failed"
+        t_send = time.monotonic()
+        for _attempt in range(2):  # the send and one retry
+            # the ticket keeps burning across attempts: a retry after a
+            # stalled first send gets only what is left
+            left = fwd_deadline - (time.monotonic() - t_send)
+            if left <= 0:
+                last_err = f"{last_err}; ticket budget spent before retry"
+                break
+            if maybe_fire("handoff_drop", seq):
+                last_err = "injected handoff_drop"  # this send never goes out
+                continue
+            try:
+                status, body, _, hdrs = _http_request(
+                    url, "POST", f"/decode?deadline_s={left:.3f}", body=payload,
+                    headers={"Content-Type": "application/octet-stream",
+                             "X-Handoff-Transport": "direct", **(extra_headers or {}),
+                             **admin_headers(), **fwd_trace},
+                    # the proxy leg's grace: a slow but live decode is not dead
+                    timeout=left + 5.0)
+            except ConnectionRefusedError as e:
+                last_err = f"refused: {e}"
+                continue
+            except RequestNotSent as e:
+                last_err = str(e)
+                continue
+            except ReplicaUnavailable as e:
+                reg.counter("pfx_handoff_direct_total", outcome="decode_dead").inc()
+                return (502, json.dumps({"error": f"direct decode leg lost mid-exchange ({e})",
+                                         "handoff_leg": "decode"}).encode(),
+                        "application/json", None)
+            if status == 200:
+                reg.counter("pfx_handoff_bytes_total", transport="direct").inc(len(payload))
+                reg.counter("pfx_handoff_direct_total", outcome="ok").inc()
+                # the decode leg's span summary rides back on the relay
+                child = hdrs.get(SPAN_SUMMARY_HEADER)
+                return (200, body, "application/json",
+                        {SPAN_SUMMARY_HEADER: child} if child else None)
+            if status in (401, 403, 429, 503):
+                last_err = f"decode answered HTTP {status}"
+                break
+            reg.counter("pfx_handoff_direct_total", outcome="rejected").inc()
+            return (status, body, "application/json", None)
+        reg.counter("pfx_handoff_direct_total", outcome="fallback").inc()
+        # loud on the replica: a persistent degradation defeats the direct
+        # transport while every request still succeeds through the router
+        print(f"DIRECT-TRANSFER DEGRADED to proxy carry (send #{seq}): {last_err}", flush=True)
+        return (200, payload, "application/octet-stream", {"X-Direct-Error": last_err})
 
     class Handler(BaseHTTPRequestHandler):
         timeout = 120  # a silent client cannot pin a handler thread
@@ -445,9 +624,11 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             self._send(code, json.dumps(obj).encode(), "application/json", headers)
 
         def do_GET(self):
-            path = urlsplit(self.path).path
+            parts = urlsplit(self.path)
+            path = parts.path
             if path == "/healthz":
-                return self._json(200, healthz_body())
+                metrics = parse_qs(parts.query).get("metrics", ["0"])[0] not in ("0", "")
+                return self._json(200, healthz_body(with_metrics=metrics))
             if path == "/metrics":
                 return self._send(200, reg.render_prometheus().encode(),
                                   "text/plain; version=0.0.4; charset=utf-8")
@@ -514,8 +695,25 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             parts = urlsplit(self.path)
             if parts.path.startswith("/admin/"):
                 return self._admin(parts)
+            if parts.path == "/prefill":
+                if role != "prefill":
+                    return self._json(404, {"error": "not a prefill replica"})
+                # a fabric endpoint: the fleet's admin rule applies
+                if self._authorized("/prefill"):
+                    self._prefill()
+                return
+            if parts.path == "/decode":
+                if role != "decode":
+                    return self._json(404, {"error": "not a decode replica"})
+                if self._authorized("/decode"):
+                    self._decode(parts)
+                return
             if parts.path != "/generate":
                 return self._json(404, {"error": "unknown path"})
+            if role == "prefill":
+                # no decode loop here to finish a request
+                return self._json(400, {"error": "--role prefill serves POST /prefill only "
+                                                 "(disaggregated topology)"})
             in_flight.add(1)
             try:
                 self._generate(parts)
@@ -536,20 +734,52 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             if not self._authorized("/admin"):
                 return
             if parts.path == "/admin/drain":
+                # an optional body {"migrate_to": [peer_url, ...]}: the
+                # surviving peers this replica's hottest prefixes move to
+                # before the listener closes; read before the answer goes out
                 try:
-                    self._read_json()  # a body (migrate_to) is read and ignored
+                    req = self._read_json()
                 except json.JSONDecodeError:
-                    pass
+                    req = {}  # a bare drain keeps working
+                peers = tuple(str(u) for u in ((req or {}).get("migrate_to") or []) if u)
                 self._json(200, {"state": "draining", "already_draining": flags["draining"],
                                  "queued": queue.depth()})
-                initiate_drain("admin drain")
+                parent = remote_parent_from_headers(self.headers)
+                initiate_drain("admin drain" + (f" (trace {parent['trace_id']})"
+                                                if parent else ""), migrate_to=peers)
                 return
             if parts.path == "/admin/profile":
                 return self._profile()
             if parts.path == "/admin/adopt_prefixes":
-                return self._json(501, {"error": "/admin/adopt_prefixes (prefix migration) is "
-                                                 "not ported to the PyTorch serve CLI yet"})
+                return self._adopt_prefixes()
             return self._json(404, {"error": "unknown admin path"})
+
+        def _adopt_prefixes(self):
+            """``POST /admin/adopt_prefixes``: a draining peer's prefix
+            payload (a PFXH1 body), validated in full before anything
+            touches the arena, then folded in on the scheduler thread at
+            an iteration boundary.  A torn or incompatible payload answers
+            400 and nothing is half adopted; a draining replica answers
+            503, so the sender moves on to its next peer."""
+            if not hasattr(queue, "submit_prefix_adoption"):
+                return self._json(400, {"error": "prefix adoption requires --scheduler "
+                                                 "continuous (paged KV arena)"})
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                fut = queue.submit_prefix_adoption(*unpack_handoff(body))
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            except QueueClosed:
+                return self._json(503, {"error": "draining: not adopting prefixes"},
+                                  headers={"Retry-After": "5"})
+            try:
+                adopted = fut.result(timeout=default_deadline_s)
+            except TimeoutError:
+                return self._json(503, {"error": "adoption still pending; scheduler busy"},
+                                  headers={"Retry-After": "1"})
+            except Exception as e:  # noqa: BLE001 — an arena reset and the like
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            return self._json(200, {"adopted_blocks": int(adopted)})
 
         def _profile(self):
             """``POST /admin/profile {"seconds": T, "top": N}``: a capture
@@ -614,6 +844,38 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             return (normalize_tenant(self.headers.get(TENANT_HEADER)),
                     parse_priority(self.headers.get(PRIORITY_HEADER)))
 
+        def _remote_parent_authed(self):
+            """The trace-propagation headers of a hop, honored only when it
+            passes the fleet's admin rule (an unauthenticated client may
+            not force-sample traces or read span summaries); otherwise the
+            request runs untraced, with no error."""
+            parent = remote_parent_from_headers(self.headers)
+            if parent is None:
+                return None
+            ok, _, _ = check_admin(self.headers, self.client_address, what="trace propagation")
+            return parent if ok else None
+
+        def _span_headers(self, fut, parent, carried=None):
+            """The response headers of a traced hop: the local trace id, and
+            on a hop that arrived with propagation headers this process's
+            span summary appended to any ``carried`` from a downstream leg."""
+            if fut is None or fut.trace is None:
+                return None
+            headers = {"X-Trace-Id": fut.trace.trace_id}
+            if parent is not None:
+                summaries = parse_span_summaries(carried) if carried else []
+                summaries.append(span_summary(fut.trace))
+                headers[SPAN_SUMMARY_HEADER] = json.dumps(summaries)
+            return headers
+
+        def _read_deadline(self, raw):
+            """A client deadline: positive, finite, capped by the server's
+            ceiling (ValueError -> HTTP 400)."""
+            deadline_s = float(raw)
+            if not (deadline_s > 0 and math.isfinite(deadline_s)):
+                raise ValueError("deadline_s must be a positive finite number")
+            return min(deadline_s, max_deadline_s)
+
         def _wants_stream(self, parts) -> bool:
             """``POST /generate?stream=1`` or ``Accept: text/event-stream``."""
             if parse_qs(parts.query).get("stream", ["0"])[0] not in ("0", ""):
@@ -662,22 +924,25 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
         def _generate(self, parts):
             t0 = time.monotonic()
             tenant, priority = self._tenant_of()
+            # a hop that arrived with X-Trace-Id binds its parent, so the
+            # request's trace is force-sampled into the caller's timeline
+            parent = self._remote_parent_authed()
             try:
                 req = self._read_json()
                 prompts, mode = self._parse(req)
                 max_toks = clamp_max_tokens(req.get("max_tokens"), server.gen.max_dec_len, cap)
-                deadline_s = float(req.get("deadline_s", default_deadline_s))
-                if not (deadline_s > 0 and math.isfinite(deadline_s)):
-                    raise ValueError("deadline_s must be a positive finite number")
-                deadline_s = min(deadline_s, max_deadline_s)
+                deadline_s = self._read_deadline(req.get("deadline_s", default_deadline_s))
                 trim, key = plan_request(prompts, max_toks, bucket=bucket, context=context)
             except (ValueError, TypeError) as e:
                 return self._json(400, {"error": str(e)})
             kw = {"coalesce_key": key, "deadline_s": deadline_s, "tenant": tenant,
                   "priority": priority}
             if self._wants_stream(parts):
-                return self._generate_stream(prompts, trim, kw, deadline_s, t0, tenant, mode)
-            fut = self._submit(prompts, trim, kw, t0)
+                with remote_parent(parent):
+                    return self._generate_stream(prompts, trim, kw, deadline_s, t0, tenant,
+                                                 mode)
+            with remote_parent(parent):
+                fut = self._submit(prompts, trim, kw, t0)
             if fut is None:
                 return
             rows = self._await_result(fut, deadline_s, t0, tenant)
@@ -698,7 +963,7 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
             latency_hist.observe(time.monotonic() - t0)
             _record_request_span(reg, recorder, t0, fut, 200, tokens=sum(len(r) for r in rows))
             _slo_observe(200, fut, t0, tenant=tenant)
-            self._json(200, payload)
+            self._json(200, payload, headers=self._span_headers(fut, parent))
 
         def _generate_stream(self, prompts, trim, kw, deadline_s, t0, tenant, mode):
             """Server-sent events: ``event: token`` frames ``{"row",
@@ -809,6 +1074,136 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 summary["trace_id"] = fut.trace.trace_id
             emit("summary", summary)
 
+        def _prefill(self):
+            """``POST /prefill`` (role prefill): one prompt's paged prefill,
+            answered with the binary KV-handoff payload, under /generate's
+            admission (429), deadline (503) and drain contract.  With a
+            ``forward`` ticket ``{"url", "deadline_s"}`` (the router's
+            direct transfer) the payload goes straight to that decode
+            replica and its JSON completion is relayed back: a send that
+            provably never arrived degrades to the proxy leg (the payload,
+            octet-stream, for the router to carry), a send lost
+            mid-exchange answers a 502 naming the decode leg."""
+            in_flight.add(1)
+            t0 = time.monotonic()
+            fut = None
+            parent = remote_parent_from_headers(self.headers)
+            tenant, priority = self._tenant_of()
+            try:
+                try:
+                    req = self._read_json()
+                    ids = req.get("prompt_ids")
+                    if not ids:
+                        raise ValueError("need a non-empty prompt_ids list")
+                    prompt_ids = [int(t) for t in ids]
+                    max_toks = clamp_max_tokens(req.get("max_tokens"), server.gen.max_dec_len,
+                                                cap)
+                    deadline_s = self._read_deadline(req.get("deadline_s", default_deadline_s))
+                    fwd = req.get("forward") or None
+                    fwd_url = fwd_deadline = None
+                    if fwd is not None:
+                        fwd_url = str(fwd["url"])
+                        fwd_deadline = self._read_deadline(fwd.get("deadline_s", deadline_s))
+                except (KeyError, ValueError, TypeError, AttributeError) as e:
+                    return self._json(400, {"error": str(e)})
+                kw = {"coalesce_key": None, "deadline_s": deadline_s, "tenant": tenant,
+                      "priority": priority}
+                with remote_parent(parent):
+                    fut = self._submit([prompt_ids], max_toks, kw, t0)
+                if fut is None:
+                    return
+                exports = self._await_result(fut, deadline_s, t0, tenant)
+                if exports is None:
+                    return
+                payload = pack_handoff(*exports[0])
+                if fwd_url is not None:
+                    # the ticket's budget burned down with the queue wait and
+                    # the export: hand on only what is left, and shed when
+                    # nothing is (nothing was adopted anywhere)
+                    fwd_left = fwd_deadline - (time.monotonic() - t0)
+                    if fwd_left <= 0:
+                        return self._fail(503, "deadline exhausted after prefill export "
+                                               "(forward ticket spent)", fut, t0, tenant)
+                    fwd_tenant = {h: v for h, v in (
+                        (TENANT_HEADER, self.headers.get(TENANT_HEADER)),
+                        (PRIORITY_HEADER, self.headers.get(PRIORITY_HEADER))) if v}
+                    code, body, ctype, headers = _direct_handoff(
+                        payload, fwd_url, fwd_left, parent=parent, extra_headers=fwd_tenant)
+                    latency_hist.observe(time.monotonic() - t0)
+                    _record_request_span(reg, recorder, t0, fut, code)
+                    # a 5xx here is the decode side's verdict: it spends no
+                    # prefill SLO budget
+                    _slo_observe(200 if code >= 500 else code, fut, t0, tenant=tenant)
+                    carried = (headers or {}).get(SPAN_SUMMARY_HEADER)
+                    span_h = self._span_headers(fut, parent, carried)
+                    if span_h or headers:
+                        headers = {**(headers or {}), **(span_h or {})}
+                    return self._send(code, body, ctype, headers)
+                latency_hist.observe(time.monotonic() - t0)
+                _record_request_span(reg, recorder, t0, fut, 200)
+                _slo_observe(200, fut, t0, tenant=tenant)
+                return self._send(200, payload, "application/octet-stream",
+                                  headers=self._span_headers(fut, parent))
+            except Exception as e:  # noqa: BLE001 — last-resort guard, report it
+                _record_request_span(reg, recorder, t0, fut, 500)
+                _slo_observe(500, fut, t0, tenant=tenant)
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            finally:
+                in_flight.add(-1)
+
+        def _decode(self, parts):
+            """``POST /decode`` (role decode): adopt a KV-handoff payload (the
+            body) into the continuous scheduler's arena and decode it to
+            completion; ``?deadline_s=`` rides the query string.  Counts the
+            payload bytes by transport (``X-Handoff-Transport``)."""
+            in_flight.add(1)
+            t0 = time.monotonic()
+            fut = None
+            parent = remote_parent_from_headers(self.headers)
+            tenant, priority = self._tenant_of()
+            try:
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                transport = self.headers.get("X-Handoff-Transport") or "proxy"
+                reg.counter("pfx_handoff_bytes_total",
+                            transport="direct" if transport == "direct" else "proxy"
+                            ).inc(len(body))
+                try:
+                    raw = (parse_qs(parts.query).get("deadline_s") or [default_deadline_s])[0]
+                    deadline_s = self._read_deadline(raw)
+                    meta, arrays = unpack_handoff(body)
+                except (ValueError, TypeError) as e:
+                    return self._json(400, {"error": str(e)})
+                with remote_parent(parent):
+                    try:
+                        fut = queue.submit_handoff(meta, arrays, deadline_s=deadline_s,
+                                                   tenant=tenant, priority=priority)
+                    except (ValueError, TypeError, KeyError) as e:
+                        return self._json(400, {"error": str(e)})
+                    except QueueFull as e:
+                        _slo_observe(429, None, t0)
+                        return self._json(429, {"error": f"{e}; retry later"},
+                                          headers={"Retry-After": "1"})
+                    except QueueClosed:
+                        _slo_observe(503, None, t0)
+                        return self._json(503, {"error": "draining: not admitting new requests"},
+                                          headers={"Retry-After": "5"})
+                rows = self._await_result(fut, deadline_s, t0, tenant)
+                if rows is None:
+                    return
+                payload = {"completion_ids": rows[0]}
+                if fut.trace is not None:
+                    payload["trace_id"] = fut.trace.trace_id
+                latency_hist.observe(time.monotonic() - t0)
+                _record_request_span(reg, recorder, t0, fut, 200, tokens=len(rows[0]))
+                _slo_observe(200, fut, t0, tenant=tenant)
+                return self._json(200, payload, headers=self._span_headers(fut, parent))
+            except Exception as e:  # noqa: BLE001 — last-resort guard, report it
+                _record_request_span(reg, recorder, t0, fut, 500)
+                _slo_observe(500, fut, t0, tenant=tenant)
+                return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            finally:
+                in_flight.add(-1)
+
     class Server(ThreadingHTTPServer):
         daemon_threads = False
         block_on_close = True  # a drain joins in-flight responses
@@ -838,23 +1233,131 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
                 recorder.record({"event": "watchdog_recovered"})
                 print("WATCHDOG: generation recovered; /healthz ok", flush=True)
 
-    def initiate_drain(source: str) -> bool:
+    def _migrate_prefixes(peers) -> None:
+        """The drain's prefix migration: ship the hottest published
+        prefixes to the first surviving peer that takes them.  Best effort
+        and bounded by ``PFX_MIGRATE_DEADLINE_S`` (default 10): it runs
+        after the scheduler thread exited and before the listener closes,
+        every send is capped by what remains of the deadline (a wedged
+        receiver, ``PFX_FAULT=migrate_stall``, burns the budget and the
+        drain goes on), and the caller catches anything.  At most
+        ``PFX_MIGRATE_TOP`` (default 64) blocks go."""
+        import urllib.request
+
+        deadline_s = env_float("PFX_MIGRATE_DEADLINE_S", 10.0)
+        t_end = time.monotonic() + deadline_s
+        export = engine.export_hot_prefixes(env_int("PFX_MIGRATE_TOP", 64, minimum=0))
+        if export is None:
+            return  # nothing cached
+        payload = pack_handoff(*export)
+        nblocks = len(export[0]["prefixes"])
+        attempts = 0
+        for peer in peers:
+            url = peer.rstrip("/") + "/admin/adopt_prefixes"
+            backoff = 0.2
+            for _ in range(2):  # one retry a peer
+                left = t_end - time.monotonic()
+                if left <= 0:
+                    break
+                attempts += 1
+                if maybe_fire("migrate_stall", attempts):
+                    # a wedged receiver at the send site, capped at the
+                    # remaining budget whatever PFX_FAULT_HANG_S says
+                    time.sleep(min(env_float("PFX_FAULT_HANG_S", 30.0),
+                                   max(0.0, t_end - time.monotonic())))
+                    left = t_end - time.monotonic()
+                    if left <= 0:
+                        break
+                try:
+                    req = urllib.request.Request(
+                        url, data=payload, method="POST",
+                        headers={"Content-Type": "application/octet-stream", **admin_headers()})
+                    with urllib.request.urlopen(req, timeout=max(0.1, left)) as resp:
+                        body = json.loads(resp.read() or b"{}")
+                    adopted = int(body.get("adopted_blocks", 0))
+                    reg.counter("pfx_migrate_sent_total").inc()
+                    recorder.record({"event": "migrate_sent", "peer": peer, "blocks": nblocks,
+                                     "adopted_blocks": adopted})
+                    print(f"migrate: {peer} adopted {adopted} of {nblocks} prefix block(s)",
+                          flush=True)
+                    return
+                except Exception as e:  # noqa: BLE001 — the ladder moves on
+                    print(f"migrate: send to {peer} failed ({e})", flush=True)
+                    time.sleep(min(backoff, max(0.0, t_end - time.monotonic())))
+                    backoff *= 2
+        reg.counter("pfx_migrate_failed_total").inc()
+        recorder.record({"event": "migrate_failed", "peers": list(peers), "blocks": nblocks})
+        print(f"migrate: no surviving peer adopted within {deadline_s:g}s; {nblocks} prefix "
+              "block(s) will be recomputed on demand", flush=True)
+
+    # self-registration: with --router-url this replica announces itself
+    # to the router on an admin-gated heartbeat (a router restarted without
+    # its journal rediscovers the fleet) and says goodbye on its drain
+    advertise_host = "127.0.0.1" if host in ("0.0.0.0", "::", "") else host
+    advertise_url = f"http://{advertise_host}:{port}"
+
+    def _post_register(payload: dict, timeout: float) -> None:
+        import urllib.request
+
+        req = urllib.request.Request(
+            router_url.rstrip("/") + "/admin/register", data=json.dumps(payload).encode(),
+            method="POST", headers={"Content-Type": "application/json", **admin_headers()})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            resp.read()
+
+    def _register_heartbeat():
+        interval = env_float("PFX_REGISTER_INTERVAL_S", 2.0)
+        warned = False
+        payload = {"url": advertise_url, "role": role, "identity": identity}
+        while not stop_event.is_set() and not flags["draining"]:
+            try:
+                _post_register(payload, timeout=5.0)
+                warned = False
+            except Exception as e:  # noqa: BLE001 — best effort, forever
+                if not warned:
+                    warned = True
+                    print(f"register: heartbeat to {router_url} failed ({e}); retrying every "
+                          f"{interval:g}s", flush=True)
+            stop_event.wait(interval)
+
+    def _deregister_from_router():
+        """The goodbye on a drain's exit, with the identity, so a late
+        goodbye never ejects a redeployed successor."""
+        try:
+            _post_register({"deregister": True, "url": advertise_url, "identity": identity},
+                           timeout=3.0)
+            print("register: deregistered from router", flush=True)
+        except Exception as e:  # noqa: BLE001 — the drain must finish
+            print(f"register: deregister failed ({e}); the router will eject this replica "
+                  "after failed polls", flush=True)
+
+    def initiate_drain(source: str, migrate_to=()) -> bool:
         """The drain, shared by the signal handler and ``POST
         /admin/drain``: close admission, answer every admitted request,
-        dump the flight ring, stop the listener.  False when a drain is
-        already under way."""
+        migrate the hottest prefixes to ``migrate_to`` (best effort,
+        bounded), say goodbye to the router, dump the flight ring, stop
+        the listener.  False when a drain is already under way."""
         with drain_lock:
             if flags["draining"]:
                 return False
             flags["draining"] = True
             draining_gauge.set(1)
-        recorder.record({"event": "drain_start", "source": source, "queued": queue.depth()})
+        recorder.record({"event": "drain_start", "source": source, "queued": queue.depth(),
+                         "migrate_to": list(migrate_to)})
         print(f"{source}: draining — admission closed, {queue.depth()} queued request(s) "
               "will finish", flush=True)
 
         def _drain():
             queue.close()
             queue.join()
+            if migrate_to and engine is not None:
+                try:
+                    _migrate_prefixes(migrate_to)
+                except Exception as e:  # noqa: BLE001 — the drain wins
+                    reg.counter("pfx_migrate_failed_total").inc()
+                    print(f"migrate: failed ({e}); drain continues", flush=True)
+            if router_url:
+                _deregister_from_router()
             recorder.record({"event": "drain_done", "source": source})
             recorder.dump(reason="drain")
             httpd.shutdown()
@@ -871,9 +1374,14 @@ def serve_http(server: GenerationServer, queue, port: int, host: str = "127.0.0.
         signal.signal(sig, _on_signal)
     queue.start()
     threading.Thread(target=_watchdog, name="serve-watchdog", daemon=True).start()
-    print(f"serving on {host}:{port} (POST /generate, GET /healthz, GET /metrics; device "
-          f"{server.device}, scheduler {queue.kind}, queue depth {queue_depth}, "
-          f"max prompts {max_coalesce}, watchdog {watchdog_s:g}s)", flush=True)
+    if router_url:
+        threading.Thread(target=_register_heartbeat, name="serve-register", daemon=True).start()
+    endpoint = {"prefill": "POST /prefill", "decode": "POST /decode + /generate"}.get(
+        role, "POST /generate")
+    print(f"serving on {host}:{port} ({endpoint}, GET /healthz, GET /metrics; role {role}, "
+          f"replica {identity['replica_id']}, device {server.device}, scheduler "
+          f"{identity['scheduler']}, queue depth {queue_depth}, max prompts {max_coalesce}, "
+          f"watchdog {watchdog_s:g}s)", flush=True)
     try:
         httpd.serve_forever()
     finally:
@@ -969,7 +1477,24 @@ def main(argv=None) -> int:
                     help="continuous scheduler: admit long prompts in chunks of this "
                     "many tokens (multiple of PFX_KV_BLOCK), one chunk per scheduler "
                     "iteration interleaved with decode steps; 0 = monolithic prefill")
+    ap.add_argument("--role", choices=("monolith", "prefill", "decode"), default="monolith",
+                    help="disaggregated serving role: prefill answers POST /prefill with a "
+                    "KV-handoff payload, decode adopts payloads at POST /decode (and serves "
+                    "/generate; forces --scheduler continuous); monolith serves /generate")
+    ap.add_argument("--replica-id", default="",
+                    help="this replica's name in the /healthz identity block (default "
+                    "host:port): how the router and humans tell replicas apart")
+    ap.add_argument("--router-url", default="",
+                    help="base URL of the fleet router: this replica registers on an "
+                    "admin-gated heartbeat (PFX_REGISTER_INTERVAL_S, default 2) and "
+                    "deregisters on drain")
     args = ap.parse_args(argv)
+    if args.role != "monolith" and not args.port:
+        ap.error(f"--role {args.role} requires --port (HTTP serving)")
+    if args.role == "decode" and args.scheduler != "continuous":
+        # a decode replica adopts into the paged arena
+        print("note: --role decode forces --scheduler continuous", flush=True)
+        args.scheduler = "continuous"
     # a drill against a site this path does not wire would exercise
     # nothing: refuse it (and a value that does not parse) before booting
     fault = serving_fault_spec()
@@ -994,9 +1519,11 @@ def main(argv=None) -> int:
         max_coalesce=args.max_coalesce, cb_batch=args.cb_batch, kv_blocks=args.kv_blocks,
         prefill_chunk=args.prefill_chunk, prefix_cache_blocks=args.prefix_cache_blocks,
         prefix_spill_bytes=args.prefix_spill_bytes, tenant_config=tenant_config,
-        preempt_min_tokens=args.preempt_min_tokens,
+        preempt_min_tokens=args.preempt_min_tokens, role=args.role,
     )
-    if not args.no_warmup and queue.kind == "continuous":
+    if not args.no_warmup and args.role == "prefill":
+        queue.engine.warmup_prefill(_csv_ints(args.warmup_buckets) or [8])
+    elif not args.no_warmup and queue.kind == "continuous":
         queue.warmup(_csv_ints(args.warmup_buckets) or [8])
     elif not args.no_warmup:
         batches = _csv_ints(args.warmup_batches)
@@ -1018,6 +1545,7 @@ def main(argv=None) -> int:
         tenant_config=tenant_config, watchdog_s=args.watchdog,
         slo_ttft_p99_s=args.slo_ttft_p99, slo_error_rate=args.slo_error_rate,
         slo_windows_s=tuple(float(x) for x in args.slo_windows.split(",") if x.strip()),
+        role=args.role, replica_id=args.replica_id, router_url=args.router_url,
     )
 
 

@@ -8,18 +8,23 @@ rolls back to the last checkpoint), and the fault-injection harness
 ``maybe_fire:318``): ``PFX_FAULT=<site>:<step>[:<count>]`` fires a named
 fault at a step, at most ``count`` times a process.
 
-The serving path wires seven sites (:data:`SERVING_FAULT_SITES`).
-``maybe_fire`` carries out four of them, with the JAX behavior
-(``resilience.py:344-379``): ``gen_crash`` raises ``RuntimeError``
-inside generation request K, ``gen_hang`` and ``cb_step_hang`` sleep
-``PFX_FAULT_HANG_S`` seconds (default 3600) inside generation request K
-or before continuous decode step K, and ``boot_crash`` hard-exits the
-serve CLI with code 23 right after argument parsing.  The other three
-live at their call sites (``maybe_fire`` only counts and reports):
-``preempt_storm`` (the continuous scheduler force-preempts its
-lowest-priority eligible row at that iteration), ``spill_corrupt`` (the
-engine's Kth spill readmit probe finds its host copy torn) and
-``cb_commit_crash`` (the engine's commit of step K raises).  The serve
+The serving path wires ten sites (:data:`SERVING_FAULT_SITES`).
+``maybe_fire`` carries out five of them, with the JAX behavior
+(``resilience.py:62-90``, ``:344-379``): ``gen_crash`` raises
+``RuntimeError`` inside generation request K, ``gen_hang`` and
+``cb_step_hang`` sleep ``PFX_FAULT_HANG_S`` seconds (default 3600) inside
+generation request K or before continuous decode step K, ``boot_crash``
+hard-exits the serve CLI with code 23 right after argument parsing, and
+``adopt_crash`` hard-exits a decode replica with code 29 right after its
+Kth KV-handoff adoption landed.  The other five live at their call sites
+(``maybe_fire`` only counts and reports): ``preempt_storm`` (the
+continuous scheduler force-preempts its lowest-priority eligible row at
+that iteration), ``spill_corrupt`` (the engine's Kth spill readmit probe
+finds its host copy torn), ``cb_commit_crash`` (the engine's commit of
+step K raises), ``handoff_drop`` (a prefill replica skips its Kth direct
+send to a decode replica, as a drop before any byte left) and
+``migrate_stall`` (the Kth drain-time prefix-migration send sleeps
+``PFX_FAULT_HANG_S``, capped at what remains of the migration deadline).  The serve
 CLI refuses every other site at boot (:func:`serving_fault_spec`); the
 training engine refuses ``PFX_FAULT`` altogether.  Not ported: the I/O
 retry wrapper.
@@ -144,10 +149,11 @@ FAULT_SITES = (
 )
 # the sites the port's serving path wires (cb_commit_crash: the continuous
 # engine's commit raises "PFX_FAULT: injected cb_commit_crash at step K", the
-# JAX message, where a dispatched step's readback would fail); the KV
-# handoff and migration sites stay refused with the handoff itself
+# JAX message, where a dispatched step's readback would fail), and the
+# fleet's three: handoff_drop, adopt_crash and migrate_stall
 SERVING_FAULT_SITES = ("preempt_storm", "spill_corrupt", "cb_commit_crash",
-                       "gen_crash", "gen_hang", "cb_step_hang", "boot_crash")
+                       "gen_crash", "gen_hang", "cb_step_hang", "boot_crash",
+                       "handoff_drop", "adopt_crash", "migrate_stall")
 
 # fires per site in THIS process; a relaunched process starts clean
 _fires: Dict[str, int] = {}
@@ -215,8 +221,8 @@ def maybe_fire(site: str, step: int) -> bool:
     """True when the configured fault names ``site`` and ``step`` has
     reached its step, at most ``count`` times a process.  ``gen_crash``
     raises, ``gen_hang`` / ``cb_step_hang`` sleep ``PFX_FAULT_HANG_S``
-    seconds and ``boot_crash`` does not return; for every other site the
-    caller carries out the fault."""
+    seconds and ``boot_crash`` / ``adopt_crash`` do not return; for every
+    other site the caller carries out the fault."""
     spec = fault_spec()
     if spec is None or spec[0] != site or step < spec[1]:
         return False
@@ -233,4 +239,8 @@ def maybe_fire(site: str, step: int) -> bool:
         # a replica that can never come up: os._exit skips every finally
         # and atexit, the closest in-process stand-in for a broken image
         os._exit(23)
+    elif site == "adopt_crash":
+        # a decode replica dying while it holds adopted rows: the transport
+        # sees the connection die mid-exchange, never a clean error
+        os._exit(29)
     return True

@@ -227,6 +227,37 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "pfx_token_ledger_in_flight": ("gauge", "Admitted tokens still on the books in live decode slots (the exact-closure remainder)"),
     "pfx_tenant_slot_seconds_total": ("counter", "Decode-slot occupancy in slot-seconds per tenant — billing-grade cost attribution (labels: tenant)"),
     "pfx_tenant_kv_block_seconds_total": ("counter", "KV-block occupancy in block-seconds per tenant (labels: tenant)"),
+    # the fleet: the KV handoff, prefix migration, the router and federation
+    "pfx_fleet_metric": ("gauge", "Federated replica sample re-exported by the router (labels: replica, pool, name=original sample name + the original labels)"),
+    "pfx_fleet_scrape_age_seconds": ("gauge", "Seconds since the replica's last successful federation scrape (labels: replica) — the staleness gauge"),
+    "pfx_fleet_scrapes_total": ("counter", "Federation scrape attempts (labels: replica, outcome=ok|missing|error)"),
+    "pfx_fleet_series": ("gauge", "Federated series currently re-exported (after the cardinality cap)"),
+    "pfx_fleet_series_dropped": ("gauge", "Federated series dropped by the PFX_FLEET_SERIES_CAP label-cardinality cap (warned loudly; 0 when everything fits)"),
+    "pfx_handoff_exports_total": ("counter", "Prefilled rows exported as KV-handoff payloads (prefill replica)"),
+    "pfx_handoff_adopts_total": ("counter", "KV-handoff payloads adopted into the arena (decode replica)"),
+    "pfx_handoff_bytes_total": ("counter", "KV-handoff payload bytes through THIS replica (labels: transport=direct|proxy; prefill counts direct sends, decode counts receives)"),
+    "pfx_handoff_direct_total": ("counter", "Direct prefill->decode transfer attempts on the prefill replica (labels: outcome=ok|fallback|rejected|decode_dead)"),
+    "pfx_handoff_failovers_total": ("counter", "Handoff legs failed over by the router (labels: leg=prefill|decode)"),
+    "pfx_migrate_sent_total": ("counter", "Prefix-migration payloads accepted by a surviving peer during this replica's drain"),
+    "pfx_migrate_adopted_total": ("counter", "Prefix blocks adopted into this arena from a draining peer's migration payload"),
+    "pfx_migrate_failed_total": ("counter", "Prefix-migration sends abandoned (retries exhausted or the PFX_MIGRATE_DEADLINE_S ladder expired) — the drain exits 0 regardless"),
+    "pfx_router_requests_total": ("counter", "Requests dispatched by the router (labels: replica, outcome)"),
+    "pfx_router_rejected_total": ("counter", "Router admissions rejected before dispatch (labels: reason)"),
+    "pfx_router_retries_total": ("counter", "Dispatches retried on another replica after connection-refused"),
+    "pfx_router_in_flight": ("gauge", "Requests currently inside the router"),
+    "pfx_router_replica_depth": ("gauge", "Queue depth last reported by the replica /healthz (labels: replica)"),
+    "pfx_router_replica_state": ("gauge", "Replica lifecycle state code: 0 booting, 1 warm, 2 serving, 3 draining, 4 gone (labels: replica)"),
+    "pfx_router_replica_latency_seconds": ("histogram", "Downstream dispatch latency (labels: replica)"),
+    "pfx_router_poll_failures_total": ("counter", "Failed replica health polls (labels: replica)"),
+    "pfx_router_drains_total": ("counter", "Replica drains initiated through the router"),
+    "pfx_router_handoff_bytes_total": ("counter", "KV-handoff payload bytes PROXIED through the router (flat under direct transfer)"),
+    "pfx_router_handoff_seconds": ("histogram", "Prefill dispatch + handoff transfer seconds per prompt (direct transport: the whole prefill->decode relay — the router cannot see the legs separately)"),
+    "pfx_router_recoveries_total": ("counter", "Router boots that recovered control-plane state from the fleet journal (fleet_state.jsonl)"),
+    "pfx_router_journal_records": ("gauge", "Records appended to the fleet journal since its last compaction snapshot"),
+    "pfx_router_journal_bytes": ("gauge", "Bytes in the fleet journal file (compaction rewrites it atomically)"),
+    "pfx_replica_registrations_total": ("counter", "Replica self-registration heartbeats accepted at POST /admin/register (labels: outcome=register|deregister)"),
+    "pfx_tenant_in_flight": ("gauge", "Requests currently inside the router per tenant (labels: tenant)"),
+    "pfx_tenant_rejected_total": ("counter", "Router front-door admissions rejected by a tenant quota (labels: tenant, reason=rate|inflight)"),
 }
 
 # latency-shaped default buckets (seconds): sub-ms to minutes, exponential-ish

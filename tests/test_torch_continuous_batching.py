@@ -261,12 +261,18 @@ def test_engine_refuses_what_is_not_ported(servers):
                           pe.cache.stats()["kv_blocks_used"]))
     assert preempted[1] == preempted[0]
     assert len(preempted[1][0]) >= 2 and preempted[1][2:] == (True, 0)
-    # the KV handoff stays unported
-    for call in (lambda: eng.prefill_export([1, 2], 4),
-                 lambda: eng.adopt({}, {}), lambda: eng.export_hot_prefixes(),
-                 lambda: eng.adopt_prefixes({}, {})):
-        with pytest.raises(NotImplementedError):
-            call()
+    # the KV handoff and prefix migration are ported: the export's meta is
+    # the JAX engine's, an empty payload is refused with the JAX message,
+    # and an empty prefix index exports nothing
+    jeng = JaxEngine(jserver, prefix_cache_blocks=8, prefix_spill_bytes=1, prefill_chunk=16)
+    assert eng.prefill_export([1, 2], 4)[0] == jeng.prefill_export([1, 2], 4)[0]
+    assert eng.export_hot_prefixes() is None and jeng.export_hot_prefixes() is None
+    for call in (lambda e: e.adopt({}, {}), lambda e: e.adopt_prefixes({}, {})):
+        with pytest.raises(ValueError) as want:
+            call(jeng)
+        with pytest.raises(ValueError) as got:
+            call(eng)
+        assert str(got.value) == str(want.value)
     # speculation is ported: Generation.speculative.draft_k reaches the engine
     # (spec="auto"), which reserves draft_k slack slots a row; a spec that is
     # not a SpecConfig is refused

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
@@ -84,6 +86,13 @@ DISPATCH = ("paddlefleetx_tpu_torch.core.step_graphs",
 OBSERVABILITY = ("paddlefleetx_tpu_torch.utils.tracing", "paddlefleetx_tpu_torch.utils.profiler",
                  "paddlefleetx_tpu_torch.core.router", "paddlefleetx_tpu_torch.utils.telemetry")
 
+# the fleet: the KV-handoff codec, the engine's export and adoption, the
+# router core and the router CLI; each imported above without JAX
+FLEET = ("paddlefleetx_tpu_torch.core.paged_cache", "paddlefleetx_tpu_torch.core.router",
+         "paddlefleetx_tpu_torch.core.continuous_batching",
+         "paddlefleetx_tpu_torch.core.request_queue", "paddlefleetx_tpu_torch.tools.router",
+         "paddlefleetx_tpu_torch.tools.serve")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -106,6 +115,7 @@ def test_port_imports_no_jax():
     assert set(F16_SERVING) <= set(listed.split()), listed
     assert set(DISPATCH) <= set(listed.split()), listed
     assert set(OBSERVABILITY) <= set(listed.split()), listed
+    assert set(FLEET) <= set(listed.split()), listed
 
 
 def test_eval_without_card_raises():
@@ -118,5 +128,14 @@ def test_eval_without_card_raises():
 def test_serve_without_card_raises():
     cfg = os.path.join(REPO, "configs", "gpt", "pretrain_gpt_345M_single.yaml")
     out = _run(["-m", "paddlefleetx_tpu_torch.tools.serve", "-c", cfg, "--port", "0"])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_fleet_replica_without_card_raises(role):
+    cfg = os.path.join(REPO, "configs", "gpt", "pretrain_gpt_345M_single.yaml")
+    out = _run(["-m", "paddlefleetx_tpu_torch.tools.serve", "-c", cfg, "--port", "1",
+                "--role", role])
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr, out.stderr[-2000:]

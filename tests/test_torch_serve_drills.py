@@ -7,8 +7,9 @@ the drills of tests/test_serve_drills.py and tests/test_goodput.py.
     tests/test_torch_tracing.py);
   - ``/admin/profile`` answers with the op table (``source`` cpu), 409
     while a capture runs, 400 past ``PFX_PROFILE_MAX_SECONDS``;
-    ``/admin/adopt_prefixes`` stays 501; ``/admin/drain`` answers, the
-    server exits 0 and the flight dump on disk holds the drain;
+    ``/admin/adopt_prefixes`` refuses a body that is not a PFXH1 payload
+    with the JAX codec's 400; ``/admin/drain`` answers, the server exits 0
+    and the flight dump on disk holds the drain;
   - ``/metrics`` parses with the JAX parser and agrees with ``/healthz``;
     its goodput ledgers close (the time buckets within 1% of the wall,
     the tokens exactly);
@@ -37,6 +38,7 @@ import pytest
 import torch
 import yaml
 
+from paddlefleetx_tpu.core import paged_cache as jax_pc
 from paddlefleetx_tpu.utils import telemetry as jax_tel
 from paddlefleetx_tpu_torch.tools.serve import build_server
 from test_torch_dispatch_ahead import BLK, PORT_SECTIONS, TINY
@@ -186,7 +188,12 @@ def test_debug_admin_metrics_and_drain_continuous(tmp_path):
         assert os.path.isfile(os.path.join(summ["trace_dir"], "profile_summary.json"))
         assert srv.call("/admin/profile", {"seconds": 5}, AUTH)[0] == 400
         assert srv.call("/admin/profile", {"seconds": 0.1})[0] == 401
-        assert srv.call("/admin/adopt_prefixes", {}, AUTH)[0] == 501
+        # prefix migration is ported: a body that is not a KV-handoff
+        # payload is refused whole, with the JAX codec's message
+        status, body = srv.call("/admin/adopt_prefixes", {}, AUTH)
+        with pytest.raises(ValueError) as refusal:
+            jax_pc.unpack_handoff(b"{}")
+        assert status == 400 and body["error"] == str(refusal.value)
         assert srv.call("/admin/nope", {}, AUTH)[0] == 404
 
         # /metrics parses and agrees with /healthz; the ledgers close

@@ -40,6 +40,7 @@ import torch
 import yaml
 
 from paddlefleetx_tpu.core import continuous_batching as jax_cb
+from paddlefleetx_tpu.core import paged_cache as jax_pc
 from paddlefleetx_tpu.core import request_queue as jax_rq
 from paddlefleetx_tpu.core import tenancy as jax_ten
 from paddlefleetx_tpu.core.module import build_module
@@ -314,7 +315,17 @@ def test_maybe_fire_counts_like_jax(monkeypatch):
         mod.reset_fault_state()
     assert fired[1] == fired[0] == [False, False, True, True, False, False, False]
     assert pt_res.serving_fault_spec() == ("preempt_storm", 3, 2)
-    monkeypatch.setenv("PFX_FAULT", "handoff_drop:1")
+    # the fleet's sites are wired and count as the JAX harness counts
+    monkeypatch.setenv("PFX_FAULT", "handoff_drop:2:2")
+    fired = []
+    for mod in (jax_res, pt_res):
+        mod.reset_fault_state()
+        fired.append([mod.maybe_fire("handoff_drop", s) for s in range(1, 5)])
+        mod.reset_fault_state()
+    assert fired[1] == fired[0] == [False, True, True, False]
+    assert pt_res.serving_fault_spec() == ("handoff_drop", 2, 2)
+    # a training site stays refused by the serving path
+    monkeypatch.setenv("PFX_FAULT", "nan_grads:1")
     with pytest.raises(NotImplementedError, match="not wired"):
         pt_res.serving_fault_spec()
 
@@ -728,10 +739,10 @@ def test_serve_cli_continuous_tenancy_stream_metrics(tmp_path):
     """--scheduler continuous with a --tenants file: tenant headers are
     read, SSE token frames reassemble the non-streamed answer with
     contiguous indices, /metrics parses (every name JAX-declared, same
-    kind) and agrees with /healthz, /debug/state answers, and
-    /admin/adopt_prefixes answers 501 (prefix migration is not ported),
-    /admin/drain drains with exit 0, and an armed PFX_FAULT drill on a
-    wired site boots."""
+    kind) and agrees with /healthz, /debug/state answers,
+    /admin/adopt_prefixes refuses a body that is not a KV-handoff payload
+    with the JAX codec's 400, /admin/drain drains with exit 0, and an armed
+    PFX_FAULT drill on a wired site boots."""
     tenants = tmp_path / "tenants.json"
     tenants.write_text(json.dumps({"tenants": {"gold": {"weight": 4}, "brz": {"weight": 1}}}))
     srv = _Server(tmp_path, ["--scheduler", "continuous", "--cb-batch", "2", "--tenants",
@@ -761,7 +772,10 @@ def test_serve_cli_continuous_tenancy_stream_metrics(tmp_path):
         assert dbg["tenants"]["gold"]["admitted_rows"] == 1
         with pytest.raises(urllib.error.HTTPError) as err:
             _request(srv.port, "/admin/adopt_prefixes", {})
-        assert err.value.code == 501
+        with pytest.raises(ValueError) as refusal:
+            jax_pc.unpack_handoff(b"{}")
+        assert err.value.code == 400
+        assert json.loads(err.value.read())["error"] == str(refusal.value)
         health = json.loads(_request(srv.port, "/healthz")[2])
         got = _metrics(srv.port)
         assert health["queue"]["completed"] == got[("pfx_queue_completed_total", ())] == 4
@@ -811,13 +825,25 @@ def test_serve_cli_coalesce_stream_is_one_flush(tmp_path):
 @pytest.mark.parametrize("fault,want", [
     ("preempt_storm:x", "step/count must be integers"),
     ("no_such_site:1", "PFX_FAULT site 'no_such_site' unknown"),
-    ("handoff_drop:1", "NotImplementedError: PFX_FAULT site 'handoff_drop' is not wired"),
+    ("handoff_drop:1", "PFX_FAULT drill armed: handoff_drop at step 1"),
+    ("nan_grads:1", "NotImplementedError: PFX_FAULT site 'nan_grads' is not wired"),
 ])
 def test_serve_cli_refuses_pfx_fault_at_boot(tmp_path, fault, want):
     """A PFX_FAULT value that does not parse fails the boot with the JAX
-    parser's message; a site the serving path does not wire fails it
-    with NotImplementedError."""
+    parser's message; a site the serving path does not wire (a training
+    site) fails it with NotImplementedError.  The fleet's sites are wired:
+    ``handoff_drop`` arms at boot as the JAX serve CLI arms it, and the
+    replica serves and drains with exit 0."""
     srv = _Server(tmp_path, ["--scheduler", "continuous"], {"PFX_FAULT": fault})
+    if "armed" in want:
+        try:
+            srv.wait_healthy()
+            assert want in srv.output()
+            assert srv.stop() == 0
+        finally:
+            srv.stop()
+        assert fault.split(":")[0] in pt_res.SERVING_FAULT_SITES
+        return
     rc = srv.proc.wait(timeout=120)
     out = srv.output()
     srv.stop()
