@@ -335,6 +335,31 @@ PyTorch built for CUDA (no JAX needed).  Phases, each fatal on failure:
      every process with exit 0.  Printed: bytes a request, the routers'
      ``pfx_router_handoff_seconds`` median (interpolated in its buckets),
      the requests' walls and each boot's seconds.
+  31. the elastic control plane at full width: the port's ``tools.router
+     --supervise`` over a bf16 continuous serve template (``--min-replicas
+     1 --max-replicas 2``, every spawn with ``--compile-cache-dir`` = the
+     kernel directory phases 1-2 built, so no replica starts ``nvcc``) and
+     ``PFX_ADMIN_TOKEN`` set.  ``ELASTIC_FLOOD`` requests of
+     ``ELASTIC_NEW`` tokens at once push the average depth past
+     ``--scale-high-depth``: the controller spawns ``m1``; the same flood
+     again with both serving (tokens/s of each round printed, with
+     ``nvidia-smi --query-compute-apps`` while both are up).  A supervised
+     prefill / decode pool router boots beside them (``--prefill-cmd`` /
+     ``--decode-cmd``, one replica each, ``--handoff direct``).  ``m0`` is
+     SIGKILLed under a flood: every response a 200 or 503, none hangs, the
+     supervisor restarts it (a new pid) and the router readmits it.  Idle,
+     the controller scales down through the token-gated remote drain and
+     ``m1`` exits 0.  The decision log (``/debug/controller``) replays to
+     the ``pfx_controller_*`` counters.  The router is SIGKILLed and
+     restarted on its ports and flight directory: ``/replicas`` keeps its
+     pids, ``pfx_router_recoveries_total`` is 1 and no restart is spent.
+     Phase 7's eight prompts go through the pools disaggregated.  Every
+     replica shows K7 on its sm90 prefill route (monolith and prefill
+     replicas) and K9 on sm90 (monolith and decode replicas, none on
+     ``p0``), 0 plain; sampled answers sit within ``SPEC_ULPS`` bf16 ulps
+     of their prefix's argmax; SIGTERM drains both routers with exit 0 and
+     no replica process outlives the phase.  Printed: each spawn's boot
+     seconds, the restart's and the re-adoption's.
 
 Each phase's seconds are printed after it, and all of them in a
 ``phase_seconds`` line.
@@ -510,6 +535,13 @@ OBS_SLO_TTFT_S = 5.0
 OBS_TOKEN = "phase29-admin-token"
 # phase 30: the rows of the in-process export/adopt round per pool dtype
 FLEET_ENGINE_ROWS = 4
+# phase 31: the flood that scales the supervised fleet up (requests sent at
+# once, new tokens each), the admin token the control plane shares, and
+# how many answers of a round are held to the argmax rule
+ELASTIC_FLOOD = 32
+ELASTIC_NEW = 64
+ELASTIC_TOKEN = "phase31-fleet-token"
+ELASTIC_CHECKED = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -843,10 +875,10 @@ def prompts(seed, lens, vocab=50304):
     return [[rnd.randrange(1, vocab - 100) for _ in range(n)] for n in lens]
 
 
-def check_rows(rows, what):
+def check_rows(rows, what, max_new=MAX_NEW):
     check(isinstance(rows, list) and rows, f"{what}: no completions")
     for row in rows:
-        check(isinstance(row, list) and 0 < len(row) <= MAX_NEW
+        check(isinstance(row, list) and 0 < len(row) <= max_new
               and all(isinstance(x, int) and 0 <= x < 50304 for x in row),
               f"{what}: bad completion {str(row)[:200]}")
 
@@ -4576,10 +4608,11 @@ def fleet_engine_round(torch, server, dtype, kv, ps):
     return same, len(ps), nbytes
 
 
-def start_router(env, tag, args):
-    """The port's ``tools.router`` on the card's host, its output drained
-    by a thread; :func:`wait_router` waits for its replicas."""
-    port = free_port()
+def start_router(env, tag, args, port=None):
+    """The port's ``tools.router`` on the card's host (on ``port``, else a
+    free one), its output drained by a thread; :func:`wait_router` waits
+    for its replicas."""
+    port = port or free_port()
     cmd = [sys.executable, "-m", "paddlefleetx_tpu_torch.tools.router", "--port", str(port),
            "--poll-interval", "0.2", *args]
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
@@ -4614,14 +4647,14 @@ def stop_router(srv):
     check(rc == 0 and "drained cleanly" in out, f"{srv['tag']} drain exit {rc}: {out[-3000:]}")
 
 
-def fleet_traffic(port, ps):
+def fleet_traffic(port, ps, max_new=MAX_NEW, phase="30"):
     """The prompts sent at once; returns (answers, each request's wall)."""
     results, walls = {}, {}
 
     def post(i):
         t0 = time.time()
         try:
-            results[i] = http(port, "/generate", {"prompt_ids": ps[i], "max_tokens": MAX_NEW})
+            results[i] = http(port, "/generate", {"prompt_ids": ps[i], "max_tokens": max_new})
         except Exception as e:  # noqa: BLE001 — reported below
             results[i] = e
         walls[i] = time.time() - t0
@@ -4629,11 +4662,12 @@ def fleet_traffic(port, ps):
     threads = [threading.Thread(target=post, args=(i,)) for i in range(len(ps))]
     for th in threads:
         th.start()
+        time.sleep(0.01)  # within the router's accept backlog (5)
     for th in threads:
         th.join(timeout=600)
     for i in range(len(ps)):
-        check(isinstance(results.get(i), dict), f"phase 30 request {i}: {results.get(i)}")
-        check_rows([results[i]["completion_ids"]], f"phase 30 request {i}")
+        check(isinstance(results.get(i), dict), f"phase {phase} request {i}: {results.get(i)}")
+        check_rows([results[i]["completion_ids"]], f"phase {phase} request {i}", max_new)
     return [results[i]["completion_ids"] for i in range(len(ps))], [walls[i] for i in
                                                                     range(len(ps))]
 
@@ -4825,6 +4859,355 @@ def phase_fleet(torch, da, env, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the elastic control plane
+# ---------------------------------------------------------------------------
+
+
+def elastic_template(*args):
+    """A port serve command template for the supervisor ({port} and
+    {replica_id} stay placeholders): bf16, greedy, warmed at phase 7's
+    bucket."""
+    return " ".join([sys.executable, "-m", "paddlefleetx_tpu_torch.tools.serve", "-c",
+                     str(REPO / CONFIG), "--port", "{port}", "--replica-id", "{replica_id}",
+                     "-o", "Generation.decode_strategy=greedy_search",
+                     "-o", f"Generation.max_dec_len={ELASTIC_NEW}",
+                     "--warmup-buckets", str(max(D_LENS)), "--queue-depth", "64", *args])
+
+
+def free_ports(n):
+    """The first of ``n`` consecutive free ports."""
+    while True:
+        base = free_port()
+        try:
+            for p in range(base, base + n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+
+
+def pid_running(pid):
+    """True while ``pid`` is a live process (not gone, not a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+class FleetWatch:
+    """Polls a supervising router every 0.1 s: the wall time each managed
+    process (replica id, pid) was first seen spawned (``/debug/controller``)
+    and first seen serving (``/replicas``)."""
+
+    def __init__(self, port):
+        self.port, self.spawned, self.serving = port, {}, {}
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.wait(0.1):
+            try:
+                _, dbg = admin_http(self.port, "/debug/controller", token=ELASTIC_TOKEN,
+                                    timeout=5)
+                views = http(self.port, "/replicas", timeout=5)["replicas"]
+            except Exception:  # noqa: BLE001 — the router is restarting
+                continue
+            now = time.time()
+            slots = dbg.get("replicas") or [v for p in (dbg.get("pools") or {}).values()
+                                             for v in p["replicas"]]
+            for m in slots:
+                if m.get("pid"):
+                    self.spawned.setdefault((m["replica_id"], m["pid"]), now)
+            for v in views:
+                if v.get("state") == "serving" and v.get("pid") and v.get("replica_id"):
+                    self.serving.setdefault((v["replica_id"], v["pid"]), now)
+
+    def boots(self):
+        return {f"{rid} pid {pid}": round(self.serving[(rid, pid)] - t, 2)
+                for (rid, pid), t in sorted(self.spawned.items(), key=lambda kv: kv[1])
+                if (rid, pid) in self.serving}
+
+
+def controller_view(port):
+    status, dbg = admin_http(port, "/debug/controller", token=ELASTIC_TOKEN, timeout=30)
+    check(status == 200, f"phase 31: /debug/controller answered {status}: {dbg}")
+    return dbg
+
+
+def replica_ports(port):
+    """{replica_id: port} of a supervising router's managed slots."""
+    dbg = controller_view(port)
+    views = [v for p in dbg["pools"].values() for v in p["replicas"]] if "pools" in dbg \
+        else dbg["replicas"]
+    return {v["replica_id"]: v["port"] for v in views}
+
+
+def elastic_kernels_ok(tag, k, k7=True, k9=True):
+    check(k.get("plain", 0) == 0 and k.get("paged_plain", 0) == 0,
+          f"phase 31 {tag}: the plain version ran on the card: {k}")
+    if k7:
+        check(k["flash_decode"] > 0 and k["flash_decode_sm90"] == k["flash_decode"]
+              and k["flash_decode_sm90_prefill"] > 0, f"phase 31 {tag}: K7 launches {k}")
+    else:
+        check(k["flash_decode"] == 0, f"phase 31 {tag}: K7 ran on a decode replica: {k}")
+    if k9:
+        check(k["paged_decode"] > 0 and k["paged_decode_sm90"] == k["paged_decode"],
+              f"phase 31 {tag}: K9 launches {k}")
+    else:
+        check(k.get("paged_decode", 0) == 0, f"phase 31 {tag}: K9 ran on a prefill replica: {k}")
+
+
+def elastic_replay(port):
+    """The decision log against /metrics, read until no tick lands between
+    the reads; returns the replay."""
+    from paddlefleetx_tpu_torch.core.controller import replay_controller_log
+
+    for _ in range(20):
+        rows = controller_view(port)["decisions"]
+        vals = metric_values(port)
+        if len(controller_view(port)["decisions"]) != len(rows):
+            continue
+        replay = replay_controller_log(rows)
+        got = {k: vals.get((f"pfx_controller_{k}_total", ()), 0.0)
+               for k in ("ticks", "scale_ups", "scale_downs")}
+        check(got == {k: float(replay[k]) for k in got},
+              f"phase 31: the decision log replays to {replay}, /metrics reads {got}")
+        return replay
+    raise SmokeFailure("phase 31: the controller never held still between two reads")
+
+
+def phase_elastic(torch, env, card):
+    """Phase 31 (see the module docstring).  Returns the phase's report."""
+    import tempfile
+
+    from paddlefleetx_tpu_torch.core.module import GPTModule
+    from paddlefleetx_tpu_torch.models.gpt import generation as G
+    from paddlefleetx_tpu_torch.ops import _build
+    from paddlefleetx_tpu_torch.utils.config import get_config
+
+    report = {"card": card, "kernels": {}}
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase31-", dir=str(REPO / "build")))
+    kdir = str(_build.BUILD_DIR)
+    # the down-cooldown outlasts m1's boot and the kill drill, so the one
+    # idle scale-down comes after them
+    rport, bport = free_port(), free_ports(2)
+    pre_port, dec_port = free_port(), free_port()
+    mono_args = [
+        "--supervise", "--replica-cmd", elastic_template("--scheduler", "continuous",
+                                                         "--cb-batch", "8"),
+        "--min-replicas", "1", "--max-replicas", "2", "--base-port", str(bport),
+        "--compile-cache-dir", kdir, "--replica-log-dir", str(tmp / "mono-logs"),
+        "--control-interval", "0.5", "--scale-high-depth", "4", "--scale-up-cooldown", "2",
+        "--scale-idle", "4", "--scale-down-cooldown", "40", "--restart-backoff", "0.5",
+        "--router-id", "elastic"]
+    menv = dict(env, PFX_ADMIN_TOKEN=ELASTIC_TOKEN, PFX_FLIGHT_DIR=str(tmp / "mono"))
+    penv = dict(env, PFX_ADMIN_TOKEN=ELASTIC_TOKEN, PFX_FLIGHT_DIR=str(tmp / "pools"))
+    routers, watches = [], []
+    try:
+        t0 = time.time()
+        mono = start_router(menv, "elastic", mono_args, port=rport)
+        routers.append(mono)
+        watch = FleetWatch(rport)
+        watches.append(watch)
+        wait_router(mono, n=1)
+        report["first_serving_s"] = round(time.time() - t0, 1)
+        # (1) one replica: the flood pushes the depth past the watermark
+        ps = prompts(31, [D_LENS[i % len(D_LENS)] for i in range(ELASTIC_FLOOD)])
+        t1 = time.time()
+        ans1, _ = fleet_traffic(rport, ps, ELASTIC_NEW, "31")
+        wall1 = time.time() - t1
+        ups = [d for d in controller_view(rport)["decisions"] if d["action"] == "scale_up"]
+        check(len(ups) == 1 and "avg depth" in ups[0]["reason"] and ups[0]["target"] == 2,
+              f"phase 31: the flood's scale-up decisions {ups}")
+        wait_router(mono, n=2)
+        ports = replica_ports(rport)
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()
+        # (2) two replicas sharing the card: the same flood
+        t2 = time.time()
+        ans2, _ = fleet_traffic(rport, ps, ELASTIC_NEW, "31")
+        wall2 = time.time() - t2
+        report["one_replica"] = {"tokens": sum(map(len, ans1)), "wall_s": round(wall1, 3),
+                                 "tokens_per_s": round(sum(map(len, ans1)) / wall1, 1)}
+        report["two_replicas"] = {"tokens": sum(map(len, ans2)), "wall_s": round(wall2, 3),
+                                  "tokens_per_s": round(sum(map(len, ans2)) / wall2, 1)}
+        report["compute_apps"] = apps
+        log(f"  {ELASTIC_FLOOD} requests x {ELASTIC_NEW} tokens at once: one replica "
+            f"{report['one_replica']['tokens_per_s']} tokens/s ({wall1:.2f} s, m1 booting "
+            f"beside it), two {report['two_replicas']['tokens_per_s']} tokens/s "
+            f"({wall2:.2f} s); nvidia-smi compute apps {apps}")
+        # the supervised pools boot beside the next steps
+        pools = start_router(penv, "elastic_pools", [
+            "--supervise", "--prefill-cmd", elastic_template("--role", "prefill",
+                                                             "--cb-batch", "1"),
+            "--decode-cmd", elastic_template("--role", "decode", "--cb-batch", "8"),
+            "--min-prefill", "1", "--max-prefill", "1", "--min-decode", "1",
+            "--max-decode", "1", "--prefill-base-port", str(pre_port), "--decode-base-port",
+            str(dec_port), "--compile-cache-dir", kdir, "--replica-log-dir",
+            str(tmp / "pool-logs"), "--control-interval", "0.5", "--handoff", "direct",
+            "--router-id", "elastic_pools"])
+        routers.append(pools)
+        watches.append(FleetWatch(pools["port"]))
+        # (3) SIGKILL m0 under a flood: restarted with a new pid and readmitted
+        report["kernels"]["m0"] = http(ports["m0"], "/healthz", timeout=30)["kernels"]
+        victim = {v["replica_id"]: v["pid"] for v in controller_view(rport)["replicas"]}["m0"]
+        stop, codes = threading.Event(), []
+
+        def flood(i):
+            while not stop.is_set():
+                try:
+                    codes.append(admin_http(rport, "/generate", {
+                        "prompt_ids": ps[i], "max_tokens": 16}, token=None, timeout=300)[0])
+                except Exception as e:  # noqa: BLE001 — a dropped exchange
+                    codes.append(repr(e))
+
+        threads = [threading.Thread(target=flood, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        t_kill = time.time()
+        os.kill(victim, signal.SIGKILL)
+        while True:
+            check(time.time() - t_kill < 240, "phase 31: m0 not readmitted in 240 s")
+            views = {v.get("replica_id"): v for v in http(rport, "/replicas")["replicas"]}
+            m0 = views.get("m0") or {}
+            if m0.get("state") == "serving" and m0.get("pid") not in (None, victim):
+                break
+            time.sleep(0.1)
+        report["restart_readmitted_s"] = round(time.time() - t_kill, 2)
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(timeout=300)
+        check(not any(th.is_alive() for th in threads), "phase 31: a request hung through "
+              "the kill")
+        check(codes and set(codes) <= {200, 503} and 200 in codes,
+              f"phase 31: responses through the kill {sorted(set(map(str, codes)))}")
+        report["kill_flood"] = {"200": codes.count(200), "503": codes.count(503)}
+        report["kernels"]["m1"] = http(ports["m1"], "/healthz", timeout=30)["kernels"]
+        # (4) idle: the controller drains m1 through the token-gated remote drain
+        t_idle = time.time()
+        while True:
+            check(time.time() - t_idle < 120, "phase 31: no idle scale-down in 120 s")
+            dbg = controller_view(rport)
+            slot1 = {v["slot"]: v for v in dbg["replicas"]}[1]
+            downs = [d for d in dbg["decisions"] if d["action"] == "scale_down"]
+            if downs and slot1["last_exit_rc"] is not None:
+                break
+            time.sleep(0.2)
+        check(slot1["last_exit_rc"] == 0 and not slot1["desired"] and "idle" in downs[0][
+            "reason"], f"phase 31: the scale-down {downs}, slot {slot1}")
+        report["scale_down_exit_s"] = round(time.time() - t_idle, 2)
+        vals = metric_values(rport)
+        check(vals.get(("pfx_replica_restarts_total", (("replica", "m0"),))) == 1.0
+              and not any(n == "pfx_replica_quarantines_total" for n, _ in vals),
+              "phase 31: restart counters "
+              f"{ {k: v for k, v in vals.items() if k[0].startswith('pfx_replica_')} }")
+        # (5) the decision log replays to the counters
+        report["replay"] = elastic_replay(rport)
+        check(report["replay"]["scale_ups"] == 1 and report["replay"]["scale_downs"] == 1,
+              f"phase 31: replay {report['replay']}")
+        # (6) SIGKILL the router; its successor re-adopts the live replica
+        pids = {v["key"]: v["pid"] for v in http(rport, "/replicas")["replicas"]
+                if v["state"] == "serving"}
+        check(len(pids) == 1, f"phase 31: serving after the scale-down {pids}")
+        mono["proc"].kill()
+        mono["proc"].wait(timeout=30)
+        t_re = time.time()
+        mono2 = start_router(menv, "elastic_restarted", mono_args, port=rport)
+        routers.append(mono2)
+        while True:
+            check(mono2["proc"].poll() is None, "phase 31: the restarted router exited: "
+                  + "".join(mono2["lines"])[-3000:])
+            check(time.time() - t_re < 120, "phase 31: no re-adoption in 120 s")
+            try:
+                got = {v["key"]: v["pid"] for v in http(rport, "/replicas", timeout=5)[
+                    "replicas"] if v["state"] == "serving"}
+            except OSError:
+                got = {}
+            if got == pids:
+                break
+            time.sleep(0.1)
+        report["readopted_s"] = round(time.time() - t_re, 2)
+        vals = metric_values(rport)
+        check(vals.get(("pfx_router_recoveries_total", ())) == 1.0
+              and vals.get(("pfx_router_adopted_replicas_total", (("replica", "m0"),))) == 1.0
+              and not any(n == "pfx_replica_restarts_total" for n, _ in vals),
+              "phase 31: re-adoption counters "
+              f"{ {k: v for k, v in vals.items() if 'adopt' in k[0] or 'recover' in k[0]} }")
+        check(isinstance(http(rport, "/generate", {"prompt_ids": ps[0], "max_tokens": 8})[
+            "completion_ids"], list), "phase 31: no answer through the restarted router")
+        report["kernels"]["m0_restarted"] = http(ports["m0"], "/healthz", timeout=30)["kernels"]
+        # (7) the supervised pools: phase 7's prompts disaggregated
+        wait_router(pools, n=2)
+        pports = replica_ports(pools["port"])
+        ps7 = prompts(7, D_LENS)
+        pool_ans, _ = fleet_traffic(pools["port"], ps7, phase="31")
+        adopts = metric_values(pports["d0"]).get(("pfx_handoff_adopts_total", ()), 0.0)
+        check(adopts == len(ps7), f"phase 31: the decode replica adopted {adopts} of {len(ps7)}")
+        for rid in ("p0", "d0"):
+            report["kernels"][rid] = http(pports[rid], "/healthz", timeout=30)["kernels"]
+        for tag in ("m0", "m1", "m0_restarted"):
+            elastic_kernels_ok(tag, report["kernels"][tag])
+        elastic_kernels_ok("p0", report["kernels"]["p0"], k9=False)
+        elastic_kernels_ok("d0", report["kernels"]["d0"], k7=False)
+        report["kernels"] = {t: {k: v for k, v in c.items() if v}
+                             for t, c in report["kernels"].items()}
+        # (8) cleanup: SIGTERM drains each router and its replicas
+        report["boot_s"] = {k: v for w in watches for k, v in w.boots().items()}
+        seen = {pid for w in watches for _, pid in w.spawned}
+        for w in watches:
+            w.stop.set()
+        for rt in (mono2, pools):
+            stop_router(rt)
+        t_gone = time.time()
+        while any(pid_running(p) for p in seen | set(pids.values())) and time.time() - t_gone < 30:
+            time.sleep(0.2)
+        check(not any(pid_running(p) for p in seen), "phase 31: replica processes outlived "
+              f"their routers: {[p for p in seen if pid_running(p)]}")
+        logs = {f.name: f.read_text() for d in ("mono-logs", "pool-logs")
+                for f in (tmp / d).glob("*.log")}
+        check(not any("kernel build:" in t for t in logs.values()),
+              f"phase 31: a supervised replica built kernels: {sorted(logs)}")
+        check("drained cleanly" in logs.get("m1.log", ""), "phase 31: m1 did not drain cleanly")
+    finally:
+        for w in watches:
+            w.stop.set()
+        for rt in routers:  # a failed step: each router drains its replicas
+            if rt["proc"].poll() is None:
+                rt["proc"].send_signal(signal.SIGTERM)
+                try:
+                    rt["proc"].wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    kill_serve(rt)
+        for pid in {pid for w in watches for _, pid in w.spawned}:
+            if pid_running(pid):
+                os.kill(pid, signal.SIGKILL)
+    # answers: the argmax rule under teacher forcing
+    cfg = get_config(str(REPO / CONFIG))
+    module = GPTModule(cfg)
+    model = module.init_model(cfg.Global.seed, "cuda")
+    worst = 0.0
+    for prompt, ans in list(zip(ps, ans1))[:ELASTIC_CHECKED] + list(zip(ps7, pool_ans)):
+        worst = max([worst] + greedy_deficits(torch, G, model, module.config, prompt, ans, ""))
+    check(worst <= SPEC_ULPS, f"phase 31: a token sits {worst:.1f} bf16 ulps under its prefix's "
+          f"argmax (> {SPEC_ULPS})")
+    report["worst_deficit_ulps"] = worst
+    del model
+    torch.cuda.empty_cache()
+    log(f"  boots (spawn to serving) {report['boot_s']}; m0 restarted and readmitted in "
+        f"{report['restart_readmitted_s']} s ({report['kill_flood']}); m1 drained at idle, "
+        f"exit 0 after {report['scale_down_exit_s']} s; re-adopted in {report['readopted_s']} s; "
+        f"replay {report['replay']}; tokens within {worst:.1f} bf16 ulps")
+    return report
+
+
 def main():
     import torch
 
@@ -4955,6 +5338,10 @@ def main():
           "handoff in process, proxy and direct transports, int8 KV")
     fleet = phase_fleet(torch, da, env, card)
     log("fleet " + json.dumps(fleet))
+    begin("31", "the elastic control plane at full width: supervised replicas, scale-up, "
+          "crash-restart, idle scale-down, router re-adoption, supervised pools")
+    elastic = phase_elastic(torch, env, card)
+    log("elastic " + json.dumps(elastic))
     begin(None)
     launches = {"flash_decode": counts_bf16["flash_decode"],
                 "flash_decode_q8": counts_q8["flash_decode_q8"],
@@ -5081,6 +5468,11 @@ def main():
                 if name == "flash_decode" else
                 {"decode_replica": fk["decode_q8" if name.endswith("q8") else "decode"].get(
                     name, 0)})
+        if name in ("flash_decode", "paged_decode"):
+            # phase 31: the supervised replicas' launches (K7 on the monolith
+            # and prefill replicas, K9 on the monolith and decode replicas)
+            ek = elastic["kernels"]
+            entry["elastic"] = {tag: ek[tag].get(name, 0) for tag in ek}
         if name == "flash_decode":
             # phase 21: beam search over b * num_beams rows (its prefill and
             # MAX_NEW - 1 steps), and the text-serving runs' K7 launches

@@ -45,7 +45,10 @@ fronts either package's replicas.
 ``PFX_ADMIN_TOKEN`` gates every ``/admin/*`` and ``/debug/*`` endpoint of
 the serve CLI and the router (``Authorization: Bearer <token>``); with it
 unset only loopback clients are let in, and the first one logs a warning.
-Not ported: the elastic controller (``core/controller.py``).
+The elastic controller (``core/controller.py``) drives the fleet through
+:meth:`RouterCore.add_replica`, :meth:`RouterCore.replica_views` and
+:meth:`RouterCore.drain`, and journals its ``slot`` and ``scale`` records
+here.
 """
 
 from __future__ import annotations

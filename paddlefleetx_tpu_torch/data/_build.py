@@ -12,7 +12,8 @@ Each compiles with ``g++ -O3 -std=c++17 -shared -fPIC`` at first use into
 The library's file name carries a hash of the source and the flags, so an
 edited source rebuilds; a build writes to a private temporary name and
 renames it into place, so processes building at the same time do not
-corrupt it.  A failed build raises: there is no fallback (``data/indexed.py``
+corrupt it.  :func:`use_build_root` moves the root before any library
+loads (the serve CLI's ``--compile-cache-dir``).  A failed build raises: there is no fallback (``data/indexed.py``
 keeps the numpy versions of the index builders as the plain versions the
 tests use; the tokenizer's Python merge loop serves only the words the
 engine cannot take).
@@ -29,7 +30,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
+
+from paddlefleetx_tpu_torch.utils.log import logger
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "data_helpers.cpp"
@@ -39,6 +42,22 @@ FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILT: List[str] = []  # the libraries this process compiled, in order
+
+
+def use_build_root(path) -> Path:
+    """Build into and load from ``path/<name>/`` from now on, in place of
+    ``build/<name>/``; returns the root, resolved.  Raises ``RuntimeError``
+    when a library was already loaded from another root."""
+    global BUILD_ROOT
+    new = Path(path).resolve()
+    with _LOCK:
+        if _LIBS and new != BUILD_ROOT:
+            raise RuntimeError(
+                f"host libraries {sorted(_LIBS)} are already loaded from {BUILD_ROOT}; "
+                f"the build root must be set to {new} before the first load")
+        BUILD_ROOT = new
+    return new
 
 
 def _compiler() -> str:
@@ -65,6 +84,8 @@ def build(source: Path, name: str) -> Path:
         return path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    logger.info(f"host library build: g++ {source.name} -> {path}")
+    BUILT.append(name)
     out = subprocess.run([cxx, *FLAGS, str(source), "-o", str(tmp)], capture_output=True,
                          text=True)
     if out.returncode != 0:

@@ -9,7 +9,11 @@ source or header rebuilds and an unchanged one loads at once; a build
 writes to a private temporary name and renames it into place, so
 processes building the same library at the same time do not corrupt it.
 ``-Xptxas -v`` register/spill lines are kept beside the library
-(:func:`build_log`).
+(:func:`build_log`).  :func:`use_build_dir` moves the directory before any
+library loads (the serve CLI's ``--compile-cache-dir``: replicas sharing
+one directory build each library once, and a spawn into a filled
+directory only loads); every ``nvcc`` a process starts is logged and
+listed in ``BUILT``.
 
 Nothing here runs at import: the CPU test suite imports every module.
 """
@@ -25,6 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from paddlefleetx_tpu_torch.utils.log import logger
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("decode_attention", "decode_attention_sm90", "paged_attention", "flash_attention",
@@ -37,6 +43,23 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILT: List[str] = []  # the libraries this process compiled, in order
+
+
+def use_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on, in place of
+    ``build/torch_kernels/``; returns it, resolved.  Raises
+    ``RuntimeError`` when a library was already loaded from another
+    directory (a process keeps the libraries it loaded)."""
+    global BUILD_DIR
+    new = Path(path).resolve()
+    with _LOCK:
+        if _LIBS and new != BUILD_DIR:
+            raise RuntimeError(
+                f"kernel libraries {sorted(_LIBS)} are already loaded from {BUILD_DIR}; "
+                f"the build directory must be set to {new} before the first kernel call")
+        BUILD_DIR = new
+    return new
 
 
 def nvcc_path() -> str:
@@ -78,6 +101,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        logger.info(f"kernel build: nvcc {name}.cu -> {path}")
+        BUILT.append(name)
         procs.append((name, path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))

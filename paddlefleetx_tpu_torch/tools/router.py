@@ -31,9 +31,21 @@ every dispatch) and mirrors the serve CLI's drain contract: SIGTERM stops
 admission, in-flight requests finish, exit 0; a second signal
 force-quits.  ``--router-id`` names it; its journal
 (``$PFX_FLIGHT_DIR/fleet_state.jsonl``) and fleet log
-(``fleet_metrics.jsonl``) land under the flight directory.  Not ported:
-the elastic controller (``--supervise`` and its replica commands are
-refused).
+(``fleet_metrics.jsonl``) land under the flight directory.
+
+Elastic control plane (``--supervise``, ``core/controller.py``): the
+router spawns its replicas itself as managed subprocesses from a command
+template, one log file each under ``--replica-log-dir`` (default
+``$PFX_FLIGHT_DIR/replicas``): crash-restart with exponential backoff, a
+flap budget that quarantines a crash-looping replica loudly, warm boot
+through ``--compile-cache-dir`` (the replicas share one kernel-library
+directory), breach / depth / occupancy-driven scale-up, idle scale-down
+through the authenticated remote drain, every decision in a bounded
+replayable log (``GET /debug/controller``).  ``--prefill-cmd`` /
+``--decode-cmd`` run one supervisor and controller per pool (prefill on
+depth and TTFT burn, decode on arena occupancy and ``available_blocks``).
+A router restarted on the same ports and flight directory re-adopts the
+live replicas its journal names and resumes the controller's clocks.
 
 Usage:
   # replicated
@@ -42,6 +54,19 @@ Usage:
   # disaggregated
   python -m paddlefleetx_tpu_torch.tools.router --port 9000 \
       --prefill http://127.0.0.1:8001 --decode http://127.0.0.1:8002
+  # supervised + autoscaled (the elastic control plane)
+  python -m paddlefleetx_tpu_torch.tools.router --port 9000 --supervise \
+      --replica-cmd "python -m paddlefleetx_tpu_torch.tools.serve -c cfg.yaml \
+                     --port {port} --replica-id {replica_id}" \
+      --min-replicas 1 --max-replicas 4 --base-port 8101 \
+      --compile-cache-dir build/torch_kernels
+  # supervised disaggregated pools
+  python -m paddlefleetx_tpu_torch.tools.router --port 9000 --supervise \
+      --prefill-cmd "python -m paddlefleetx_tpu_torch.tools.serve -c cfg.yaml \
+                     --role prefill --port {port} --replica-id {replica_id}" \
+      --decode-cmd "python -m paddlefleetx_tpu_torch.tools.serve -c cfg.yaml \
+                    --role decode --port {port} --replica-id {replica_id}" \
+      --min-prefill 1 --max-prefill 4 --min-decode 1 --max-decode 4
   # rolling deploy, one replica at a time (requires the router up):
   python -m paddlefleetx_tpu_torch.tools.router drain \
       --admin http://127.0.0.1:9000 [--replica-id r0]
@@ -58,6 +83,7 @@ Endpoints:
   POST /admin/profile   fan a profiler capture out to live replicas
   GET  /debug/traces    sampled routing timelines (Perfetto JSON)
   GET  /debug/trace?id= one stitched fleet timeline
+  GET  /debug/controller  scale policy + decision log + supervised slots
 
 /admin/* and /debug/* are gated by the fleet-shared ``PFX_ADMIN_TOKEN``
 bearer token (unset = loopback only, loudly); drains ride the same token
@@ -78,6 +104,11 @@ def serve_router(args) -> int:
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+    from paddlefleetx_tpu_torch.core.controller import (
+        ElasticController,
+        ReplicaSupervisor,
+        ScalePolicy,
+    )
     from urllib.parse import parse_qs, urlsplit
 
     from paddlefleetx_tpu_torch.core.request_queue import QueueClosed, QueueFull
@@ -112,6 +143,7 @@ def serve_router(args) -> int:
     replicas = [(u, "monolith") for u in args.replica]
     replicas += [(u, "prefill") for u in args.prefill]
     replicas += [(u, "decode") for u in args.decode]
+    pool_supervise = bool(args.supervise and args.prefill_cmd)
     tenant_config = None
     if getattr(args, "tenants", ""):
         # a bad quota file must fail the boot, not silently admit all
@@ -123,9 +155,79 @@ def serve_router(args) -> int:
         poll_interval_s=args.poll_interval,
         eject_after=args.eject_after,
         serve_after=args.serve_after,
+        allow_empty=args.supervise,
         handoff=args.handoff,
         tenant_config=tenant_config,
     )
+    if pool_supervise:
+        # the supervised pools register as they spawn; pin the topology
+        # now so the first /generate routes disaggregated (add_replica
+        # keeps it consistent from then on)
+        core.disaggregated = True
+    log_dir = args.replica_log_dir or os.path.join(flight_dir(), "replicas")
+    shared_policy = dict(
+        high_depth=args.scale_high_depth,
+        low_depth=args.scale_low_depth,
+        up_cooldown_s=args.scale_up_cooldown,
+        down_cooldown_s=args.scale_down_cooldown,
+        idle_s=args.scale_idle,
+        interval_s=args.control_interval,
+    )
+    shared_sup = dict(
+        compile_cache_dir=args.compile_cache_dir,
+        log_dir=log_dir,
+        backoff_base_s=args.restart_backoff,
+        flap_budget=args.flap_budget,
+        flap_window_s=args.flap_window,
+    )
+    controllers = []
+    if pool_supervise:
+        # role-aware pool supervision (docs/serving.md "Disaggregated
+        # operations"): one supervisor + controller per pool, each on
+        # its own port range and replica-id prefix, with pool-specific
+        # scale signals — prefill watches queue depth + TTFT burn (its
+        # replicas hold no decode arena), decode watches arena
+        # occupancy + available_blocks (its queue drains at step
+        # boundaries; the arena is what actually bounces adoptions)
+        specs = (
+            ("prefill", args.prefill_cmd, args.prefill_base_port,
+             args.min_prefill, args.max_prefill, "p",
+             # under the direct transport a prefill dispatch stays
+             # in-flight through the whole prefill->decode relay, so
+             # router-side in-flight would scale the prefill pool on
+             # DECODE duration — count replica-reported queue depth only
+             dict(use_occupancy=False,
+                  count_in_flight=args.handoff != "direct")),
+            ("decode", args.decode_cmd, args.decode_base_port,
+             args.min_decode, args.max_decode, "d",
+             dict(use_depth=False, low_blocks=args.decode_low_blocks)),
+        )
+        for role, cmd, base_port, mn, mx, prefix, signals in specs:
+            supervisor = ReplicaSupervisor(
+                cmd, base_port=base_port, max_replicas=mx, role=role,
+                slot_prefix=prefix, **shared_sup,
+            )
+            controllers.append(ElasticController(
+                core, supervisor,
+                ScalePolicy(min_replicas=mn, max_replicas=mx,
+                            **shared_policy, **signals),
+                role=role,
+            ))
+    elif args.supervise:
+        supervisor = ReplicaSupervisor(
+            args.replica_cmd,
+            base_port=args.base_port,
+            max_replicas=args.max_replicas,
+            **shared_sup,
+        )
+        controllers.append(ElasticController(
+            core, supervisor,
+            ScalePolicy(
+                min_replicas=args.min_replicas,
+                max_replicas=args.max_replicas,
+                **shared_policy,
+            ),
+        ))
     reg = get_registry()
     recorder = get_flight_recorder()
     recorder.install_excepthook()
@@ -141,16 +243,22 @@ def serve_router(args) -> int:
         replica_id=identity["replica_id"], role="router",
     )
     # fleet observability artifact: one sample row per replica per poll
-    # cadence (crash-tolerant JSONL under the flight directory)
+    # cadence + controller scale events — what tools/report.py --fleet
+    # renders from the router's artifacts alone (crash-tolerant JSONL)
     core.fleet_log = FleetLog(
         os.path.join(flight_dir(), "fleet_metrics.jsonl")
     )
-    # crash-consistent control-plane journal: registry transitions and
-    # tenant buckets survive THIS process; the recovery block below folds
-    # the previous incarnation's journal back in before the listener opens
+    # crash-consistent control-plane journal (docs/serving.md
+    # "Control-plane recovery"): registry transitions, controller scale
+    # decisions, supervisor slot facts, and tenant buckets all survive
+    # THIS process — the recovery block below folds the previous
+    # incarnation's journal back in before the listener opens
     journal_path = os.path.join(flight_dir(), "fleet_state.jsonl")
     journal = FleetJournal(journal_path)
     core.journal = journal
+    for ctl in controllers:
+        ctl.journal = journal
+        ctl.supervisor.journal = journal
     flags = {"draining": False}
     default_deadline = float(args.deadline)
     max_deadline = float(args.max_deadline)
@@ -225,6 +333,23 @@ def serve_router(args) -> int:
                         1 for v in core.replica_views() if v["eligible"]
                     ),
                 }
+                if len(controllers) == 1:
+                    c = controllers[0]
+                    body["controller"] = {
+                        "target": c.target,
+                        "quarantined": c.supervisor.quarantined_count(),
+                        "decisions": len(c.decision_log),
+                    }
+                elif controllers:
+                    body["controller"] = {"pools": {
+                        c.role: {
+                            "target": c.target,
+                            "quarantined":
+                                c.supervisor.quarantined_count(),
+                            "decisions": len(c.decision_log),
+                        }
+                        for c in controllers
+                    }}
                 return self._json(200, body)
             if self.path == "/metrics":
                 return self._send(
@@ -282,6 +407,16 @@ def serve_router(args) -> int:
                                      f"sample {trace_buffer.sample:g})"
                         })
                     return self._json(200, tc.timeline())
+                if self.path == "/debug/controller":
+                    if not controllers:
+                        return self._json(404, {
+                            "error": "no controller: run with --supervise"
+                        })
+                    if len(controllers) == 1:
+                        return self._json(200, controllers[0].view())
+                    return self._json(200, {"pools": {
+                        c.role: c.view() for c in controllers
+                    }})
                 return self._json(404, {"error": "unknown debug path"})
             return self._json(404, {"error": "unknown path"})
 
@@ -694,17 +829,39 @@ def serve_router(args) -> int:
     for sig in (signal.SIGTERM, signal.SIGINT):
         orig_handlers[sig] = signal.signal(sig, _on_signal)
 
-    # ---- control-plane recovery: fold the previous incarnation's journal
-    # back in before the listener opens — tenant buckets restore with the
-    # death window's worth of refill (no free burst allowance
-    # mid-429-storm) --------
+    # ---- control-plane recovery (docs/serving.md "Control-plane
+    # recovery"): fold the previous incarnation's journal back in BEFORE
+    # anything spawns — tenant buckets restore with the death window's
+    # worth of refill (no free burst allowance mid-429-storm), controller
+    # clocks rebase so the restart can neither double-spawn nor
+    # insta-rescale, and each supervisor reconciles its journaled slots
+    # against what is actually running (adopt, reap, or respawn) --------
     def _journal_snapshot():
         """Full control-plane state for FleetJournal compaction — the
         same shape replay_fleet_state produces, so a compacted journal
-        replays identically to the append log it replaced (no
-        supervised slots or controller state: the controller is not
-        ported)."""
+        replays identically to the append log it replaced."""
         views = core.replica_views()
+        by_url = {v["url"]: v for v in views}
+        slots = {}
+        ctl_state = {}
+        for c in controllers:
+            pool = c.role or "monolith"
+            rows = {}
+            for mv in c.supervisor.views():
+                if not mv.get("desired") and mv.get("pid") is None:
+                    continue  # empty slot: nothing to recover
+                rv = by_url.get(mv["url"]) or {}
+                rows[str(mv["slot"])] = {
+                    "port": mv["port"], "url": mv["url"],
+                    "rid": mv["replica_id"],
+                    "cmd_hash": mv.get("cmd_hash"),
+                    "pid": mv.get("pid"),
+                    "boot_id": rv.get("boot_id"),
+                    "phase": ("adopted" if mv.get("adopted")
+                              else "spawned"),
+                }
+            slots[pool] = rows
+            ctl_state[pool] = c.journal_state()
         return {
             "replicas": {
                 v["key"]: {f: v.get(f) for f in (
@@ -712,8 +869,8 @@ def serve_router(args) -> int:
                     "boot_id")}
                 for v in views
             },
-            "slots": {},
-            "controller": {},
+            "slots": slots,
+            "controller": ctl_state,
             "tenants": core.tenant_journal_snapshot(),
         }
 
@@ -736,23 +893,108 @@ def serve_router(args) -> int:
             f"{restored} tenant bucket(s)", flush=True,
         )
         reg.counter("pfx_router_recoveries_total").inc()
+    for ctl in controllers:
+        pool = ctl.role or "monolith"
+        facts = {}
+        if replayed is not None:
+            cs = (replayed.get("controller") or {}).get(pool)
+            if cs:
+                ctl.restore_clocks(
+                    target=cs.get("target"), tick=cs.get("tick"),
+                    up_age_s=cs.get("up_age_s"),
+                    scale_age_s=cs.get("scale_age_s"),
+                    extra_age_s=age_s,
+                )
+            facts = (replayed.get("slots") or {}).get(pool) or {}
+        # probe EVERY slot, journaled or not: with facts the full
+        # identity triple must match; without (journal lost), a live
+        # process answering with the slot's own replica_id is adopted —
+        # either way a surviving fleet is re-entered with zero respawns
+        probe = {
+            str(i): (facts.get(str(i)) or {})
+            for i in range(ctl.supervisor.max_replicas)
+        }
+        adopted = ctl.supervisor.adopt(probe)
+        if adopted:
+            ctl._register(adopted)
+            print(
+                f"recovery: re-adopted {len(adopted)} live "
+                f"replica(s) into the {pool} pool (zero respawns, "
+                "no flap budget spent)", flush=True,
+            )
     journal.set_snapshot_fn(_journal_snapshot)
 
     core.start()
+    for ctl in controllers:
+        # spawn min_replicas (registered with the core as they come up)
+        # and start each control loop; the poller walks each replica
+        # booting -> warm -> serving as it answers /healthz
+        ctl.start()
 
+    stop_scale_log = threading.Event()
+
+    def _scale_event_log():
+        # mirror controller scale decisions into the fleet log so the
+        # offline fleet report can mark them on the curves — only NEW
+        # non-hold rows are appended, tracked by each row's monotonic
+        # `tick` (a LENGTH high-water mark would stall forever once the
+        # bounded deque reaches maxlen and len() stops growing)
+        seen = {id(c): 0 for c in controllers}
+        while not stop_scale_log.wait(1.0):
+            for ctl in controllers:
+                last = seen[id(ctl)]
+                # view() copies the log under the controller's own
+                # lock — iterating the live deque would race tick()'s
+                # append ("deque mutated during iteration" would kill
+                # this thread and silently end scale-event mirroring)
+                for row in ctl.view().get("decisions", []):
+                    tick = int(row.get("tick", 0))
+                    if tick <= last:
+                        continue
+                    seen[id(ctl)] = max(seen[id(ctl)], tick)
+                    if row.get("action") not in (None, "hold"):
+                        core.fleet_log.event({
+                            "event": "scale",
+                            "pool": ctl.role or "fleet",
+                            "action": row.get("action"),
+                            "reason": row.get("reason", ""),
+                            "target": row.get("target"),
+                        })
+
+    if controllers:
+        threading.Thread(target=_scale_event_log,
+                         name="router-scale-log", daemon=True).start()
     mode = identity["scheduler"]
+    supervising = ""
+    if pool_supervise:
+        supervising = (
+            f"; supervising prefill {args.min_prefill}.."
+            f"{args.max_prefill} from port {args.prefill_base_port}, "
+            f"decode {args.min_decode}..{args.max_decode} from port "
+            f"{args.decode_base_port}"
+        )
+    elif controllers:
+        supervising = (
+            f"; supervising {args.min_replicas}..{args.max_replicas} "
+            f"replicas from port {args.base_port}"
+        )
     print(
         f"router on {args.host}:{args.port} ({mode}; "
         f"{len(core.replicas)} replica(s), max in-flight "
         f"{args.max_inflight}, retries {args.retries}, "
-        f"handoff {args.handoff})",
+        f"handoff {args.handoff}" + supervising + ")",
         flush=True,
     )
-
     def _force_quit(where):
+        # os._exit skips every finally: take the managed children down
+        # HARD so their ports free up for the next boot — orphans
+        # running old code would crash-loop the replacement fleet into
+        # quarantine while still answering /healthz
         print(f"force-quit on second interrupt ({where})", flush=True)
         recorder.record({"event": "force_quit"})
         recorder.dump(reason="force_quit")
+        for ctl in controllers:
+            ctl.supervisor.kill_all()
         os._exit(130)
 
     try:
@@ -761,6 +1003,16 @@ def serve_router(args) -> int:
         _force_quit("serving")
     finally:
         try:
+            stop_scale_log.set()
+            for ctl in controllers:
+                # stop scaling first, then drain the children
+                # gracefully: each managed replica gets SIGTERM,
+                # answers its admitted work, exits 0 (the drain
+                # contract) — the router never leaves orphans behind a
+                # clean shutdown
+                ctl.stop()
+            for ctl in controllers:
+                ctl.supervisor.stop_all()
             core.stop()
             httpd.server_close()
         except KeyboardInterrupt:
@@ -894,12 +1146,84 @@ def main(argv=None):
                     help="per-tenant quota/weight config JSON "
                     "(docs/serving.md 'Multi-tenant isolation'); "
                     "unset = one anonymous tenant, no limits")
-    # the elastic controller is not ported: its flags are refused by name
+    # ---- elastic control plane (--supervise; docs/serving.md) ----
     ap.add_argument("--supervise", action="store_true",
-                    help="not ported: the elastic controller (core/controller.py); "
-                    "refused")
-    for flag in ("--replica-cmd", "--prefill-cmd", "--decode-cmd"):
-        ap.add_argument(flag, default="", help="--supervise only; refused")
+                    help="spawn + supervise the replicas as managed "
+                    "subprocesses and run the SLO-driven scale "
+                    "controller (crash-restart with backoff, flap-"
+                    "budget quarantine, warm boot, breach-driven "
+                    "scale-up, idle scale-down via remote drains)")
+    ap.add_argument("--replica-cmd", default="",
+                    help="supervise: replica command template with "
+                    "{port} and {replica_id} placeholders, e.g. "
+                    "'python -m paddlefleetx_tpu_torch.tools.serve -c cfg.yaml --port {port} "
+                    "--replica-id {replica_id}'")
+    ap.add_argument("--min-replicas", type=int, default=1,
+                    help="supervise: replica floor (boot + scale-down "
+                    "bound)")
+    ap.add_argument("--max-replicas", type=int, default=4,
+                    help="supervise: replica ceiling (scale-up bound)")
+    ap.add_argument("--base-port", type=int, default=8101,
+                    help="supervise: slot i listens on base-port + i")
+    ap.add_argument("--compile-cache-dir", default="",
+                    help="supervise: kernel-library directory passed to "
+                    "every spawned replica (--compile-cache-dir on "
+                    "the serve CLI) — warm boot makes scale-up seconds, not "
+                    "a kernel build")
+    ap.add_argument("--replica-log-dir", default="",
+                    help="supervise: per-replica stdout logs (default "
+                    "<PFX_FLIGHT_DIR>/replicas)")
+    ap.add_argument("--control-interval", type=float, default=1.0,
+                    help="supervise: seconds between control-loop ticks")
+    ap.add_argument("--scale-high-depth", type=float, default=4.0,
+                    help="supervise: scale up when avg waiting depth "
+                    "per serving replica exceeds this")
+    ap.add_argument("--scale-low-depth", type=float, default=0.5,
+                    help="supervise: fleet counts as idle below this "
+                    "avg depth (hysteresis band with --scale-high-depth)")
+    ap.add_argument("--scale-up-cooldown", type=float, default=5.0,
+                    help="supervise: min seconds between scale-ups")
+    ap.add_argument("--scale-down-cooldown", type=float, default=60.0,
+                    help="supervise: min seconds after any scale action "
+                    "before a scale-down")
+    ap.add_argument("--scale-idle", type=float, default=30.0,
+                    help="supervise: sustained idle seconds before a "
+                    "scale-down")
+    ap.add_argument("--flap-budget", type=int, default=5,
+                    help="supervise: crash-restarts inside --flap-window "
+                    "before a replica is quarantined LOUDLY")
+    ap.add_argument("--flap-window", type=float, default=60.0,
+                    help="supervise: flap-budget window seconds")
+    ap.add_argument("--restart-backoff", type=float, default=0.5,
+                    help="supervise: base seconds of the exponential "
+                    "crash-restart backoff")
+    # ---- disaggregated pool supervision (--supervise with pool cmds;
+    # docs/serving.md "Disaggregated operations") ----
+    ap.add_argument("--prefill-cmd", default="",
+                    help="supervise the PREFILL pool: serve CLI command "
+                    "template with {port}/{replica_id} placeholders "
+                    "(must include --role prefill); requires "
+                    "--decode-cmd too")
+    ap.add_argument("--decode-cmd", default="",
+                    help="supervise the DECODE pool: serve CLI command "
+                    "template (must include --role decode)")
+    ap.add_argument("--min-prefill", type=int, default=1,
+                    help="prefill-pool replica floor")
+    ap.add_argument("--max-prefill", type=int, default=4,
+                    help="prefill-pool replica ceiling")
+    ap.add_argument("--min-decode", type=int, default=1,
+                    help="decode-pool replica floor")
+    ap.add_argument("--max-decode", type=int, default=4,
+                    help="decode-pool replica ceiling")
+    ap.add_argument("--prefill-base-port", type=int, default=8201,
+                    help="prefill slot i listens on this + i")
+    ap.add_argument("--decode-base-port", type=int, default=8301,
+                    help="decode slot i listens on this + i")
+    ap.add_argument("--decode-low-blocks", type=int, default=0,
+                    help="decode-pool scale-up watermark: any serving "
+                    "decode replica reporting available_blocks at or "
+                    "below this is arena pressure (0 = occupancy/"
+                    "breach signals only)")
     ap.add_argument("--router-id", default="",
                     help="identity for this router's /healthz block")
     ap.add_argument("--admin", default="http://127.0.0.1:9000",
@@ -916,13 +1240,49 @@ def main(argv=None):
         return cmd_drain(args)
     if not args.port:
         ap.error("serve mode requires --port")
-    if args.supervise or args.replica_cmd or args.prefill_cmd or args.decode_cmd:
-        ap.error("--supervise (the elastic controller: managed replicas, crash-restart "
-                 "and SLO-driven scaling, core/controller.py) is not ported to the PyTorch "
-                 "router; start the replicas yourself and pass --replica or --prefill / "
-                 "--decode URLs")
-    if not (args.replica or args.prefill or args.decode):
-        ap.error("need --replica URLs, or --prefill and --decode URLs")
+    if args.supervise:
+        if bool(args.prefill_cmd) != bool(args.decode_cmd):
+            ap.error("disaggregated pool supervision needs BOTH "
+                     "--prefill-cmd and --decode-cmd")
+        if args.prefill_cmd and args.replica_cmd:
+            ap.error("--replica-cmd (monolith fleet) and --prefill-cmd/"
+                     "--decode-cmd (pool fleet) are mutually exclusive")
+        if not (args.replica_cmd or args.prefill_cmd):
+            ap.error("--supervise requires --replica-cmd (monolith "
+                     "fleet) or --prefill-cmd + --decode-cmd "
+                     "(disaggregated pools), each a serve CLI command "
+                     "template with {port}")
+        if args.replica or args.prefill or args.decode:
+            ap.error("--supervise manages its own replicas; static "
+                     "--replica/--prefill/--decode URLs are exclusive "
+                     "with it")
+        if args.prefill_cmd:
+            # overlapping slot port ranges would surface as bind-failure
+            # crash loops and a misleading flap-budget quarantine — make
+            # the misconfiguration a config error instead
+            pools = [
+                ("prefill", args.prefill_base_port, args.max_prefill),
+                ("decode", args.decode_base_port, args.max_decode),
+            ]
+            ranges = [(n, b, b + mx - 1) for n, b, mx in pools]
+            (na, alo, ahi), (nb, blo, bhi) = ranges
+            if alo <= bhi and blo <= ahi:
+                ap.error(
+                    f"slot port ranges overlap: {na} {alo}..{ahi} vs "
+                    f"{nb} {blo}..{bhi} — replicas would fight for the "
+                    "same port and crash-loop into quarantine; move "
+                    f"--{nb}-base-port past the {na} pool's "
+                    f"--max-{na} slots"
+                )
+            for name, lo, hi in ranges:
+                if lo <= args.port <= hi:
+                    ap.error(
+                        f"--port {args.port} falls inside the {name} "
+                        f"slot range {lo}..{hi}; the router and a "
+                        f"{name} replica would fight for it")
+    elif not (args.replica or args.prefill or args.decode):
+        ap.error("need --replica URLs, --prefill and --decode URLs, "
+                 "or --supervise with a replica command template")
     return serve_router(args)
 
 

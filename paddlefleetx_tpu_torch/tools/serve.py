@@ -67,6 +67,11 @@ carries the identity block (``replica_id``, ``role``, ``scheduler``,
 ``available_blocks``, the prefix advertisement) and, with ``?metrics=1``,
 the ``/metrics`` text of the same snapshot.  ``--router-url`` registers
 the replica with a router on a heartbeat and deregisters it on its drain.
+``--compile-cache-dir DIR`` (warm boot, appended by the supervising
+router to every spawn) builds and loads the CUDA kernel libraries in DIR,
+in place of ``build/torch_kernels/``, and the C++ host libraries under
+``DIR/<name>/``: a replica spawned into a directory an earlier one filled
+builds nothing (every ``nvcc`` a process starts logs ``kernel build:``).
 
 Requests go through a bounded admission queue: a full queue answers 429
 with Retry-After, an expired deadline 503.  ``--scheduler coalesce``
@@ -207,9 +212,11 @@ from paddlefleetx_tpu_torch.core.tenancy import (
     normalize_tenant,
     parse_priority,
 )
+from paddlefleetx_tpu_torch.data import _build as host_build
 from paddlefleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
 from paddlefleetx_tpu_torch.models.gpt.generation import bucket_len
 from paddlefleetx_tpu_torch.models.gpt.model import GPTModel
+from paddlefleetx_tpu_torch.ops import _build as kernel_build
 from paddlefleetx_tpu_torch.ops import decode_attention
 from paddlefleetx_tpu_torch.utils.checkpoint import load_params_into, load_pretrained_params
 from paddlefleetx_tpu_torch.utils.config import get_config
@@ -1488,6 +1495,10 @@ def main(argv=None) -> int:
                     help="base URL of the fleet router: this replica registers on an "
                     "admin-gated heartbeat (PFX_REGISTER_INTERVAL_S, default 2) and "
                     "deregisters on drain")
+    ap.add_argument("--compile-cache-dir", default="",
+                    help="build and load the kernel libraries in this directory (warm "
+                    "boot: a replica spawned by the elastic control plane loads the "
+                    "fleet's built kernels instead of compiling them)")
     args = ap.parse_args(argv)
     if args.role != "monolith" and not args.port:
         ap.error(f"--role {args.role} requires --port (HTTP serving)")
@@ -1503,6 +1514,10 @@ def main(argv=None) -> int:
                        f"({fault[2]} fire(s))")
     # a replica that can never come up (exit 23)
     maybe_fire("boot_crash", 0)
+    if args.compile_cache_dir:
+        # before the first kernel call loads a library from the default place
+        kernel_build.use_build_dir(args.compile_cache_dir)
+        host_build.use_build_root(args.compile_cache_dir)
     tenant_config = TenantConfig.from_file(args.tenants) if args.tenants else None
     # the spec and KV flags are plain config overrides, so both schedulers
     # read one Generation.speculative section

@@ -252,7 +252,15 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "pfx_router_drains_total": ("counter", "Replica drains initiated through the router"),
     "pfx_router_handoff_bytes_total": ("counter", "KV-handoff payload bytes PROXIED through the router (flat under direct transfer)"),
     "pfx_router_handoff_seconds": ("histogram", "Prefill dispatch + handoff transfer seconds per prompt (direct transport: the whole prefill->decode relay — the router cannot see the legs separately)"),
+    "pfx_controller_ticks_total": ("counter", "Control-loop evaluations, one decision row each (labels: pool on disaggregated pool controllers; unlabeled for the monolith fleet)"),
+    "pfx_controller_scale_ups_total": ("counter", "Replica scale-up decisions executed (labels: pool on disaggregated pool controllers)"),
+    "pfx_controller_scale_downs_total": ("counter", "Replica scale-down (rolling-drain) decisions executed (labels: pool on disaggregated pool controllers)"),
+    "pfx_controller_target_replicas": ("gauge", "Replica count the controller is steering toward (labels: pool on disaggregated pool controllers)"),
+    "pfx_controller_breach": ("gauge", "1 while the controller sees a scale signal breached (SLO burn / depth / occupancy / low blocks; labels: pool on disaggregated pool controllers)"),
+    "pfx_replica_restarts_total": ("counter", "Supervisor restarts of managed replicas after unexpected exits (labels: replica; only crashes spend the flap budget)"),
+    "pfx_replica_quarantines_total": ("counter", "Managed replicas quarantined after crash-looping past the flap budget (labels: replica)"),
     "pfx_router_recoveries_total": ("counter", "Router boots that recovered control-plane state from the fleet journal (fleet_state.jsonl)"),
+    "pfx_router_adopted_replicas_total": ("counter", "Live replicas re-adopted into their supervised slots at boot without a respawn (labels: replica)"),
     "pfx_router_journal_records": ("gauge", "Records appended to the fleet journal since its last compaction snapshot"),
     "pfx_router_journal_bytes": ("gauge", "Bytes in the fleet journal file (compaction rewrites it atomically)"),
     "pfx_replica_registrations_total": ("counter", "Replica self-registration heartbeats accepted at POST /admin/register (labels: outcome=register|deregister)"),

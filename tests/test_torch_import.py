@@ -93,6 +93,13 @@ FLEET = ("paddlefleetx_tpu_torch.core.paged_cache", "paddlefleetx_tpu_torch.core
          "paddlefleetx_tpu_torch.core.request_queue", "paddlefleetx_tpu_torch.tools.router",
          "paddlefleetx_tpu_torch.tools.serve")
 
+# the elastic control plane: the supervisor and controller, the router CLI
+# that runs them, the serve CLI's warm boot into a shared kernel directory;
+# each imported above without JAX
+CONTROL_PLANE = ("paddlefleetx_tpu_torch.core.controller", "paddlefleetx_tpu_torch.tools.router",
+                 "paddlefleetx_tpu_torch.tools.serve", "paddlefleetx_tpu_torch.ops._build",
+                 "paddlefleetx_tpu_torch.data._build")
+
 
 def _run(args, **kw):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -116,6 +123,7 @@ def test_port_imports_no_jax():
     assert set(DISPATCH) <= set(listed.split()), listed
     assert set(OBSERVABILITY) <= set(listed.split()), listed
     assert set(FLEET) <= set(listed.split()), listed
+    assert set(CONTROL_PLANE) <= set(listed.split()), listed
 
 
 def test_eval_without_card_raises():

@@ -347,12 +347,36 @@ def test_port_router_replicated_matches_in_process(tmp_path):
     assert set(codes.values()) == {0}, codes
 
 
+SUPERVISE_REFUSALS = [  # (extra argv, exit code): bad input to --supervise
+    (["--replica-cmd", "python x.py --replica-id {replica_id}"], 1),  # no {port}
+    (["--replica-cmd", "python x.py --port {port}", "--flap-budget", "0"], 1),
+    (["--replica-cmd", "python x.py --port {port}", "--scale-low-depth", "5",
+      "--scale-high-depth", "4"], 1),  # inverted watermarks
+    (["--replica-cmd", "python x.py --port {port}", "--max-replicas", "0"], 1),
+    (["--prefill-cmd", "python x.py --port {port}"], 2),  # one pool only
+    (["--replica-cmd", "a {port}", "--prefill-cmd", "b {port}", "--decode-cmd", "c {port}"], 2),
+    (["--prefill-cmd", "p {port}", "--decode-cmd", "d {port}", "--prefill-base-port", "8201",
+      "--decode-base-port", "8203"], 2),  # overlapping slot ranges
+    (["--replica-cmd", "a {port}", "--replica", "http://127.0.0.1:1"], 2),
+]
+
+
+def _refusal(argv, tmp_path):
+    out = subprocess.run([sys.executable, *argv], env=_env(tmp_path, {"JAX_PLATFORMS": "cpu"}),
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    lines = [ln for ln in out.stderr.strip().splitlines() if ln.strip()]
+    return out.returncode, (lines[-1].split("error: ", 1)[-1] if lines else "")
+
+
 def test_port_router_refuses_supervise(tmp_path):
-    for extra in (["--supervise"], ["--replica-cmd", "python x.py"]):
-        out = subprocess.run([sys.executable, "-m", "paddlefleetx_tpu_torch.tools.router",
-                              "--port", "9", *extra], env=_env(tmp_path), cwd=REPO,
-                             capture_output=True, text=True, timeout=60)
-        assert out.returncode == 2 and "--supervise (the elastic controller" in out.stderr
+    """The port router's --supervise refuses bad input as the JAX router
+    does: the same exit codes and the same last line (an argparse error, or
+    the controller's ValueError before anything spawns)."""
+    for extra, code in SUPERVISE_REFUSALS:
+        args = ["--port", "9", "--supervise", *extra]
+        got = _refusal(["-m", "paddlefleetx_tpu_torch.tools.router", *args], tmp_path)
+        want = _refusal([os.path.join(REPO, "tools", "router.py"), *args], tmp_path)
+        assert got == want and got[0] == code and got[1], (extra, got, want)
 
 
 def test_jax_router_fronts_port_replicas(tmp_path):
